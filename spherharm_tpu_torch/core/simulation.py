@@ -1,0 +1,278 @@
+"""The timestep driver (torch twin of ``spherharm_tpu/core/simulation.py``).
+
+Per step:
+
+  initial_integrate   (half kick + drift + quaternion Richardson update)
+  rebuild             (static cadence every ``rebuild_every`` steps, or when
+                       the skin trigger fires: wrap, re-bin cells, rebuild
+                       the [N,K] list, remap history, rebuild + prefilter
+                       the pair list)
+  force eval          (SH pair kernel + wall kernels + gravity)
+  final_integrate     (second half kick)
+
+PyTorch runs eagerly, so ``run`` is a Python loop; on the static cadence
+no step reads a value back to the host. Capacities are fixed and overflow
+is recorded in ``neigh.overflow`` (per-source gated: any nonzero value
+means physics was truncated), so every shape is static across steps.
+
+Kernels run where the tensors live: CUDA tensors launch the hand-written
+kernels, CPU tensors their plain twins.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from spherharm_tpu_torch.core.state import (
+    NeighborState,
+    Shapes,
+    SimParams,
+    State,
+    empty_neighbors,
+)
+from spherharm_tpu_torch.ops import contact, integrate, neighbor
+from spherharm_tpu_torch.ops import walls as walls_mod
+
+
+class Simulation:
+    """Binds static configuration: capacities, cadence, walls, device.
+
+    The elastic law is the conservative (exact-gradient) one; the
+    reference's geometric law (``conservative=False``) is not ported yet."""
+
+    def __init__(
+        self,
+        shapes: Shapes,
+        params: SimParams,
+        *,
+        grid: neighbor.CellGrid,
+        periodic=(False, False, False),
+        k_max: int = 32,
+        cell_cap: int = 8,
+        walls: tuple = (),
+        pair_capacity: int = 0,
+        rebuild_chunk: int | None = None,
+        rebuild_every: int = 0,
+        wall_capacity: int = 0,
+        stage2_capacity: int = 0,
+        device="cpu",
+    ):
+        if pair_capacity <= 0:
+            raise NotImplementedError(
+                "only the pair-list force path is ported (pair_capacity > 0)")
+        self.shapes = shapes
+        self.params = params
+        self.grid = grid
+        self.periodic = tuple(bool(p) for p in periodic)
+        self.k_max = int(k_max)
+        self.cell_cap = int(cell_cap)
+        self.walls = tuple(walls)
+        self.pair_capacity = int(pair_capacity)
+        # Chunking only bounds rebuild transients at large N: unchunked up
+        # to pair_capacity ~1.5M, 262144-row chunks beyond.
+        if rebuild_chunk is None:
+            rebuild_chunk = 0 if self.pair_capacity <= 1_500_000 else 262144
+        self.rebuild_chunk = int(rebuild_chunk)
+        self.rebuild_every = int(rebuild_every)
+        self.wall_capacity = int(wall_capacity)
+        self.stage2_capacity = int(stage2_capacity)
+        # Rebuild-time prefilter: the candidate list (pair_capacity) is
+        # probed once per rebuild and compacted to stage2_capacity
+        # near-contact pairs, the persistent per-step list.
+        self.prefilter = self.stage2_capacity > 0
+        self.device = torch.device(device)
+
+    @property
+    def pair_list_cap(self) -> int:
+        return self.stage2_capacity if self.prefilter else self.pair_capacity
+
+    # -- neighbour handling ----------------------------------------------
+
+    def _stale(self, state: State, neigh: NeighborState):
+        """True (0-d bool tensor) when the lists may be incomplete:
+        prefiltered list — some particle's surface motion exceeded its
+        motion budget; plain candidate list — displacement beyond skin/2."""
+        if self.prefilter:
+            gmax_s = self.shapes.gmax[state.shtype] * state.scale
+            ratio = neighbor.approach_ratio(
+                state.x, neigh.x_build, state.q, neigh.q_build, gmax_s,
+                neigh.budget, state.active, state.box_lo, state.box_hi,
+                self.periodic)
+            return ratio > 1.0
+        disp2 = neighbor.max_displacement2(
+            state.x, neigh.x_build, state.active, state.box_lo,
+            state.box_hi, self.periodic)
+        return disp2 > (0.5 * self.params.skin) ** 2
+
+    def _build_list(self, state: State):
+        cutoff = self.params.cutoff + self.params.skin
+        idx, mask, count, cell_ovf = neighbor.cell_list_neighbors(
+            state.x, state.active, state.box_lo, state.box_hi, cutoff,
+            self.grid.dims, self.cell_cap, self.k_max, self.periodic,
+            row_chunk=self.rebuild_chunk)
+        mx = count.max()
+        zero = torch.zeros_like(mx)
+        return idx, mask, torch.maximum(
+            torch.where(mx > self.k_max, mx, zero),
+            torch.where(cell_ovf > self.cell_cap, cell_ovf, zero))
+
+    def _rebuild(self, state: State, neigh: NeighborState):
+        x, image = neighbor.wrap_positions(
+            state.x, state.image, state.box_lo, state.box_hi, self.periodic)
+        state = state.replace(x=x, image=image)
+        # Live springs ride in pair space between rebuilds; fold them
+        # back into the tag-keyed [N, K] layout before remapping.
+        neigh = neigh.replace(hist=contact.pair_hist_to_dense(neigh))
+        idx, mask, overflow = self._build_list(state)
+        neigh_tag = torch.where(mask, state.tag[idx], 0)
+        row_ok = neigh.row_tag == state.tag  # single device: slots stable
+        hist = neighbor.remap_history(
+            neigh_tag, mask, neigh.neigh_tag, neigh.mask, neigh.hist, row_ok)
+        neigh = neigh.replace(
+            idx=idx, mask=mask, hist=hist, neigh_tag=neigh_tag,
+            row_tag=state.tag, x_build=state.x, q_build=state.q,
+            overflow=torch.maximum(neigh.overflow, overflow))
+        pair_fields, n_pairs = contact.build_pair_list(
+            state, self.shapes, self.params, idx, mask, hist, state.active,
+            self.pair_capacity, self.periodic)
+        zero = torch.zeros_like(n_pairs)
+        overflow = torch.maximum(
+            neigh.overflow,
+            torch.where(n_pairs > self.pair_capacity, n_pairs, zero))
+        if self.prefilter:
+            pair_fields, n_surv, budget = contact.prefilter_pair_list(
+                state, self.shapes, self.params, pair_fields,
+                self.stage2_capacity, self.k_max,
+                # Motion-budget horizon: the cadence, or an estimate when
+                # the skin trigger decides.
+                window_steps=self.rebuild_every or 16,
+                periodic=self.periodic,
+                probe_chunk=self.rebuild_chunk)
+            overflow = torch.maximum(
+                overflow,
+                torch.where(n_surv > self.stage2_capacity, n_surv, zero))
+            neigh = neigh.replace(budget=budget)
+        return state, neigh.replace(overflow=overflow, **pair_fields)
+
+    def init_neighbors(self, state: State) -> tuple[State, NeighborState]:
+        """First build + setup force pass (the Verlet::setup analogue):
+        forces are filled so the first half-kick integrates f(t0); the
+        setup pass does not advance spring history."""
+        neigh = empty_neighbors(
+            state.cap, self.k_max, len(self.walls), dtype=state.x.dtype,
+            pair_cap=self.pair_list_cap, device=state.x.device)
+        state, neigh = self._rebuild(state, neigh)
+        hists0 = (neigh.hist, neigh.pair_hist, neigh.wall_hist)
+        state, neigh, _ = self.compute_forces(state, neigh)
+        neigh = neigh.replace(hist=hists0[0], pair_hist=hists0[1],
+                              wall_hist=hists0[2])
+        return state, neigh
+
+    # -- forces -----------------------------------------------------------
+
+    def compute_forces(self, state: State, neigh: NeighborState):
+        """Fill f/tau; returns (state, neigh with updated springs, aux)."""
+        f, tau, pair_hist, pe_pair, virial = contact.contact_force_pairs(
+            state, self.shapes, self.params, neigh, periodic=self.periodic)
+        neigh = neigh.replace(pair_hist=pair_hist)
+
+        pe_wall = torch.zeros((), dtype=f.dtype, device=f.device)
+        wall_hists = []
+        overflow = neigh.overflow
+        for w_i, wall in enumerate(self.walls):
+            wf, wt, whist, wpe, n_near = walls_mod.wall_contact(
+                state, self.shapes, self.params, wall,
+                neigh.wall_hist[:, w_i], wall_cap=self.wall_capacity)
+            f = f + wf
+            tau = tau + wt
+            pe_wall = pe_wall + wpe.sum()
+            wall_hists.append(whist)
+            if self.wall_capacity:
+                overflow = torch.maximum(overflow, torch.where(
+                    n_near > self.wall_capacity, n_near,
+                    torch.zeros_like(n_near)))
+        if wall_hists:
+            neigh = neigh.replace(wall_hist=torch.stack(wall_hists, dim=1))
+        neigh = neigh.replace(overflow=overflow)
+
+        m = self.shapes.mass_of(state.shtype, state.scale)
+        f = f + torch.where(state.active[:, None],
+                            m[:, None] * self.params.gravity[None, :], 0.0)
+        state = state.replace(f=f, tau=tau)
+        return state, neigh, {"pe_pair": pe_pair, "pe_wall": pe_wall,
+                              "virial": virial}
+
+    # -- stepping ---------------------------------------------------------
+
+    def _step_core(self, state: State, neigh: NeighborState, rebuild: str):
+        """One velocity-Verlet step. rebuild: 'always' (scheduled rebuild,
+        first recording, not branching on, a stale list), 'check'
+        (rebuild when the skin trigger fires; reads it on the host) or
+        'never'."""
+        state = integrate.initial_integrate(state, self.shapes, self.params)
+        state, x_build = integrate.apply_deformation(state, neigh.x_build,
+                                                     self.params)
+        neigh = neigh.replace(x_build=x_build)
+        if rebuild == "always":
+            viol = self._stale(state, neigh).long()
+            state, neigh = self._rebuild(state, neigh)
+            neigh = neigh.replace(
+                skin_violations=neigh.skin_violations + viol)
+        elif rebuild == "check" and bool(self._stale(state, neigh)):
+            state, neigh = self._rebuild(state, neigh)
+        state, neigh, _ = self.compute_forces(state, neigh)
+        state = integrate.final_integrate(state, self.shapes, self.params)
+        return state, neigh
+
+    def step(self, state: State, neigh: NeighborState):
+        """One step with the skin-triggered rebuild."""
+        return self._step_core(state, neigh, "check")
+
+    def run(self, state: State, neigh: NeighborState, n_steps: int):
+        """``n_steps`` steps. With ``rebuild_every = R > 0`` the static
+        cadence (LAMMPS ``neigh_modify every R check no``): blocks of one
+        rebuild step + R-1 plain steps, a remainder being a short block
+        (one rebuild + rem-1 plain steps); skin violations are counted in
+        ``neigh.skin_violations``. With R = 0, ``step`` n_steps times."""
+        R = self.rebuild_every
+        if R <= 0:
+            for _ in range(n_steps):
+                state, neigh = self.step(state, neigh)
+            return state, neigh
+        n_blocks, rem = divmod(n_steps, R)
+        for length in [R] * n_blocks + ([rem] if rem else []):
+            for k in range(length):
+                state, neigh = self._step_core(
+                    state, neigh, "always" if k == 0 else "never")
+        return state, neigh
+
+    # -- observables --------------------------------------------------------
+
+    def thermo(self, state: State, neigh: NeighborState) -> dict:
+        """LAMMPS-thermo-style scalars (0-d tensors; no host sync)."""
+        shapes, params = self.shapes, self.params
+        state, neigh, aux = self.compute_forces(state, neigh)
+        ke_t, ke_r = integrate.kinetic_energy(state, shapes)
+        m = shapes.mass_of(state.shtype, state.scale)
+        pe_grav = -torch.where(
+            state.active,
+            m * (params.gravity[None, :] * state.x).sum(-1),
+            0.0).sum()
+        vol_box = torch.prod(state.box_hi - state.box_lo)
+        kin = torch.einsum("n,na,nb->ab",
+                           torch.where(state.active, m, 0.0), state.v,
+                           state.v)
+        stress = (kin + aux["virial"]) / vol_box
+        return {
+            "step": state.step,
+            "n": state.n_active,
+            "ke": ke_t,
+            "erot": ke_r,
+            "pe_pair": aux["pe_pair"],
+            "pe_wall": aux["pe_wall"],
+            "pe_grav": pe_grav,
+            "etot": ke_t + ke_r + aux["pe_pair"] + aux["pe_wall"] + pe_grav,
+            "press": torch.trace(stress) / 3.0,
+            "stress": stress,
+            "neigh_overflow": neigh.overflow,
+        }

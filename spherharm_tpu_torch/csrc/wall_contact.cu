@@ -1,0 +1,171 @@
+// Wall contact (plane / inside of a cylinder), hand-written for sm_90a.
+//
+// Replaces: spherharm_tpu/ops/walls_pallas.py
+//   wall_contact_pallas -> _make_wall_kernel(lmax, "plane" | "cylinder").
+//
+// Per near-wall particle: a cap toward the wall (cos gamma_max =
+// dist_w / rmax), power-basis r, gradient and surface normal at each cap
+// node, inclination-weighted area, depth against the analytic wall
+// (plane: -(p - p0) . u0; cylinder: |p_perp| - R), depth moments, then
+// Hertz + damping + Coulomb friction + rolling against the wall surface
+// velocity v0 + W x c.
+//
+// What bounds it on this card: arithmetic (one surface evaluation per
+// node, ~1.3 kFLOP at lmax 8, against 32 + 177 + 16 floats of traffic
+// per particle). Design: the pair kernel's layout with one side — one
+// warp per particle, lanes striding over the cap nodes, the cap grid in
+// shared memory, each warp staging its particle's pre-scaled table row
+// in shared memory, 8 node sums reduced by xor shuffles, the force law
+// on every lane and lane 0 writing the 16-float row. The wall kind is a
+// template parameter. Particles whose bounding sphere misses the wall
+// skip the node loop (their sums are zero) but still run the spring
+// update, as the reference does.
+
+#include "sh_device.cuh"
+
+using namespace shk;
+
+namespace {
+
+constexpr int FW = 32;     // packed row width
+constexpr int NOUTW = 16;  // output row width
+constexpr int WARPS = 4;   // particles per block
+enum Slot { X = 0, V = 3, Q = 6, OM = 10, M = 13, RMAX = 14, RCHAR = 15, NEAR = 16,
+            DC = 17, NC = 18, HIST = 21 };
+
+template <int KIND>  // 0: plane, 1: cylinder
+__global__ void __launch_bounds__(WARPS * 32)
+    wall_kernel(const float* __restrict__ packed, const float* __restrict__ tbl, int W,
+                const float* __restrict__ cap, int G, const float* __restrict__ par, int lmax,
+                int B, float* __restrict__ out) {
+  extern __shared__ float smem[];
+  float* s_cap = smem;
+  float* s_row = smem + 4 * G + (threadIdx.x >> 5) * W;
+  for (int i = threadIdx.x; i < 4 * G; i += blockDim.x) s_cap[i] = cap[i];
+  __syncthreads();
+
+  const int lane = threadIdx.x & 31;
+  const int p = blockIdx.x * WARPS + (threadIdx.x >> 5);
+  if (p >= B) return;
+  const float* row = packed + (size_t)p * FW;
+
+  const float dt = par[0];
+  const Material mt = {par[1], par[2], par[3], par[4], par[5], par[6], par[7], par[8]};
+  const V3 v0 = load3(par + 9), Wv = load3(par + 12), p0 = load3(par + 15),
+           u0 = load3(par + 18);
+  const float R = par[21];
+
+  const V3 x = load3(row + X), v = load3(row + V), om = load3(row + OM);
+  const Q4 q = load4(row + Q);
+  const float m_eff = row[M], rmax = row[RMAX], r_eff = row[RCHAR];
+  const bool near = row[NEAR] > 0.5f;
+  const V3 nc = load3(row + NC);
+
+  const V3 z = v3(0.0f, 0.0f, 0.0f);
+  float s1 = 0.0f, s2 = 0.0f;
+  V3 cen_num = z, nh = z;
+  if (near) {
+    for (int i = lane; i < W; i += 32) s_row[i] = tbl[(size_t)p * W + i];
+    __syncwarp();
+    const V3 e_b = rot_inv(q, -nc);
+    const float cos_gmax = clampf(-row[DC] / fmaxf(rmax, 1e-12f), -1.0f, 1.0f - 1e-6f);
+    const float one_m = 1.0f - cos_gmax;
+    V3 h, t1, t2;
+    float inv_t1;
+    orthobasis(e_b, h, t1, t2, inv_t1);
+    for (int k = lane; k < G; k += 32) {
+      const float cos_g = 1.0f - one_m * s_cap[k];
+      const float sin_g = sqrtf(fmaxf(1.0f - cos_g * cos_g, 0.0f));
+      const V3 dir =
+          cos_g * e_b + (sin_g * s_cap[2 * G + k]) * t1 + (sin_g * s_cap[3 * G + k]) * t2;
+      float ct, st, cp, sp, r, drt, drp;
+      unit_trig(dir, ct, st, cp, sp);
+      radius_grad_power(s_row, lmax, ct, st, cp, sp, r, drt, drp);
+      const V3 nb = surface_normal(r, drt, drp, ct, st, cp, sp);
+      const float cos_incl = clampf(dot3(nb, dir), 0.05f, 1.0f);
+      const float dA = (one_m * s_cap[G + k]) * r * r / cos_incl;
+      const V3 rel = rot(q, r * dir);
+      const V3 pw = x + rel;
+      float depth;
+      V3 n_at;
+      if (KIND == 0) {
+        depth = -dot3(pw - p0, u0);
+        n_at = u0;
+      } else {
+        const V3 r2 = pw - p0;
+        const V3 rv = r2 - dot3(r2, u0) * u0;
+        const float rad = sqrtf(fmaxf(dot3(rv, rv), 1e-24f));
+        depth = rad - R;
+        n_at = (-1.0f / rad) * rv;
+      }
+      depth = fmaxf(depth, 0.0f);
+      const float wd = dA * depth;
+      s1 += wd;
+      s2 += wd * depth;
+      cen_num = cen_num + wd * rel;
+      nh = nh + wd * n_at;
+    }
+    s1 = warp_sum(s1);
+    s2 = warp_sum(s2);
+    cen_num = warp_sum3(cen_num);
+    nh = warp_sum3(nh);
+  }
+
+  const bool in_contact = near && s1 > 0.0f;
+  const float denom = fmaxf(s1, 1e-30f);
+  const float delta = in_contact ? 1.5f * s2 / denom : 0.0f;
+  const V3 cen = in_contact ? cen_num / denom : z;
+  const float nn = sqrtf(fmaxf(dot3(nh, nh), 1e-40f));
+  const V3 n_hat = nn > 1e-10f ? nh / fmaxf(nn, 1e-12f) : nc;
+
+  // Wall surface velocity at the contact point: v0 + W x c.
+  const V3 v_rel = v + cross3(om, cen) - (v0 + cross3(Wv, x + cen));
+  const float vn_mag = dot3(v_rel, n_hat);
+  const V3 vt = v_rel - vn_mag * n_hat;
+  const float poly = sqrtf(fmaxf(delta * r_eff, 0.0f));
+  const float fn_mag = fmaxf(poly * (mt.kn * delta - m_eff * mt.gn * vn_mag), 0.0f);
+
+  V3 xi, f_t, xi_r, tau_roll;
+  friction_rolling(load3(row + HIST), load3(row + HIST + 3), n_hat, vt, in_contact, poly,
+                   fn_mag, m_eff, r_eff, om - Wv, dt, mt, xi, f_t, xi_r, tau_roll);
+  const V3 force = in_contact ? fn_mag * n_hat + f_t : z;
+  const V3 torque = cross3(cen, force) + tau_roll;
+  const float pe =
+      in_contact ? 0.4f * mt.kn * sqrtf(r_eff) * delta * delta * sqrtf(delta) : 0.0f;
+
+  if (lane == 0) {
+    float* o = out + (size_t)p * NOUTW;
+    const float res[14] = {force.x, force.y, force.z, torque.x, torque.y, torque.z, xi.x,
+                           xi.y,    xi.z,    xi_r.x,  xi_r.y,   xi_r.z,   pe,
+                           in_contact ? 1.0f : 0.0f};
+#pragma unroll
+    for (int c = 0; c < 14; ++c) o[c] = res[c];
+    o[14] = 0.0f;
+    o[15] = 0.0f;
+  }
+}
+
+template <int KIND>
+int launch(const float* packed, const float* tbl, int W, const float* cap, int G,
+           const float* par, int lmax, int B, float* out, cudaStream_t stream) {
+  const size_t smem = sizeof(float) * (size_t)(4 * G + WARPS * W);
+  if (smem > 48 * 1024) {
+    const cudaError_t e = cudaFuncSetAttribute(
+        wall_kernel<KIND>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (e != cudaSuccess) return (int)e;
+  }
+  const int blocks = (B + WARPS - 1) / WARPS;
+  wall_kernel<KIND><<<blocks, WARPS * 32, smem, stream>>>(packed, tbl, W, cap, G, par, lmax, B,
+                                                          out);
+  return (int)cudaGetLastError();
+}
+
+}  // namespace
+
+extern "C" int sh_wall_contact(const float* packed, const float* tbl, int W, const float* cap,
+                               int G, const float* par, int lmax, int B, int kind, float* out,
+                               cudaStream_t stream) {
+  if (kind == 0) return launch<0>(packed, tbl, W, cap, G, par, lmax, B, out, stream);
+  if (kind == 1) return launch<1>(packed, tbl, W, cap, G, par, lmax, B, out, stream);
+  return (int)cudaErrorInvalidValue;
+}

@@ -1,0 +1,462 @@
+"""SH contact narrow phase: pair list, prefilter, and the plain contact law.
+
+Torch twin of the main-path parts of ``spherharm_tpu/ops/contact.py``.
+For each pair (i, j) a patch-local cap grid on i's surface facing j is
+tested against j's surface (and the mirrored pass, j into i):
+
+  depth_k = max(r_j(u_k) - rho_k, 0),  S1 = sum A_k depth_k,
+  S2 = sum A_k depth_k^2,  delta = 1.5 S2 / S1,
+  U = 0.4 kn sqrt(R_eff) delta^2.5.
+
+The conservative (exact-gradient) law takes the elastic force and torques
+as the gradient of the sampled U (here through ``torch.autograd.grad``;
+the CUDA kernel ``csrc/pair_contact.cu`` carries the hand-derived
+gradient). The measure is inclination-free, A = w dOmega r^2. Damping,
+Coulomb-capped tangential spring and rolling spring-dashpot-slider act
+on top.
+
+Radii come from the power-basis tables (``ops/sh_power.py``): per-pair
+rows of the per-type table, evaluated at unit scale then scaled.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from spherharm_tpu_torch.core import state as state_mod
+from spherharm_tpu_torch.ops import rotation, sh_power
+from spherharm_tpu_torch.ops.rotation import quat_rotate, quat_rotate_inv
+
+
+def minimum_image(d, box_lo, box_hi, periodic):
+    """Minimum-image displacement for periodic dims (orthogonal box)."""
+    if not any(periodic):
+        return d
+    L = box_hi - box_lo
+    pmask = torch.as_tensor(periodic, dtype=d.dtype, device=d.device)
+    return d - torch.round(d / L) * L * pmask
+
+
+def _cross(a, b):
+    return torch.linalg.cross(*torch.broadcast_tensors(a, b), dim=-1)
+
+
+def _unit_trig(u):
+    """(cos t, sin t, cos p, sin p) of unit vectors u[..., 3]."""
+    ct = torch.clamp(u[..., 2], -1.0, 1.0)
+    st = torch.sqrt(torch.clamp(u[..., 0] ** 2 + u[..., 1] ** 2, min=1e-24))
+    inv = 1.0 / torch.clamp(st, min=1e-12)
+    return ct, st, u[..., 0] * inv, u[..., 1] * inv
+
+
+def surface_normal_trig(r, drt, drp, ct, st, cp, sp):
+    """Outward unit normal e_r - (r_t/r) e_t - (r_p/(r sin t)) e_p."""
+    inv_r = 1.0 / torch.clamp(r, min=1e-12)
+    inv_rs = inv_r / torch.clamp(st.abs(), min=1e-6)
+    a = drt * inv_r
+    b = drp * inv_rs
+    n = torch.stack([st * cp - a * ct * cp + b * sp,
+                     st * sp - a * ct * sp - b * cp,
+                     ct + a * st], dim=-1)
+    return n * torch.rsqrt(torch.clamp((n * n).sum(-1, keepdim=True),
+                                       min=1e-24))
+
+
+def orthobasis(e):
+    """Orthobasis (t1, t2) around unit e [..., 3], as the kernels build it:
+    h = x-axis unless |e_x| >= 0.9, t1 = (e x h)/|e x h|, t2 = e x t1."""
+    use_x = e[..., 0:1].abs() < 0.9
+    h = torch.where(use_x, e.new_tensor([1.0, 0.0, 0.0]),
+                    e.new_tensor([0.0, 1.0, 0.0]))
+    t1 = _cross(e, h)
+    t1 = t1 * torch.rsqrt(torch.clamp((t1 * t1).sum(-1, keepdim=True),
+                                      min=1e-24))
+    return t1, _cross(e, t1)
+
+
+def eval_radius(tbl, scale, ct, st, cp, sp, lmax: int):
+    """(r, dr/dt, dr/dp) of per-pair table rows tbl [P, W] at nodes
+    [P, G], evaluated at unit scale and multiplied by scale [P]."""
+    r, drt, drp = sh_power.eval_power(tbl, ct, st, cp, sp, lmax)
+    s = scale[..., None]
+    return r * s, drt * s, drp * s
+
+
+def surface_probe(q_a, s_a, tbl_a, q_b, s_b, tbl_b, rb_b, rm_a, rb_a, d,
+                  cap, lmax: int):
+    """One-sided probe: a's cap-local surface nodes tested against b.
+
+    Per-pair args (leading dim P): quaternions, scales, unit-scale
+    power-table rows [P, W], pre-scaled bounding radius of b and
+    inscribed / bounding radius of a; ``d`` = x_b - x_a. ``cap`` is the
+    [4, G] grid (x, glw, cpsi, spsi). Inclination-free measure.
+
+    Returns s1 [P], s2 [P], centroid_num [P, 3] (relative to x_a) and
+    normal_num [P, 3] (b's outward normals, world).
+    """
+    cap_x, cap_glw, cap_cpsi, cap_spsi = cap
+    dist = torch.linalg.norm(d, dim=-1)
+    inv_dist = 1.0 / torch.clamp(dist, min=1e-12)
+    e_body = quat_rotate_inv(q_a, d * inv_dist[..., None])
+
+    # Cap half-angle: the largest polar angle at which a's surface can lie
+    # inside b's bounding sphere (law of cosines). Double-where sqrt
+    # guard: the dead branch must not NaN the gradient.
+    rho2 = dist**2 - rb_b**2
+    rho_star = torch.where(
+        rho2 > 0, torch.sqrt(torch.where(rho2 > 0, rho2, 1.0)),
+        torch.zeros_like(rho2))
+    rho_c = torch.minimum(torch.maximum(rho_star, rm_a), rb_a)
+    cos_gmax = (rho_c**2 + dist**2 - rb_b**2) / torch.clamp(
+        2.0 * rho_c * dist, min=1e-12)
+    cos_gmax = torch.clamp(cos_gmax, -1.0, 1.0 - 1e-6)
+
+    one_m = (1.0 - cos_gmax)[..., None]                 # [P, 1]
+    cos_g = 1.0 - one_m * cap_x                          # [P, G]
+    sin_g = torch.sqrt(torch.clamp(1.0 - cos_g**2, min=1e-12))
+    t1, t2 = orthobasis(e_body)
+    dirs = (cos_g[..., None] * e_body[..., None, :]
+            + (sin_g * cap_cpsi)[..., None] * t1[..., None, :]
+            + (sin_g * cap_spsi)[..., None] * t2[..., None, :])
+    ct_a, st_a, cp_a, sp_a = _unit_trig(dirs)
+    r_a, _, _ = eval_radius(tbl_a, s_a, ct_a, st_a, cp_a, sp_a, lmax)
+    dA = one_m * cap_glw * r_a**2
+
+    rel = quat_rotate(q_a[..., None, :], r_a[..., None] * dirs)
+    u = quat_rotate_inv(q_b[..., None, :], rel - d[..., None, :])
+    rho = torch.linalg.norm(u, dim=-1)
+    u_hat = u / torch.clamp(rho, min=1e-12)[..., None]
+    ct_b, st_b, cp_b, sp_b = _unit_trig(u_hat)
+    r_b, drt_b, drp_b = eval_radius(tbl_b, s_b, ct_b, st_b, cp_b, sp_b,
+                                    lmax)
+
+    # Depth moments: no containment indicator, so the sums are continuous
+    # in the separation and delta = 1.5 S2/S1 is exact for a sphere lens.
+    # (d S1 still jumps when a node crosses the surface: the force is not
+    # smooth at the rounding level.)
+    depth = torch.clamp(r_b - rho, min=0.0)
+    wd = dA * depth
+    s1 = wd.sum(-1)
+    s2 = (wd * depth).sum(-1)
+    centroid_num = (wd[..., None] * rel).sum(-2)
+    n_body = surface_normal_trig(r_b, drt_b, drp_b, ct_b, st_b, cp_b, sp_b)
+    n_world = quat_rotate(q_b[..., None, :], n_body)
+    normal_num = (wd[..., None] * n_world).sum(-2)
+    return s1, s2, centroid_num, normal_num
+
+
+def _both_sides(d, q_i, q_j, geo, cap, lmax):
+    """Both-sided probe sums: (s1, s2, s1b, c1, c2, n1, n2)."""
+    s_i, s_j, tbl_i, tbl_j, rb_i, rb_j, rm_i, rm_j = geo
+    s1a, s2a, c1, n1 = surface_probe(q_i, s_i, tbl_i, q_j, s_j, tbl_j,
+                                     rb_j, rm_i, rb_i, d, cap, lmax)
+    s1b, s2b, c2, n2 = surface_probe(q_j, s_j, tbl_j, q_i, s_i, tbl_i,
+                                     rb_i, rm_j, rb_j, -d, cap, lmax)
+    return s1a + s1b, s2a + s2b, s1b, c1, c2, n1, n2
+
+
+def _pair_elastic_pe(d, q_i, q_j, geo, mask, kn, r_eff, cap, lmax: int):
+    """Sampled elastic PE per pair as a pure function of (d, q_i, q_j):
+    the differentiation target of the conservative law."""
+    rb_i, rb_j = geo[4], geo[5]
+    dist = torch.linalg.norm(d, dim=-1)
+    cull = mask & (dist < rb_i + rb_j) & (dist > 1e-12)
+    s1, s2 = _both_sides(d, q_i, q_j, geo, cap, lmax)[:2]
+    in_contact = cull & (s1 > 0)
+    zero = torch.zeros_like(s1)
+    delta = torch.where(in_contact, 1.5 * s2 / torch.clamp(s1, min=1e-30),
+                        zero)
+    return torch.where(
+        in_contact,
+        0.4 * kn * torch.sqrt(r_eff) * torch.clamp(delta, min=0.0) ** 2.5,
+        zero,
+    )
+
+
+def pair_elastic_grad(d, q_i, q_j, geo, mask, kn, r_eff, cap, lmax: int):
+    """Exact-gradient elastic force/torques: F_i = dU/dd (U depends on x
+    only through d = x_j - x_i), tau = -dU/dtheta.
+
+    Torque from the quaternion cotangent: for a world-frame rotation
+    q' = dq (x) q with dq = (1, dtheta/2), tau_k = -0.5 <dU/dq, e_k (x) q>.
+    Out-of-contact pairs can produce NaN cotangents through dead-branch
+    guards; the true force there is zero, so non-finite rows are masked.
+    """
+    with torch.enable_grad():
+        d_ = d.detach().requires_grad_(True)
+        qi_ = q_i.detach().requires_grad_(True)
+        qj_ = q_j.detach().requires_grad_(True)
+        pe = _pair_elastic_pe(d_, qi_, qj_, geo, mask, kn, r_eff, cap, lmax)
+        gd, gqi, gqj = torch.autograd.grad(pe.sum(), (d_, qi_, qj_),
+                                           allow_unused=True)
+
+    def tau_of(q, gq):
+        e = torch.eye(4, dtype=q.dtype, device=q.device)[1:]  # [3, 4]
+        eq = rotation.quat_multiply(e[None, :, :], q[:, None, :])
+        return -0.5 * (gq[:, None, :] * eq).sum(-1)
+
+    f_el = gd
+    tau_i = tau_of(q_i, gqi)
+    tau_j = tau_of(q_j, gqj)
+    ok = (torch.isfinite(f_el).all(-1) & torch.isfinite(tau_i).all(-1)
+          & torch.isfinite(tau_j).all(-1))[:, None]
+    z = torch.zeros_like(f_el)
+    return (torch.where(ok, f_el, z), torch.where(ok, tau_i, z),
+            torch.where(ok, tau_j, z))
+
+
+# Packed per-particle row layout [N, ROW_W] (one row-gather per pair side).
+ROW_W = 20
+_RX, _RV, _RQ, _ROM = slice(0, 3), slice(3, 6), slice(6, 10), slice(10, 13)
+_RM_, _RRB, _RRM, _RRC, _RS, _RACT = 13, 14, 15, 16, 17, 18
+
+
+def particle_rows(state, shapes, active=None):
+    """Per-particle data the pair kernels need, packed into [N, ROW_W]:
+    x, v, q, omega, m, rmax*s, rmin*s, rchar*s, s, active."""
+    om = rotation.omega_from_angmom(
+        state.q, state.angmom, shapes.inertia_of(state.shtype, state.scale))
+    m = shapes.mass_of(state.shtype, state.scale)
+    s = state.scale
+    if active is None:
+        active = state.active
+    cols = [
+        state.x, state.v, state.q, om, m[:, None],
+        (shapes.rmax[state.shtype] * s)[:, None],
+        (shapes.rmin[state.shtype] * s)[:, None],
+        (shapes.rchar[state.shtype] * s)[:, None],
+        s[:, None], active[:, None],
+    ]
+    rows = torch.cat([c.to(state.x.dtype) for c in cols], dim=1)
+    return torch.nn.functional.pad(rows, (0, ROW_W - rows.shape[1]))
+
+
+def _compact(keep, cap: int, n_src: int):
+    """Slots of the first ``cap`` True entries of ``keep`` in order, then
+    ``n_src`` (= none). Cumsum + scatter: no host sync, static shape."""
+    pos = torch.cumsum(keep.long(), 0) - 1
+    tgt = torch.where(keep & (pos < cap), pos, cap)
+    sel = torch.full((cap + 1,), n_src, dtype=torch.long, device=keep.device)
+    sel.scatter_(0, tgt, torch.arange(keep.shape[0], device=keep.device))
+    return sel[:cap]
+
+
+def build_pair_list(state, shapes, params, neigh_idx, neigh_mask, hist,
+                    owned, pair_cap: int, periodic=(False, False, False),
+                    half: bool = True):
+    """Compact the [N, K] Verlet tensor into a stable half pair list, once
+    per rebuild. Keeps every pair whose bounding spheres can touch before
+    the next rebuild (dist < rb_i + rb_j + skin). pair_i stays sorted; a
+    stable argsort of pair_j sorts the j-side reaction sum.
+
+    Returns (fields: dict of NeighborState pair_* tensors, n_pairs);
+    ``n_pairs > pair_cap`` means dropped pairs (overflow channel).
+    """
+    N, K = neigh_idx.shape
+    dev = neigh_idx.device
+    rb = shapes.rmax[state.shtype] * state.scale
+    d = minimum_image(state.x[neigh_idx] - state.x[:, None, :],
+                      state.box_lo, state.box_hi, periodic)
+    dist2 = (d * d).sum(-1)
+    margin = rb[:, None] + rb[neigh_idx] + params.skin
+    owned_j = owned[neigh_idx]
+    keep = (neigh_mask & (dist2 < margin * margin) & owned[:, None]
+            & state.active[neigh_idx])
+    if half:
+        i_col = torch.arange(N, device=dev)[:, None]
+        keep = keep & (~owned_j | (neigh_idx > i_col))
+
+    flat = keep.reshape(-1)
+    n_pairs = flat.sum()
+    pair_sel = _compact(flat, pair_cap, N * K)
+    valid = pair_sel < N * K
+    sel_safe = torch.clamp(pair_sel, max=N * K - 1)
+    pi = torch.where(valid, sel_safe // K, N - 1)
+    pj = torch.where(valid, neigh_idx.reshape(-1)[sel_safe], N - 1)
+    pair_both = valid & owned_j.reshape(-1)[sel_safe]
+    pair_hist = torch.where(valid[:, None],
+                            hist.reshape(-1, hist.shape[-1])[sel_safe], 0.0)
+    # Mirror slot k' with idx[pj, k'] == pi, for the rebuild-time
+    # scatter-back of springs into both tag-keyed rows.
+    hit = (neigh_idx[pj] == pi[:, None]) & neigh_mask[pj]
+    kk = torch.argmax(hit.to(torch.uint8), dim=1)
+    found = hit.any(1) & valid & pair_both
+    pair_selj = torch.where(found, pj * K + kk, N * K)
+    fields = dict(
+        pair_i=pi, pair_j=pj, pair_valid=valid, pair_both=pair_both,
+        pair_hist=pair_hist, pair_sel=pair_sel, pair_selj=pair_selj,
+        pair_jsort=torch.sort(pj, stable=True).indices,
+    )
+    return fields, n_pairs
+
+
+def prefilter_pair_list(state, shapes, params, fields, keep_cap: int,
+                        k_max: int, window_steps: int = 16,
+                        floor_frac: float = 0.25,
+                        periodic=(False, False, False),
+                        probe_chunk: int = 0):
+    """Rebuild-time narrow-phase prefilter: keep candidate pairs that can
+    touch before the next rebuild.
+
+    The stage-1 r-only probe (full basis, f32, 32-node cap1 grid) gives
+    an upper bound on each pair's depth; a pair survives when
+    depth > -(0.08 * min(rc_i, rc_j) + b_i + b_j), where b_i is the
+    particle's motion budget for the window:
+
+      b_i = clip(T (|v_i| + gmax_i |omega_i|) + T^2 (amax + gmax_i alpmax),
+                 floor_frac * skin, skin / 2),   T = window_steps * dt.
+
+    The rebuild trigger (neighbor.approach_ratio) fires when any
+    particle's surface motion exceeds its budget. Returns (fields sized
+    keep_cap, n_survivors, budget [N]).
+    """
+    from spherharm_tpu_torch.ops import contact_kernels as ck
+
+    pi, pj = fields["pair_i"], fields["pair_j"]
+    P = pi.shape[0]
+    rows = particle_rows(state, shapes)
+    msk = (fields["pair_valid"] & (rows[pi, _RACT] > 0.5)
+           & (rows[pj, _RACT] > 0.5))
+    dp = minimum_image(rows[pj][:, _RX] - rows[pi][:, _RX],
+                       state.box_lo, state.box_hi, periodic)
+    tail_lo = ck.SLOTS["tail"][0]
+    nc_ab = (shapes.lmax + 1) ** 2  # A/B prefix of the power layout
+    hw = fields["pair_hist"].shape[-1]
+    cap1 = torch.stack([shapes.cap1_x, shapes.cap1_glw,
+                        shapes.cap1_cpsi, shapes.cap1_spsi])
+    tbl_ab = ck.pad_type_table(shapes.power_tbl)[:, :nc_ab].contiguous()
+
+    def probe(sl):
+        packed = ck.pack_pairs(
+            state, shapes, params, pi[sl], pj[sl], msk[sl],
+            dp.new_zeros((dp[sl].shape[0], hw)), dp[sl], rows=rows,
+            probe_only=True,
+        )[0]
+        packed[:, tail_lo] = 0.0
+        return ck.stage1_depth(packed, tbl_ab, cap1, lmax=shapes.lmax)
+
+    if probe_chunk and P > probe_chunk:
+        depth = torch.cat([probe(slice(s, s + probe_chunk))
+                           for s in range(0, P, probe_chunk)])
+    else:
+        depth = probe(slice(None))
+
+    # Per-particle motion budgets (see docstring).
+    T = window_steps * params.dt
+    act = rows[:, _RACT] > 0.5
+    gmax_s = shapes.gmax[state.shtype] * state.scale
+    m = torch.clamp(rows[:, _RM_], min=1e-30)
+    speed = torch.linalg.norm(rows[:, _RV], dim=-1)
+    omag = torch.linalg.norm(rows[:, _ROM], dim=-1)
+    zero = torch.zeros_like(m)
+    amax = torch.where(act, torch.linalg.norm(state.f, dim=-1) / m,
+                       zero).max() + torch.linalg.norm(params.gravity)
+    inert = shapes.inertia_of(state.shtype, state.scale)
+    alpmax = torch.where(
+        act, torch.linalg.norm(state.tau, dim=-1)
+        / torch.clamp(inert.amin(-1), min=1e-30), zero).max()
+    budget = torch.minimum(
+        torch.maximum(T * (speed + gmax_s * omag)
+                      + T * T * (amax + gmax_s * alpmax),
+                      floor_frac * params.skin),
+        0.5 * params.skin)
+    budget = torch.where(act, budget, zero)
+
+    rc_pair = torch.minimum(rows[pi, _RRC], rows[pj, _RRC])
+    margin = 0.08 * rc_pair + budget[pi] + budget[pj]
+    survive = msk & (depth > -margin)
+
+    n_surv = survive.sum()
+    sel = _compact(survive, keep_cap, P)
+    ok = sel < P
+    sels = torch.clamp(sel, max=P - 1)
+    N = state.cap
+    none = N * k_max  # build_pair_list's "no dense slot"
+    # sel is increasing and the invalid tail routes to N-1, so pair_i
+    # stays sorted (the i-side segment-sum stays a sorted reduction).
+    pair_j = torch.where(ok, pj[sels], N - 1)
+    fields2 = dict(
+        pair_i=torch.where(ok, pi[sels], N - 1),
+        pair_j=pair_j,
+        pair_valid=fields["pair_valid"][sels] & ok,
+        pair_both=fields["pair_both"][sels] & ok,
+        pair_hist=torch.where(ok[:, None], fields["pair_hist"][sels], 0.0),
+        pair_sel=torch.where(ok, fields["pair_sel"][sels], none),
+        pair_selj=torch.where(ok, fields["pair_selj"][sels], none),
+        pair_jsort=torch.sort(pair_j, stable=True).indices,
+    )
+    return fields2, n_surv, budget
+
+
+def pair_hist_to_dense(neigh):
+    """Scatter live pair springs back into the tag-keyed [N, K] layout,
+    both the (i->j) slot and the mirror (j->i) slot. The mirror's
+    tangential part is negated; the rolling part is direction-symmetric.
+    """
+    N, K, hw = neigh.hist.shape
+    val = torch.where(neigh.pair_valid[:, None], neigh.pair_hist, 0.0)
+    mirror_sign = neigh.hist.new_tensor([-1.0, -1.0, -1.0, 1.0, 1.0, 1.0][:hw])
+    flat = neigh.hist.new_zeros((N * K + 1, hw))
+    flat[neigh.pair_sel] = val
+    flat[neigh.pair_selj] = val * mirror_sign
+    return flat[:-1].reshape(N, K, hw)
+
+
+def sorted_segment_sum(data, seg_ids, num_segments: int):
+    """Sum rows of ``data`` [P, C] into ``num_segments`` segments given
+    ascending ``seg_ids``: differences of a float64 prefix sum at the
+    segment bounds (found by binary search). A fixed-order scan, with no
+    atomics and no host sync, so results do not depend on the device's
+    scheduling, unlike an atomic ``index_add_``."""
+    ids = torch.arange(num_segments, device=seg_ids.device)
+    lo = torch.searchsorted(seg_ids, ids)
+    hi = torch.searchsorted(seg_ids, ids, right=True)
+    # One 1-D scan per column: a scan over the outer dim of a [P, 6]
+    # tensor runs 6 threads down the rows (52 ms at P = 300k, measured on
+    # an NVIDIA H100 80GB HBM3 at its 700 W limit; PERF.md).
+    cols = data.double().t()
+    csum = torch.stack([torch.cumsum(c, 0) for c in cols], dim=1)
+    csum = torch.cat([csum.new_zeros((1, csum.shape[1])), csum])
+    return (csum[hi] - csum[lo]).to(data.dtype)
+
+
+def contact_force_pairs(state, shapes, params, neigh,
+                        periodic=(False, False, False)):
+    """Per-step force/torque over the stable pair list (the hot path):
+    two row-gathers, the pair kernel (``contact_kernels.pair_contact``),
+    two sorted segment-sums.
+
+    Returns (f [N,3], tau [N,3], pair_hist [Pc,HW], pe_total, virial).
+    """
+    from spherharm_tpu_torch.ops import contact_kernels as ck
+
+    N = state.cap
+    pi, pj = neigh.pair_i, neigh.pair_j
+    rows = particle_rows(state, shapes)
+    rows_i, rows_j = rows[pi], rows[pj]
+    msk = (neigh.pair_valid & (rows_i[:, _RACT] > 0.5)
+           & (rows_j[:, _RACT] > 0.5))
+    dp = minimum_image(rows_j[:, _RX] - rows_i[:, _RX],
+                       state.box_lo, state.box_hi, periodic)
+    packed, tbl, cap, par = ck.pack_pairs(
+        state, shapes, params, pi, pj, msk, neigh.pair_hist, dp, rows=rows)
+    out = ck.pair_contact(packed, tbl, cap, par, lmax=shapes.lmax)
+    force = out[:, 0:3]
+    torque = out[:, 3:6]
+    torque_j = out[:, 6:9]
+    hist_new = out[:, 9:15]
+    pe = out[:, 15]
+
+    # i side: pair_i is sorted by construction. j side (reaction, half-list
+    # pairs only): permuted into pair_j order, so also a sorted sum.
+    acc_i = sorted_segment_sum(torch.cat([force, torque], dim=1), pi, N)
+    w_j = (msk & neigh.pair_both).to(force.dtype)[:, None]
+    perm = neigh.pair_jsort
+    acc_j = sorted_segment_sum(
+        torch.cat([-force * w_j, torque_j * w_j], dim=1)[perm], pj[perm], N)
+    f = acc_i[:, 0:3] + acc_j[:, 0:3]
+    tau = acc_i[:, 3:6] + acc_j[:, 3:6]
+    w_pe = torch.where(msk & neigh.pair_both, 1.0, 0.5).to(pe.dtype)
+    pe_total = (pe * w_pe).sum()
+    virial = -torch.einsum("p,pa,pb->ab", w_pe, dp, force)
+    return f, tau, hist_new, pe_total, virial

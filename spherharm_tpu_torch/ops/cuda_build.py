@@ -1,0 +1,102 @@
+"""Build and load the CUDA kernels (``spherharm_tpu_torch/csrc``).
+
+At first use, nvcc compiles every ``.cu`` source into one shared library
+with a plain C interface for sm_90a, under ``build/spherharm_tpu_torch/``
+beside the package (listed in ``.gitignore``). The file name carries a
+hash of the sources and flags, so an edited source rebuilds and an
+unchanged one loads the existing library. The library is bound with
+ctypes: every pointer and the stream are ``c_void_p``, every C entry
+returns ``cudaGetLastError()``.
+
+A failed build or load raises; nothing falls back to another route.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import functools
+import hashlib
+import os
+import shutil
+import subprocess
+import tempfile
+import time
+from pathlib import Path
+
+CSRC = Path(__file__).resolve().parent.parent / "csrc"
+BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "spherharm_tpu_torch"
+SOURCES = ("pair_contact.cu", "stage1_probe.cu", "wall_contact.cu")
+HEADERS = ("sh_device.cuh",)
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
+              "-O3", "-shared", "-Xcompiler", "-fPIC")
+
+_P, _I = ctypes.c_void_p, ctypes.c_int
+_SIGNATURES = {
+    # packed, tbl, T, W, cap, G, par, lmax, P, out, stream
+    "sh_pair_contact": (_P, _P, _I, _I, _P, _I, _P, _I, _I, _P, _P),
+    # packed, tbl_ab, T, W, cap1, G, lmax, P, out, stream
+    "sh_stage1_depth": (_P, _P, _I, _I, _P, _I, _I, _I, _P, _P),
+    # packed, tbl, W, cap, G, par, lmax, B, kind, out, stream
+    "sh_wall_contact": (_P, _P, _I, _P, _I, _P, _I, _I, _I, _P, _P),
+}
+
+
+def nvcc_path() -> str:
+    home = os.environ.get("CUDA_HOME", "/usr/local/cuda")
+    for cand in (os.path.join(home, "bin", "nvcc"), shutil.which("nvcc")):
+        if cand and os.path.exists(cand):
+            return cand
+    raise RuntimeError("nvcc not found (set CUDA_HOME): the CUDA kernels "
+                       "of spherharm_tpu_torch cannot be built")
+
+
+def library_path() -> Path:
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for name in HEADERS + SOURCES:
+        h.update(name.encode())
+        h.update((CSRC / name).read_bytes())
+    return BUILD_DIR / f"libspherharm_kernels_{h.hexdigest()[:16]}.so"
+
+
+def build(ptxas_info: bool = False):
+    """Compile the kernels unless the library for these sources exists.
+
+    Returns (path, seconds spent compiling, compiler output)."""
+    path = library_path()
+    if path.exists():
+        return path, 0.0, ""
+    path.parent.mkdir(parents=True, exist_ok=True)
+    fd, tmp = tempfile.mkstemp(suffix=".so", dir=path.parent)
+    os.close(fd)
+    cmd = [nvcc_path(), *NVCC_FLAGS, *(["-Xptxas", "-v"] if ptxas_info
+                                       else []),
+           "-I", str(CSRC), "-o", tmp, *(str(CSRC / s) for s in SOURCES)]
+    t0 = time.perf_counter()
+    proc = subprocess.run(cmd, capture_output=True, text=True)
+    secs = time.perf_counter() - t0
+    if proc.returncode != 0:
+        os.unlink(tmp)
+        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n"
+                           f"{' '.join(cmd)}\n{proc.stdout}{proc.stderr}")
+    os.replace(tmp, path)  # atomic: concurrent builders never see a stub
+    return path, secs, proc.stdout + proc.stderr
+
+
+@functools.cache
+def library():
+    """The loaded kernel library (built on first call)."""
+    lib = ctypes.CDLL(str(build()[0]))
+    for name, argtypes in _SIGNATURES.items():
+        fn = getattr(lib, name)
+        fn.argtypes = argtypes
+        fn.restype = ctypes.c_int
+    lib.sh_error_string.argtypes = (ctypes.c_int,)
+    lib.sh_error_string.restype = ctypes.c_char_p
+    return lib
+
+
+def check(err: int, what: str):
+    """Raise if a kernel entry reported a CUDA error."""
+    if err != 0:
+        msg = library().sh_error_string(err).decode()
+        raise RuntimeError(f"{what}: CUDA error {err} ({msg})")

@@ -1,0 +1,183 @@
+"""The port's CUDA kernels vs their plain PyTorch twins, on the card.
+
+Every test here is ``cuda``-marked and skips without an NVIDIA GPU; the
+plain twins themselves are held against the JAX reference by the other
+tests/test_torch_*.py files. This file imports no JAX, so it also runs
+where JAX is absent:
+
+    python -m pytest tests/test_torch_cuda.py --noconftest -q
+
+(``--noconftest``: tests/conftest.py sets JAX up for the reference tests.)
+"""
+
+import numpy as np
+import pytest
+import torch
+
+from spherharm_tpu_torch.core.state import SimParams
+from spherharm_tpu_torch.models import scenarios, shapes_library
+from spherharm_tpu_torch.ops import contact_kernels as ck
+from spherharm_tpu_torch.ops import walls as walls_mod
+from spherharm_tpu_torch.ops import walls_kernels as wk
+from spherharm_tpu_torch.ops.rotation import omega_from_angmom
+
+from torch_port_util import blob_coeffs, contact_rich_state, cuda_device, np32  # noqa: F401
+
+pytestmark = pytest.mark.cuda
+
+
+def _params(device):
+    return SimParams.create(dt=1e-4, kn=1e5, gamma_n=20.0, mu=0.4,
+                            k_roll=2e4, gamma_roll=10.0, mu_roll=0.2,
+                            cutoff=1.4, skin=0.2, device=device)
+
+
+def _pairs(lmax, device, seed=11, n=14):
+    """All ordered pairs of n particles in a small box (deep, grazing and
+    separated pairs), mid-contact springs, a few masked rows."""
+    rng = np.random.default_rng(seed)
+    shapes = shapes_library.build_shapes(blob_coeffs(lmax, 3, seed), lmax,
+                                         contact_quad=(8, 16), device=device)
+    q = rng.normal(size=(n, 4))
+    q /= np.linalg.norm(q, axis=1, keepdims=True)
+    st = scenarios.make_state(
+        rng.uniform(0.7, 2.5, (n, 3)), [0, 0, 0], [4, 4, 4], q=q,
+        v=rng.normal(size=(n, 3)) * 0.2,
+        angmom=rng.normal(size=(n, 3)) * 0.02,
+        scale=rng.uniform(0.85, 1.15, n), shtype=rng.integers(0, 3, n),
+        device=device)
+    pi, pj = np.meshgrid(np.arange(n), np.arange(n), indexing="ij")
+    sel = pi.ravel() != pj.ravel()
+    t = lambda a: torch.tensor(a, device=device)
+    pi, pj = t(pi.ravel()[sel]), t(pj.ravel()[sel])
+    mask = t(rng.uniform(size=pi.shape[0]) > 0.05)
+    hist = t(rng.normal(size=(pi.shape[0], 6)).astype(np.float32) * 1e-4)
+    packed, tbl, cap, par = ck.pack_pairs(st, shapes, _params(device), pi,
+                                          pj, mask, hist, st.x[pj] - st.x[pi])
+    return packed, tbl, cap, par, shapes
+
+
+@pytest.mark.parametrize("lmax", [4, 8])
+def test_pair_contact_kernel_matches_plain(lmax, cuda_device):
+    """Tolerance 1e-4 |F|max, the reference's conservative parity bound."""
+    packed, tbl, cap, par, _ = _pairs(lmax, cuda_device)
+    n0 = ck.pair_contact.launches
+    out = ck.pair_contact(packed, tbl, cap, par, lmax)
+    torch.cuda.synchronize()
+    assert ck.pair_contact.launches == n0 + 1
+    out, ref = np32(out), np32(ck.pair_contact_plain(packed, tbl, cap, par,
+                                                     lmax))
+    inc = ref[:, 16] > 0.5
+    assert inc.sum() > 3
+    np.testing.assert_array_equal(out[:, 16] > 0.5, inc)
+    fmag = np.abs(ref[:, 0:3]).max()
+    np.testing.assert_allclose(out[:, 0:9], ref[:, 0:9], rtol=0,
+                               atol=1e-4 * fmag)
+    np.testing.assert_allclose(out[:, 9:16], ref[:, 9:16], rtol=0,
+                               atol=1e-6 + 1e-4 * np.abs(ref[:, 9:16]).max())
+    np.testing.assert_array_equal(out[:, 17:], 0.0)
+
+
+@pytest.mark.parametrize("lmax", [4, 8])
+def test_stage1_kernel_matches_plain(lmax, cuda_device):
+    """Tolerance 1e-5 absolute on depths of order 0.1-1."""
+    packed, tbl, _, _, shapes = _pairs(lmax, cuda_device)
+    packed[:, ck.SLOTS["tail"][0]] = 0.0
+    cap1 = torch.stack([shapes.cap1_x, shapes.cap1_glw, shapes.cap1_cpsi,
+                        shapes.cap1_spsi])
+    tbl_ab = tbl[:, :(lmax + 1) ** 2].contiguous()
+    n0 = ck.stage1_depth.launches
+    out = ck.stage1_depth(packed, tbl_ab, cap1, lmax)
+    torch.cuda.synchronize()
+    assert ck.stage1_depth.launches == n0 + 1
+    ref = np32(ck.stage1_depth_plain(packed, tbl_ab, cap1, lmax))
+    assert (ref == -1e9).any() and (ref > 0).sum() > 3
+    np.testing.assert_allclose(np32(out), ref, rtol=0, atol=1e-5)
+
+
+@pytest.mark.parametrize("kind", ["plane", "cylinder"])
+def test_wall_kernel_matches_plain(kind, cuda_device):
+    rng = np.random.default_rng(1)
+    lmax, n = 8, 64
+    shapes = shapes_library.build_shapes(blob_coeffs(lmax, 2), lmax,
+                                         contact_quad=(8, 16),
+                                         device=cuda_device)
+    x = rng.uniform(0.8, 5.2, (n, 3))
+    x[:, 2] = rng.uniform(0.25, 1.6, n)
+    if kind == "plane":
+        wall = walls_mod.PlaneWall.create([0, 0, 0.5], [0, 0, 1],
+                                          velocity=[0.1, 0, 0],
+                                          device=cuda_device)
+    else:
+        rel = x[:, :2] - 3.0
+        x[:, :2] = 3.0 + rel / np.linalg.norm(rel, axis=1, keepdims=True) \
+            * rng.uniform(2.2, 2.85, n)[:, None]
+        wall = walls_mod.CylinderWall.create([3, 3, 0], [0, 0, 1], 2.8,
+                                             omega=0.7, device=cuda_device)
+    q = rng.normal(size=(n, 4))
+    q /= np.linalg.norm(q, axis=1, keepdims=True)
+    st = scenarios.make_state(
+        x, [0, 0, 0], [6, 6, 6], q=q, v=rng.normal(size=(n, 3)) * 0.3,
+        angmom=rng.normal(size=(n, 3)) * 0.05,
+        scale=rng.uniform(0.85, 1.15, n), shtype=rng.integers(0, 2, n),
+        device=cuda_device)
+    depth_c, n_c = wall.depth_and_normal(st.x)
+    om = omega_from_angmom(st.q, st.angmom, shapes.inertia_of(st.shtype,
+                                                              st.scale))
+    hist = torch.tensor(rng.normal(size=(n, 6)).astype(np.float32) * 1e-4,
+                        device=cuda_device)
+    packed, tbl, cap, par, k = wk.pack_wall(st, shapes, _params(cuda_device),
+                                            wall, hist, depth_c, n_c, om)
+    assert k == kind
+    n0 = wk.wall_contact_kernel.launches[kind]
+    out = wk.wall_contact_kernel(packed, tbl, cap, par, lmax, kind)
+    torch.cuda.synchronize()
+    assert wk.wall_contact_kernel.launches[kind] == n0 + 1
+    out = np32(out)
+    ref = np32(wk.wall_contact_plain(packed, tbl, cap, par, lmax, kind))
+    assert (ref[:, 13] > 0.5).sum() > 3
+    np.testing.assert_array_equal(out[:, 13], ref[:, 13])
+    fmag = np.abs(ref[:, 0:3]).max()
+    np.testing.assert_allclose(out[:, 0:6], ref[:, 0:6], rtol=0,
+                               atol=1e-4 * fmag)
+    np.testing.assert_allclose(out[:, 6:13], ref[:, 6:13], rtol=0,
+                               atol=1e-6 + 1e-4 * np.abs(ref[:, 6:13]).max())
+
+
+def test_kernels_reject_bad_inputs(cuda_device):
+    packed, tbl, cap, par, _ = _pairs(4, cuda_device)
+    with pytest.raises(TypeError):
+        ck.pair_contact(packed.double(), tbl, cap, par, 4)
+    with pytest.raises(ValueError):
+        ck.pair_contact(packed, tbl, cap, par, 8)  # table width of lmax 4
+    with pytest.raises(ValueError):
+        ck.pair_contact(packed, tbl.cpu(), cap, par, 4)
+
+
+def test_drum_on_card_matches_cpu(cuda_device):
+    """The slice end to end: a contact-rich n = 128 Lmax 4 drum, 40 steps
+    through the kernels vs through the plain twins on the CPU. Energies
+    rtol 2e-3, positions 1e-3 absolute (as tests/test_torch_drum.py)."""
+    kw = dict(n=128, lmax=4, k_max=24, pair_capacity=640,
+              stage2_capacity=384, rebuild_every=20)
+    runs = []
+    for device in (cuda_device, torch.device("cpu")):
+        sim, st0, _ = scenarios.rotating_drum(device=device, **kw)
+        sh, sc = np32(st0.shtype), np32(st0.scale).astype(np.float64)
+        radius = np32(sim.shapes.rchar).astype(np.float64)[sh] * sc
+        R = float(sim.walls[0].radius)
+        L = float(sim.walls[2].point[1] - sim.walls[1].point[1])
+        x, angmom = contact_rich_state(np32(st0.x), radius, R, L)
+        st = scenarios.make_state(x, np32(st0.box_lo), np32(st0.box_hi),
+                                  q=np32(st0.q), angmom=angmom, scale=sc,
+                                  shtype=sh, device=device)
+        st, ng = sim.run(*sim.init_neighbors(st), 40)
+        assert int(ng.overflow) == 0 and int(ng.skin_violations) == 0
+        th = {k: float(v) for k, v in sim.thermo(st, ng).items()
+              if v.ndim == 0}
+        assert th["pe_pair"] > 0 and th["pe_wall"] > 0 and th["erot"] > 0
+        runs.append((th, np32(st.x)))
+    (tg, xg), (tc, xc) = runs
+    for k in ("ke", "erot", "pe_pair", "pe_wall", "pe_grav", "etot"):
+        np.testing.assert_allclose(tg[k], tc[k], rtol=2e-3, err_msg=k)
+    np.testing.assert_allclose(xg, xc, rtol=0, atol=1e-3)

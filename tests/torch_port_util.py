@@ -1,0 +1,71 @@
+"""Helpers shared by the torch-port parity tests (tests/test_torch_*.py).
+
+Inputs are made once with numpy and handed to both packages; containers
+of the JAX reference cross over through ``from_numpy``.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+
+import numpy as np
+import pytest
+import torch
+
+
+def to_torch(cls, jax_obj, device="cpu"):
+    """Convert a reference (flax) container to the port's ``cls``."""
+    return cls.from_numpy(
+        {f.name: getattr(jax_obj, f.name) for f in dataclasses.fields(jax_obj)},
+        device=device)
+
+
+def np32(t):
+    """Tensor -> float32/int/bool numpy array."""
+    return t.detach().cpu().numpy()
+
+
+def blob_coeffs(lmax: int, n_types: int, seed: int = 0):
+    from spherharm_tpu_torch.models import shapes_library
+
+    return np.stack([
+        shapes_library.blob_coeffs(lmax, seed=seed + t, mean_radius=0.5,
+                                   roughness=0.12)
+        for t in range(n_types)
+    ])
+
+
+def contact_rich_state(x, radius, R, L, c=0.84, press=0.04, seed=1):
+    """A contact-rich start for the rotating drum (axis along y through the
+    origin, radius R, end caps at y = +-L/2) from its loose packing x:
+    compress x/z by c about the packing's centre, map y so the outermost
+    particles press both end caps, lower the packing onto the cylinder.
+    ``radius``: per-particle rchar * scale. Returns (x, random angmom)."""
+    x = np.array(x, np.float64)
+    ctr = x.mean(0)
+    x[:, [0, 2]] = ctr[[0, 2]] + c * (x[:, [0, 2]] - ctr[[0, 2]])
+    y = x[:, 1].copy()
+    i_lo, i_hi = np.argmin(y - radius), np.argmax(y + radius)
+    for _ in range(4):  # y' = a y + b with the extreme extents on the caps
+        a = (L + 2 * press - radius[i_lo] - radius[i_hi]) / (y[i_hi] - y[i_lo])
+        b = -0.5 * L - press + radius[i_lo] - a * y[i_lo]
+        i_lo = np.argmin(a * y + b - radius)
+        i_hi = np.argmax(a * y + b + radius)
+    x[:, 1] = a * y + b
+    # z: lower until the deepest particle presses into the shell.
+    h_lo, h_hi = 0.0, R
+    for _ in range(60):
+        h = 0.5 * (h_lo + h_hi)
+        reach = np.hypot(x[:, 0], x[:, 2] - h) + radius
+        h_lo, h_hi = (h, h_hi) if reach.max() < R + press else (h_lo, h)
+    x[:, 2] -= h_lo
+    rng = np.random.default_rng(seed)
+    return x, rng.normal(size=x.shape) * 0.01
+
+
+@pytest.fixture
+def cuda_device():
+    """The card for a ``cuda``-marked test; skips where there is none."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU (CUDA kernels have no CPU mode)")
+    return torch.device("cuda")
