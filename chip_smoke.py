@@ -1,27 +1,39 @@
 """Smoke run of the PyTorch + CUDA port (spherharm_tpu_torch) on one GPU.
 
     python3 chip_smoke.py            # one NVIDIA GPU, from the repo root
-    python3 chip_smoke.py --profile  # + a torch.profiler table of 20 steps
+    python3 chip_smoke.py --profile  # + a torch.profiler table of 20
+                                     #   deposition steps
                                      #   (build/chip_smoke_profile.txt)
 
 Phases, each fatal on failure (exit code != 0, no result line):
 
-1. build the CUDA kernels from ``spherharm_tpu_torch/csrc`` (nvcc, sm_90a);
-2. set up the main-path drum: ``rotating_drum`` at n = 100,000, Lmax 8,
+1. build the CUDA kernels from ``spherharm_tpu_torch/csrc`` (nvcc, sm_90a,
+   one process per source, in parallel);
+2. set up the main-path drum (``rotating_drum`` at n = 100,000, Lmax 8,
    4 blob types, k_max 24, pair cap 5n, stage-2 cap 3n, cadence R = 20,
-   conservative law, on the card;
-3. kernel vs plain twin at main-path widths (Lmax 8, the drum's 4 types,
-   128-node cap, 32-node cap1 grid, the drum's walls) on contact-rich
-   synthetic inputs: max error against the stated tolerance, and CUDA-event
-   times of the kernel and of its plain PyTorch twin;
-4. a small contact-rich drum (n = 128, Lmax 8) for 40 steps on the card
-   and on the CPU (plain twins): thermo and positions must agree;
-5. the main path: every launch counter set to 0, 60 steps (3 cadence
-   blocks) of the n = 100k drum, counters read; overflow = 0,
-   skin_violations = 0, finite etot, every kernel launched; particle-steps/s.
+   conservative law) and the full-width deposition (``deposition`` at
+   n = 10,000 with its own defaults: Lmax 8, 4 blob types, 12x24 = 288
+   cap nodes, geometric law, pair cap 10n, skin-triggered rebuild), on the
+   card;
+3. kernel vs plain twin at the paths' widths on contact-rich synthetic
+   inputs: K1 (conservative pair law, 128 nodes), K2 (geometric pair law,
+   288 and 128 nodes), K4 (stage-1 probe, 32 nodes), K6/K7 (cylinder and
+   plane walls): max error against the stated tolerance, CUDA-event times
+   of the kernel and of its plain PyTorch twin, and the kernel's bound;
+4. small contact-rich runs of 40 steps on the card and on the CPU (plain
+   twins), thermo and positions compared: the drum (n = 128, Lmax 8), the
+   deposition (n = 128, Lmax 8, 288 nodes) and the settling box (n = 64,
+   Lmax 2, dense [N, K] path);
+5. the paths, each with every launch counter set to 0 just before it and
+   read just after: 60 steps (3 cadence blocks) of the n = 100k drum; 100
+   steps of the n = 10k deposition from a contact-rich start; 200 steps of
+   the n = 500 settling box (5 plane walls, dense path) from its lattice
+   pressed onto the floor. Guards: overflow = 0, finite etot, every kernel
+   of the path launched (and skin_violations = 0 for the drum's cadence);
+   particle-steps/s of each.
 
 Prints the card's name and power limit (nvidia-smi), one JSON line with the
-kernels' launches, errors and times, and as the last line
+kernels' launches, errors, times and bounds, and as the last line
 ``{"ok": true, "device": {...}}``. Exits non-zero without a CUDA device.
 """
 
@@ -38,7 +50,47 @@ import numpy as np
 
 ROOT = Path(__file__).resolve().parent
 N_MAIN, LMAX, STEPS, R_EVERY = 100_000, 8, 60, 20
+N_DEP, DEP_STEPS = 10_000, 100
+N_SETTLE, SETTLE_STEPS = 500, 200
 N_PAIRS = 16_384  # kernel-vs-plain batch (the autograd twin's memory bound)
+# NVIDIA H100 SXM data sheet: f32 (non-tensor) peak and HBM3 rate.
+F32_PEAK, HBM_RATE = 67e12, 3.35e12
+
+
+def horner_flops(lmax, grad=True):
+    """FLOPs of one shk::radius_grad_power (grad) or radius_power_ab call
+    (csrc/sh_device.cuh), counted from its loops: an FMA counts 2, any
+    other arithmetic op (div, sqrt, min, max included) 1."""
+    f = 2 * lmax + (2 * max(lmax - 1, 0) + 1 if grad else 0)
+    for m in range(1, lmax + 1):
+        runs = 8 * (lmax - m) + 4 if grad else 4 * (lmax - m)
+        f += runs + (6 if m > 1 else 0) + 1 + (13 if grad else 4)
+    return f
+
+
+# Per cap node, per probe side: FLOPs besides the surface evaluations,
+# counted from each kernel's node loop (same convention; rotations 27).
+NODE_EXTRA = {"pair_contact_conservative": 468, "pair_contact_geometric": 248,
+              "stage1_depth": 120, "wall_cylinder": 155, "wall_plane": 139}
+
+
+def bound(name, lmax, G, work_rows, bytes_moved):
+    """Least time (ms) the card could take: the larger of the node work of
+    this run's working rows (masked and skipped rows do none) over the f32
+    peak and the bytes (each input read once, each output written once)
+    over the HBM rate."""
+    evals = {"stage1_depth": 2, "wall_cylinder": 1, "wall_plane": 1}.get(name, 4)
+    sides = 1 if name.startswith("wall") else 2
+    per_node = (evals * horner_flops(lmax, grad=name != "stage1_depth")
+                + sides * NODE_EXTRA[name])
+    t_ops = work_rows * G * per_node / F32_PEAK
+    t_bytes = bytes_moved / HBM_RATE
+    return dict(bound_ms=1e3 * max(t_ops, t_bytes),
+                bound_by="operations" if t_ops >= t_bytes else "bytes")
+
+
+def nbytes(*tensors):
+    return sum(t.numel() * t.element_size() for t in tensors)
 
 
 def require(cond, msg):
@@ -123,8 +175,9 @@ def wall_particles(sim, kind, dev, rng):
                       shtype=shtype, device=dev)
 
 
-def kernel_phase(sim, dev):
-    """Kernel vs plain twin for K1, K4, K6, K7 at main-path widths."""
+def kernel_phase(sim, dep, dev):
+    """Kernel vs plain twin for K1, K2 (288 and 128 nodes), K4, K6, K7 at
+    the paths' widths; returns per-kernel error, times and bound."""
     import torch
 
     from spherharm_tpu_torch.ops import contact_kernels as ck
@@ -132,43 +185,73 @@ def kernel_phase(sim, dev):
     from spherharm_tpu_torch.ops.rotation import omega_from_angmom
 
     rng = np.random.default_rng(7)
-    shapes, params = sim.shapes, sim.params
+    params = sim.params
     results = {}
+    mask_col = ck.SLOTS["mask"][0]
 
+    def pair_law(name, conservative, path):
+        st, pi, pj, mask, hist, d = contact_pairs(path, dev, rng)
+        packed, tbl, cap, par = ck.pack_pairs(st, path.shapes, params, pi, pj,
+                                              mask, hist, d)
+        out = ck.pair_contact(packed, tbl, cap, par, LMAX, conservative)
+        ref = ck.pair_contact_plain(packed, tbl, cap, par, LMAX, conservative)
+        torch.cuda.synchronize()
+        inc_ref, inc = ref[:, 16] > 0.5, out[:, 16] > 0.5
+        n_contact = int(inc_ref.sum())
+        fmag = float(ref[:, 0:3].abs().max())
+        row_err = (out[:, 0:9] - ref[:, 0:9]).abs().amax(1)
+        err = float(row_err.max())
+        flips = int((inc != inc_ref).sum())
+        G = cap.shape[1]
+        if conservative:
+            # The conservative law is not smooth at the ulp level: d(s1)
+            # jumps when a cap node crosses the partner's surface, so
+            # rounding alone moves a few rows' forces by up to ~1% (the
+            # plain twin itself, on inputs perturbed by 2e-7 relative: 3 of
+            # 16,384 rows beyond 1e-4 |F|max, the worst by 1% of its row).
+            # Tolerance: every row within 2e-2 |F|max, all but 0.1% of rows
+            # within 1e-4 |F|max.
+            n_out = int((row_err > 1e-4 * fmag).sum())
+            ok = n_out <= N_PAIRS // 1000 and err <= 2e-2 * fmag
+            tol = (f"rows beyond 1e-4*|F|max={n_out} (tol: <= {N_PAIRS // 1000} "
+                   f"rows; all rows <= 2e-2*|F|max={2e-2 * fmag:.3g})")
+        else:
+            # The reference's own geometric bound (tests/test_pallas.py).
+            ok = err <= 2e-3 * fmag
+            tol = f"(tol: every row <= 2e-3*|F|max={2e-3 * fmag:.3g})"
+        print(f"{name}: P={N_PAIRS} G={G} contacts={n_contact} |F|max={fmag:.4g} "
+              f"max|dF,dtau|={err:.3g} {tol} contact-flag flips={flips}")
+        require(n_contact > N_PAIRS // 4, f"{name} batch has too few contacts")
+        require(torch.isfinite(out).all(), f"{name} output not finite")
+        require(ok, f"{name} disagrees with its plain twin")
+        require(flips <= N_PAIRS // 1000, f"{name} contact flags disagree")
+        live = int((packed[:, mask_col] > 0.5).sum())
+        return dict(
+            err=err, G=G,
+            ms=cuda_ms(lambda: ck.pair_contact(packed, tbl, cap, par, LMAX,
+                                               conservative), 20),
+            plain_ms=cuda_ms(lambda: ck.pair_contact_plain(
+                packed, tbl, cap, par, LMAX, conservative), 3),
+            **bound("pair_contact_" + ("conservative" if conservative
+                                       else "geometric"), LMAX, G, live,
+                    nbytes(packed, tbl, cap, par, out)))
+
+    results["pair_contact_conservative"] = pair_law("K1 pair_contact[conservative]",
+                                                    True, sim)
+    results["pair_contact_geometric"] = pair_law("K2 pair_contact[geometric]",
+                                                 False, dep)
+    k2_128 = pair_law("K2 pair_contact[geometric] 8x16 grid", False, sim)
+    print(f"K2 at 128 nodes: {k2_128['ms']:.4f} ms (plain {k2_128['plain_ms']:.2f} ms, "
+          f"bound {k2_128['bound_ms']:.4f} ms, {k2_128['bound_by']})")
+    results["pair_contact_geometric"]["err"] = max(
+        results["pair_contact_geometric"]["err"], k2_128["err"])
+
+    shapes = sim.shapes
     st, pi, pj, mask, hist, d = contact_pairs(sim, dev, rng)
-    packed, tbl, cap, par = ck.pack_pairs(st, shapes, params, pi, pj, mask, hist, d)
-    out = ck.pair_contact(packed, tbl, cap, par, LMAX)
-    ref = ck.pair_contact_plain(packed, tbl, cap, par, LMAX)
-    torch.cuda.synchronize()
-    inc_ref, inc = ref[:, 16] > 0.5, out[:, 16] > 0.5
-    n_contact = int(inc_ref.sum())
-    fmag = float(ref[:, 0:3].abs().max())
-    row_err = (out[:, 0:9] - ref[:, 0:9]).abs().amax(1)
-    err = float(row_err.max())
-    n_out = int((row_err > 1e-4 * fmag).sum())
-    flips = int((inc != inc_ref).sum())
-    # The conservative law is not smooth at the ulp level: d(s1) jumps
-    # when a cap node crosses the partner's surface, so rounding alone
-    # moves a few rows' forces by up to ~1% (the plain twin itself, on
-    # inputs perturbed by 2e-7 relative: 3 of 16,384 rows beyond
-    # 1e-4 |F|max, the worst by 1% of its row). Tolerance: every row within
-    # 2e-2 |F|max, all but 0.1% of rows within 1e-4 |F|max.
-    print(f"K1 pair_contact: P={N_PAIRS} contacts={n_contact} |F|max={fmag:.4g} "
-          f"max|dF,dtau|={err:.3g} rows beyond 1e-4*|F|max={n_out} "
-          f"(tol: <= {N_PAIRS // 1000} rows; all rows <= 2e-2*|F|max="
-          f"{2e-2 * fmag:.3g}) contact-flag flips={flips}")
-    require(n_contact > N_PAIRS // 4, "K1 batch has too few contacts")
-    require(torch.isfinite(out).all(), "K1 output not finite")
-    require(n_out <= N_PAIRS // 1000 and err <= 2e-2 * fmag,
-            "K1 disagrees with its plain twin")
-    require(flips <= N_PAIRS // 1000, "K1 contact flags disagree")
-    results["pair_contact"] = dict(
-        err=err, ms=cuda_ms(lambda: ck.pair_contact(packed, tbl, cap, par, LMAX), 20),
-        plain_ms=cuda_ms(lambda: ck.pair_contact_plain(packed, tbl, cap, par, LMAX), 3))
-
     probe = ck.pack_pairs(st, shapes, params, pi, pj, mask, hist, d,
                           probe_only=True)[0]
     probe[:, ck.SLOTS["tail"][0]] = 0.0
+    tbl = ck.pad_type_table(shapes.power_tbl).contiguous()
     tbl_ab = tbl[:, :(LMAX + 1) ** 2].contiguous()
     cap1 = torch.stack([shapes.cap1_x, shapes.cap1_glw, shapes.cap1_cpsi,
                         shapes.cap1_spsi])
@@ -181,9 +264,14 @@ def kernel_phase(sim, dev):
           f"max|d depth|={err:.3g} (tol 2e-5)")
     require(n_pos > N_PAIRS // 4, "K4 batch has too few overlapping rows")
     require(err <= 2e-5, "K4 disagrees with its plain twin")
+    rsum = probe[:, ck.SLOTS["rbi"][0]] + probe[:, ck.SLOTS["rbj"][0]]
+    dist = torch.linalg.norm(probe[:, ck.SLOTS["d"][0]:ck.SLOTS["d"][1]], dim=1)
+    probed = int(((probe[:, mask_col] > 0.5) & (dist > 1e-12) & (dist < rsum)).sum())
     results["stage1_depth"] = dict(
         err=err, ms=cuda_ms(lambda: ck.stage1_depth(probe, tbl_ab, cap1, LMAX), 20),
-        plain_ms=cuda_ms(lambda: ck.stage1_depth_plain(probe, tbl_ab, cap1, LMAX), 3))
+        plain_ms=cuda_ms(lambda: ck.stage1_depth_plain(probe, tbl_ab, cap1, LMAX), 3),
+        **bound("stage1_depth", LMAX, cap1.shape[1], probed,
+                nbytes(probe, tbl_ab, cap1, out)))
 
     for kind, wall in (("cylinder", sim.walls[0]), ("plane", sim.walls[1])):
         ws = wall_particles(sim, kind, dev, rng)
@@ -207,52 +295,109 @@ def kernel_phase(sim, dev):
         require(torch.isfinite(out).all(), f"wall[{kind}] output not finite")
         require(err <= 1e-4 * fmag, f"wall[{kind}] disagrees with its plain twin")
         require(flips <= max(ws.cap // 1000, 1), f"wall[{kind}] contact flags disagree")
+        near = int((args[0][:, 16] > 0.5).sum())
         results[f"wall_{kind}"] = dict(
             err=err, ms=cuda_ms(lambda: wk.wall_contact_kernel(*args[:4], LMAX, kind), 20),
-            plain_ms=cuda_ms(lambda: wk.wall_contact_plain(*args[:4], LMAX, kind), 3))
+            plain_ms=cuda_ms(lambda: wk.wall_contact_plain(*args[:4], LMAX, kind), 3),
+            **bound(f"wall_{kind}", LMAX, args[2].shape[1], near,
+                    nbytes(*args[:4], out)))
     return results
 
 
-def small_drum_phase(dev):
-    """n = 128 contact-rich drum, 40 steps, card vs CPU plain twins."""
-    import torch
-
-    sys.path.insert(0, str(ROOT / "tests"))
+def drum_start(sim, st0, device):
+    """The drum's (or deposition's) contact-rich start from its builder
+    state (tests/torch_port_util.contact_rich_state)."""
     from torch_port_util import contact_rich_state
 
     from spherharm_tpu_torch.models import scenarios
 
-    kw = dict(n=128, lmax=LMAX, k_max=24, pair_capacity=640, stage2_capacity=384,
-              rebuild_every=R_EVERY)
+    sh = st0.shtype.cpu().numpy()
+    sc = st0.scale.double().cpu().numpy()
+    R = float(sim.walls[0].radius)
+    L = float(sim.walls[2].point[1] - sim.walls[1].point[1])
+    radius = sim.shapes.rchar.double().cpu().numpy()[sh] * sc
+    x, angmom = contact_rich_state(st0.x.cpu().numpy(), radius, R, L)
+    return scenarios.make_state(x, st0.box_lo.cpu().numpy(), st0.box_hi.cpu().numpy(),
+                                q=st0.q.cpu().numpy(), angmom=angmom, scale=sc,
+                                shtype=sh, device=device)
+
+
+def box_start(sim, st0, device):
+    """The settling box's lattice pressed onto the floor
+    (tests/torch_port_util.pressed_box_state)."""
+    from torch_port_util import pressed_box_state
+
+    from spherharm_tpu_torch.models import scenarios
+
+    x, angmom = pressed_box_state(st0.x.cpu().numpy(), float(sim.shapes.rmax[0]))
+    return scenarios.make_state(x, st0.box_lo.cpu().numpy(), st0.box_hi.cpu().numpy(),
+                                q=st0.q.cpu().numpy(), angmom=angmom, device=device)
+
+
+def card_vs_cpu(label, build, start, dev, steps=40):
+    """A small contact-rich run of ``steps`` steps on the card and on the
+    CPU (plain twins): thermo within 2e-3 relative, positions within 1e-3,
+    pair and wall contacts present."""
+    import torch
+
     runs = {}
     for device in (dev, torch.device("cpu")):
-        sim, st0, _ = scenarios.rotating_drum(device=device, **kw)
-        sh = st0.shtype.cpu().numpy()
-        sc = st0.scale.double().cpu().numpy()
-        R = float(sim.walls[0].radius)
-        L = float(sim.walls[2].point[1] - sim.walls[1].point[1])
-        radius = sim.shapes.rchar.double().cpu().numpy()[sh] * sc
-        x, angmom = contact_rich_state(st0.x.cpu().numpy(), radius, R, L)
-        st = scenarios.make_state(x, st0.box_lo.cpu().numpy(), st0.box_hi.cpu().numpy(),
-                                  q=st0.q.cpu().numpy(), angmom=angmom, scale=sc,
-                                  shtype=sh, device=device)
-        st, ng = sim.init_neighbors(st)
-        st, ng = sim.run(st, ng, 40)
+        sim, st0, _ = build(device)
+        st, ng = sim.init_neighbors(start(sim, st0, device))
+        st, ng = sim.run(st, ng, steps)
         th = {k: float(v) for k, v in sim.thermo(st, ng).items() if v.ndim == 0}
         require(int(ng.overflow) == 0 and int(ng.skin_violations) == 0,
-                f"small drum on {device}: overflow/skin violations")
+                f"{label} on {device}: overflow/skin violations")
         runs[device.type] = (th, st.x.cpu().numpy())
     (tg, xg), (tc, xc) = runs["cuda"], runs["cpu"]
     rel = {k: abs(tg[k] - tc[k]) / max(abs(tc[k]), 1e-30)
            for k in ("ke", "erot", "pe_pair", "pe_wall", "pe_grav", "etot")}
     dx = float(np.abs(xg - xc).max())
-    print("small drum n=128 Lmax=8, 40 steps, card vs CPU: "
+    print(f"{label}, {steps} steps, card vs CPU: "
           + " ".join(f"{k}={tg[k]:.6g}(rel {v:.2e})" for k, v in rel.items())
           + f" max|dx|={dx:.3g} (tol: rel 2e-3, dx 1e-3)")
-    require(tc["pe_pair"] > 0 and tc["pe_wall"] > 0 and tc["erot"] > 0,
-            "small drum has no contacts")
+    require(tc["pe_pair"] > 0 and tc["pe_wall"] > 0, f"{label} has no contacts")
     require(max(rel.values()) <= 2e-3 and dx <= 1e-3,
-            "small drum: card and CPU disagree")
+            f"{label}: card and CPU disagree")
+
+
+def run_path(label, sim, state, neigh, steps, kernels, smi):
+    """Drive one path with every launch counter at 0; returns (state,
+    neigh, launches of this run, thermo)."""
+    import torch
+
+    from spherharm_tpu_torch.ops import contact_kernels as ck
+    from spherharm_tpu_torch.ops import walls_kernels as wk
+
+    counters = (ck.pair_contact.launches, wk.wall_contact_kernel.launches)
+    for c in counters:
+        for k in c:
+            c[k] = 0
+    ck.stage1_depth.launches = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    state, neigh = sim.run(state, neigh, steps)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = {"pair_contact_conservative": ck.pair_contact.launches["conservative"],
+                "pair_contact_geometric": ck.pair_contact.launches["geometric"],
+                "stage1_depth": ck.stage1_depth.launches,
+                "wall_cylinder": wk.wall_contact_kernel.launches["cylinder"],
+                "wall_plane": wk.wall_contact_kernel.launches["plane"]}
+    th = sim.thermo(state, neigh)
+    n = int(state.n_active)
+    overflow, skin = int(neigh.overflow), int(neigh.skin_violations)
+    etot = float(th["etot"])
+    rate = n * steps / wall
+    print(f"{label}: {steps} steps in {wall:.3f}s -> {rate:.1f} particle-steps/s "
+          f"[{smi}] overflow={overflow} skin_violations={skin} etot={etot:.6g} "
+          f"pe_pair={float(th['pe_pair']):.6g} pe_wall={float(th['pe_wall']):.6g} "
+          f"launches={launches}")
+    require(overflow == 0, f"{label}: capacity overflow (channel={overflow})")
+    require(math.isfinite(etot), f"{label}: non-finite energy")
+    require(all(launches[k] > 0 for k in kernels),
+            f"{label}: a kernel of the path never launched: {launches}")
+    return state, neigh, launches, th
 
 
 def main(argv):
@@ -263,11 +408,11 @@ def main(argv):
               file=sys.stderr)
         return 2
     sys.path.insert(0, str(ROOT))
+    sys.path.insert(0, str(ROOT / "tests"))
     from spherharm_tpu_torch.models import scenarios
-    from spherharm_tpu_torch.ops import contact_kernels as ck
     from spherharm_tpu_torch.ops import cuda_build
-    from spherharm_tpu_torch.ops import walls_kernels as wk
 
+    t_start = time.perf_counter()
     dev = torch.device("cuda")
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -282,7 +427,7 @@ def main(argv):
     print(f"kernel build: {time.perf_counter() - t0:.1f}s (nvcc {nvcc_s:.1f}s) -> "
           f"{path.relative_to(ROOT)}")
     for line in log.splitlines():
-        if "registers" in line or "spill" in line:
+        if "Compiling entry" in line or "registers" in line or "spill" in line:
             print("  ptxas:", line.strip())
 
     t0 = time.perf_counter()
@@ -290,47 +435,57 @@ def main(argv):
         n=N_MAIN, lmax=LMAX, k_max=24, pair_capacity=5 * N_MAIN,
         stage2_capacity=3 * N_MAIN, rebuild_every=R_EVERY, conservative=True,
         device=dev)
+    dep, dep_st0, _ = scenarios.deposition(n=N_DEP, device=dev)
     torch.cuda.synchronize()
-    print(f"drum setup: {time.perf_counter() - t0:.1f}s n={N_MAIN} lmax={LMAX} "
+    print(f"setup: {time.perf_counter() - t0:.1f}s; drum n={N_MAIN} lmax={LMAX} "
           f"grid={sim.grid.dims} pair_cap={sim.pair_capacity} "
-          f"stage2_cap={sim.stage2_capacity} wall_cap={sim.wall_capacity}")
+          f"stage2_cap={sim.stage2_capacity} wall_cap={sim.wall_capacity}; "
+          f"deposition n={N_DEP} G={dep.shapes.cap_x.shape[0]} k_max={dep.k_max} "
+          f"pair_cap={dep.pair_capacity} wall_cap={dep.wall_capacity} "
+          f"conservative={dep.conservative}")
 
-    kern = kernel_phase(sim, dev)
+    kern = kernel_phase(sim, dep, dev)
     torch.cuda.synchronize()
-    small_drum_phase(dev)
-    torch.cuda.synchronize()
-
-    # The main path: counters from this run only.
-    ck.pair_contact.launches = 0
-    ck.stage1_depth.launches = 0
-    for k in wk.wall_contact_kernel.launches:
-        wk.wall_contact_kernel.launches[k] = 0
     t0 = time.perf_counter()
-    state, neigh = sim.run(state, neigh, STEPS)
+    card_vs_cpu("small drum n=128 Lmax=8",
+                lambda d: scenarios.rotating_drum(
+                    n=128, lmax=LMAX, k_max=24, pair_capacity=640,
+                    stage2_capacity=384, rebuild_every=R_EVERY, device=d),
+                drum_start, dev)
+    card_vs_cpu("small deposition n=128 Lmax=8 12x24",
+                lambda d: scenarios.deposition(n=128, device=d), drum_start, dev)
+    card_vs_cpu("small settling box n=64 Lmax=2 dense",
+                lambda d: scenarios.settling_box(n=64, device=d), box_start, dev)
     torch.cuda.synchronize()
-    wall = time.perf_counter() - t0
-    launches = {"pair_contact": ck.pair_contact.launches,
-                "stage1_depth": ck.stage1_depth.launches,
-                "wall_cylinder": wk.wall_contact_kernel.launches["cylinder"],
-                "wall_plane": wk.wall_contact_kernel.launches["plane"]}
-    th = sim.thermo(state, neigh)
-    overflow, skin = int(neigh.overflow), int(neigh.skin_violations)
-    etot = float(th["etot"])
-    rate = N_MAIN * STEPS / wall
-    print(f"drum run: {STEPS} steps in {wall:.3f}s -> {rate:.1f} particle-steps/s "
-          f"[{smi}] overflow={overflow} skin_violations={skin} etot={etot:.6g} "
-          f"pairs_kept={int(neigh.pair_valid.sum())} launches={launches}")
-    require(overflow == 0, f"capacity overflow (channel={overflow})")
-    require(skin == 0, f"{skin} skin violations at cadence {R_EVERY}")
-    require(math.isfinite(etot), "non-finite energy")
-    require(all(v > 0 for v in launches.values()),
-            f"a kernel of the main path never launched: {launches}")
+    print(f"card-vs-CPU phases: {time.perf_counter() - t0:.1f}s")
+
+    # The paths: counters from each path's own run only.
+    _, neigh, l_drum, _ = run_path(
+        f"drum n={N_MAIN}", sim, state, neigh, STEPS,
+        ("pair_contact_conservative", "stage1_depth", "wall_cylinder", "wall_plane"),
+        smi)
+    skin = int(neigh.skin_violations)
+    require(skin == 0, f"drum: {skin} skin violations at cadence {R_EVERY}")
+    del sim, state, neigh
+
+    dst, dng = dep.init_neighbors(drum_start(dep, dep_st0, dev))
+    dst, dng, l_dep, th = run_path(
+        f"deposition n={N_DEP}", dep, dst, dng, DEP_STEPS,
+        ("pair_contact_geometric", "wall_cylinder", "wall_plane"), smi)
+    require(float(th["pe_pair"]) > 0, "deposition: no pair contact")
+
+    box, bst0, _ = scenarios.settling_box(n=N_SETTLE, device=dev)
+    bst, bng = box.init_neighbors(box_start(box, bst0, dev))
+    _, _, l_box, th = run_path(
+        f"settling box n={N_SETTLE}", box, bst, bng, SETTLE_STEPS,
+        ("pair_contact_geometric", "wall_plane"), smi)
+    require(float(th["pe_pair"]) > 0, "settling box: no pair contact")
 
     if "--profile" in argv:
         from torch.profiler import ProfilerActivity, profile
 
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-            state, neigh = sim.run(state, neigh, R_EVERY)
+            dep.run(dst, dng, 20)
             torch.cuda.synchronize()
         table = prof.key_averages().table(sort_by="cuda_time_total", row_limit=40)
         out = ROOT / "build" / "chip_smoke_profile.txt"
@@ -338,19 +493,24 @@ def main(argv):
         out.write_text(f"{smi}\n{table}\n")
         print(table[:6000])
 
-    src = {"pair_contact": ("spherharm_tpu_torch/csrc/pair_contact.cu",
-                            "spherharm_tpu/ops/contact_pallas.py:496"),
+    src = {"pair_contact_conservative": ("spherharm_tpu_torch/csrc/pair_contact.cu",
+                                         "spherharm_tpu/ops/contact_pallas.py:496"),
+           "pair_contact_geometric": ("spherharm_tpu_torch/csrc/pair_contact.cu",
+                                      "spherharm_tpu/ops/contact_pallas.py:213"),
            "stage1_depth": ("spherharm_tpu_torch/csrc/stage1_probe.cu",
                             "spherharm_tpu/ops/contact_pallas.py:751"),
            "wall_cylinder": ("spherharm_tpu_torch/csrc/wall_contact.cu",
                              "spherharm_tpu/ops/walls_pallas.py:50"),
            "wall_plane": ("spherharm_tpu_torch/csrc/wall_contact.cu",
-                          "spherharm_tpu/ops/walls_pallas.py:50")}
+                          "spherharm_tpu/ops/walls_pallas.py:139")}
+    launches = {k: l_drum[k] + l_dep[k] + l_box[k] for k in src}
+    print(f"total wall time: {time.perf_counter() - t_start:.1f}s")
     print(json.dumps({"kernels": [
         {"name": name, "route": "cuda", "source": src[name][0],
          "replaces": src[name][1], "launches": launches[name],
          "max_abs_err": kern[name]["err"], "ms": kern[name]["ms"],
-         "plain_ms": kern[name]["plain_ms"]}
+         "plain_ms": kern[name]["plain_ms"], "bound_ms": kern[name]["bound_ms"],
+         "bound_by": kern[name]["bound_by"], "library_ms": None}
         for name in src]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -1,16 +1,18 @@
 """spherharm_tpu_torch — the PyTorch + CUDA port of the SH DEM engine.
 
 Same physics as ``spherharm_tpu`` (the JAX reference package beside it):
-spherical-harmonic particles, both-sided cap-quadrature contact with the
-conservative (exact-gradient) elastic law, plane/cylinder walls, cell-list
-neighbours with tag-keyed contact history, rebuild-cadence prefilter,
+spherical-harmonic particles, both-sided cap-quadrature contact in the
+conservative (exact-gradient) and the geometric elastic law, plane/cylinder
+walls, cell-list or all-pairs neighbours with tag-keyed contact history,
+pair-list or dense [N, K] force paths, rebuild-cadence prefilter,
 quaternion velocity-Verlet.
 
-Layout mirrors the reference (``core/``, ``ops/``, ``models/``). The three
-hot kernels are hand-written CUDA C++ for sm_90a (``csrc/``), built with
-nvcc at first use and bound with ctypes (``ops/cuda_build.py``). Tensor
-device decides the route: CUDA tensors launch the kernels, CPU tensors take
-each kernel's plain PyTorch twin.
+Layout mirrors the reference (``core/``, ``ops/``, ``models/``). The hot
+kernels are hand-written CUDA C++ for sm_90a (``csrc/``), built with nvcc
+at first use and bound with ctypes (``ops/cuda_build.py``). Tensor device
+decides the route: CUDA tensors launch the kernels, CPU tensors take each
+kernel's plain PyTorch twin. Every builder defaults to ``device="cuda"``;
+pass ``device="cpu"`` to run on the CPU.
 
 f32 throughout; TF32 is switched off here, at package import.
 """

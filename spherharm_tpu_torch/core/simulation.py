@@ -7,7 +7,9 @@ Per step:
                        the skin trigger fires: wrap, re-bin cells, rebuild
                        the [N,K] list, remap history, rebuild + prefilter
                        the pair list)
-  force eval          (SH pair kernel + wall kernels + gravity)
+  force eval          (SH pair kernel over the pair list, or over the
+                       dense [N,K] tensor when pair_capacity == 0; wall
+                       kernels; gravity)
   final_integrate     (second half kick)
 
 PyTorch runs eagerly, so ``run`` is a Python loop; on the static cadence
@@ -35,35 +37,43 @@ from spherharm_tpu_torch.ops import walls as walls_mod
 
 
 class Simulation:
-    """Binds static configuration: capacities, cadence, walls, device.
+    """Binds static configuration: capacities, cadence, walls, elastic
+    law, device.
 
-    The elastic law is the conservative (exact-gradient) one; the
-    reference's geometric law (``conservative=False``) is not ported yet."""
+    ``conservative`` picks the elastic law: the exact gradient of the
+    sampled PE (the default) or the geometric assembly. ``neighbor_mode``
+    is "cell" (needs ``grid``) or "allpairs" (O(N^2), small systems).
+    ``pair_capacity == 0`` evaluates contacts over the dense [N, K]
+    tensor instead of a pair list."""
 
     def __init__(
         self,
         shapes: Shapes,
         params: SimParams,
         *,
-        grid: neighbor.CellGrid,
         periodic=(False, False, False),
+        neighbor_mode: str = "cell",
         k_max: int = 32,
         cell_cap: int = 8,
+        grid: neighbor.CellGrid | None = None,
         walls: tuple = (),
         pair_capacity: int = 0,
         rebuild_chunk: int | None = None,
         rebuild_every: int = 0,
         wall_capacity: int = 0,
         stage2_capacity: int = 0,
-        device="cpu",
+        conservative: bool = True,
+        device="cuda",
     ):
-        if pair_capacity <= 0:
-            raise NotImplementedError(
-                "only the pair-list force path is ported (pair_capacity > 0)")
+        if neighbor_mode not in ("cell", "allpairs"):
+            raise ValueError(f"unknown neighbor_mode {neighbor_mode!r}")
+        if neighbor_mode == "cell" and grid is None:
+            raise ValueError("neighbor_mode='cell' requires a CellGrid")
         self.shapes = shapes
         self.params = params
         self.grid = grid
         self.periodic = tuple(bool(p) for p in periodic)
+        self.neighbor_mode = neighbor_mode
         self.k_max = int(k_max)
         self.cell_cap = int(cell_cap)
         self.walls = tuple(walls)
@@ -79,7 +89,8 @@ class Simulation:
         # Rebuild-time prefilter: the candidate list (pair_capacity) is
         # probed once per rebuild and compacted to stage2_capacity
         # near-contact pairs, the persistent per-step list.
-        self.prefilter = self.stage2_capacity > 0
+        self.prefilter = self.stage2_capacity > 0 and self.pair_capacity > 0
+        self.conservative = bool(conservative)
         self.device = torch.device(device)
 
     @property
@@ -106,6 +117,13 @@ class Simulation:
 
     def _build_list(self, state: State):
         cutoff = self.params.cutoff + self.params.skin
+        if self.neighbor_mode == "allpairs":
+            idx, mask, count = neighbor.allpairs_neighbors(
+                state.x, state.active, state.box_lo, state.box_hi, cutoff,
+                self.k_max, self.periodic)
+            mx = count.max()
+            return idx, mask, torch.where(mx > self.k_max, mx,
+                                          torch.zeros_like(mx))
         idx, mask, count, cell_ovf = neighbor.cell_list_neighbors(
             state.x, state.active, state.box_lo, state.box_hi, cutoff,
             self.grid.dims, self.cell_cap, self.k_max, self.periodic,
@@ -120,9 +138,10 @@ class Simulation:
         x, image = neighbor.wrap_positions(
             state.x, state.image, state.box_lo, state.box_hi, self.periodic)
         state = state.replace(x=x, image=image)
-        # Live springs ride in pair space between rebuilds; fold them
-        # back into the tag-keyed [N, K] layout before remapping.
-        neigh = neigh.replace(hist=contact.pair_hist_to_dense(neigh))
+        if self.pair_capacity > 0:
+            # Live springs ride in pair space between rebuilds; fold them
+            # back into the tag-keyed [N, K] layout before remapping.
+            neigh = neigh.replace(hist=contact.pair_hist_to_dense(neigh))
         idx, mask, overflow = self._build_list(state)
         neigh_tag = torch.where(mask, state.tag[idx], 0)
         row_ok = neigh.row_tag == state.tag  # single device: slots stable
@@ -132,6 +151,8 @@ class Simulation:
             idx=idx, mask=mask, hist=hist, neigh_tag=neigh_tag,
             row_tag=state.tag, x_build=state.x, q_build=state.q,
             overflow=torch.maximum(neigh.overflow, overflow))
+        if self.pair_capacity <= 0:
+            return state, neigh
         pair_fields, n_pairs = contact.build_pair_list(
             state, self.shapes, self.params, idx, mask, hist, state.active,
             self.pair_capacity, self.periodic)
@@ -172,9 +193,16 @@ class Simulation:
 
     def compute_forces(self, state: State, neigh: NeighborState):
         """Fill f/tau; returns (state, neigh with updated springs, aux)."""
-        f, tau, pair_hist, pe_pair, virial = contact.contact_force_pairs(
-            state, self.shapes, self.params, neigh, periodic=self.periodic)
-        neigh = neigh.replace(pair_hist=pair_hist)
+        if self.pair_capacity > 0:
+            f, tau, pair_hist, pe_pair, virial = contact.contact_force_pairs(
+                state, self.shapes, self.params, neigh,
+                periodic=self.periodic, conservative=self.conservative)
+            neigh = neigh.replace(pair_hist=pair_hist)
+        else:
+            f, tau, hist, pe_pair, virial = contact.contact_force_dense(
+                state, self.shapes, self.params, neigh,
+                periodic=self.periodic, conservative=self.conservative)
+            neigh = neigh.replace(hist=hist)
 
         pe_wall = torch.zeros((), dtype=f.dtype, device=f.device)
         wall_hists = []

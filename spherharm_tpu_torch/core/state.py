@@ -11,7 +11,8 @@ dtype torch indexing and scatter ops take; float fields are f32.
 
 ``from_numpy`` on each container takes a mapping of field name -> array
 (for example the leaves of the reference package's containers, converted
-with ``np.asarray``) and builds the torch container on ``device``.
+with ``np.asarray``) and builds the torch container on ``device``. Every
+builder here defaults to ``device="cuda"``: the CPU is asked for by name.
 """
 
 from __future__ import annotations
@@ -39,7 +40,7 @@ class _Container:
         return dataclasses.replace(self, **kw)
 
     @classmethod
-    def from_numpy(cls, arrays, device="cpu"):
+    def from_numpy(cls, arrays, device="cuda"):
         """Build from a mapping field -> array; extra keys are ignored."""
         kw = {}
         for f in fields(cls):
@@ -201,7 +202,7 @@ class SimParams(_Container):
                gravity=(0.0, 0.0, 0.0), skin=0.0, cutoff=1.0,
                deform_rate=(0.0, 0.0, 0.0), shear_rate=(0.0, 0.0, 0.0),
                press_target=(0.0, 0.0, 0.0), press_tau=0.0,
-               dtype=torch.float32, device="cpu"):
+               dtype=torch.float32, device="cuda"):
         if kt is None:
             kt = 2.0 / 7.0 * kn
         if gamma_t is None:
@@ -233,7 +234,7 @@ def pair_material(params: SimParams, t_i, t_j):
 
 
 def zeros_state(cap: int, box_lo, box_hi, dtype=torch.float32,
-                device="cpu") -> State:
+                device="cuda") -> State:
     """An empty fixed-capacity State (all slots inactive)."""
     fz = lambda *s: torch.zeros(s, dtype=dtype, device=device)
     iz = lambda *s: torch.zeros(s, dtype=torch.long, device=device)
@@ -259,7 +260,7 @@ HIST_W = 6
 
 def empty_neighbors(cap: int, k_max: int, n_walls: int = 0,
                     dtype=torch.float32, pair_cap: int = 0,
-                    device="cpu") -> NeighborState:
+                    device="cuda") -> NeighborState:
     fz = lambda *s: torch.zeros(s, dtype=dtype, device=device)
     iz = lambda *s: torch.zeros(s, dtype=torch.long, device=device)
     bz = lambda *s: torch.zeros(s, dtype=torch.bool, device=device)

@@ -1,26 +1,31 @@
-// Stage-2 conservative SH pair contact, hand-written for sm_90a.
+// Stage-2 SH pair contact, hand-written for sm_90a, in both elastic laws.
 //
-// Replaces: spherharm_tpu/ops/contact_pallas.py
-//   pair_contact_pallas -> _make_kernel(lmax, conservative=True) with
-//   _probe_cons (both-sided cap quadrature + hand-derived gradient of the
-//   depth moments).
+// Replaces: spherharm_tpu/ops/contact_pallas.py pair_contact_pallas ->
+//   _make_kernel(lmax, conservative=True) with _probe_cons (K1: both-sided
+//   cap quadrature + hand-derived gradient of the depth moments), and
+//   _make_kernel(lmax, conservative=False) with _probe (K2: the geometric
+//   law, inclination-weighted measure, force along the integral normal at
+//   the centroid). The law is the template parameter kCons.
 //
 // What bounds it on this card: arithmetic. Per pair it evaluates 2 sides
 // x G cap nodes x 2 power-basis surface evaluations (Horner runs over a
-// 177-float table at lmax 8, ~1.3k FLOP each) plus ~300 FLOP of vector
-// algebra for the gradient integrals, against 64 + 24 floats of traffic
-// per pair: some 10^6 FLOP per 352 bytes, far above the ridge point. The
-// design keeps everything on chip and makes the FLOPs cheap to schedule:
-//   * one warp per pair, lanes striding over the cap nodes (any G);
+// 177-float table at lmax 8, ~0.9k FLOP each) plus vector algebra (~300
+// FLOP a node for K1's gradient integrals, ~150 for K2's normals),
+// against 64 + 24 floats of traffic per pair: some 10^5-10^6 FLOP per
+// 352 bytes, far above the ridge point. The design keeps everything on
+// chip and makes the FLOPs cheap to schedule:
+//   * one warp per pair, lanes striding over the cap nodes (any G: 128 at
+//     8x16, 288 at the deposition's 12x24);
 //   * the per-type power table (T x W floats, ~5.7 KB at T = 8, lmax 8)
-//     and the cap grid live in shared memory, indexed by the type id
-//     carried in the packed row (the TPU's one-hot matmul gather has no
-//     reason to exist here);
-//   * the 46 per-side node sums (s1, s2, centroid, normal and the 38
-//     gradient integrals) are reduced with xor shuffles, so every lane
-//     ends with the totals and no shared-memory reduction or block
-//     barrier is needed; the pair-level chains and the force law then
-//     run redundantly on all lanes and lane 0 writes the 24-float row;
+//     and the cap grid (4 G floats) live in shared memory, indexed by the
+//     type id carried in the packed row (the TPU's one-hot matmul gather
+//     has no reason to exist here);
+//   * the per-side node sums (K1: s1, s2, centroid, normal and the 38
+//     gradient integrals; K2: s1, s2, centroid, normal only) are reduced
+//     with xor shuffles, so every lane ends with the totals and no
+//     shared-memory reduction or block barrier is needed; the pair-level
+//     chains and the force law then run redundantly on all lanes and lane
+//     0 writes the 24-float row;
 //   * a masked row (mask <= 0.5) writes zeros and skips the body.
 // Built without fast math: approximate division would loosen parity.
 
@@ -41,11 +46,16 @@ enum Slot {
   HIST = 34, MASK = 40, DV = 41, TAIL = 44, MAT = 45, TYP = 53, SCL = 55
 };
 
-// One side's integrals. g_* [m] are the gradients of s_{m+1} w.r.t. the
-// separation d, the world rotation of the probing body a and of b.
-struct Side {
+// One side's depth moments s1, s2 and its centroid and normal sums.
+struct Moments {
   float s1, s2;
   V3 cen, nsum;
+};
+
+// With the conservative law, also g_* [m]: the gradients of s_{m+1}
+// w.r.t. the separation d, the world rotation of the probing body a and
+// of b.
+struct Side : Moments {
   V3 g_d[2], g_ta[2], g_tb[2];
 };
 
@@ -188,6 +198,68 @@ __device__ Side probe_side(const float* tbl_a, float s_a, const float* tbl_b, fl
   return out;
 }
 
+// Probe a's cap nodes against b with the inclination-weighted measure
+// dA = w r_a^2 / cos_incl (twin of _probe: moments only, no gradient).
+// sin_g is floored at 0 as _probe floors it (_probe_cons uses 1e-12).
+__device__ Moments probe_side_geo(const float* tbl_a, float s_a, const float* tbl_b, float s_b,
+                               Q4 q_a, Q4 q_b, V3 d3, float dist, float inv_dist, float rb_b,
+                               float rm_a, float rb_a, const float* cap, int G, int lmax,
+                               int lane) {
+  const V3 e_b = rot_inv(q_a, inv_dist * d3);
+  const float rb2 = rb_b * rb_b;
+  const float rho_star = sqrtf(fmaxf(dist * dist - rb2, 0.0f));
+  const float rho_c = clampf(rho_star, rm_a, rb_a);
+  const float cos_gmax = clampf(
+      (rho_c * rho_c + dist * dist - rb2) / fmaxf(2.0f * rho_c * dist, 1e-12f), -1.0f,
+      1.0f - 1e-6f);
+  const float one_m = 1.0f - cos_gmax;
+
+  V3 h, t1, t2;
+  float inv_t1;
+  orthobasis(e_b, h, t1, t2, inv_t1);
+
+  const V3 z = v3(0.0f, 0.0f, 0.0f);
+  float s1 = 0.0f, s2 = 0.0f;
+  V3 cen = z, nsum = z;
+  for (int k = lane; k < G; k += 32) {
+    const float cx = cap[k], glw = cap[G + k], cpsi = cap[2 * G + k], spsi = cap[3 * G + k];
+    const float cos_g = 1.0f - one_m * cx;
+    const float sin_g = sqrtf(fmaxf(1.0f - cos_g * cos_g, 0.0f));
+    const V3 dir = cos_g * e_b + (sin_g * cpsi) * t1 + (sin_g * spsi) * t2;
+
+    float ct_a, st_a, cp_a, sp_a, r_a, drt_a, drp_a;
+    unit_trig(dir, ct_a, st_a, cp_a, sp_a);
+    radius_grad_power(tbl_a, lmax, ct_a, st_a, cp_a, sp_a, r_a, drt_a, drp_a);
+    r_a *= s_a;
+    drt_a *= s_a;
+    drp_a *= s_a;
+    const V3 na = surface_normal(r_a, drt_a, drp_a, ct_a, st_a, cp_a, sp_a);
+    const float cos_incl = clampf(dot3(dir, na), 0.05f, 1.0f);
+    const float dA = one_m * glw * r_a * r_a / cos_incl;
+
+    const V3 rel = rot(q_a, r_a * dir);
+    const V3 u3 = rot_inv(q_b, rel - d3);
+    const float rho = sqrtf(fmaxf(dot3(u3, u3), 1e-24f));
+    const V3 uh = (1.0f / rho) * u3;
+    float ct_b, st_b, cp_b, sp_b, r_b, drt_b, drp_b;
+    unit_trig(uh, ct_b, st_b, cp_b, sp_b);
+    radius_grad_power(tbl_b, lmax, ct_b, st_b, cp_b, sp_b, r_b, drt_b, drp_b);
+    r_b *= s_b;
+    drt_b *= s_b;
+    drp_b *= s_b;
+
+    const float D = fmaxf(r_b - rho, 0.0f);
+    const float wd = dA * D;
+    s1 += wd;
+    s2 += wd * D;
+    cen = cen + wd * rel;
+    nsum = nsum + wd * rot(q_b, surface_normal(r_b, drt_b, drp_b, ct_b, st_b, cp_b, sp_b));
+  }
+
+  return {warp_sum(s1), warp_sum(s2), warp_sum3(cen), warp_sum3(nsum)};
+}
+
+template <bool kCons>
 __global__ void __launch_bounds__(WARPS * 32)
     pair_contact_kernel(const float* __restrict__ packed, const float* __restrict__ tbl,
                         int T, int W, const float* __restrict__ cap, int G,
@@ -219,16 +291,27 @@ __global__ void __launch_bounds__(WARPS * 32)
   const float si = row[SCL], sj = row[SCL + 1];
   const float rbi = row[RBI], rbj = row[RBJ];
 
-  const Side a = probe_side(s_tbl + ti * W, si, s_tbl + tj * W, sj, qi, qj, d, dist, inv_dist,
-                            rbj, row[RMI], rbi, s_cap, G, lmax, lane);
-  const Side b = probe_side(s_tbl + tj * W, sj, s_tbl + ti * W, si, qj, qi, -d, dist, inv_dist,
-                            rbi, row[RMJ], rbj, s_cap, G, lmax, lane);
+  Side a, b;  // gradients: conservative law only
+  Moments ma, mb;
+  if constexpr (kCons) {
+    a = probe_side(s_tbl + ti * W, si, s_tbl + tj * W, sj, qi, qj, d, dist, inv_dist, rbj,
+                   row[RMI], rbi, s_cap, G, lmax, lane);
+    b = probe_side(s_tbl + tj * W, sj, s_tbl + ti * W, si, qj, qi, -d, dist, inv_dist, rbi,
+                   row[RMJ], rbj, s_cap, G, lmax, lane);
+    ma = a;
+    mb = b;
+  } else {
+    ma = probe_side_geo(s_tbl + ti * W, si, s_tbl + tj * W, sj, qi, qj, d, dist, inv_dist,
+                        rbj, row[RMI], rbi, s_cap, G, lmax, lane);
+    mb = probe_side_geo(s_tbl + tj * W, sj, s_tbl + ti * W, si, qj, qi, -d, dist, inv_dist,
+                        rbi, row[RMJ], rbj, s_cap, G, lmax, lane);
+  }
 
   // Contact geometry from both sides (all lanes hold the totals).
-  const float s1 = a.s1 + b.s1, s2 = a.s2 + b.s2;
+  const float s1 = ma.s1 + mb.s1, s2 = ma.s2 + mb.s2;
   const float denom = fmaxf(s1, 1e-30f);
-  const V3 cen = s1 > 0.0f ? (a.cen + b.cen + b.s1 * d) / denom : 0.5f * d;
-  const V3 nraw = a.nsum - b.nsum;
+  const V3 cen = s1 > 0.0f ? (ma.cen + mb.cen + mb.s1 * d) / denom : 0.5f * d;
+  const V3 nraw = ma.nsum - mb.nsum;
   const float nn = sqrtf(fmaxf(dot3(nraw, nraw), 1e-40f));
   const V3 n_hat = nn > 1e-20f ? nraw / nn : -(inv_dist * d);
   const bool cull = (dist < rbi + rbj) && (dist > 1e-12f);
@@ -256,31 +339,40 @@ __global__ void __launch_bounds__(WARPS * 32)
   friction_rolling(load3(row + HIST), load3(row + HIST + 3), n_hat, vt, in_contact, poly,
                    fn_mag, m_eff, r_eff, omi - omj, dt, mt, xi, f_t, xi_r, tau_roll);
 
-  // Exact-gradient elastic force/torques. U = 0.4 kn sqrt(R) delta^2.5,
-  // delta = 1.5 s2/s1: dU/ds2 = kn sqrt(R) delta^1.5 * 1.5/s1,
-  // dU/ds1 = -(2/3) delta dU/ds2.
-  const float coef_g = mt.kn * sqrtf(r_eff) * delta * sqrtf(fmaxf(delta, 0.0f));
-  const float w2 = in_contact ? coef_g * 1.5f / denom : 0.0f;
-  const float w1 = -(2.0f / 3.0f) * delta * w2;
-  // Side ij differentiates w.r.t. (d, th_i, th_j); side ji saw d' = -d
-  // with the roles swapped.
-  const V3 gU_d = (w1 * a.g_d[0] + w2 * a.g_d[1]) - (w1 * b.g_d[0] + w2 * b.g_d[1]);
-  const V3 gU_thi = (w1 * a.g_ta[0] + w2 * a.g_ta[1]) + (w1 * b.g_tb[0] + w2 * b.g_tb[1]);
-  const V3 gU_thj = (w1 * a.g_tb[0] + w2 * a.g_tb[1]) + (w1 * b.g_ta[0] + w2 * b.g_ta[1]);
-  const bool okf = isfinite(gU_d.x) && isfinite(gU_d.y) && isfinite(gU_d.z) &&
-                   isfinite(gU_thi.x) && isfinite(gU_thi.y) && isfinite(gU_thi.z) &&
-                   isfinite(gU_thj.x) && isfinite(gU_thj.y) && isfinite(gU_thj.z);
   const V3 z = v3(0.0f, 0.0f, 0.0f);
-  // U depends on x through d = x_j - x_i: force on i is +dU/dd;
-  // torque = -dU/dtheta.
-  const V3 f_el = okf ? gU_d : z;
-  const V3 tau_ei = okf ? -gU_thi : z;
-  const V3 tau_ej = okf ? -gU_thj : z;
-  const float fn_damp = -(poly * m_eff * mt.gn * vn_mag);
-  const V3 f_vis = in_contact ? fn_damp * n_hat + f_t : z;
-  const V3 force = f_el + f_vis;
-  const V3 torque = tau_ei + cross3(arm_i, f_vis) + tau_roll;
-  const V3 torque_j = tau_ej + cross3(arm_j, -f_vis) - tau_roll;
+  V3 force, torque, torque_j;
+  if constexpr (kCons) {
+    // Exact-gradient elastic force/torques. U = 0.4 kn sqrt(R) delta^2.5,
+    // delta = 1.5 s2/s1: dU/ds2 = kn sqrt(R) delta^1.5 * 1.5/s1,
+    // dU/ds1 = -(2/3) delta dU/ds2.
+    const float coef_g = mt.kn * sqrtf(r_eff) * delta * sqrtf(fmaxf(delta, 0.0f));
+    const float w2 = in_contact ? coef_g * 1.5f / denom : 0.0f;
+    const float w1 = -(2.0f / 3.0f) * delta * w2;
+    // Side ij differentiates w.r.t. (d, th_i, th_j); side ji saw d' = -d
+    // with the roles swapped.
+    const V3 gU_d = (w1 * a.g_d[0] + w2 * a.g_d[1]) - (w1 * b.g_d[0] + w2 * b.g_d[1]);
+    const V3 gU_thi = (w1 * a.g_ta[0] + w2 * a.g_ta[1]) + (w1 * b.g_tb[0] + w2 * b.g_tb[1]);
+    const V3 gU_thj = (w1 * a.g_tb[0] + w2 * a.g_tb[1]) + (w1 * b.g_ta[0] + w2 * b.g_ta[1]);
+    const bool okf = isfinite(gU_d.x) && isfinite(gU_d.y) && isfinite(gU_d.z) &&
+                     isfinite(gU_thi.x) && isfinite(gU_thi.y) && isfinite(gU_thi.z) &&
+                     isfinite(gU_thj.x) && isfinite(gU_thj.y) && isfinite(gU_thj.z);
+    // U depends on x through d = x_j - x_i: force on i is +dU/dd;
+    // torque = -dU/dtheta.
+    const V3 f_el = okf ? gU_d : z;
+    const V3 tau_ei = okf ? -gU_thi : z;
+    const V3 tau_ej = okf ? -gU_thj : z;
+    const float fn_damp = -(poly * m_eff * mt.gn * vn_mag);
+    const V3 f_vis = in_contact ? fn_damp * n_hat + f_t : z;
+    force = f_el + f_vis;
+    torque = tau_ei + cross3(arm_i, f_vis) + tau_roll;
+    torque_j = tau_ej + cross3(arm_j, -f_vis) - tau_roll;
+  } else {
+    // Geometric law: Hertz + damping along the integral normal, applied
+    // at the overlap centroid.
+    force = in_contact ? fn_mag * n_hat + f_t : z;
+    torque = cross3(arm_i, force) + tau_roll;
+    torque_j = cross3(arm_j, -force) - tau_roll;
+  }
   const float pe =
       in_contact ? 0.4f * mt.kn * sqrtf(r_eff) * delta * delta * sqrtf(delta) : 0.0f;
 
@@ -295,21 +387,28 @@ __global__ void __launch_bounds__(WARPS * 32)
   }
 }
 
+template <bool kCons>
+int launch(const float* packed, const float* tbl, int T, int W, const float* cap, int G,
+           const float* par, int lmax, int P, float* out, cudaStream_t stream) {
+  const size_t smem = sizeof(float) * (size_t)(T * W + 4 * G);
+  if (smem > 48 * 1024) {
+    const cudaError_t e = cudaFuncSetAttribute(
+        pair_contact_kernel<kCons>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (e != cudaSuccess) return (int)e;
+  }
+  const int blocks = (P + WARPS - 1) / WARPS;
+  pair_contact_kernel<kCons><<<blocks, WARPS * 32, smem, stream>>>(packed, tbl, T, W, cap, G,
+                                                                   par, lmax, P, out);
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
 
 extern "C" int sh_pair_contact(const float* packed, const float* tbl, int T, int W,
                                const float* cap, int G, const float* par, int lmax, int P,
-                               float* out, cudaStream_t stream) {
-  const size_t smem = sizeof(float) * (size_t)(T * W + 4 * G);
-  if (smem > 48 * 1024) {
-    const cudaError_t e = cudaFuncSetAttribute(
-        pair_contact_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-    if (e != cudaSuccess) return (int)e;
-  }
-  const int blocks = (P + WARPS - 1) / WARPS;
-  pair_contact_kernel<<<blocks, WARPS * 32, smem, stream>>>(packed, tbl, T, W, cap, G, par,
-                                                            lmax, P, out);
-  return (int)cudaGetLastError();
+                               int conservative, float* out, cudaStream_t stream) {
+  return conservative ? launch<true>(packed, tbl, T, W, cap, G, par, lmax, P, out, stream)
+                      : launch<false>(packed, tbl, T, W, cap, G, par, lmax, P, out, stream);
 }
 
 extern "C" const char* sh_error_string(int err) {

@@ -16,10 +16,14 @@ from spherharm_tpu_torch.models import shapes_library
 from spherharm_tpu_torch.ops.neighbor import CellGrid
 from spherharm_tpu_torch.ops.walls import CylinderWall, PlaneWall
 
+# Builders take the reference's arguments less its ``use_pallas`` /
+# ``exact_eval`` / ``pair_chunk`` switches (the port always evaluates
+# exactly, through the kernels), plus ``device``.
+
 
 def make_state(x, box_lo, box_hi, *, v=None, q=None, angmom=None,
                scale=None, shtype=None, cap=None, dtype=torch.float32,
-               device="cpu") -> State:
+               device="cuda") -> State:
     """Pack numpy arrays into a fixed-capacity State (extra slots
     inactive)."""
     x = np.asarray(x, dtype=np.float64)
@@ -43,6 +47,103 @@ def make_state(x, box_lo, box_hi, *, v=None, q=None, angmom=None,
         if val is not None:
             st = st.replace(**{name: put(getattr(st, name), val)})
     return st
+
+
+def two_body_collision(
+    radius: float = 0.5,
+    v0: float = 1.0,
+    kn: float = 1.0e5,
+    gamma_n: float = 0.0,
+    dt: float = 2.0e-4,
+    gap: float = 0.2,
+    contact_quad=(12, 24),
+    conservative: bool = True,
+    dtype=torch.float32,
+    device="cuda",
+):
+    """Config 1: two Lmax=0 sphere-degenerate SH particles, head-on NVE
+    collision with Hertzian normal contact (all-pairs neighbours, dense
+    force path)."""
+    lmax = 0
+    shapes = shapes_library.build_shapes(
+        [shapes_library.sphere_coeffs(radius, lmax)], lmax, density=1.0,
+        contact_quad=contact_quad, dtype=dtype, device=device)
+    params = SimParams.create(
+        dt=dt, kn=kn, gamma_n=gamma_n, mu=0.0,
+        skin=0.1 * radius, cutoff=2.0 * radius * 1.05, dtype=dtype,
+        device=device)
+    half = radius + gap / 2
+    box = 4 * radius
+    state = make_state(
+        [[-half, 0.0, 0.0], [half, 0.0, 0.0]],
+        [-box, -box, -box], [box, box, box],
+        v=[[v0, 0.0, 0.0], [-v0, 0.0, 0.0]], dtype=dtype, device=device)
+    sim = Simulation(shapes, params, neighbor_mode="allpairs", k_max=1,
+                     conservative=conservative, device=device)
+    state, neigh = sim.init_neighbors(state)
+    return sim, state, neigh
+
+
+def settling_box(
+    n: int = 500,
+    lmax: int = 2,
+    aspect=(1.0, 0.8, 0.65),
+    mean_radius: float = 0.5,
+    kn: float = 1.0e5,
+    gamma_n: float = 50.0,
+    mu: float = 0.3,
+    dt: float = 1.0e-4,
+    box_side: float | None = None,
+    seed: int = 0,
+    k_max: int = 32,
+    conservative: bool = False,
+    dtype=torch.float32,
+    device="cuda",
+):
+    """Config 2: ~500 Lmax=2 ellipsoid-like particles settling under
+    gravity into a box with 5 plane walls, Hertz + Coulomb friction,
+    dense [N, K] force path. Damped: the geometric law by default."""
+    a = mean_radius * np.asarray(aspect) / np.cbrt(np.prod(aspect))
+    shapes = shapes_library.build_shapes(
+        [shapes_library.ellipsoid_coeffs(a[0], a[1], a[2], lmax)], lmax,
+        density=1.0, contact_quad=(8, 16), dtype=dtype, device=device)
+    rmax = float(shapes.rmax[0])
+    side_cells = int(np.ceil(n ** (1 / 3)))
+    if box_side is None:
+        # Loose lattice that settles to roughly a half-full box.
+        box_side = 2.2 * rmax * side_cells
+    rng = np.random.default_rng(seed)
+    pitch = 2.05 * rmax
+    i = np.arange(n)
+    x = np.stack([
+        (i % side_cells + 0.5) * pitch - box_side / 2,
+        ((i // side_cells) % side_cells + 0.5) * pitch - box_side / 2,
+        (i // side_cells**2 + 0.5) * pitch + rmax,
+    ], axis=1) + rng.uniform(-0.05, 0.05, (n, 3)) * rmax
+    q = rng.normal(size=(n, 4))
+    q /= np.linalg.norm(q, axis=1, keepdims=True)
+    height = box_side + pitch * (n // side_cells**2 + 2)
+    box_lo = (-box_side / 2, -box_side / 2, 0.0)
+    box_hi = (box_side / 2, box_side / 2, height)
+
+    params = SimParams.create(
+        dt=dt, kn=kn, gamma_n=gamma_n, mu=mu, gravity=(0.0, 0.0, -10.0),
+        skin=0.4 * rmax, cutoff=2.0 * rmax, dtype=dtype, device=device)
+    grid = CellGrid(box_lo, box_hi, 2.0 * rmax + 0.4 * rmax)
+    wk = dict(dtype=dtype, device=device)
+    walls = (
+        PlaneWall.create((0, 0, 0), (0, 0, 1), **wk),
+        PlaneWall.create((-box_side / 2, 0, 0), (1, 0, 0), **wk),
+        PlaneWall.create((box_side / 2, 0, 0), (-1, 0, 0), **wk),
+        PlaneWall.create((0, -box_side / 2, 0), (0, 1, 0), **wk),
+        PlaneWall.create((0, box_side / 2, 0), (0, -1, 0), **wk),
+    )
+    state = make_state(x, box_lo, box_hi, q=q, dtype=dtype, device=device)
+    sim = Simulation(shapes, params, neighbor_mode="cell", grid=grid,
+                     k_max=k_max, cell_cap=12, walls=walls,
+                     conservative=conservative, device=device)
+    state, neigh = sim.init_neighbors(state)
+    return sim, state, neigh
 
 
 def rotating_drum(
@@ -69,18 +170,10 @@ def rotating_drum(
     conservative: bool = True,
     rebuild_chunk: int | None = None,
     dtype=torch.float32,
-    device="cpu",
+    device="cuda",
 ):
     """Config 4: N polydisperse Lmax=8 blobs in a rotating drum, friction +
-    rolling, full neighbour-rebuild cadence: the main path.
-
-    Same signature and defaults as the reference builder, less its
-    ``use_pallas`` / ``exact_eval`` / ``pair_chunk`` switches (the port
-    always evaluates exactly, through the kernels) and plus ``device``."""
-    if not conservative:
-        raise NotImplementedError(
-            "the geometric elastic law (conservative=False) is not ported "
-            "yet; see ROADMAP.md Queue 2")
+    rolling, full neighbour-rebuild cadence: the main path."""
     rng = np.random.default_rng(seed)
     coeffs = np.stack([
         shapes_library.blob_coeffs(lmax, seed=seed + t,
@@ -153,7 +246,17 @@ def rotating_drum(
         shapes, params, grid=grid, k_max=k_max, cell_cap=10, walls=walls,
         pair_capacity=pair_capacity, rebuild_every=rebuild_every,
         wall_capacity=wall_cap, stage2_capacity=stage2_capacity,
-        rebuild_chunk=rebuild_chunk, device=device,
+        rebuild_chunk=rebuild_chunk, conservative=conservative,
+        device=device,
     )
     state, neigh = sim.init_neighbors(state)
     return sim, state, neigh
+
+
+def deposition(n: int = 10_000, lmax: int = 8, contact_quad=(12, 24), **kw):
+    """Config 3: deposition of scanned-shape Lmax=8 particles with the
+    high-order 12x24 cap grid: the drum's geometry, not spinning. Damped:
+    the geometric law by default."""
+    kw.setdefault("conservative", False)
+    return rotating_drum(n=n, lmax=lmax, drum_omega=0.0,
+                         contact_quad=contact_quad, **kw)

@@ -116,7 +116,7 @@ def build_shapes(
     stage1_quad: tuple[int, int] = (4, 8),
     setup_quad_n: int = 48,
     dtype=torch.float32,
-    device="cpu",
+    device="cuda",
 ) -> Shapes:
     """Precompute all per-type tables (numpy) and pack a ``Shapes``.
 

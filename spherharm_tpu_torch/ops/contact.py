@@ -8,12 +8,14 @@ tested against j's surface (and the mirrored pass, j into i):
   S2 = sum A_k depth_k^2,  delta = 1.5 S2 / S1,
   U = 0.4 kn sqrt(R_eff) delta^2.5.
 
-The conservative (exact-gradient) law takes the elastic force and torques
-as the gradient of the sampled U (here through ``torch.autograd.grad``;
-the CUDA kernel ``csrc/pair_contact.cu`` carries the hand-derived
-gradient). The measure is inclination-free, A = w dOmega r^2. Damping,
-Coulomb-capped tangential spring and rolling spring-dashpot-slider act
-on top.
+Two elastic laws. The conservative (exact-gradient) law takes the
+elastic force and torques as the gradient of the sampled U (here through
+``torch.autograd.grad``; the CUDA kernel ``csrc/pair_contact.cu`` carries
+the hand-derived gradient) with the inclination-free measure
+A = w dOmega r^2. The geometric law uses the true surface measure
+A = w dOmega r^2 / cos(inclination) and puts the Hertz force along the
+integral normal at the overlap centroid. Damping, Coulomb-capped
+tangential spring and rolling spring-dashpot-slider act on top.
 
 Radii come from the power-basis tables (``ops/sh_power.py``): per-pair
 rows of the per-type table, evaluated at unit scale then scaled.
@@ -83,13 +85,15 @@ def eval_radius(tbl, scale, ct, st, cp, sp, lmax: int):
 
 
 def surface_probe(q_a, s_a, tbl_a, q_b, s_b, tbl_b, rb_b, rm_a, rb_a, d,
-                  cap, lmax: int):
+                  cap, lmax: int, incl: bool = False):
     """One-sided probe: a's cap-local surface nodes tested against b.
 
     Per-pair args (leading dim P): quaternions, scales, unit-scale
     power-table rows [P, W], pre-scaled bounding radius of b and
     inscribed / bounding radius of a; ``d`` = x_b - x_a. ``cap`` is the
-    [4, G] grid (x, glw, cpsi, spsi). Inclination-free measure.
+    [4, G] grid (x, glw, cpsi, spsi). ``incl`` adds the 1/cos(inclination)
+    factor to the measure (the geometric law's true surface area; a's
+    outward normal comes from r_a and its angular derivatives).
 
     Returns s1 [P], s2 [P], centroid_num [P, 3] (relative to x_a) and
     normal_num [P, 3] (b's outward normals, world).
@@ -113,14 +117,21 @@ def surface_probe(q_a, s_a, tbl_a, q_b, s_b, tbl_b, rb_b, rm_a, rb_a, d,
 
     one_m = (1.0 - cos_gmax)[..., None]                 # [P, 1]
     cos_g = 1.0 - one_m * cap_x                          # [P, G]
-    sin_g = torch.sqrt(torch.clamp(1.0 - cos_g**2, min=1e-12))
+    # sin(gamma)^2 floor: 1e-12 keeps the conservative law's autograd
+    # gradient finite at a full-sphere cap (as _probe_cons); the geometric
+    # law takes 0, as the reference's Pallas kernel _probe.
+    sin_g = torch.sqrt(torch.clamp(1.0 - cos_g**2,
+                                   min=0.0 if incl else 1e-12))
     t1, t2 = orthobasis(e_body)
     dirs = (cos_g[..., None] * e_body[..., None, :]
             + (sin_g * cap_cpsi)[..., None] * t1[..., None, :]
             + (sin_g * cap_spsi)[..., None] * t2[..., None, :])
     ct_a, st_a, cp_a, sp_a = _unit_trig(dirs)
-    r_a, _, _ = eval_radius(tbl_a, s_a, ct_a, st_a, cp_a, sp_a, lmax)
+    r_a, drt_a, drp_a = eval_radius(tbl_a, s_a, ct_a, st_a, cp_a, sp_a, lmax)
     dA = one_m * cap_glw * r_a**2
+    if incl:
+        n_a = surface_normal_trig(r_a, drt_a, drp_a, ct_a, st_a, cp_a, sp_a)
+        dA = dA / torch.clamp((n_a * dirs).sum(-1), 0.05, 1.0)
 
     rel = quat_rotate(q_a[..., None, :], r_a[..., None] * dirs)
     u = quat_rotate_inv(q_b[..., None, :], rel - d[..., None, :])
@@ -145,13 +156,13 @@ def surface_probe(q_a, s_a, tbl_a, q_b, s_b, tbl_b, rb_b, rm_a, rb_a, d,
     return s1, s2, centroid_num, normal_num
 
 
-def _both_sides(d, q_i, q_j, geo, cap, lmax):
+def _both_sides(d, q_i, q_j, geo, cap, lmax, incl: bool = False):
     """Both-sided probe sums: (s1, s2, s1b, c1, c2, n1, n2)."""
     s_i, s_j, tbl_i, tbl_j, rb_i, rb_j, rm_i, rm_j = geo
     s1a, s2a, c1, n1 = surface_probe(q_i, s_i, tbl_i, q_j, s_j, tbl_j,
-                                     rb_j, rm_i, rb_i, d, cap, lmax)
+                                     rb_j, rm_i, rb_i, d, cap, lmax, incl)
     s1b, s2b, c2, n2 = surface_probe(q_j, s_j, tbl_j, q_i, s_i, tbl_i,
-                                     rb_i, rm_j, rb_j, -d, cap, lmax)
+                                     rb_i, rm_j, rb_j, -d, cap, lmax, incl)
     return s1a + s1b, s2a + s2b, s1b, c1, c2, n1, n2
 
 
@@ -421,10 +432,11 @@ def sorted_segment_sum(data, seg_ids, num_segments: int):
 
 
 def contact_force_pairs(state, shapes, params, neigh,
-                        periodic=(False, False, False)):
+                        periodic=(False, False, False),
+                        conservative: bool = True):
     """Per-step force/torque over the stable pair list (the hot path):
-    two row-gathers, the pair kernel (``contact_kernels.pair_contact``),
-    two sorted segment-sums.
+    two row-gathers, the pair kernel (``contact_kernels.pair_contact``,
+    in the law ``conservative`` picks), two sorted segment-sums.
 
     Returns (f [N,3], tau [N,3], pair_hist [Pc,HW], pe_total, virial).
     """
@@ -440,7 +452,8 @@ def contact_force_pairs(state, shapes, params, neigh,
                        state.box_lo, state.box_hi, periodic)
     packed, tbl, cap, par = ck.pack_pairs(
         state, shapes, params, pi, pj, msk, neigh.pair_hist, dp, rows=rows)
-    out = ck.pair_contact(packed, tbl, cap, par, lmax=shapes.lmax)
+    out = ck.pair_contact(packed, tbl, cap, par, lmax=shapes.lmax,
+                          conservative=conservative)
     force = out[:, 0:3]
     torque = out[:, 3:6]
     torque_j = out[:, 6:9]
@@ -460,3 +473,37 @@ def contact_force_pairs(state, shapes, params, neigh,
     pe_total = (pe * w_pe).sum()
     virial = -torch.einsum("p,pa,pb->ab", w_pe, dp, force)
     return f, tau, hist_new, pe_total, virial
+
+
+def contact_force_dense(state, shapes, params, neigh,
+                        periodic=(False, False, False),
+                        conservative: bool = True):
+    """Force/torque over the dense [N, K] neighbour tensor (the path for
+    ``pair_capacity == 0``): the N*K rows are packed as the pair list is
+    and run through the same pair kernel.
+
+    Full-list semantics: each contact adds to its own row only (a fixed-
+    order sum over K); pe and virial are halved to undo the double count.
+    Returns (f [N,3], tau [N,3], hist [N,K,HW], pe_total, virial [3,3]).
+    """
+    from spherharm_tpu_torch.ops import contact_kernels as ck
+
+    N, K = neigh.idx.shape
+    pi = torch.arange(N, device=neigh.idx.device).repeat_interleave(K)
+    pj = neigh.idx.reshape(-1)
+    rows = particle_rows(state, shapes)
+    msk = (neigh.mask.reshape(-1) & (rows[pi, _RACT] > 0.5)
+           & (rows[pj, _RACT] > 0.5))
+    dp = minimum_image(rows[pj, _RX] - rows[pi, _RX],
+                       state.box_lo, state.box_hi, periodic)
+    packed, tbl, cap, par = ck.pack_pairs(
+        state, shapes, params, pi, pj, msk,
+        neigh.hist.reshape(N * K, -1), dp, rows=rows)
+    out = ck.pair_contact(packed, tbl, cap, par, lmax=shapes.lmax,
+                          conservative=conservative)
+    force = out[:, 0:3]
+    f = force.reshape(N, K, 3).sum(1)
+    tau = out[:, 3:6].reshape(N, K, 3).sum(1)
+    pe_total = 0.5 * out[:, 15].sum()
+    virial = -0.5 * torch.einsum("pa,pb->ab", dp, force)
+    return f, tau, out[:, 9:15].reshape(N, K, -1), pe_total, virial

@@ -2,15 +2,18 @@
 
 Two kernels, both hand-written CUDA C++ for sm_90a (``csrc/``):
 
-* ``pair_contact`` — the stage-2 conservative pair law
-  (``csrc/pair_contact.cu``): both-sided cap quadrature, hand-derived
-  gradient of the depth moments, Hertz + damping + friction + rolling.
+* ``pair_contact`` — the stage-2 pair law (``csrc/pair_contact.cu``):
+  both-sided cap quadrature, Hertz + damping + friction + rolling, in
+  either elastic law: conservative (hand-derived gradient of the depth
+  moments) or geometric (inclination-weighted measure, force along the
+  integral normal).
 * ``stage1_depth`` — the rebuild-time r-only probe
   (``csrc/stage1_probe.cu``): upper bound on each pair's max depth.
 
 Each wrapper launches its kernel on a CUDA tensor (or raises) and runs
 its plain PyTorch twin on a CPU tensor; nothing else picks the route. A
-wrapper counts its kernel launches in ``<wrapper>.launches``.
+wrapper counts its kernel launches in ``<wrapper>.launches`` (for
+``pair_contact`` a dict keyed by law).
 
 Inputs keep the reference's packed layout (``_SLOTS`` of
 ``spherharm_tpu/ops/contact_pallas.py``), so tests compare like with like.
@@ -116,15 +119,19 @@ def _stream(device):
     return ctypes.c_void_p(torch.cuda.current_stream(device).cuda_stream)
 
 
-# -- stage-2 conservative pair contact -----------------------------------
+# -- stage-2 pair contact ------------------------------------------------
 
-def pair_contact(packed, tbl, cap, par, lmax: int):
-    """Conservative pair contact over packed rows. packed [P, 64],
-    tbl [T, W] per-type power table, cap [4, G], par [1, 16].
-    Returns [P, 24]. CUDA tensors launch ``csrc/pair_contact.cu``; CPU
-    tensors run ``pair_contact_plain``."""
+LAWS = ("conservative", "geometric")
+
+
+def pair_contact(packed, tbl, cap, par, lmax: int, conservative: bool = True):
+    """Pair contact over packed rows in the conservative or the geometric
+    law. packed [P, 64], tbl [T, W] per-type power table, cap [4, G],
+    par [1, 16]. Returns [P, 24]. CUDA tensors launch
+    ``csrc/pair_contact.cu`` (launches counted per law in
+    ``pair_contact.launches``); CPU tensors run ``pair_contact_plain``."""
     if packed.device.type == "cpu":
-        return pair_contact_plain(packed, tbl, cap, par, lmax)
+        return pair_contact_plain(packed, tbl, cap, par, lmax, conservative)
     _check_cuda("pair_contact", packed=packed, tbl=tbl, cap=cap, par=par)
     P, T, W, G = packed.shape[0], tbl.shape[0], tbl.shape[1], cap.shape[1]
     if (packed.shape[1] != F_PACK or cap.shape[0] != 4
@@ -134,21 +141,26 @@ def pair_contact(packed, tbl, cap, par, lmax: int):
                          f"{tuple(cap.shape)} {tuple(par.shape)}")
     out = torch.empty((P, N_OUT), dtype=torch.float32, device=packed.device)
     if P:
+        law = LAWS[0] if conservative else LAWS[1]
         err = cuda_build.library().sh_pair_contact(
             _ptr(packed), _ptr(tbl), T, W, _ptr(cap), G, _ptr(par), lmax,
-            P, _ptr(out), _stream(packed.device))
-        cuda_build.check(err, "pair_contact")
-        pair_contact.launches += 1
+            P, int(conservative), _ptr(out), _stream(packed.device))
+        cuda_build.check(err, f"pair_contact[{law}]")
+        pair_contact.launches[law] += 1
     return out
 
 
-pair_contact.launches = 0
+pair_contact.launches = {law: 0 for law in LAWS}
 
 
-def pair_contact_plain(packed, tbl, cap, par, lmax: int):
-    """Plain twin of the pair kernel: the inclination-free sampled elastic
-    PE in the power basis, its gradient from ``torch.autograd.grad``
-    (``contact.pair_elastic_grad``), then damping, friction and rolling.
+def pair_contact_plain(packed, tbl, cap, par, lmax: int,
+                       conservative: bool = True):
+    """Plain twin of the pair kernel. Conservative law: the inclination-
+    free sampled elastic PE in the power basis, its gradient from
+    ``torch.autograd.grad`` (``contact.pair_elastic_grad``), then damping,
+    friction and rolling. Geometric law: the inclination-weighted probe
+    (sin(gamma)^2 floored at 0, as the reference's Pallas kernel), Hertz +
+    damping along the integral normal at the centroid, no autograd.
     Masked rows (mask column <= 0.5) output zeros, as the kernel's do."""
     c = lambda name: _col(packed, name)
     mask = c("mask") > 0.5
@@ -164,8 +176,8 @@ def pair_contact_plain(packed, tbl, cap, par, lmax: int):
     dist = torch.sqrt(torch.clamp((d * d).sum(-1), min=1e-24))
     inv_dist = 1.0 / dist
     cull = mask & (dist < rb_i + rb_j) & (dist > 1e-12)
-    s1, s2, s1b, c1, c2, n1, n2 = contact._both_sides(d, q_i, q_j, geo, cap,
-                                                      lmax)
+    s1, s2, s1b, c1, c2, n1, n2 = contact._both_sides(
+        d, q_i, q_j, geo, cap, lmax, incl=not conservative)
     denom = torch.clamp(s1, min=1e-30)
     cen = torch.where((s1 > 0)[:, None],
                       (c1 + c2 + s1b[:, None] * d) / denom[:, None], 0.5 * d)
@@ -198,14 +210,20 @@ def pair_contact_plain(packed, tbl, cap, par, lmax: int):
         hist[:, 0:3], hist[:, 3:6], n_hat, vt, in_contact, poly, fn_mag,
         m_eff, r_eff, omi - omj, dt, kt, gt, mu, k_roll, g_roll, mu_roll)
 
-    f_el, tau_ei, tau_ej = contact.pair_elastic_grad(
-        d, q_i, q_j, geo, mask, kn, r_eff, cap, lmax)
-    fn_damp = -(poly * m_eff * gn * vn_mag)
-    f_vis = torch.where(in_contact[:, None],
-                        fn_damp[:, None] * n_hat + f_t, 0.0)
-    force = f_el + f_vis
-    torque = tau_ei + contact._cross(arm_i, f_vis) + tau_roll
-    torque_j = tau_ej + contact._cross(arm_j, -f_vis) - tau_roll
+    if conservative:
+        f_el, tau_ei, tau_ej = contact.pair_elastic_grad(
+            d, q_i, q_j, geo, mask, kn, r_eff, cap, lmax)
+        fn_damp = -(poly * m_eff * gn * vn_mag)
+        f_vis = torch.where(in_contact[:, None],
+                            fn_damp[:, None] * n_hat + f_t, 0.0)
+        force = f_el + f_vis
+        torque = tau_ei + contact._cross(arm_i, f_vis) + tau_roll
+        torque_j = tau_ej + contact._cross(arm_j, -f_vis) - tau_roll
+    else:
+        force = torch.where(in_contact[:, None],
+                            fn_mag[:, None] * n_hat + f_t, 0.0)
+        torque = contact._cross(arm_i, force) + tau_roll
+        torque_j = contact._cross(arm_j, -force) - tau_roll
     pe = torch.where(in_contact,
                      0.4 * kn * torch.sqrt(r_eff) * delta * delta
                      * torch.sqrt(delta), zero)

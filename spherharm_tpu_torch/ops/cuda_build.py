@@ -1,7 +1,8 @@
 """Build and load the CUDA kernels (``spherharm_tpu_torch/csrc``).
 
-At first use, nvcc compiles every ``.cu`` source into one shared library
-with a plain C interface for sm_90a, under ``build/spherharm_tpu_torch/``
+At first use, nvcc compiles every ``.cu`` source for sm_90a, one nvcc
+process per source, all started together, and links the objects into one
+shared library with a plain C interface, under ``build/spherharm_tpu_torch/``
 beside the package (listed in ``.gitignore``). The file name carries a
 hash of the sources and flags, so an edited source rebuilds and an
 unchanged one loads the existing library. The library is bound with
@@ -27,13 +28,13 @@ CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "spherharm_tpu_torch"
 SOURCES = ("pair_contact.cu", "stage1_probe.cu", "wall_contact.cu")
 HEADERS = ("sh_device.cuh",)
-NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC")
+ARCH = ("-gencode", "arch=compute_90a,code=sm_90a")
+NVCC_FLAGS = (*ARCH, "-std=c++17", "-O3", "-Xcompiler", "-fPIC")
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
 _SIGNATURES = {
-    # packed, tbl, T, W, cap, G, par, lmax, P, out, stream
-    "sh_pair_contact": (_P, _P, _I, _I, _P, _I, _P, _I, _I, _P, _P),
+    # packed, tbl, T, W, cap, G, par, lmax, P, conservative, out, stream
+    "sh_pair_contact": (_P, _P, _I, _I, _P, _I, _P, _I, _I, _I, _P, _P),
     # packed, tbl_ab, T, W, cap1, G, lmax, P, out, stream
     "sh_stage1_depth": (_P, _P, _I, _I, _P, _I, _I, _I, _P, _P),
     # packed, tbl, W, cap, G, par, lmax, B, kind, out, stream
@@ -66,20 +67,30 @@ def build(ptxas_info: bool = False):
     if path.exists():
         return path, 0.0, ""
     path.parent.mkdir(parents=True, exist_ok=True)
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=path.parent)
-    os.close(fd)
-    cmd = [nvcc_path(), *NVCC_FLAGS, *(["-Xptxas", "-v"] if ptxas_info
-                                       else []),
-           "-I", str(CSRC), "-o", tmp, *(str(CSRC / s) for s in SOURCES)]
+    nvcc = nvcc_path()
+    ptxas = ["-Xptxas", "-v"] if ptxas_info else []
     t0 = time.perf_counter()
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    secs = time.perf_counter() - t0
-    if proc.returncode != 0:
-        os.unlink(tmp)
-        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n"
-                           f"{' '.join(cmd)}\n{proc.stdout}{proc.stderr}")
-    os.replace(tmp, path)  # atomic: concurrent builders never see a stub
-    return path, secs, proc.stdout + proc.stderr
+    with tempfile.TemporaryDirectory(dir=path.parent) as tmp:
+        objs = [os.path.join(tmp, f"{name}.o") for name in SOURCES]
+        cmds = [[nvcc, *NVCC_FLAGS, *ptxas, "-I", str(CSRC), "-c", "-o", obj,
+                 str(CSRC / name)] for name, obj in zip(SOURCES, objs)]
+        procs = [subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                  stderr=subprocess.STDOUT, text=True)
+                 for cmd in cmds]
+        logs = [proc.communicate()[0] for proc in procs]
+        lib = os.path.join(tmp, "lib.so")
+        link = [nvcc, *ARCH, "-shared", "-o", lib, *objs]
+        for cmd, proc, log in zip(cmds, procs, logs):
+            if proc.returncode != 0:
+                raise RuntimeError(f"nvcc failed ({proc.returncode}):\n"
+                                   f"{' '.join(cmd)}\n{log}")
+        proc = subprocess.run(link, capture_output=True, text=True)
+        if proc.returncode != 0:
+            raise RuntimeError(f"nvcc link failed ({proc.returncode}):\n"
+                               f"{' '.join(link)}\n{proc.stdout}"
+                               f"{proc.stderr}")
+        os.replace(lib, path)  # atomic: concurrent builders never see a stub
+    return path, time.perf_counter() - t0, "".join(logs)
 
 
 @functools.cache

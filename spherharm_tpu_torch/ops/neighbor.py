@@ -42,6 +42,21 @@ def stable_topk_true(valid, k: int):
                       stable=True).indices[..., :k]
 
 
+def allpairs_neighbors(x, active, box_lo, box_hi, cutoff, k_max: int,
+                       periodic=(False, False, False)):
+    """O(N^2) neighbour build, the small-system path. Returns (idx, mask,
+    count) with K = min(k_max, N) slots a row, lowest index first."""
+    N = x.shape[0]
+    d = minimum_image(x[None, :, :] - x[:, None, :], box_lo, box_hi,
+                      periodic)
+    dist2 = (d * d).sum(-1)
+    eye = torch.eye(N, dtype=torch.bool, device=x.device)
+    valid = ((dist2 < cutoff**2) & ~eye & active[None, :]
+             & active[:, None])
+    idx = stable_topk_true(valid, min(k_max, N))
+    return idx, torch.gather(valid, 1, idx), valid.sum(1)
+
+
 def cell_list_neighbors(x, active, box_lo, box_hi, cutoff,
                         grid_dims: tuple, cell_cap: int, k_max: int,
                         periodic=(False, False, False),

@@ -37,7 +37,7 @@ class PlaneWall(_Container):
 
     @classmethod
     def create(cls, point, normal, velocity=(0.0, 0.0, 0.0),
-               dtype=torch.float32, device="cpu"):
+               dtype=torch.float32, device="cuda"):
         n = _vec(normal, dtype, device)
         return cls(
             point=_vec(point, dtype, device),
@@ -63,7 +63,7 @@ class CylinderWall(_Container):
 
     @classmethod
     def create(cls, axis_point, axis_dir, radius, omega=0.0,
-               dtype=torch.float32, device="cpu"):
+               dtype=torch.float32, device="cuda"):
         ad = _vec(axis_dir, dtype, device)
         return cls(
             axis_point=_vec(axis_point, dtype, device),

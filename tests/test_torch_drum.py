@@ -40,7 +40,7 @@ DRUM = dict(n=N, lmax=LMAX, k_max=24, pair_capacity=5 * N,
 def drums():
     jsim, jst0, _ = jscen.rotating_drum(use_pallas=True, exact_eval=True,
                                         **DRUM)
-    tsim, tst0, _ = tscen.rotating_drum(**DRUM)
+    tsim, tst0, _ = tscen.rotating_drum(device="cpu", **DRUM)
     return jsim, jst0, tsim, tst0
 
 
@@ -68,7 +68,8 @@ def test_drum_builders_agree(drums):
 def test_skin_triggered_step_rebuilds_when_stale():
     """Without a cadence, ``run`` steps in check mode: a rebuild runs only
     when some particle outmoved its prefilter motion budget."""
-    sim, st, ng = tscen.rotating_drum(**dict(DRUM, rebuild_every=0))
+    sim, st, ng = tscen.rotating_drum(device="cpu",
+                                      **dict(DRUM, rebuild_every=0))
     x_build = ng.x_build.clone()
     st, ng = sim.run(st, ng, 3)
     assert torch.equal(ng.x_build, x_build)  # slow start: no rebuild
@@ -96,7 +97,8 @@ def test_drum_matches_reference_from_contact_rich_state(drums):
            if np.ndim(v) == 0}
     jax.block_until_ready(js.x)
 
-    ts, tn = tsim.init_neighbors(tscen.make_state(x, *box, **kw))
+    ts, tn = tsim.init_neighbors(tscen.make_state(x, *box, device="cpu",
+                                                  **kw))
     ts, tn = tsim.run(ts, tn, STEPS)
     tth = {k: float(v) for k, v in tsim.thermo(ts, tn).items()
            if v.ndim == 0}

@@ -33,7 +33,8 @@ def test_build_shapes_matches_reference(lmax):
     """Same float64 numpy pipeline, same f32 cast: bit-identical leaves."""
     coeffs = blob_coeffs(lmax, 3, seed=lmax)
     js = jshapes.build_shapes(coeffs, lmax, contact_quad=(8, 16))
-    ts = tshapes.build_shapes(coeffs, lmax, contact_quad=(8, 16))
+    ts = tshapes.build_shapes(coeffs, lmax, contact_quad=(8, 16),
+                              device="cpu")
     assert ts.lmax == js.lmax and ts.l1 == js.l1
     W = tpow.power_layout(lmax)["W"]
     assert ts.power_tbl.shape == (3, W)
@@ -112,12 +113,13 @@ def test_from_numpy_roundtrip():
                                           err_msg=f"{cls.__name__}.{f.name}")
     # The builders make the same containers directly.
     ts = tscen.make_state(np.asarray(state.x)[:24], [0, 0, 0], [4, 4, 4],
-                          cap=state.cap)
+                          cap=state.cap, device="cpu")
     np.testing.assert_array_equal(np32(ts.active), np.asarray(state.active))
     np.testing.assert_array_equal(np32(ts.tag), np.asarray(state.tag))
     tp = tstate.SimParams.create(
         dt=1e-4, kn=1e5, gamma_n=20.0, mu=0.4, k_roll=2e4, gamma_roll=10.0,
-        mu_roll=0.2, gravity=(0.0, 0.0, -10.0), skin=0.2, cutoff=1.4)
+        mu_roll=0.2, gravity=(0.0, 0.0, -10.0), skin=0.2, cutoff=1.4,
+        device="cpu")
     for f in dataclasses.fields(tp):
         np.testing.assert_array_equal(np32(getattr(tp, f.name)),
                                       np.asarray(getattr(params, f.name)))

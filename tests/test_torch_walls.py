@@ -46,14 +46,14 @@ def _walls(kind, state):
         args = ([0.0, 0.0, 0.5], [0.0, 0.0, 1.0])
         kw = dict(velocity=[0.1, 0.0, 0.0])
         return (jwalls.PlaneWall.create(*args, **kw),
-                twalls.PlaneWall.create(*args, **kw), state)
+                twalls.PlaneWall.create(*args, device="cpu", **kw), state)
     x = np.array(state.x)
     rel = x[:, :2] - 3.0
     rad = np.linalg.norm(rel, axis=1, keepdims=True)
     x[:24, :2] = 3.0 + rel[:24] / rad[:24] * np.linspace(2.2, 2.85, 24)[:, None]
     args = ([3.0, 3.0, 0.0], [0.0, 0.0, 1.0], 2.8)
     return (jwalls.CylinderWall.create(*args, omega=0.7),
-            twalls.CylinderWall.create(*args, omega=0.7),
+            twalls.CylinderWall.create(*args, omega=0.7, device="cpu"),
             state.replace(x=jnp.asarray(x)))
 
 
