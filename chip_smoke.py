@@ -1,25 +1,30 @@
 """Smoke run of the PyTorch + CUDA port (spherharm_tpu_torch) on one GPU.
 
     python3 chip_smoke.py            # one NVIDIA GPU, from the repo root
-    python3 chip_smoke.py --profile  # + a torch.profiler table of 20
-                                     #   deposition steps
-                                     #   (build/chip_smoke_profile.txt)
+    python3 chip_smoke.py --profile  # + a torch.profiler table of 20 more
+                                     #   steps of each path
+                                     #   (build/chip_smoke_profile_*.txt)
 
 Phases, each fatal on failure (exit code != 0, no result line):
 
 1. build the CUDA kernels from ``spherharm_tpu_torch/csrc`` (nvcc, sm_90a,
    one process per source, in parallel);
-2. set up the main-path drum (``rotating_drum`` at n = 100,000, Lmax 8,
-   4 blob types, k_max 24, pair cap 5n, stage-2 cap 3n, cadence R = 20,
-   conservative law) and the full-width deposition (``deposition`` at
-   n = 10,000 with its own defaults: Lmax 8, 4 blob types, 12x24 = 288
-   cap nodes, geometric law, pair cap 10n, skin-triggered rebuild), on the
-   card;
-3. kernel vs plain twin at the paths' widths on contact-rich synthetic
-   inputs: K1 (conservative pair law, 128 nodes), K2 (geometric pair law,
-   288 and 128 nodes), K4 (stage-1 probe, 32 nodes), K6/K7 (cylinder and
-   plane walls): max error against the stated tolerance, CUDA-event times
-   of the kernel and of its plain PyTorch twin, and the kernel's bound;
+2. set up, on the card, the main-path drum (``rotating_drum`` at
+   n = 100,000, Lmax 8, 4 blob types, k_max 24, pair cap 5n, stage-2 cap
+   3n, cadence R = 20, conservative law), the full-width deposition
+   (``deposition`` at n = 10,000 with its own defaults: Lmax 8, 4 blob
+   types, 12x24 = 288 cap nodes, geometric law, pair cap 10n,
+   skin-triggered rebuild) and the settling box (``settling_box`` at
+   n = 500: Lmax 2, one type, 128 cap nodes, 5 plane walls, dense path);
+3. every kernel vs its plain twin at the shapes each path gives it, on
+   contact-rich synthetic inputs built from that path's shapes and
+   parameters: K1 on the drum (Lmax 8, 128 nodes); K2 on the deposition
+   (Lmax 8, 288 nodes), the drum's shapes (Lmax 8, 128) and the settling
+   box (Lmax 2, 128); K4 on the drum (32 nodes); K6 on the drum and the
+   deposition; K7 on the drum, the deposition and the settling box's
+   floor. Forces, springs and pe against the stated tolerances,
+   contact-flag flips, CUDA-event times of the kernel and of its plain
+   PyTorch twin, and the kernel's bound, per case;
 4. small contact-rich runs of 40 steps on the card and on the CPU (plain
    twins), thermo and positions compared: the drum (n = 128, Lmax 8), the
    deposition (n = 128, Lmax 8, 288 nodes) and the settling box (n = 64,
@@ -33,7 +38,8 @@ Phases, each fatal on failure (exit code != 0, no result line):
    particle-steps/s of each.
 
 Prints the card's name and power limit (nvidia-smi), one JSON line with the
-kernels' launches, errors, times and bounds, and as the last line
+kernels' launches, errors, times and bounds (the path's own shape at the
+top level of each kernel, every case under ``cases``), and as the last line
 ``{"ok": true, "device": {...}}``. Exits non-zero without a CUDA device.
 """
 
@@ -41,6 +47,7 @@ from __future__ import annotations
 
 import json
 import math
+import re
 import subprocess
 import sys
 import time
@@ -68,10 +75,19 @@ def horner_flops(lmax, grad=True):
     return f
 
 
-# Per cap node, per probe side: FLOPs besides the surface evaluations,
-# counted from each kernel's node loop (same convention; rotations 27).
-NODE_EXTRA = {"pair_contact_conservative": 468, "pair_contact_geometric": 248,
-              "stage1_depth": 120, "wall_cylinder": 155, "wall_plane": 139}
+def node_flops():
+    """Each kernel's work per cap node, from the ``node-flops[...]`` line
+    beside its node loop in csrc/: {name: (FLOPs besides the surface
+    evaluations, evaluations, gradient or not, probe sides)}."""
+    pat = re.compile(r"node-flops\[(\w+)\]: (\d+) \+ (\d+) x "
+                     r"(radius_grad_power|radius_power_ab) per node and side, "
+                     r"(\d) sides?")
+    table = {}
+    for src in sorted((ROOT / "spherharm_tpu_torch" / "csrc").glob("*.cu")):
+        for m in pat.finditer(src.read_text()):
+            table[m[1]] = (int(m[2]), int(m[3]), m[4] == "radius_grad_power",
+                           int(m[5]))
+    return table
 
 
 def bound(name, lmax, G, work_rows, bytes_moved):
@@ -79,10 +95,8 @@ def bound(name, lmax, G, work_rows, bytes_moved):
     this run's working rows (masked and skipped rows do none) over the f32
     peak and the bytes (each input read once, each output written once)
     over the HBM rate."""
-    evals = {"stage1_depth": 2, "wall_cylinder": 1, "wall_plane": 1}.get(name, 4)
-    sides = 1 if name.startswith("wall") else 2
-    per_node = (evals * horner_flops(lmax, grad=name != "stage1_depth")
-                + sides * NODE_EXTRA[name])
+    extra, evals, grad, sides = node_flops()[name]
+    per_node = sides * (extra + evals * horner_flops(lmax, grad))
     t_ops = work_rows * G * per_node / F32_PEAK
     t_bytes = bytes_moved / HBM_RATE
     return dict(bound_ms=1e3 * max(t_ops, t_bytes),
@@ -146,38 +160,79 @@ def contact_pairs(sim, dev, rng):
     return st, pi, pj, mask, hist, st.x[pj] - st.x[pi]
 
 
-def wall_particles(sim, kind, dev, rng):
-    """wall_capacity particles whose centres sit 0.7-1.05 rchar from the
-    drum's cylinder or its y = -L/2 cap (most touch it)."""
+def wall_particles(sim, wall, kind, B, dev, rng):
+    """B particles of the path's shapes whose centres sit 0.7-1.05 rchar
+    from ``wall`` (most touch it): inside the drum's cylinder (axis y,
+    between its caps) or on the inner side of a plane wall."""
     from spherharm_tpu_torch.models.scenarios import make_state
 
-    B = sim.wall_capacity
     T = sim.shapes.n_types
     shtype = rng.integers(0, T, B)
     scale = rng.uniform(0.75, 1.25, B)
     rc = sim.shapes.rchar.double().cpu().numpy()[shtype] * scale
-    R = float(sim.walls[0].radius)
-    y_cap = float(sim.walls[1].point[1])
     gap = rng.uniform(0.7, 1.05, B) * rc
     if kind == "cylinder":
+        R = float(wall.radius)
+        y_cap = float(sim.walls[1].point[1])
         ang = rng.uniform(0, 2 * np.pi, B)
         rad = R - gap
         x = np.stack([rad * np.cos(ang), rng.uniform(y_cap + 1, -y_cap - 1, B),
                       rad * np.sin(ang)], axis=1)
     else:
-        x = np.stack([rng.uniform(-R / 2, R / 2, B), y_cap + gap,
-                      rng.uniform(-R / 2, R / 2, B)], axis=1)
+        p0 = wall.point.double().cpu().numpy()
+        nrm = wall.normal.double().cpu().numpy()
+        t1 = np.cross(nrm, [1.0, 0, 0] if abs(nrm[0]) < 0.9 else [0, 1.0, 0])
+        t1 /= np.linalg.norm(t1)
+        t2 = np.cross(nrm, t1)
+        u = rng.uniform(-5, 5, (B, 2))
+        x = p0 + gap[:, None] * nrm + u[:, :1] * t1 + u[:, 1:] * t2
     q = rng.normal(size=(B, 4))
     q /= np.linalg.norm(q, axis=1, keepdims=True)
-    return make_state(x, [-R, y_cap, -R], [R, -y_cap, R],
+    return make_state(x, x.min(0) - 2, x.max(0) + 2,
                       v=rng.normal(size=(B, 3)) * 0.5, q=q,
                       angmom=rng.normal(size=(B, 3)) * 0.02, scale=scale,
                       shtype=shtype, device=dev)
 
 
-def kernel_phase(sim, dep, dev):
-    """Kernel vs plain twin for K1, K2 (288 and 128 nodes), K4, K6, K7 at
-    the paths' widths; returns per-kernel error, times and bound."""
+def compare(out, ref, nf, f_tol, loose_rows=0):
+    """Hold a kernel's output rows to its plain twin's: forces and torques
+    (columns 0:nf) within f_tol |F|max; the springs (nf:nf+6) and pe
+    (nf+6) within 1e-6 + 1e-4 of their group's largest value, on the rows
+    whose contact flag (nf+7) agrees (a spring is zeroed when its contact
+    ends, so a flipped flag, counted apart, moves it by its whole value).
+    ``loose_rows`` rows of forces and pe may exceed their tolerance, and
+    1% of rows of springs: the springs of grazing contacts rest on a few
+    cap nodes, and the plain twin itself, with positions moved by one
+    f32 ulp, moves 0.9% of the drum's cylinder rows beyond 1e-4 of the
+    spring scale, by up to 9e-4 of it. No row exceeds 2e-2 of its group's
+    largest value. Returns (ok, max force error, contact-flag flips,
+    text)."""
+    agree = (out[:, nf + 7] > 0.5) == (ref[:, nf + 7] > 0.5)
+    ok, text = True, []
+    for group, cols, rel, floor, rows, allowed in (
+            ("F,tau", slice(0, nf), f_tol, 0.0, slice(None), loose_rows),
+            ("springs", slice(nf, nf + 6), 1e-4, 1e-6, agree,
+             max(out.shape[0] // 100, 1)),
+            ("pe", slice(nf + 6, nf + 7), 1e-4, 1e-6, agree, loose_rows)):
+        scale = float(ref[:, cols].abs().max())
+        err = (out[rows][:, cols] - ref[rows][:, cols]).abs().amax(1)
+        top = float(err.max())
+        n_beyond = int((err > floor + rel * scale).sum())
+        ok = ok and top <= floor + 2e-2 * scale and n_beyond <= allowed
+        if group == "F,tau":
+            f_err = top
+        text.append(f"max|d {group}|={top:.3g} (tol {floor + rel * scale:.3g}; "
+                    f"rows beyond {n_beyond}, allowed {allowed})")
+    flips = int((~agree).sum())
+    text.append(f"contact-flag flips={flips}")
+    return ok, f_err, flips, " ".join(text)
+
+
+def kernel_phase(sim, dep, box, dev):
+    """Every kernel vs its plain twin at the shapes each path gives it
+    (the drum ``sim``, the deposition ``dep``, the settling box ``box``);
+    returns {kernel: [case, ...]}, the path's own shape first, each case
+    with its error, times and bound."""
     import torch
 
     from spherharm_tpu_torch.ops import contact_kernels as ck
@@ -185,70 +240,59 @@ def kernel_phase(sim, dep, dev):
     from spherharm_tpu_torch.ops.rotation import omega_from_angmom
 
     rng = np.random.default_rng(7)
-    params = sim.params
     results = {}
     mask_col = ck.SLOTS["mask"][0]
 
-    def pair_law(name, conservative, path):
-        st, pi, pj, mask, hist, d = contact_pairs(path, dev, rng)
-        packed, tbl, cap, par = ck.pack_pairs(st, path.shapes, params, pi, pj,
-                                              mask, hist, d)
-        out = ck.pair_contact(packed, tbl, cap, par, LMAX, conservative)
-        ref = ck.pair_contact_plain(packed, tbl, cap, par, LMAX, conservative)
-        torch.cuda.synchronize()
-        inc_ref, inc = ref[:, 16] > 0.5, out[:, 16] > 0.5
-        n_contact = int(inc_ref.sum())
-        fmag = float(ref[:, 0:3].abs().max())
-        row_err = (out[:, 0:9] - ref[:, 0:9]).abs().amax(1)
-        err = float(row_err.max())
-        flips = int((inc != inc_ref).sum())
-        G = cap.shape[1]
-        if conservative:
-            # The conservative law is not smooth at the ulp level: d(s1)
-            # jumps when a cap node crosses the partner's surface, so
-            # rounding alone moves a few rows' forces by up to ~1% (the
-            # plain twin itself, on inputs perturbed by 2e-7 relative: 3 of
-            # 16,384 rows beyond 1e-4 |F|max, the worst by 1% of its row).
-            # Tolerance: every row within 2e-2 |F|max, all but 0.1% of rows
-            # within 1e-4 |F|max.
-            n_out = int((row_err > 1e-4 * fmag).sum())
-            ok = n_out <= N_PAIRS // 1000 and err <= 2e-2 * fmag
-            tol = (f"rows beyond 1e-4*|F|max={n_out} (tol: <= {N_PAIRS // 1000} "
-                   f"rows; all rows <= 2e-2*|F|max={2e-2 * fmag:.3g})")
-        else:
-            # The reference's own geometric bound (tests/test_pallas.py).
-            ok = err <= 2e-3 * fmag
-            tol = f"(tol: every row <= 2e-3*|F|max={2e-3 * fmag:.3g})"
-        print(f"{name}: P={N_PAIRS} G={G} contacts={n_contact} |F|max={fmag:.4g} "
-              f"max|dF,dtau|={err:.3g} {tol} contact-flag flips={flips}")
-        require(n_contact > N_PAIRS // 4, f"{name} batch has too few contacts")
-        require(torch.isfinite(out).all(), f"{name} output not finite")
-        require(ok, f"{name} disagrees with its plain twin")
-        require(flips <= N_PAIRS // 1000, f"{name} contact flags disagree")
-        live = int((packed[:, mask_col] > 0.5).sum())
-        return dict(
-            err=err, G=G,
-            ms=cuda_ms(lambda: ck.pair_contact(packed, tbl, cap, par, LMAX,
-                                               conservative), 20),
-            plain_ms=cuda_ms(lambda: ck.pair_contact_plain(
-                packed, tbl, cap, par, LMAX, conservative), 3),
-            **bound("pair_contact_" + ("conservative" if conservative
-                                       else "geometric"), LMAX, G, live,
-                    nbytes(packed, tbl, cap, par, out)))
+    def case(name, tag, lmax, G, rows, err, time_kernel, time_plain, work, moved):
+        c = dict(path=tag, lmax=lmax, G=G, rows=rows, max_abs_err=err,
+                 ms=cuda_ms(time_kernel, 20), plain_ms=cuda_ms(time_plain, 3),
+                 **bound(name, lmax, G, work, moved))
+        print(f"  {name} on {tag}: {c['ms']:.4f} ms (plain {c['plain_ms']:.2f} ms, "
+              f"bound {c['bound_ms']:.4f} ms, {c['bound_by']})")
+        results.setdefault(name, []).append(c)
 
-    results["pair_contact_conservative"] = pair_law("K1 pair_contact[conservative]",
-                                                    True, sim)
-    results["pair_contact_geometric"] = pair_law("K2 pair_contact[geometric]",
-                                                 False, dep)
-    k2_128 = pair_law("K2 pair_contact[geometric] 8x16 grid", False, sim)
-    print(f"K2 at 128 nodes: {k2_128['ms']:.4f} ms (plain {k2_128['plain_ms']:.2f} ms, "
-          f"bound {k2_128['bound_ms']:.4f} ms, {k2_128['bound_by']})")
-    results["pair_contact_geometric"]["err"] = max(
-        results["pair_contact_geometric"]["err"], k2_128["err"])
+    def pair_law(conservative, tag, path):
+        name = "pair_contact_" + ("conservative" if conservative else "geometric")
+        label = f"K{1 if conservative else 2} {name} on {tag}"
+        lmax = path.shapes.lmax
+        st, pi, pj, mask, hist, d = contact_pairs(path, dev, rng)
+        packed, tbl, cap, par = ck.pack_pairs(st, path.shapes, path.params, pi, pj,
+                                              mask, hist, d)
+        out = ck.pair_contact(packed, tbl, cap, par, lmax, conservative)
+        ref = ck.pair_contact_plain(packed, tbl, cap, par, lmax, conservative)
+        torch.cuda.synchronize()
+        n_contact = int((ref[:, 16] > 0.5).sum())
+        fmag = float(ref[:, 0:3].abs().max())
+        # The conservative law is not smooth at the ulp level: d(s1) jumps
+        # when a cap node crosses the partner's surface, so rounding alone
+        # moves a few rows by up to ~1% (the plain twin itself, on inputs
+        # perturbed by 2e-7 relative: 3 of 16,384 rows beyond 1e-4 |F|max,
+        # the worst by 1% of its row): 0.1% of rows may exceed 1e-4, none
+        # 2e-2. The geometric law holds every row to the reference's own
+        # bound, 2e-3 |F|max (tests/test_pallas.py).
+        ok, err, flips, text = compare(
+            out, ref, 9, 1e-4 if conservative else 2e-3,
+            N_PAIRS // 1000 if conservative else 0)
+        G = cap.shape[1]
+        print(f"{label}: P={N_PAIRS} lmax={lmax} G={G} contacts={n_contact} "
+              f"|F|max={fmag:.4g} {text}")
+        require(n_contact > N_PAIRS // 4, f"{label}: batch has too few contacts")
+        require(torch.isfinite(out).all(), f"{label}: output not finite")
+        require(ok, f"{label}: disagrees with its plain twin")
+        require(flips <= N_PAIRS // 1000, f"{label}: contact flags disagree")
+        case(name, tag, lmax, G, N_PAIRS, err,
+             lambda: ck.pair_contact(packed, tbl, cap, par, lmax, conservative),
+             lambda: ck.pair_contact_plain(packed, tbl, cap, par, lmax, conservative),
+             int((packed[:, mask_col] > 0.5).sum()), nbytes(packed, tbl, cap, par, out))
+
+    pair_law(True, "drum", sim)
+    pair_law(False, "deposition", dep)
+    pair_law(False, "drum shapes", sim)
+    pair_law(False, "settling box", box)
 
     shapes = sim.shapes
     st, pi, pj, mask, hist, d = contact_pairs(sim, dev, rng)
-    probe = ck.pack_pairs(st, shapes, params, pi, pj, mask, hist, d,
+    probe = ck.pack_pairs(st, shapes, sim.params, pi, pj, mask, hist, d,
                           probe_only=True)[0]
     probe[:, ck.SLOTS["tail"][0]] = 0.0
     tbl = ck.pad_type_table(shapes.power_tbl).contiguous()
@@ -267,40 +311,47 @@ def kernel_phase(sim, dep, dev):
     rsum = probe[:, ck.SLOTS["rbi"][0]] + probe[:, ck.SLOTS["rbj"][0]]
     dist = torch.linalg.norm(probe[:, ck.SLOTS["d"][0]:ck.SLOTS["d"][1]], dim=1)
     probed = int(((probe[:, mask_col] > 0.5) & (dist > 1e-12) & (dist < rsum)).sum())
-    results["stage1_depth"] = dict(
-        err=err, ms=cuda_ms(lambda: ck.stage1_depth(probe, tbl_ab, cap1, LMAX), 20),
-        plain_ms=cuda_ms(lambda: ck.stage1_depth_plain(probe, tbl_ab, cap1, LMAX), 3),
-        **bound("stage1_depth", LMAX, cap1.shape[1], probed,
-                nbytes(probe, tbl_ab, cap1, out)))
+    case("stage1_depth", "drum", LMAX, cap1.shape[1], N_PAIRS, err,
+         lambda: ck.stage1_depth(probe, tbl_ab, cap1, LMAX),
+         lambda: ck.stage1_depth_plain(probe, tbl_ab, cap1, LMAX),
+         probed, nbytes(probe, tbl_ab, cap1, out))
 
-    for kind, wall in (("cylinder", sim.walls[0]), ("plane", sim.walls[1])):
-        ws = wall_particles(sim, kind, dev, rng)
+    # Each path's wall batch: wall_capacity compacted rows, or every
+    # particle where the path packs them all (wall_capacity 0).
+    for kind, tag, path, wall in (
+            ("cylinder", "drum", sim, sim.walls[0]),
+            ("cylinder", "deposition", dep, dep.walls[0]),
+            ("plane", "drum", sim, sim.walls[1]),
+            ("plane", "deposition", dep, dep.walls[1]),
+            ("plane", "settling box", box, box.walls[0])):
+        label = f"K{6 if kind == 'cylinder' else 7} wall[{kind}] on {tag}"
+        lmax = path.shapes.lmax
+        B = path.wall_capacity or N_SETTLE
+        ws = wall_particles(path, wall, kind, B, dev, rng)
         depth_c, n_c = wall.depth_and_normal(ws.x)
-        om = omega_from_angmom(ws.q, ws.angmom, shapes.inertia_of(ws.shtype, ws.scale))
-        whist = torch.as_tensor(rng.normal(size=(ws.cap, 6)) * 1e-4,
+        om = omega_from_angmom(ws.q, ws.angmom,
+                               path.shapes.inertia_of(ws.shtype, ws.scale))
+        whist = torch.as_tensor(rng.normal(size=(B, 6)) * 1e-4,
                                 dtype=torch.float32, device=dev)
-        args = wk.pack_wall(ws, shapes, params, wall, whist, depth_c, n_c, om)
+        args = wk.pack_wall(ws, path.shapes, path.params, wall, whist, depth_c, n_c, om)
         require(args[4] == kind, f"pack_wall picked {args[4]} for {kind}")
-        out = wk.wall_contact_kernel(*args[:4], LMAX, kind)
-        ref = wk.wall_contact_plain(*args[:4], LMAX, kind)
+        out = wk.wall_contact_kernel(*args[:4], lmax, kind)
+        ref = wk.wall_contact_plain(*args[:4], lmax, kind)
         torch.cuda.synchronize()
         n_contact = int((ref[:, 13] > 0.5).sum())
         fmag = float(ref[:, 0:3].abs().max())
-        err = float((out[:, 0:6] - ref[:, 0:6]).abs().max())
-        flips = int(((out[:, 13] > 0.5) != (ref[:, 13] > 0.5)).sum())
-        print(f"K{6 if kind == 'cylinder' else 7} wall[{kind}]: B={ws.cap} "
-              f"contacts={n_contact} |F|max={fmag:.4g} max|dF,dtau|={err:.3g} "
-              f"(tol 1e-4*|F|max={1e-4 * fmag:.3g}) contact-flag flips={flips}")
-        require(n_contact > ws.cap // 4, f"wall[{kind}] batch has too few contacts")
-        require(torch.isfinite(out).all(), f"wall[{kind}] output not finite")
-        require(err <= 1e-4 * fmag, f"wall[{kind}] disagrees with its plain twin")
-        require(flips <= max(ws.cap // 1000, 1), f"wall[{kind}] contact flags disagree")
-        near = int((args[0][:, 16] > 0.5).sum())
-        results[f"wall_{kind}"] = dict(
-            err=err, ms=cuda_ms(lambda: wk.wall_contact_kernel(*args[:4], LMAX, kind), 20),
-            plain_ms=cuda_ms(lambda: wk.wall_contact_plain(*args[:4], LMAX, kind), 3),
-            **bound(f"wall_{kind}", LMAX, args[2].shape[1], near,
-                    nbytes(*args[:4], out)))
+        ok, err, flips, text = compare(out, ref, 6, 1e-4)
+        G = args[2].shape[1]
+        print(f"{label}: B={B} lmax={lmax} G={G} contacts={n_contact} "
+              f"|F|max={fmag:.4g} {text}")
+        require(n_contact > B // 4, f"{label}: batch has too few contacts")
+        require(torch.isfinite(out).all(), f"{label}: output not finite")
+        require(ok, f"{label}: disagrees with its plain twin")
+        require(flips <= max(B // 1000, 1), f"{label}: contact flags disagree")
+        case(f"wall_{kind}", tag, lmax, G, B, err,
+             lambda: wk.wall_contact_kernel(*args[:4], lmax, kind),
+             lambda: wk.wall_contact_plain(*args[:4], lmax, kind),
+             int((args[0][:, 16] > 0.5).sum()), nbytes(*args[:4], out))
     return results
 
 
@@ -363,7 +414,7 @@ def card_vs_cpu(label, build, start, dev, steps=40):
 
 def run_path(label, sim, state, neigh, steps, kernels, smi):
     """Drive one path with every launch counter at 0; returns (state,
-    neigh, launches of this run, thermo)."""
+    neigh, launches of this run, thermo, seconds a step)."""
     import torch
 
     from spherharm_tpu_torch.ops import contact_kernels as ck
@@ -397,7 +448,33 @@ def run_path(label, sim, state, neigh, steps, kernels, smi):
     require(math.isfinite(etot), f"{label}: non-finite energy")
     require(all(launches[k] > 0 for k in kernels),
             f"{label}: a kernel of the path never launched: {launches}")
-    return state, neigh, launches, th
+    return state, neigh, launches, th, wall / steps
+
+
+def profile_path(tag, sim, state, neigh, step_s, smi, steps=20):
+    """torch.profiler over ``steps`` more steps of a path: its table by
+    device time goes to build/chip_smoke_profile_<tag>.txt; the device's
+    busy share is its time a step over the path's unprofiled ``step_s``."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        sim.run(state, neigh, steps)
+        torch.cuda.synchronize()
+    events = prof.key_averages()
+    # Device rows only: an aten op's row repeats its kernels' time.
+    dev_ms = sum(e.self_device_time_total for e in events
+                 if e.device_type == DeviceType.CUDA
+                 and not e.is_user_annotation) / 1e3 / steps
+    summary = (f"{tag}: device time {dev_ms:.4f} ms a step over {steps} profiled "
+               f"steps, against {1e3 * step_s:.4f} ms a step unprofiled: device "
+               f"busy {dev_ms / (1e3 * step_s):.1%} [{smi}]")
+    out = ROOT / "build" / f"chip_smoke_profile_{tag.replace(' ', '_')}.txt"
+    out.parent.mkdir(exist_ok=True)
+    out.write_text(f"{summary}\n"
+                   f"{events.table(sort_by='cuda_time_total', row_limit=40)}\n")
+    print(f"profile {summary} -> {out.relative_to(ROOT)}")
 
 
 def main(argv):
@@ -436,15 +513,19 @@ def main(argv):
         stage2_capacity=3 * N_MAIN, rebuild_every=R_EVERY, conservative=True,
         device=dev)
     dep, dep_st0, _ = scenarios.deposition(n=N_DEP, device=dev)
+    box, bst0, _ = scenarios.settling_box(n=N_SETTLE, device=dev)
     torch.cuda.synchronize()
     print(f"setup: {time.perf_counter() - t0:.1f}s; drum n={N_MAIN} lmax={LMAX} "
           f"grid={sim.grid.dims} pair_cap={sim.pair_capacity} "
           f"stage2_cap={sim.stage2_capacity} wall_cap={sim.wall_capacity}; "
           f"deposition n={N_DEP} G={dep.shapes.cap_x.shape[0]} k_max={dep.k_max} "
           f"pair_cap={dep.pair_capacity} wall_cap={dep.wall_capacity} "
-          f"conservative={dep.conservative}")
+          f"conservative={dep.conservative}; settling box n={N_SETTLE} "
+          f"lmax={box.shapes.lmax} G={box.shapes.cap_x.shape[0]} "
+          f"k_max={box.k_max} walls={len(box.walls)} "
+          f"conservative={box.conservative}")
 
-    kern = kernel_phase(sim, dep, dev)
+    kern = kernel_phase(sim, dep, box, dev)
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     card_vs_cpu("small drum n=128 Lmax=8",
@@ -459,39 +540,34 @@ def main(argv):
     torch.cuda.synchronize()
     print(f"card-vs-CPU phases: {time.perf_counter() - t0:.1f}s")
 
-    # The paths: counters from each path's own run only.
-    _, neigh, l_drum, _ = run_path(
+    # The paths: counters from each path's own run only; with --profile,
+    # 20 more steps of each under torch.profiler after its counted run.
+    profiling = "--profile" in argv
+    state, neigh, l_drum, _, step_s = run_path(
         f"drum n={N_MAIN}", sim, state, neigh, STEPS,
         ("pair_contact_conservative", "stage1_depth", "wall_cylinder", "wall_plane"),
         smi)
     skin = int(neigh.skin_violations)
     require(skin == 0, f"drum: {skin} skin violations at cadence {R_EVERY}")
+    if profiling:
+        profile_path("drum", sim, state, neigh, step_s, smi)
     del sim, state, neigh
 
     dst, dng = dep.init_neighbors(drum_start(dep, dep_st0, dev))
-    dst, dng, l_dep, th = run_path(
+    dst, dng, l_dep, th, step_s = run_path(
         f"deposition n={N_DEP}", dep, dst, dng, DEP_STEPS,
         ("pair_contact_geometric", "wall_cylinder", "wall_plane"), smi)
     require(float(th["pe_pair"]) > 0, "deposition: no pair contact")
+    if profiling:
+        profile_path("deposition", dep, dst, dng, step_s, smi)
 
-    box, bst0, _ = scenarios.settling_box(n=N_SETTLE, device=dev)
     bst, bng = box.init_neighbors(box_start(box, bst0, dev))
-    _, _, l_box, th = run_path(
+    bst, bng, l_box, th, step_s = run_path(
         f"settling box n={N_SETTLE}", box, bst, bng, SETTLE_STEPS,
         ("pair_contact_geometric", "wall_plane"), smi)
     require(float(th["pe_pair"]) > 0, "settling box: no pair contact")
-
-    if "--profile" in argv:
-        from torch.profiler import ProfilerActivity, profile
-
-        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-            dep.run(dst, dng, 20)
-            torch.cuda.synchronize()
-        table = prof.key_averages().table(sort_by="cuda_time_total", row_limit=40)
-        out = ROOT / "build" / "chip_smoke_profile.txt"
-        out.parent.mkdir(exist_ok=True)
-        out.write_text(f"{smi}\n{table}\n")
-        print(table[:6000])
+    if profiling:
+        profile_path("settling box", box, bst, bng, step_s, smi)
 
     src = {"pair_contact_conservative": ("spherharm_tpu_torch/csrc/pair_contact.cu",
                                          "spherharm_tpu/ops/contact_pallas.py:496"),
@@ -508,9 +584,9 @@ def main(argv):
     print(json.dumps({"kernels": [
         {"name": name, "route": "cuda", "source": src[name][0],
          "replaces": src[name][1], "launches": launches[name],
-         "max_abs_err": kern[name]["err"], "ms": kern[name]["ms"],
-         "plain_ms": kern[name]["plain_ms"], "bound_ms": kern[name]["bound_ms"],
-         "bound_by": kern[name]["bound_by"], "library_ms": None}
+         "max_abs_err": max(c["max_abs_err"] for c in kern[name]),
+         **{k: kern[name][0][k] for k in ("ms", "plain_ms", "bound_ms", "bound_by")},
+         "library_ms": None, "cases": kern[name]}
         for name in src]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

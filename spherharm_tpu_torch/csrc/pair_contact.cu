@@ -91,6 +91,9 @@ __device__ Side probe_side(const float* tbl_a, float s_a, const float* tbl_b, fl
   V3 g_d[2] = {z, z}, g_ta[2] = {z, z}, g_tb[2] = {z, z};
   V3 c_eb[2] = {z, z}, c_t1[2] = {z, z}, c_t2[2] = {z, z};
 
+  // Work of this loop, counted from its body (an FMA counts 2, any other
+  // arithmetic op 1; chip_smoke.py's bound reads this line):
+  // node-flops[pair_contact_conservative]: 468 + 2 x radius_grad_power per node and side, 2 sides
   for (int k = lane; k < G; k += 32) {
     const float cx = cap[k], glw = cap[G + k], cpsi = cap[2 * G + k], spsi = cap[3 * G + k];
     const float cos_g = 1.0f - one_m * cx;
@@ -221,6 +224,7 @@ __device__ Moments probe_side_geo(const float* tbl_a, float s_a, const float* tb
   const V3 z = v3(0.0f, 0.0f, 0.0f);
   float s1 = 0.0f, s2 = 0.0f;
   V3 cen = z, nsum = z;
+  // node-flops[pair_contact_geometric]: 248 + 2 x radius_grad_power per node and side, 2 sides
   for (int k = lane; k < G; k += 32) {
     const float cx = cap[k], glw = cap[G + k], cpsi = cap[2 * G + k], spsi = cap[3 * G + k];
     const float cos_g = 1.0f - one_m * cx;

@@ -77,6 +77,9 @@ __host__ __device__ __forceinline__ int at_width(int lmax) {
 }
 
 // (r, dr/dtheta, dr/dphi) at one node from one power-table row.
+// chip_smoke.py's horner_flops counts the FLOPs of this function and of
+// radius_power_ab from their loops, as a function of lmax: change both
+// together.
 __device__ __forceinline__ void radius_grad_power(const float* tbl, int lmax, float ct,
                                                   float st, float cp, float sp,
                                                   float& r, float& drt, float& drp) {

@@ -47,6 +47,9 @@ __device__ float probe_side(const float* tbl_a, float s_a, const float* tbl_b, f
   orthobasis(e_b, h, t1, t2, inv_t1);
 
   float best = -INFINITY;
+  // Work of this loop, counted from its body (an FMA counts 2, any other
+  // arithmetic op 1; chip_smoke.py's bound reads this line):
+  // node-flops[stage1_depth]: 120 + 2 x radius_power_ab per node and side, 2 sides
   for (int k = lane; k < G; k += 32) {
     const float cos_g = 1.0f - one_m * cap[k];
     const float sin_g = sqrtf(fmaxf(1.0f - cos_g * cos_g, 0.0f));

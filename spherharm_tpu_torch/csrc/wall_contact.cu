@@ -73,6 +73,10 @@ __global__ void __launch_bounds__(WARPS * 32)
     V3 h, t1, t2;
     float inv_t1;
     orthobasis(e_b, h, t1, t2, inv_t1);
+    // Work of this loop, counted from its body (an FMA counts 2, any other
+    // arithmetic op 1; chip_smoke.py's bound reads these lines):
+    // node-flops[wall_plane]: 139 + 1 x radius_grad_power per node and side, 1 side
+    // node-flops[wall_cylinder]: 155 + 1 x radius_grad_power per node and side, 1 side
     for (int k = lane; k < G; k += 32) {
       const float cos_g = 1.0f - one_m * s_cap[k];
       const float sin_g = sqrtf(fmaxf(1.0f - cos_g * cos_g, 0.0f));

@@ -61,12 +61,14 @@ def _pairs(lmax, device, seed=11, n=14, contact_quad=(8, 16)):
 
 # (lmax, law, cap grid): K1 at the reference's conservative bound 1e-4
 # |F|max, K2 at its geometric bound 2e-3 |F|max on the 128-node 8x16 grid
-# and on the deposition's 288-node 12x24 grid.
+# and on the deposition's 288-node 12x24 grid, and at the settling box's
+# Lmax 2.
 LAW_CASES = [
     pytest.param(4, True, (8, 16), id="4"),
     pytest.param(8, True, (8, 16), id="8"),
     pytest.param(8, False, (8, 16), id="8-geometric-8x16"),
     pytest.param(8, False, (12, 24), id="8-geometric-12x24"),
+    pytest.param(2, False, (8, 16), id="2-geometric-8x16"),
 ]
 
 
@@ -109,12 +111,21 @@ def test_stage1_kernel_matches_plain(lmax, cuda_device):
     np.testing.assert_allclose(np32(out), ref, rtol=0, atol=1e-5)
 
 
-@pytest.mark.parametrize("kind", ["plane", "cylinder"])
-def test_wall_kernel_matches_plain(kind, cuda_device):
+# (wall kind, cap grid): the drum's 8x16 grid and the deposition's 12x24.
+WALL_CASES = [
+    pytest.param("plane", (8, 16), id="plane"),
+    pytest.param("cylinder", (8, 16), id="cylinder"),
+    pytest.param("plane", (12, 24), id="plane-12x24"),
+    pytest.param("cylinder", (12, 24), id="cylinder-12x24"),
+]
+
+
+@pytest.mark.parametrize("kind,quad", WALL_CASES)
+def test_wall_kernel_matches_plain(kind, quad, cuda_device):
     rng = np.random.default_rng(1)
     lmax, n = 8, 64
     shapes = shapes_library.build_shapes(blob_coeffs(lmax, 2), lmax,
-                                         contact_quad=(8, 16),
+                                         contact_quad=quad,
                                          device=cuda_device)
     x = rng.uniform(0.8, 5.2, (n, 3))
     x[:, 2] = rng.uniform(0.25, 1.6, n)
