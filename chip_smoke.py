@@ -14,17 +14,22 @@ Phases, each fatal on failure (exit code != 0, no result line):
    3n, cadence R = 20, conservative law), the full-width deposition
    (``deposition`` at n = 10,000 with its own defaults: Lmax 8, 4 blob
    types, 12x24 = 288 cap nodes, geometric law, pair cap 10n,
-   skin-triggered rebuild) and the settling box (``settling_box`` at
-   n = 500: Lmax 2, one type, 128 cap nodes, 5 plane walls, dense path);
+   skin-triggered rebuild), the settling box (``settling_box`` at
+   n = 500: Lmax 2, one type, 128 cap nodes, 5 plane walls, dense path)
+   and the drift gas (``models/drift.build_gas`` at n = 10,000: the
+   reference's energy-drift harness, a periodic undamped NVE gas of Lmax 8
+   blobs, 128 cap nodes, pair cap 6n, stage-2 cap 3n, conservative law);
 3. every kernel vs its plain twin at the shapes each path gives it, on
    contact-rich synthetic inputs built from that path's shapes and
    parameters: K1 on the drum (Lmax 8, 128 nodes); K2 on the deposition
    (Lmax 8, 288 nodes), the drum's shapes (Lmax 8, 128) and the settling
-   box (Lmax 2, 128); K4 on the drum (32 nodes); K6 on the drum and the
-   deposition; K7 on the drum, the deposition and the settling box's
-   floor. Forces, springs and pe against the stated tolerances,
-   contact-flag flips, CUDA-event times of the kernel and of its plain
-   PyTorch twin, and the kernel's bound, per case;
+   box (Lmax 2, 128); K3 (bf16 chains) conservative on the drift gas
+   (Lmax 8, 128) and geometric on the deposition (288); K4 on the drum
+   (32 nodes); K6 on the drum and the deposition; K7 on the drum, the
+   deposition and the settling box's floor. Forces, springs and pe
+   against the stated tolerances, contact-flag flips, CUDA-event times of
+   the kernel and of its plain PyTorch twin, and the kernel's bound, per
+   case;
 4. small contact-rich runs of 40 steps on the card and on the CPU (plain
    twins), thermo and positions compared: the drum (n = 128, Lmax 8), the
    deposition (n = 128, Lmax 8, 288 nodes) and the settling box (n = 64,
@@ -33,13 +38,26 @@ Phases, each fatal on failure (exit code != 0, no result line):
    read just after: 60 steps (3 cadence blocks) of the n = 100k drum; 100
    steps of the n = 10k deposition from a contact-rich start; 200 steps of
    the n = 500 settling box (5 plane walls, dense path) from its lattice
-   pressed onto the floor. Guards: overflow = 0, finite etot, every kernel
-   of the path launched (and skin_violations = 0 for the drum's cadence);
-   particle-steps/s of each.
+   pressed onto the floor; 3,000 steps of the n = 10k drift gas from its
+   lattice, etot sampled every 100 steps (its series and fitted slope
+   printed; the first contacts form after ~1,500 steps). Guards: overflow = 0,
+   finite etot, every kernel of the path launched (and skin_violations = 0
+   for the drum's cadence, pair contacts by the end of the deposition,
+   settling box and gas); particle-steps/s of each;
+6. K5 (l1 = 4, f32 and bf16) vs its twin on the candidate list a rebuild
+   of the drift gas builds after its run, with the tail column, and K4 on
+   the same rows: K5 >= K4 on every probed row, fatal otherwise;
+7. the bf16 phase in a child process started with
+   SPHERHARM_STAGE2_BF16=1: the drift gas (3,000 steps) and the
+   deposition (100 steps) with every stage-2 call through K3. Guards: K3
+   launched in both laws, no K1/K2 launch, overflow = 0, finite etot; the
+   child's failure fails the run. Prints etot bf16 - f32 at equal steps
+   and both slopes.
 
 Prints the card's name and power limit (nvidia-smi), one JSON line with the
 kernels' launches, errors, times and bounds (the path's own shape at the
-top level of each kernel, every case under ``cases``), and as the last line
+top level of each kernel, every case under ``cases``; K3's launches are the
+child's, K5's those of step 6), and as the last line
 ``{"ok": true, "device": {...}}``. Exits non-zero without a CUDA device.
 """
 
@@ -47,6 +65,7 @@ from __future__ import annotations
 
 import json
 import math
+import os
 import re
 import subprocess
 import sys
@@ -59,45 +78,59 @@ ROOT = Path(__file__).resolve().parent
 N_MAIN, LMAX, STEPS, R_EVERY = 100_000, 8, 60, 20
 N_DEP, DEP_STEPS = 10_000, 100
 N_SETTLE, SETTLE_STEPS = 500, 200
+N_GAS, GAS_STEPS, GAS_EVERY = 10_000, 3000, 100
 N_PAIRS = 16_384  # kernel-vs-plain batch (the autograd twin's memory bound)
-# NVIDIA H100 SXM data sheet: f32 (non-tensor) peak and HBM3 rate.
-F32_PEAK, HBM_RATE = 67e12, 3.35e12
+# NVIDIA H100 SXM data sheet: f32 (non-tensor) peak and HBM3 rate. A
+# kernel's operations are timed at the peak of their type: the bf16
+# Horner FLOPs of K3 and K5 at the bf16 non-tensor peak (133.8 TFLOP/s,
+# NVIDIA H100 Tensor Core GPU Architecture whitepaper), the rest at f32.
+F32_PEAK, BF16_PEAK, HBM_RATE = 67e12, 133.8e12, 3.35e12
+BF16_CHILD = "--bf16-child"
 
 
-def horner_flops(lmax, grad=True):
-    """FLOPs of one shk::radius_grad_power (grad) or radius_power_ab call
-    (csrc/sh_device.cuh), counted from its loops: an FMA counts 2, any
-    other arithmetic op (div, sqrt, min, max included) 1."""
-    f = 2 * lmax + (2 * max(lmax - 1, 0) + 1 if grad else 0)
+def horner_flops(lmax, grad=True, bf16=False):
+    """FLOPs of one shk::radius_grad_power (grad) or radius_power_ab call at
+    degree lmax (csrc/sh_device.cuh), counted from its loops: an FMA counts
+    2, any other arithmetic op (div, sqrt, min, max included) 1. Returns
+    (f32 FLOPs, bf16 FLOPs): with bf16 the Horner chains of
+    radius_grad_power, and all of radius_power_ab, run in bfloat16."""
+    chains = 2 * lmax + (2 * max(lmax - 1, 0) if grad else 0)
+    rest = 1 if grad else 0
     for m in range(1, lmax + 1):
-        runs = 8 * (lmax - m) + 4 if grad else 4 * (lmax - m)
-        f += runs + (6 if m > 1 else 0) + 1 + (13 if grad else 4)
-    return f
+        chains += 8 * (lmax - m) + 4 if grad else 4 * (lmax - m)
+        rest += (6 if m > 1 else 0) + 1 + (13 if grad else 4)
+    if not bf16:
+        return chains + rest, 0
+    return (rest, chains) if grad else (0, chains + rest)
 
 
 def node_flops():
     """Each kernel's work per cap node, from the ``node-flops[...]`` line
     beside its node loop in csrc/: {name: (FLOPs besides the surface
-    evaluations, evaluations, gradient or not, probe sides)}."""
+    evaluations, evaluations, gradient or not, bf16 or not, probe
+    sides)}."""
     pat = re.compile(r"node-flops\[(\w+)\]: (\d+) \+ (\d+) x "
-                     r"(radius_grad_power|radius_power_ab) per node and side, "
-                     r"(\d) sides?")
+                     r"(radius_grad_power|radius_power_ab)(_bf16)? per node "
+                     r"and side, (\d) sides?")
     table = {}
     for src in sorted((ROOT / "spherharm_tpu_torch" / "csrc").glob("*.cu")):
         for m in pat.finditer(src.read_text()):
             table[m[1]] = (int(m[2]), int(m[3]), m[4] == "radius_grad_power",
-                           int(m[5]))
+                           bool(m[5]), int(m[6]))
     return table
 
 
 def bound(name, lmax, G, work_rows, bytes_moved):
     """Least time (ms) the card could take: the larger of the node work of
-    this run's working rows (masked and skipped rows do none) over the f32
-    peak and the bytes (each input read once, each output written once)
-    over the HBM rate."""
-    extra, evals, grad, sides = node_flops()[name]
-    per_node = sides * (extra + evals * horner_flops(lmax, grad))
-    t_ops = work_rows * G * per_node / F32_PEAK
+    this run's working rows (masked and skipped rows do none), each type of
+    operation over its peak, and the bytes (each input read once, each
+    output written once) over the HBM rate. ``lmax``: the degree the
+    surfaces are evaluated at."""
+    extra, evals, grad, bf16, sides = node_flops()[name]
+    f32_ev, bf16_ev = horner_flops(lmax, grad, bf16)
+    nodes = work_rows * G * sides
+    t_ops = nodes * ((extra + evals * f32_ev) / F32_PEAK
+                     + evals * bf16_ev / BF16_PEAK)
     t_bytes = bytes_moved / HBM_RATE
     return dict(bound_ms=1e3 * max(t_ops, t_bytes),
                 bound_by="operations" if t_ops >= t_bytes else "bytes")
@@ -228,11 +261,27 @@ def compare(out, ref, nf, f_tol, loose_rows=0):
     return ok, f_err, flips, " ".join(text)
 
 
-def kernel_phase(sim, dep, box, dev):
+def case(results, name, tag, lmax, G, rows, err, time_kernel, time_plain, work,
+         moved, degree=None):
+    """Time one kernel case (CUDA events: kernel over 20 launches, plain
+    twin over 3) and compute its bound at evaluation degree ``degree``
+    (default lmax); appends it to ``results[name]``."""
+    c = dict(path=tag, lmax=lmax, G=G, rows=rows, max_abs_err=err,
+             ms=cuda_ms(time_kernel, 20), plain_ms=cuda_ms(time_plain, 3),
+             **bound(name, degree or lmax, G, work, moved))
+    if degree is not None:
+        c["l1"] = degree
+    print(f"  {name} on {tag}: {c['ms']:.4f} ms (plain {c['plain_ms']:.2f} ms, "
+          f"bound {c['bound_ms']:.4f} ms, {c['bound_by']})")
+    results.setdefault(name, []).append(c)
+
+
+def kernel_phase(sim, dep, box, gas, dev):
     """Every kernel vs its plain twin at the shapes each path gives it
-    (the drum ``sim``, the deposition ``dep``, the settling box ``box``);
-    returns {kernel: [case, ...]}, the path's own shape first, each case
-    with its error, times and bound."""
+    (the drum ``sim``, the deposition ``dep``, the settling box ``box``,
+    the drift gas ``gas``); returns {kernel: [case, ...]}, the path's own
+    shape first, each case with its error, times and bound. K5 runs later,
+    on the drift gas's candidate list (``stage1_l1_phase``)."""
     import torch
 
     from spherharm_tpu_torch.ops import contact_kernels as ck
@@ -243,23 +292,16 @@ def kernel_phase(sim, dep, box, dev):
     results = {}
     mask_col = ck.SLOTS["mask"][0]
 
-    def case(name, tag, lmax, G, rows, err, time_kernel, time_plain, work, moved):
-        c = dict(path=tag, lmax=lmax, G=G, rows=rows, max_abs_err=err,
-                 ms=cuda_ms(time_kernel, 20), plain_ms=cuda_ms(time_plain, 3),
-                 **bound(name, lmax, G, work, moved))
-        print(f"  {name} on {tag}: {c['ms']:.4f} ms (plain {c['plain_ms']:.2f} ms, "
-              f"bound {c['bound_ms']:.4f} ms, {c['bound_by']})")
-        results.setdefault(name, []).append(c)
-
-    def pair_law(conservative, tag, path):
-        name = "pair_contact_" + ("conservative" if conservative else "geometric")
-        label = f"K{1 if conservative else 2} {name} on {tag}"
+    def pair_law(conservative, tag, path, bf16=False):
+        law = "conservative" if conservative else "geometric"
+        name = f"pair_contact_{law}" + ("_bf16" if bf16 else "")
+        label = f"K{3 if bf16 else 1 if conservative else 2} {name} on {tag}"
         lmax = path.shapes.lmax
         st, pi, pj, mask, hist, d = contact_pairs(path, dev, rng)
         packed, tbl, cap, par = ck.pack_pairs(st, path.shapes, path.params, pi, pj,
                                               mask, hist, d)
-        out = ck.pair_contact(packed, tbl, cap, par, lmax, conservative)
-        ref = ck.pair_contact_plain(packed, tbl, cap, par, lmax, conservative)
+        out = ck.pair_contact(packed, tbl, cap, par, lmax, conservative, bf16)
+        ref = ck.pair_contact_plain(packed, tbl, cap, par, lmax, conservative, bf16)
         torch.cuda.synchronize()
         n_contact = int((ref[:, 16] > 0.5).sum())
         fmag = float(ref[:, 0:3].abs().max())
@@ -269,10 +311,15 @@ def kernel_phase(sim, dep, box, dev):
         # perturbed by 2e-7 relative: 3 of 16,384 rows beyond 1e-4 |F|max,
         # the worst by 1% of its row): 0.1% of rows may exceed 1e-4, none
         # 2e-2. The geometric law holds every row to the reference's own
-        # bound, 2e-3 |F|max (tests/test_pallas.py).
+        # bound, 2e-3 |F|max (tests/test_pallas.py). K3 rounds its chains
+        # as its twin does, op for op, but where an f32-ulp difference in
+        # a node's cos(theta) crosses a bf16 rounding boundary the chains
+        # differ by a bf16 ulp (first card run: at most 4 of 16,384 rows
+        # beyond 1e-4 |F|max, the worst 5.1e-4; pe 3 rows beyond 1e-4): in
+        # both laws 0.1% of rows may exceed 1e-4, none 2e-2.
         ok, err, flips, text = compare(
-            out, ref, 9, 1e-4 if conservative else 2e-3,
-            N_PAIRS // 1000 if conservative else 0)
+            out, ref, 9, 1e-4 if conservative or bf16 else 2e-3,
+            N_PAIRS // 1000 if conservative or bf16 else 0)
         G = cap.shape[1]
         print(f"{label}: P={N_PAIRS} lmax={lmax} G={G} contacts={n_contact} "
               f"|F|max={fmag:.4g} {text}")
@@ -280,15 +327,18 @@ def kernel_phase(sim, dep, box, dev):
         require(torch.isfinite(out).all(), f"{label}: output not finite")
         require(ok, f"{label}: disagrees with its plain twin")
         require(flips <= N_PAIRS // 1000, f"{label}: contact flags disagree")
-        case(name, tag, lmax, G, N_PAIRS, err,
-             lambda: ck.pair_contact(packed, tbl, cap, par, lmax, conservative),
-             lambda: ck.pair_contact_plain(packed, tbl, cap, par, lmax, conservative),
+        case(results, name, tag, lmax, G, N_PAIRS, err,
+             lambda: ck.pair_contact(packed, tbl, cap, par, lmax, conservative, bf16),
+             lambda: ck.pair_contact_plain(packed, tbl, cap, par, lmax, conservative,
+                                           bf16),
              int((packed[:, mask_col] > 0.5).sum()), nbytes(packed, tbl, cap, par, out))
 
     pair_law(True, "drum", sim)
     pair_law(False, "deposition", dep)
     pair_law(False, "drum shapes", sim)
     pair_law(False, "settling box", box)
+    pair_law(True, "drift gas", gas, bf16=True)
+    pair_law(False, "deposition", dep, bf16=True)
 
     shapes = sim.shapes
     st, pi, pj, mask, hist, d = contact_pairs(sim, dev, rng)
@@ -299,8 +349,8 @@ def kernel_phase(sim, dep, box, dev):
     tbl_ab = tbl[:, :(LMAX + 1) ** 2].contiguous()
     cap1 = torch.stack([shapes.cap1_x, shapes.cap1_glw, shapes.cap1_cpsi,
                         shapes.cap1_spsi])
-    out = ck.stage1_depth(probe, tbl_ab, cap1, LMAX)
-    ref = ck.stage1_depth_plain(probe, tbl_ab, cap1, LMAX)
+    out = ck.stage1_depth(probe, tbl_ab, cap1, LMAX, l1=LMAX, bf16=False)
+    ref = ck.stage1_depth_plain(probe, tbl_ab, cap1, LMAX, l1=LMAX, bf16=False)
     torch.cuda.synchronize()
     err = float((out - ref).abs().max())
     n_pos = int((ref > 0).sum())
@@ -311,9 +361,9 @@ def kernel_phase(sim, dep, box, dev):
     rsum = probe[:, ck.SLOTS["rbi"][0]] + probe[:, ck.SLOTS["rbj"][0]]
     dist = torch.linalg.norm(probe[:, ck.SLOTS["d"][0]:ck.SLOTS["d"][1]], dim=1)
     probed = int(((probe[:, mask_col] > 0.5) & (dist > 1e-12) & (dist < rsum)).sum())
-    case("stage1_depth", "drum", LMAX, cap1.shape[1], N_PAIRS, err,
-         lambda: ck.stage1_depth(probe, tbl_ab, cap1, LMAX),
-         lambda: ck.stage1_depth_plain(probe, tbl_ab, cap1, LMAX),
+    case(results, "stage1_depth", "drum", LMAX, cap1.shape[1], N_PAIRS, err,
+         lambda: ck.stage1_depth(probe, tbl_ab, cap1, LMAX, l1=LMAX, bf16=False),
+         lambda: ck.stage1_depth_plain(probe, tbl_ab, cap1, LMAX, l1=LMAX, bf16=False),
          probed, nbytes(probe, tbl_ab, cap1, out))
 
     # Each path's wall batch: wall_capacity compacted rows, or every
@@ -348,11 +398,85 @@ def kernel_phase(sim, dep, box, dev):
         require(torch.isfinite(out).all(), f"{label}: output not finite")
         require(ok, f"{label}: disagrees with its plain twin")
         require(flips <= max(B // 1000, 1), f"{label}: contact flags disagree")
-        case(f"wall_{kind}", tag, lmax, G, B, err,
+        case(results, f"wall_{kind}", tag, lmax, G, B, err,
              lambda: wk.wall_contact_kernel(*args[:4], lmax, kind),
              lambda: wk.wall_contact_plain(*args[:4], lmax, kind),
              int((args[0][:, 16] > 0.5).sum()), nbytes(*args[:4], out))
     return results
+
+
+def stage1_l1_phase(gas, state, neigh, results):
+    """K5 (l1 = 4 of Lmax 8, f32 and bf16) vs its plain twin on the
+    candidate list a rebuild of the drift gas builds at ``state``, packed
+    with the tail column; K4 (full basis, tail zeroed, as the prefilter
+    runs it) on the same rows. K5 >= K4 on every probed live row, or the
+    run fails. ``state`` is the gas after its drift path: at its start the
+    lattice pitch clears 2 rmax, so no pair would be probed. Returns the
+    K5 launches of this phase."""
+    import torch
+
+    from spherharm_tpu_torch.ops import contact, neighbor
+    from spherharm_tpu_torch.ops import contact_kernels as ck
+
+    l1, shapes = 4, gas.shapes
+    x, image = neighbor.wrap_positions(state.x, state.image, state.box_lo,
+                                       state.box_hi, gas.periodic)
+    st = state.replace(x=x, image=image)
+    idx, mask, _ = gas._build_list(st)
+    fields, n_cand = contact.build_pair_list(
+        st, shapes, gas.params, idx, mask, torch.zeros_like(neigh.hist), st.active,
+        gas.pair_capacity, gas.periodic)
+    pi, pj = fields["pair_i"], fields["pair_j"]
+    rows = contact.particle_rows(st, shapes)
+    live = (fields["pair_valid"] & (rows[pi, contact._RACT] > 0.5)
+            & (rows[pj, contact._RACT] > 0.5))
+    dp = contact.minimum_image(rows[pj][:, contact._RX] - rows[pi][:, contact._RX],
+                               st.box_lo, st.box_hi, gas.periodic)
+    packed = ck.pack_pairs(st, shapes, gas.params, pi, pj, live,
+                           dp.new_zeros((pi.shape[0], 6)), dp, rows=rows,
+                           probe_only=True)[0]
+    zeroed = packed.clone()
+    zeroed[:, ck.SLOTS["tail"][0]] = 0.0
+    cap1 = torch.stack([shapes.cap1_x, shapes.cap1_glw, shapes.cap1_cpsi,
+                        shapes.cap1_spsi])
+    tbl_ab = ck.pad_type_table(shapes.power_tbl)[:, :(LMAX + 1) ** 2].contiguous()
+    tbl1 = ck.stage1_table(shapes, l1)
+    k4 = ck.stage1_depth(zeroed, tbl_ab, cap1, LMAX, l1=LMAX, bf16=False)
+    rsum = packed[:, ck.SLOTS["rbi"][0]] + packed[:, ck.SLOTS["rbj"][0]]
+    dist = torch.linalg.norm(dp, dim=1)
+    probed = live & (dist > 1e-12) & (dist < rsum)
+    P, n_probed = pi.shape[0], int(probed.sum())
+    print(f"drift gas candidate list: {int(n_cand)} candidates in {P} slots, "
+          f"{int(live.sum())} live, {n_probed} probed (bounding spheres overlap)")
+    require(n_probed > 1000, "K5: too few probed rows on the drift gas's list")
+    for k in ck.stage1_depth.launches:
+        ck.stage1_depth.launches[k] = 0
+    for bf16 in (False, True):
+        name = "stage1_depth_l1" + ("_bf16" if bf16 else "")
+        out = ck.stage1_depth(packed, tbl1, cap1, LMAX, l1=l1, bf16=bf16)
+        ref = ck.stage1_depth_plain(packed, tbl1, cap1, LMAX, l1=l1, bf16=bf16)
+        torch.cuda.synchronize()
+        # f32: rounding of the radius chain, 1e-5 of rsum (as K4's 1e-5 on
+        # depths of order 1); bf16: one bf16 ulp of rsum (2^-7 rsum).
+        tol = (2.0 ** -7 if bf16 else 1e-5) * rsum
+        err = (out - ref).abs()
+        n_bad = int((err > tol).sum())
+        margin = (out - k4)[probed]
+        n_below = int((margin < 0).sum())
+        print(f"K5 {name} on drift gas: P={P} l1={l1} probed={n_probed} "
+              f"max|d depth|={float(err.max()):.3g} (tol {2.0 ** -7 if bf16 else 1e-5:g} "
+              f"rsum; rows beyond {n_bad}) K5-K4 on probed rows: "
+              f"min {float(margin.min()):.4g}, rows below 0: {n_below}")
+        require(n_bad == 0, f"K5 {name} disagrees with its plain twin")
+        require(n_below == 0, f"K5 {name} falls below the full-basis probe K4 on "
+                f"{n_below} probed rows: a finding about the reference's truncation "
+                "bound (ROADMAP Queue 3), never a tolerance to loosen")
+        case(results, name, "drift gas", LMAX, cap1.shape[1], P, float(err.max()),
+             lambda: ck.stage1_depth(packed, tbl1, cap1, LMAX, l1=l1, bf16=bf16),
+             lambda: ck.stage1_depth_plain(packed, tbl1, cap1, LMAX, l1=l1, bf16=bf16),
+             n_probed, nbytes(packed, tbl1, cap1, out), degree=l1)
+    return {k: ck.stage1_depth.launches[k]
+            for k in ("stage1_depth_l1", "stage1_depth_l1_bf16")}
 
 
 def drum_start(sim, st0, device):
@@ -412,29 +536,46 @@ def card_vs_cpu(label, build, start, dev, steps=40):
             f"{label}: card and CPU disagree")
 
 
-def run_path(label, sim, state, neigh, steps, kernels, smi):
-    """Drive one path with every launch counter at 0; returns (state,
-    neigh, launches of this run, thermo, seconds a step)."""
-    import torch
-
+def launch_counts():
+    """Every kernel wrapper's launch counter, by kernel-line name."""
     from spherharm_tpu_torch.ops import contact_kernels as ck
     from spherharm_tpu_torch.ops import walls_kernels as wk
 
-    counters = (ck.pair_contact.launches, wk.wall_contact_kernel.launches)
-    for c in counters:
+    out = {f"pair_contact_{k}": n for k, n in ck.pair_contact.launches.items()}
+    out.update(ck.stage1_depth.launches)
+    out.update({f"wall_{k}": n for k, n in wk.wall_contact_kernel.launches.items()})
+    return out
+
+
+def reset_counts():
+    from spherharm_tpu_torch.ops import contact_kernels as ck
+    from spherharm_tpu_torch.ops import walls_kernels as wk
+
+    for c in (ck.pair_contact.launches, ck.stage1_depth.launches,
+              wk.wall_contact_kernel.launches):
         for k in c:
             c[k] = 0
-    ck.stage1_depth.launches = 0
+
+
+def run_path(label, sim, state, neigh, steps, kernels, smi, every=0):
+    """Drive one path with every launch counter at 0, sampling etot every
+    ``every`` steps (0: none) as the drift harness does; returns (state,
+    neigh, launches of this run, thermo, seconds a step, [(step, etot)])."""
+    import torch
+
+    reset_counts()
+    samples = []
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    state, neigh = sim.run(state, neigh, steps)
+    if every:
+        for done in range(every, steps + 1, every):
+            state, neigh = sim.run(state, neigh, every)
+            samples.append((done, float(sim.thermo(state, neigh)["etot"])))
+    else:
+        state, neigh = sim.run(state, neigh, steps)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    launches = {"pair_contact_conservative": ck.pair_contact.launches["conservative"],
-                "pair_contact_geometric": ck.pair_contact.launches["geometric"],
-                "stage1_depth": ck.stage1_depth.launches,
-                "wall_cylinder": wk.wall_contact_kernel.launches["cylinder"],
-                "wall_plane": wk.wall_contact_kernel.launches["plane"]}
+    launches = launch_counts()
     th = sim.thermo(state, neigh)
     n = int(state.n_active)
     overflow, skin = int(neigh.overflow), int(neigh.skin_violations)
@@ -443,12 +584,87 @@ def run_path(label, sim, state, neigh, steps, kernels, smi):
     print(f"{label}: {steps} steps in {wall:.3f}s -> {rate:.1f} particle-steps/s "
           f"[{smi}] overflow={overflow} skin_violations={skin} etot={etot:.6g} "
           f"pe_pair={float(th['pe_pair']):.6g} pe_wall={float(th['pe_wall']):.6g} "
-          f"launches={launches}")
+          f"launches={ {k: v for k, v in launches.items() if v} }")
     require(overflow == 0, f"{label}: capacity overflow (channel={overflow})")
-    require(math.isfinite(etot), f"{label}: non-finite energy")
+    require(math.isfinite(etot) and all(math.isfinite(e) for _, e in samples),
+            f"{label}: non-finite energy")
     require(all(launches[k] > 0 for k in kernels),
             f"{label}: a kernel of the path never launched: {launches}")
-    return state, neigh, launches, th, wall / steps
+    return state, neigh, launches, th, wall / steps, samples
+
+
+def drift_path(label, gas, state, neigh, kernels, smi):
+    """GAS_STEPS steps of the drift gas sampled every GAS_EVERY steps;
+    prints the etot series and the fitted slope; pair contacts must have
+    formed by the end. Returns (state, neigh, launches, samples, slope,
+    seconds a step)."""
+    from spherharm_tpu_torch.models import drift
+
+    state, neigh, launches, th, step_s, samples = run_path(
+        label, gas, state, neigh, GAS_STEPS, kernels, smi, every=GAS_EVERY)
+    slope = drift.drift_slope(samples)
+    print(f"{label}: etot every {GAS_EVERY} steps: "
+          + " ".join(f"{e:.8g}" for _, e in samples))
+    print(f"{label}: fitted drift {slope:+.4%} per 1M steps over {GAS_STEPS} steps "
+          f"(contact onset, not a drift measurement); pe_pair at the end "
+          f"{float(th['pe_pair']):.6g}")
+    require(float(th["pe_pair"]) > 0, f"{label}: no collisions by the end")
+    return state, neigh, launches, samples, slope, step_s
+
+
+CHILD_TAG = "BF16_CHILD_RESULT "
+
+
+def bf16_child(smi):
+    """The bf16 phase, in a process started with SPHERHARM_STAGE2_BF16=1 as
+    a user would set it: the drift gas and the deposition, every stage-2
+    call through K3 and none through K1/K2. Prints one tagged JSON line of
+    launches and results for the parent."""
+    import torch
+
+    from spherharm_tpu_torch.models import drift, scenarios
+    from spherharm_tpu_torch.ops import contact_kernels as ck
+
+    require(ck.STAGE2_BF16, "bf16 child: SPHERHARM_STAGE2_BF16 is not set")
+    dev = torch.device("cuda")
+    gas, st0 = drift.build_gas(N_GAS, device=dev)
+    gst, gng = gas.init_neighbors(st0)
+    _, _, l_gas, samples, slope, gas_s = drift_path(
+        f"drift gas n={N_GAS} bf16", gas, gst, gng,
+        ("pair_contact_conservative_bf16", "stage1_depth"), smi)
+    dep, dep_st0, _ = scenarios.deposition(n=N_DEP, device=dev)
+    dst, dng = dep.init_neighbors(drum_start(dep, dep_st0, dev))
+    _, _, l_dep, th, dep_s, _ = run_path(
+        f"deposition n={N_DEP} bf16", dep, dst, dng, DEP_STEPS,
+        ("pair_contact_geometric_bf16", "wall_cylinder", "wall_plane"), smi)
+    require(float(th["pe_pair"]) > 0, "bf16 deposition: no pair contact")
+    for label, launches in (("drift gas", l_gas), ("deposition", l_dep)):
+        f32 = launches["pair_contact_conservative"] + launches["pair_contact_geometric"]
+        require(f32 == 0, f"bf16 child: {f32} f32 stage-2 launches on the {label}")
+    print(CHILD_TAG + json.dumps({
+        "gas": l_gas, "deposition": l_dep, "samples": samples, "slope": slope,
+        "gas_step_s": gas_s, "dep_step_s": dep_s,
+        "dep_etot": float(th["etot"])}))
+
+
+def bf16_phase():
+    """Run ``bf16_child`` in a child process (SPHERHARM_STAGE2_BF16=1); its
+    output is echoed; a child that fails fails the run. Returns its
+    result."""
+    env = dict(os.environ, SPHERHARM_STAGE2_BF16="1")
+    proc = subprocess.run([sys.executable, str(ROOT / "chip_smoke.py"), BF16_CHILD],
+                          env=env, cwd=ROOT, capture_output=True, text=True,
+                          timeout=900)
+    lines = proc.stdout.splitlines()
+    for line in lines:
+        if not line.startswith(CHILD_TAG):
+            print(f"  [bf16 child] {line}")
+    if proc.returncode != 0:
+        print(proc.stderr[-6000:], file=sys.stderr)
+    require(proc.returncode == 0, f"bf16 child exited with {proc.returncode}")
+    tagged = [line for line in lines if line.startswith(CHILD_TAG)]
+    require(len(tagged) == 1, "bf16 child printed no result")
+    return json.loads(tagged[0][len(CHILD_TAG):])
 
 
 def profile_path(tag, sim, state, neigh, step_s, smi, steps=20):
@@ -486,14 +702,21 @@ def main(argv):
         return 2
     sys.path.insert(0, str(ROOT))
     sys.path.insert(0, str(ROOT / "tests"))
-    from spherharm_tpu_torch.models import scenarios
+    from spherharm_tpu_torch.models import drift, scenarios
+    from spherharm_tpu_torch.ops import contact_kernels as ck
     from spherharm_tpu_torch.ops import cuda_build
 
-    t_start = time.perf_counter()
-    dev = torch.device("cuda")
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, check=True).stdout.strip().splitlines()[0]
+    if BF16_CHILD in argv:
+        bf16_child(smi)
+        return 0
+    require(not ck.STAGE2_BF16, "run without SPHERHARM_STAGE2_BF16: the bf16 "
+            "phase sets it in a child process")
+
+    t_start = time.perf_counter()
+    dev = torch.device("cuda")
     print(smi)
     print(f"torch {torch.__version__} cuda {torch.version.cuda} "
           f"device {torch.cuda.get_device_name(0)}")
@@ -514,6 +737,8 @@ def main(argv):
         device=dev)
     dep, dep_st0, _ = scenarios.deposition(n=N_DEP, device=dev)
     box, bst0, _ = scenarios.settling_box(n=N_SETTLE, device=dev)
+    gas, gas_st0 = drift.build_gas(N_GAS, device=dev)
+    gst, gng = gas.init_neighbors(gas_st0)
     torch.cuda.synchronize()
     print(f"setup: {time.perf_counter() - t0:.1f}s; drum n={N_MAIN} lmax={LMAX} "
           f"grid={sim.grid.dims} pair_cap={sim.pair_capacity} "
@@ -523,9 +748,12 @@ def main(argv):
           f"conservative={dep.conservative}; settling box n={N_SETTLE} "
           f"lmax={box.shapes.lmax} G={box.shapes.cap_x.shape[0]} "
           f"k_max={box.k_max} walls={len(box.walls)} "
-          f"conservative={box.conservative}")
+          f"conservative={box.conservative}; drift gas n={N_GAS} "
+          f"lmax={gas.shapes.lmax} box={float(gas_st0.box_hi[0]):.4g} periodic "
+          f"grid={gas.grid.dims} pair_cap={gas.pair_capacity} "
+          f"stage2_cap={gas.stage2_capacity} conservative={gas.conservative}")
 
-    kern = kernel_phase(sim, dep, box, dev)
+    kern = kernel_phase(sim, dep, box, gas, dev)
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     card_vs_cpu("small drum n=128 Lmax=8",
@@ -543,7 +771,7 @@ def main(argv):
     # The paths: counters from each path's own run only; with --profile,
     # 20 more steps of each under torch.profiler after its counted run.
     profiling = "--profile" in argv
-    state, neigh, l_drum, _, step_s = run_path(
+    state, neigh, l_drum, _, step_s, _ = run_path(
         f"drum n={N_MAIN}", sim, state, neigh, STEPS,
         ("pair_contact_conservative", "stage1_depth", "wall_cylinder", "wall_plane"),
         smi)
@@ -554,7 +782,7 @@ def main(argv):
     del sim, state, neigh
 
     dst, dng = dep.init_neighbors(drum_start(dep, dep_st0, dev))
-    dst, dng, l_dep, th, step_s = run_path(
+    dst, dng, l_dep, th, step_s, _ = run_path(
         f"deposition n={N_DEP}", dep, dst, dng, DEP_STEPS,
         ("pair_contact_geometric", "wall_cylinder", "wall_plane"), smi)
     require(float(th["pe_pair"]) > 0, "deposition: no pair contact")
@@ -562,31 +790,67 @@ def main(argv):
         profile_path("deposition", dep, dst, dng, step_s, smi)
 
     bst, bng = box.init_neighbors(box_start(box, bst0, dev))
-    bst, bng, l_box, th, step_s = run_path(
+    bst, bng, l_box, th, step_s, _ = run_path(
         f"settling box n={N_SETTLE}", box, bst, bng, SETTLE_STEPS,
         ("pair_contact_geometric", "wall_plane"), smi)
     require(float(th["pe_pair"]) > 0, "settling box: no pair contact")
     if profiling:
         profile_path("settling box", box, bst, bng, step_s, smi)
+    del dep, dst, dng, box, bst, bng
 
+    # The drift gas (periodic, no walls): f32 here, bf16 stage-2 in a child
+    # process under SPHERHARM_STAGE2_BF16=1 (with the deposition).
+    gst, gng, l_gas, samples, slope, step_s = drift_path(
+        f"drift gas n={N_GAS} f32", gas, gst, gng,
+        ("pair_contact_conservative", "stage1_depth"), smi)
+    if profiling:
+        profile_path("drift gas", gas, gst, gng, step_s, smi)
+    l_k5 = stage1_l1_phase(gas, gst, gng, kern)
+    del gas, gst, gng
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    child = bf16_phase()
+    diffs = [eb - ef for (_, ef), (_, eb) in zip(samples, child["samples"])]
+    print(f"bf16 child: {time.perf_counter() - t0:.1f}s; drift gas etot bf16 - f32 "
+          f"every {GAS_EVERY} steps: " + " ".join(f"{d:+.4g}" for d in diffs))
+    print(f"drift gas fitted slope over {GAS_STEPS} steps: f32 {slope:+.4%}, bf16 "
+          f"{child['slope']:+.4%} per 1M steps [{smi}]")
+
+    k3 = {k: child["gas"][k] + child["deposition"][k]
+          for k in ("pair_contact_conservative_bf16", "pair_contact_geometric_bf16")}
     src = {"pair_contact_conservative": ("spherharm_tpu_torch/csrc/pair_contact.cu",
                                          "spherharm_tpu/ops/contact_pallas.py:496"),
            "pair_contact_geometric": ("spherharm_tpu_torch/csrc/pair_contact.cu",
                                       "spherharm_tpu/ops/contact_pallas.py:213"),
+           "pair_contact_conservative_bf16": (
+               "spherharm_tpu_torch/csrc/pair_contact.cu",
+               "spherharm_tpu/ops/contact_pallas.py:142"),
+           "pair_contact_geometric_bf16": ("spherharm_tpu_torch/csrc/pair_contact.cu",
+                                           "spherharm_tpu/ops/contact_pallas.py:142"),
            "stage1_depth": ("spherharm_tpu_torch/csrc/stage1_probe.cu",
                             "spherharm_tpu/ops/contact_pallas.py:751"),
+           "stage1_depth_l1": ("spherharm_tpu_torch/csrc/stage1_probe.cu",
+                               "spherharm_tpu/ops/contact_pallas.py:751"),
+           "stage1_depth_l1_bf16": ("spherharm_tpu_torch/csrc/stage1_probe.cu",
+                                    "spherharm_tpu/ops/contact_pallas.py:841"),
            "wall_cylinder": ("spherharm_tpu_torch/csrc/wall_contact.cu",
                              "spherharm_tpu/ops/walls_pallas.py:50"),
            "wall_plane": ("spherharm_tpu_torch/csrc/wall_contact.cu",
                           "spherharm_tpu/ops/walls_pallas.py:139")}
-    launches = {k: l_drum[k] + l_dep[k] + l_box[k] for k in src}
+    launches = {k: l_drum[k] + l_dep[k] + l_box[k] + l_gas[k] for k in src}
+    launches.update(k3)
+    launches.update(l_k5)
+    notes = {k: {"path": "chip_smoke kernel phase (no Simulation path calls it, "
+                         "as in the reference)"} for k in l_k5}
+    notes.update({k: {"path": "bf16 child under SPHERHARM_STAGE2_BF16=1: drift "
+                              "gas + deposition"} for k in k3})
     print(f"total wall time: {time.perf_counter() - t_start:.1f}s")
     print(json.dumps({"kernels": [
         {"name": name, "route": "cuda", "source": src[name][0],
          "replaces": src[name][1], "launches": launches[name],
          "max_abs_err": max(c["max_abs_err"] for c in kern[name]),
          **{k: kern[name][0][k] for k in ("ms", "plain_ms", "bound_ms", "bound_by")},
-         "library_ms": None, "cases": kern[name]}
+         "library_ms": None, **notes.get(name, {}), "cases": kern[name]}
         for name in src]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

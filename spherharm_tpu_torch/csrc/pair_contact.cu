@@ -6,6 +6,11 @@
 //   _make_kernel(lmax, conservative=False) with _probe (K2: the geometric
 //   law, inclination-weighted measure, force along the integral normal at
 //   the centroid). The law is the template parameter kCons.
+//   kBf16 = true is K3, _make_kernel(lmax, conservative, bf16=True): both
+//   laws with the Horner chains of every surface evaluation in bfloat16
+//   on the pre-scaled table rows, the assembly in f32
+//   (sh_device.cuh radius_grad_power<true>). The reference switches it on
+//   for every stage-2 call with SPHERHARM_STAGE2_BF16=1.
 //
 // What bounds it on this card: arithmetic. Per pair it evaluates 2 sides
 // x G cap nodes x 2 power-basis surface evaluations (Horner runs over a
@@ -26,7 +31,12 @@
 //     shared-memory reduction or block barrier is needed; the pair-level
 //     chains and the force law then run redundantly on all lanes and lane
 //     0 writes the 24-float row;
-//   * a masked row (mask <= 0.5) writes zeros and skips the body.
+//   * a masked row (mask <= 0.5) writes zeros and skips the body;
+//   * K3 keeps the f32 table in shared memory and rounds each pre-scaled
+//     coefficient (c * s, the reference rounds the scaled row) to bf16 in
+//     registers as the chain reads it; each chain step is an f32 multiply
+//     and add, each rounded to bf16 (simple and bit-faithful to the plain
+//     twin, not yet the packed __nv_bfloat162 rate).
 // Built without fast math: approximate division would loosen parity.
 
 #include "sh_device.cuh"
@@ -60,6 +70,7 @@ struct Side : Moments {
 };
 
 // Probe a's cap nodes against b (twin of _probe_cons). d3 = x_b - x_a.
+template <bool kBf16>
 __device__ Side probe_side(const float* tbl_a, float s_a, const float* tbl_b, float s_b,
                            Q4 q_a, Q4 q_b, V3 d3, float dist, float inv_dist, float rb_b,
                            float rm_a, float rb_a, const float* cap, int G, int lmax,
@@ -94,6 +105,7 @@ __device__ Side probe_side(const float* tbl_a, float s_a, const float* tbl_b, fl
   // Work of this loop, counted from its body (an FMA counts 2, any other
   // arithmetic op 1; chip_smoke.py's bound reads this line):
   // node-flops[pair_contact_conservative]: 468 + 2 x radius_grad_power per node and side, 2 sides
+  // node-flops[pair_contact_conservative_bf16]: 468 + 2 x radius_grad_power_bf16 per node and side, 2 sides
   for (int k = lane; k < G; k += 32) {
     const float cx = cap[k], glw = cap[G + k], cpsi = cap[2 * G + k], spsi = cap[3 * G + k];
     const float cos_g = 1.0f - one_m * cx;
@@ -103,10 +115,7 @@ __device__ Side probe_side(const float* tbl_a, float s_a, const float* tbl_b, fl
 
     float ct_a, st_a, cp_a, sp_a, r_a, drt_a, drp_a;
     unit_trig(dir, ct_a, st_a, cp_a, sp_a);
-    radius_grad_power(tbl_a, lmax, ct_a, st_a, cp_a, sp_a, r_a, drt_a, drp_a);
-    r_a *= s_a;
-    drt_a *= s_a;
-    drp_a *= s_a;
+    radius_grad_power<kBf16>(tbl_a, s_a, lmax, ct_a, st_a, cp_a, sp_a, r_a, drt_a, drp_a);
     // Tangent surface gradient of r_a (a's body frame).
     const float gpa = drp_a * (1.0f / fmaxf(st_a, 1e-6f));
     const V3 ga = {drt_a * ct_a * cp_a - gpa * sp_a, drt_a * ct_a * sp_a + gpa * cp_a,
@@ -123,10 +132,7 @@ __device__ Side probe_side(const float* tbl_a, float s_a, const float* tbl_b, fl
 
     float ct_b, st_b, cp_b, sp_b, r_b, drt_b, drp_b;
     unit_trig(uh, ct_b, st_b, cp_b, sp_b);
-    radius_grad_power(tbl_b, lmax, ct_b, st_b, cp_b, sp_b, r_b, drt_b, drp_b);
-    r_b *= s_b;
-    drt_b *= s_b;
-    drp_b *= s_b;
+    radius_grad_power<kBf16>(tbl_b, s_b, lmax, ct_b, st_b, cp_b, sp_b, r_b, drt_b, drp_b);
     const float gpb = drp_b * (1.0f / fmaxf(st_b, 1e-6f));
     const V3 gb = {drt_b * ct_b * cp_b - gpb * sp_b, drt_b * ct_b * sp_b + gpb * cp_b,
                    -drt_b * st_b};
@@ -204,6 +210,7 @@ __device__ Side probe_side(const float* tbl_a, float s_a, const float* tbl_b, fl
 // Probe a's cap nodes against b with the inclination-weighted measure
 // dA = w r_a^2 / cos_incl (twin of _probe: moments only, no gradient).
 // sin_g is floored at 0 as _probe floors it (_probe_cons uses 1e-12).
+template <bool kBf16>
 __device__ Moments probe_side_geo(const float* tbl_a, float s_a, const float* tbl_b, float s_b,
                                Q4 q_a, Q4 q_b, V3 d3, float dist, float inv_dist, float rb_b,
                                float rm_a, float rb_a, const float* cap, int G, int lmax,
@@ -225,6 +232,7 @@ __device__ Moments probe_side_geo(const float* tbl_a, float s_a, const float* tb
   float s1 = 0.0f, s2 = 0.0f;
   V3 cen = z, nsum = z;
   // node-flops[pair_contact_geometric]: 248 + 2 x radius_grad_power per node and side, 2 sides
+  // node-flops[pair_contact_geometric_bf16]: 248 + 2 x radius_grad_power_bf16 per node and side, 2 sides
   for (int k = lane; k < G; k += 32) {
     const float cx = cap[k], glw = cap[G + k], cpsi = cap[2 * G + k], spsi = cap[3 * G + k];
     const float cos_g = 1.0f - one_m * cx;
@@ -233,10 +241,7 @@ __device__ Moments probe_side_geo(const float* tbl_a, float s_a, const float* tb
 
     float ct_a, st_a, cp_a, sp_a, r_a, drt_a, drp_a;
     unit_trig(dir, ct_a, st_a, cp_a, sp_a);
-    radius_grad_power(tbl_a, lmax, ct_a, st_a, cp_a, sp_a, r_a, drt_a, drp_a);
-    r_a *= s_a;
-    drt_a *= s_a;
-    drp_a *= s_a;
+    radius_grad_power<kBf16>(tbl_a, s_a, lmax, ct_a, st_a, cp_a, sp_a, r_a, drt_a, drp_a);
     const V3 na = surface_normal(r_a, drt_a, drp_a, ct_a, st_a, cp_a, sp_a);
     const float cos_incl = clampf(dot3(dir, na), 0.05f, 1.0f);
     const float dA = one_m * glw * r_a * r_a / cos_incl;
@@ -247,10 +252,7 @@ __device__ Moments probe_side_geo(const float* tbl_a, float s_a, const float* tb
     const V3 uh = (1.0f / rho) * u3;
     float ct_b, st_b, cp_b, sp_b, r_b, drt_b, drp_b;
     unit_trig(uh, ct_b, st_b, cp_b, sp_b);
-    radius_grad_power(tbl_b, lmax, ct_b, st_b, cp_b, sp_b, r_b, drt_b, drp_b);
-    r_b *= s_b;
-    drt_b *= s_b;
-    drp_b *= s_b;
+    radius_grad_power<kBf16>(tbl_b, s_b, lmax, ct_b, st_b, cp_b, sp_b, r_b, drt_b, drp_b);
 
     const float D = fmaxf(r_b - rho, 0.0f);
     const float wd = dA * D;
@@ -263,7 +265,7 @@ __device__ Moments probe_side_geo(const float* tbl_a, float s_a, const float* tb
   return {warp_sum(s1), warp_sum(s2), warp_sum3(cen), warp_sum3(nsum)};
 }
 
-template <bool kCons>
+template <bool kCons, bool kBf16>
 __global__ void __launch_bounds__(WARPS * 32)
     pair_contact_kernel(const float* __restrict__ packed, const float* __restrict__ tbl,
                         int T, int W, const float* __restrict__ cap, int G,
@@ -298,16 +300,16 @@ __global__ void __launch_bounds__(WARPS * 32)
   Side a, b;  // gradients: conservative law only
   Moments ma, mb;
   if constexpr (kCons) {
-    a = probe_side(s_tbl + ti * W, si, s_tbl + tj * W, sj, qi, qj, d, dist, inv_dist, rbj,
+    a = probe_side<kBf16>(s_tbl + ti * W, si, s_tbl + tj * W, sj, qi, qj, d, dist, inv_dist, rbj,
                    row[RMI], rbi, s_cap, G, lmax, lane);
-    b = probe_side(s_tbl + tj * W, sj, s_tbl + ti * W, si, qj, qi, -d, dist, inv_dist, rbi,
+    b = probe_side<kBf16>(s_tbl + tj * W, sj, s_tbl + ti * W, si, qj, qi, -d, dist, inv_dist, rbi,
                    row[RMJ], rbj, s_cap, G, lmax, lane);
     ma = a;
     mb = b;
   } else {
-    ma = probe_side_geo(s_tbl + ti * W, si, s_tbl + tj * W, sj, qi, qj, d, dist, inv_dist,
+    ma = probe_side_geo<kBf16>(s_tbl + ti * W, si, s_tbl + tj * W, sj, qi, qj, d, dist, inv_dist,
                         rbj, row[RMI], rbi, s_cap, G, lmax, lane);
-    mb = probe_side_geo(s_tbl + tj * W, sj, s_tbl + ti * W, si, qj, qi, -d, dist, inv_dist,
+    mb = probe_side_geo<kBf16>(s_tbl + tj * W, sj, s_tbl + ti * W, si, qj, qi, -d, dist, inv_dist,
                         rbi, row[RMJ], rbj, s_cap, G, lmax, lane);
   }
 
@@ -391,18 +393,19 @@ __global__ void __launch_bounds__(WARPS * 32)
   }
 }
 
-template <bool kCons>
+template <bool kCons, bool kBf16>
 int launch(const float* packed, const float* tbl, int T, int W, const float* cap, int G,
            const float* par, int lmax, int P, float* out, cudaStream_t stream) {
   const size_t smem = sizeof(float) * (size_t)(T * W + 4 * G);
   if (smem > 48 * 1024) {
     const cudaError_t e = cudaFuncSetAttribute(
-        pair_contact_kernel<kCons>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+        pair_contact_kernel<kCons, kBf16>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        (int)smem);
     if (e != cudaSuccess) return (int)e;
   }
   const int blocks = (P + WARPS - 1) / WARPS;
-  pair_contact_kernel<kCons><<<blocks, WARPS * 32, smem, stream>>>(packed, tbl, T, W, cap, G,
-                                                                   par, lmax, P, out);
+  pair_contact_kernel<kCons, kBf16><<<blocks, WARPS * 32, smem, stream>>>(
+      packed, tbl, T, W, cap, G, par, lmax, P, out);
   return (int)cudaGetLastError();
 }
 
@@ -410,9 +413,13 @@ int launch(const float* packed, const float* tbl, int T, int W, const float* cap
 
 extern "C" int sh_pair_contact(const float* packed, const float* tbl, int T, int W,
                                const float* cap, int G, const float* par, int lmax, int P,
-                               int conservative, float* out, cudaStream_t stream) {
-  return conservative ? launch<true>(packed, tbl, T, W, cap, G, par, lmax, P, out, stream)
-                      : launch<false>(packed, tbl, T, W, cap, G, par, lmax, P, out, stream);
+                               int conservative, int bf16, float* out, cudaStream_t stream) {
+  if (conservative) {
+    return bf16 ? launch<true, true>(packed, tbl, T, W, cap, G, par, lmax, P, out, stream)
+                : launch<true, false>(packed, tbl, T, W, cap, G, par, lmax, P, out, stream);
+  }
+  return bf16 ? launch<false, true>(packed, tbl, T, W, cap, G, par, lmax, P, out, stream)
+              : launch<false, false>(packed, tbl, T, W, cap, G, par, lmax, P, out, stream);
 }
 
 extern "C" const char* sh_error_string(int err) {

@@ -11,8 +11,16 @@
 //   At_m (m = 0: max(L,1); m >= 1: L-m+2), Bt_m (m = 1..L, L-m+2).
 // lmax is a run-time argument: each run is evaluated in the m-loop that
 // consumes it, so no per-m array has to live in registers.
+//
+// bfloat16 variants (the reference's bf16 knobs): every bf16 operation is
+// an f32 operation on bf16-valued operands, rounded once to bf16 (nearest
+// even). __fmul_rn / __fadd_rn / __fsub_rn are never contracted into an
+// FMA, so each multiply and each add rounds on its own. This is the
+// arithmetic of PyTorch's CPU bf16 ops, which the plain twins run
+// (spherharm_tpu_torch/ops/sh_power.py eval_power(bf16=True)).
 #pragma once
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 namespace shk {
@@ -69,6 +77,22 @@ __device__ __forceinline__ float horner(const float* t, int n, float ct) {
   return acc;
 }
 
+// x rounded to bfloat16 (nearest even), held in a float.
+__device__ __forceinline__ float bf(float x) { return __bfloat162float(__float2bfloat16_rn(x)); }
+__device__ __forceinline__ float bmul(float a, float b) { return bf(__fmul_rn(a, b)); }
+__device__ __forceinline__ float badd(float a, float b) { return bf(__fadd_rn(a, b)); }
+__device__ __forceinline__ float bsub(float a, float b) { return bf(__fsub_rn(a, b)); }
+
+// Horner in bf16 over the coefficients t pre-scaled by s: each t[k] * s is
+// an f32 product rounded to bf16 (the reference casts its pre-scaled rows,
+// contact_pallas.py _side_tables), ct_h is already a bf16 value, and every
+// multiply and add of the chain rounds to bf16.
+__device__ __forceinline__ float horner_bf16(const float* t, float s, int n, float ct_h) {
+  float acc = bf(__fmul_rn(t[0], s));
+  for (int k = 1; k < n; ++k) acc = badd(bmul(acc, ct_h), bf(__fmul_rn(t[k], s)));
+  return acc;
+}
+
 // Width of the A+B prefix and of the At block of the power layout.
 __host__ __device__ __forceinline__ int ab_width(int lmax) { return (lmax + 1) * (lmax + 1); }
 __host__ __device__ __forceinline__ int a_width(int lmax) { return (lmax + 1) * (lmax + 2) / 2; }
@@ -76,18 +100,34 @@ __host__ __device__ __forceinline__ int at_width(int lmax) {
   return (lmax > 1 ? lmax : 1) + lmax * (lmax + 3) / 2;
 }
 
-// (r, dr/dtheta, dr/dphi) at one node from one power-table row.
+// (r, dr/dtheta, dr/dphi) at one node from one power-table row, for a
+// particle of scale s.
+//   kBf16 = false: f32 throughout, evaluated at unit scale, then scaled.
+//   kBf16 = true (K3, contact_pallas.py _radius_grad_power(bf16=True)):
+//     only the A/B/At/Bt Horner chains run in bf16, on the row pre-scaled
+//     by s and on ct, each rounded to bf16; each chain's result returns to
+//     f32, and the cos/sin(m phi) and sin^m recurrences and the m-sum stay
+//     f32.
 // chip_smoke.py's horner_flops counts the FLOPs of this function and of
 // radius_power_ab from their loops, as a function of lmax: change both
 // together.
-__device__ __forceinline__ void radius_grad_power(const float* tbl, int lmax, float ct,
-                                                  float st, float cp, float sp,
+template <bool kBf16>
+__device__ __forceinline__ void radius_grad_power(const float* tbl, float s, int lmax,
+                                                  float ct, float st, float cp, float sp,
                                                   float& r, float& drt, float& drp) {
+  const float ct_h = kBf16 ? bf(ct) : ct;
+  const auto hr = [&](int off, int n) {
+    if constexpr (kBf16) {
+      return horner_bf16(tbl + off, s, n, ct_h);
+    } else {
+      return horner(tbl + off, n, ct);
+    }
+  };
   int oA = 0, oB = a_width(lmax), oAt = ab_width(lmax), oBt = oAt + at_width(lmax);
-  r = horner(tbl + oA, lmax + 1, ct);
+  r = hr(oA, lmax + 1);
   oA += lmax + 1;
   const int n_at0 = lmax > 1 ? lmax : 1;
-  drt = st * horner(tbl + oAt, n_at0, ct);
+  drt = st * hr(oAt, n_at0);
   oAt += n_at0;
   drp = 0.0f;
   float cos_m = cp, sin_m = sp, st_m1 = 1.0f;
@@ -98,10 +138,10 @@ __device__ __forceinline__ void radius_grad_power(const float* tbl, int lmax, fl
       cos_m = c;
     }
     const int nab = lmax - m + 1, nt = lmax - m + 2;
-    const float A = horner(tbl + oA, nab, ct);
-    const float B = horner(tbl + oB, nab, ct);
-    const float At = horner(tbl + oAt, nt, ct);
-    const float Bt = horner(tbl + oBt, nt, ct);
+    const float A = hr(oA, nab);
+    const float B = hr(oB, nab);
+    const float At = hr(oAt, nt);
+    const float Bt = hr(oBt, nt);
     oA += nab;
     oB += nab;
     oAt += nt;
@@ -112,30 +152,66 @@ __device__ __forceinline__ void radius_grad_power(const float* tbl, int lmax, fl
     drp = drp + (float)m * st_m * (cos_m * B - sin_m * A);
     st_m1 = st_m;
   }
+  if constexpr (!kBf16) {
+    r *= s;
+    drt *= s;
+    drp *= s;
+  }
 }
 
-// r only, from the A/B prefix of a power-table row (stage-1 probe).
-__device__ __forceinline__ float radius_power_ab(const float* tbl, int lmax, float ct,
+// r only, at degree l, from a degree-l A/B table row (stage-1 probe), for
+// a particle of scale s.
+//   kBf16 = false: f32, evaluated at unit scale, then scaled.
+//   kBf16 = true (K5, contact_pallas.py :841-860): the whole evaluation is
+//     bf16: ct, st, cp, sp and the pre-scaled row are rounded to bf16, and
+//     the Horner chains, the recurrences and the m-sum round every op.
+template <bool kBf16>
+__device__ __forceinline__ float radius_power_ab(const float* tbl, float s, int l, float ct,
                                                  float st, float cp, float sp) {
-  int oA = 0, oB = a_width(lmax);
-  float r = horner(tbl, lmax + 1, ct);
-  oA += lmax + 1;
-  float cos_m = cp, sin_m = sp, st_m = 1.0f;
-  for (int m = 1; m <= lmax; ++m) {
-    if (m > 1) {
-      const float c = cos_m * cp - sin_m * sp;
-      sin_m = sin_m * cp + cos_m * sp;
-      cos_m = c;
+  int oA = 0, oB = a_width(l);
+  if constexpr (kBf16) {
+    ct = bf(ct);
+    st = bf(st);
+    cp = bf(cp);
+    sp = bf(sp);
+    float r = horner_bf16(tbl, s, l + 1, ct);
+    oA += l + 1;
+    float cos_m = cp, sin_m = sp, st_m = 1.0f;
+    for (int m = 1; m <= l; ++m) {
+      if (m > 1) {
+        const float c = bsub(bmul(cos_m, cp), bmul(sin_m, sp));
+        sin_m = badd(bmul(sin_m, cp), bmul(cos_m, sp));
+        cos_m = c;
+      }
+      const int nab = l - m + 1;
+      const float A = horner_bf16(tbl + oA, s, nab, ct);
+      const float B = horner_bf16(tbl + oB, s, nab, ct);
+      oA += nab;
+      oB += nab;
+      st_m = bmul(st_m, st);
+      r = badd(r, bmul(st_m, badd(bmul(cos_m, A), bmul(sin_m, B))));
     }
-    const int nab = lmax - m + 1;
-    const float A = horner(tbl + oA, nab, ct);
-    const float B = horner(tbl + oB, nab, ct);
-    oA += nab;
-    oB += nab;
-    st_m = st_m * st;
-    r = r + st_m * (cos_m * A + sin_m * B);
+    return r;
+  } else {
+    float r = horner(tbl, l + 1, ct);
+    oA += l + 1;
+    float cos_m = cp, sin_m = sp, st_m = 1.0f;
+    for (int m = 1; m <= l; ++m) {
+      if (m > 1) {
+        const float c = cos_m * cp - sin_m * sp;
+        sin_m = sin_m * cp + cos_m * sp;
+        cos_m = c;
+      }
+      const int nab = l - m + 1;
+      const float A = horner(tbl + oA, nab, ct);
+      const float B = horner(tbl + oB, nab, ct);
+      oA += nab;
+      oB += nab;
+      st_m = st_m * st;
+      r = r + st_m * (cos_m * A + sin_m * B);
+    }
+    return r * s;
   }
-  return r;
 }
 
 // Outward unit normal e_r - (r_t / r) e_t - (r_p / (r sin t)) e_p.

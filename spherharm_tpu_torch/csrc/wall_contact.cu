@@ -84,7 +84,7 @@ __global__ void __launch_bounds__(WARPS * 32)
           cos_g * e_b + (sin_g * s_cap[2 * G + k]) * t1 + (sin_g * s_cap[3 * G + k]) * t2;
       float ct, st, cp, sp, r, drt, drp;
       unit_trig(dir, ct, st, cp, sp);
-      radius_grad_power(s_row, lmax, ct, st, cp, sp, r, drt, drp);
+      radius_grad_power<false>(s_row, 1.0f, lmax, ct, st, cp, sp, r, drt, drp);
       const V3 nb = surface_normal(r, drt, drp, ct, st, cp, sp);
       const float cos_incl = clampf(dot3(nb, dir), 0.05f, 1.0f);
       const float dA = (one_m * s_cap[G + k]) * r * r / cos_incl;

@@ -18,7 +18,9 @@ integral normal at the overlap centroid. Damping, Coulomb-capped
 tangential spring and rolling spring-dashpot-slider act on top.
 
 Radii come from the power-basis tables (``ops/sh_power.py``): per-pair
-rows of the per-type table, evaluated at unit scale then scaled.
+rows of the per-type table, evaluated at unit scale then scaled (in f32),
+or scaled first and evaluated with bfloat16 Horner chains (K3's twin,
+``eval_radius(bf16=True)``).
 """
 
 from __future__ import annotations
@@ -76,16 +78,47 @@ def orthobasis(e):
     return t1, _cross(e, t1)
 
 
-def eval_radius(tbl, scale, ct, st, cp, sp, lmax: int):
+class _RadiusBf16(torch.autograd.Function):
+    """r of pre-scaled table rows with K3's bf16 Horner chains, and the
+    gradient the reference's hand backward takes (``_probe_cons``): the
+    tangent surface gradient from the bf16 At/Bt chains, dr = drt dtheta +
+    drp dphi, applied to the angle cotangents. Autograd through the bf16
+    chains would differentiate the rounded A/B chain instead, a different
+    number at the bf16 level. drt and drp are outputs, not differentiated.
+    """
+
+    @staticmethod
+    def forward(ctx, tbl_s, ct, st, cp, sp, lmax):
+        r, drt, drp = sh_power.eval_power(tbl_s, ct, st, cp, sp, lmax,
+                                          bf16=True)
+        ctx.save_for_backward(ct, st, cp, sp, drt, drp)
+        ctx.mark_non_differentiable(drt, drp)
+        return r, drt, drp
+
+    @staticmethod
+    def backward(ctx, g_r, g_drt, g_drp):
+        ct, st, cp, sp, drt, drp = ctx.saved_tensors
+        # On the sphere: dct = -st dt, dst = ct dt, dcp = -sp dp,
+        # dsp = cp dp; these cotangents give g (drt dt + drp dp).
+        gt, gp = g_r * drt, g_r * drp
+        return None, -st * gt, ct * gt, -sp * gp, cp * gp, None
+
+
+def eval_radius(tbl, scale, ct, st, cp, sp, lmax: int, bf16: bool = False):
     """(r, dr/dt, dr/dp) of per-pair table rows tbl [P, W] at nodes
-    [P, G], evaluated at unit scale and multiplied by scale [P]."""
+    [P, G], evaluated at unit scale and multiplied by scale [P]. With
+    ``bf16`` (K3) the rows are scaled first and the Horner chains run in
+    bfloat16 (``sh_power.eval_power``), through ``_RadiusBf16``."""
+    if bf16:
+        return _RadiusBf16.apply(tbl * scale[..., None], ct, st, cp, sp,
+                                 lmax)
     r, drt, drp = sh_power.eval_power(tbl, ct, st, cp, sp, lmax)
     s = scale[..., None]
     return r * s, drt * s, drp * s
 
 
 def surface_probe(q_a, s_a, tbl_a, q_b, s_b, tbl_b, rb_b, rm_a, rb_a, d,
-                  cap, lmax: int, incl: bool = False):
+                  cap, lmax: int, incl: bool = False, bf16: bool = False):
     """One-sided probe: a's cap-local surface nodes tested against b.
 
     Per-pair args (leading dim P): quaternions, scales, unit-scale
@@ -93,7 +126,8 @@ def surface_probe(q_a, s_a, tbl_a, q_b, s_b, tbl_b, rb_b, rm_a, rb_a, d,
     inscribed / bounding radius of a; ``d`` = x_b - x_a. ``cap`` is the
     [4, G] grid (x, glw, cpsi, spsi). ``incl`` adds the 1/cos(inclination)
     factor to the measure (the geometric law's true surface area; a's
-    outward normal comes from r_a and its angular derivatives).
+    outward normal comes from r_a and its angular derivatives). ``bf16``
+    evaluates the surfaces with K3's bf16 Horner chains (``eval_radius``).
 
     Returns s1 [P], s2 [P], centroid_num [P, 3] (relative to x_a) and
     normal_num [P, 3] (b's outward normals, world).
@@ -127,7 +161,8 @@ def surface_probe(q_a, s_a, tbl_a, q_b, s_b, tbl_b, rb_b, rm_a, rb_a, d,
             + (sin_g * cap_cpsi)[..., None] * t1[..., None, :]
             + (sin_g * cap_spsi)[..., None] * t2[..., None, :])
     ct_a, st_a, cp_a, sp_a = _unit_trig(dirs)
-    r_a, drt_a, drp_a = eval_radius(tbl_a, s_a, ct_a, st_a, cp_a, sp_a, lmax)
+    r_a, drt_a, drp_a = eval_radius(tbl_a, s_a, ct_a, st_a, cp_a, sp_a, lmax,
+                                    bf16)
     dA = one_m * cap_glw * r_a**2
     if incl:
         n_a = surface_normal_trig(r_a, drt_a, drp_a, ct_a, st_a, cp_a, sp_a)
@@ -139,7 +174,7 @@ def surface_probe(q_a, s_a, tbl_a, q_b, s_b, tbl_b, rb_b, rm_a, rb_a, d,
     u_hat = u / torch.clamp(rho, min=1e-12)[..., None]
     ct_b, st_b, cp_b, sp_b = _unit_trig(u_hat)
     r_b, drt_b, drp_b = eval_radius(tbl_b, s_b, ct_b, st_b, cp_b, sp_b,
-                                    lmax)
+                                    lmax, bf16)
 
     # Depth moments: no containment indicator, so the sums are continuous
     # in the separation and delta = 1.5 S2/S1 is exact for a sphere lens.
@@ -156,23 +191,27 @@ def surface_probe(q_a, s_a, tbl_a, q_b, s_b, tbl_b, rb_b, rm_a, rb_a, d,
     return s1, s2, centroid_num, normal_num
 
 
-def _both_sides(d, q_i, q_j, geo, cap, lmax, incl: bool = False):
+def _both_sides(d, q_i, q_j, geo, cap, lmax, incl: bool = False,
+                bf16: bool = False):
     """Both-sided probe sums: (s1, s2, s1b, c1, c2, n1, n2)."""
     s_i, s_j, tbl_i, tbl_j, rb_i, rb_j, rm_i, rm_j = geo
     s1a, s2a, c1, n1 = surface_probe(q_i, s_i, tbl_i, q_j, s_j, tbl_j,
-                                     rb_j, rm_i, rb_i, d, cap, lmax, incl)
+                                     rb_j, rm_i, rb_i, d, cap, lmax, incl,
+                                     bf16)
     s1b, s2b, c2, n2 = surface_probe(q_j, s_j, tbl_j, q_i, s_i, tbl_i,
-                                     rb_i, rm_j, rb_j, -d, cap, lmax, incl)
+                                     rb_i, rm_j, rb_j, -d, cap, lmax, incl,
+                                     bf16)
     return s1a + s1b, s2a + s2b, s1b, c1, c2, n1, n2
 
 
-def _pair_elastic_pe(d, q_i, q_j, geo, mask, kn, r_eff, cap, lmax: int):
+def _pair_elastic_pe(d, q_i, q_j, geo, mask, kn, r_eff, cap, lmax: int,
+                     bf16: bool = False):
     """Sampled elastic PE per pair as a pure function of (d, q_i, q_j):
     the differentiation target of the conservative law."""
     rb_i, rb_j = geo[4], geo[5]
     dist = torch.linalg.norm(d, dim=-1)
     cull = mask & (dist < rb_i + rb_j) & (dist > 1e-12)
-    s1, s2 = _both_sides(d, q_i, q_j, geo, cap, lmax)[:2]
+    s1, s2 = _both_sides(d, q_i, q_j, geo, cap, lmax, bf16=bf16)[:2]
     in_contact = cull & (s1 > 0)
     zero = torch.zeros_like(s1)
     delta = torch.where(in_contact, 1.5 * s2 / torch.clamp(s1, min=1e-30),
@@ -184,7 +223,8 @@ def _pair_elastic_pe(d, q_i, q_j, geo, mask, kn, r_eff, cap, lmax: int):
     )
 
 
-def pair_elastic_grad(d, q_i, q_j, geo, mask, kn, r_eff, cap, lmax: int):
+def pair_elastic_grad(d, q_i, q_j, geo, mask, kn, r_eff, cap, lmax: int,
+                      bf16: bool = False):
     """Exact-gradient elastic force/torques: F_i = dU/dd (U depends on x
     only through d = x_j - x_i), tau = -dU/dtheta.
 
@@ -192,12 +232,14 @@ def pair_elastic_grad(d, q_i, q_j, geo, mask, kn, r_eff, cap, lmax: int):
     q' = dq (x) q with dq = (1, dtheta/2), tau_k = -0.5 <dU/dq, e_k (x) q>.
     Out-of-contact pairs can produce NaN cotangents through dead-branch
     guards; the true force there is zero, so non-finite rows are masked.
+    ``bf16``: K3's surfaces, differentiated as ``_RadiusBf16`` says.
     """
     with torch.enable_grad():
         d_ = d.detach().requires_grad_(True)
         qi_ = q_i.detach().requires_grad_(True)
         qj_ = q_j.detach().requires_grad_(True)
-        pe = _pair_elastic_pe(d_, qi_, qj_, geo, mask, kn, r_eff, cap, lmax)
+        pe = _pair_elastic_pe(d_, qi_, qj_, geo, mask, kn, r_eff, cap, lmax,
+                              bf16)
         gd, gqi, gqj = torch.autograd.grad(pe.sum(), (d_, qi_, qj_),
                                            allow_unused=True)
 
@@ -344,7 +386,8 @@ def prefilter_pair_list(state, shapes, params, fields, keep_cap: int,
             probe_only=True,
         )[0]
         packed[:, tail_lo] = 0.0
-        return ck.stage1_depth(packed, tbl_ab, cap1, lmax=shapes.lmax)
+        return ck.stage1_depth(packed, tbl_ab, cap1, lmax=shapes.lmax,
+                               l1=shapes.lmax, bf16=False)
 
     if probe_chunk and P > probe_chunk:
         depth = torch.cat([probe(slice(s, s + probe_chunk))

@@ -6,14 +6,17 @@ Two kernels, both hand-written CUDA C++ for sm_90a (``csrc/``):
   both-sided cap quadrature, Hertz + damping + friction + rolling, in
   either elastic law: conservative (hand-derived gradient of the depth
   moments) or geometric (inclination-weighted measure, force along the
-  integral normal).
-* ``stage1_depth`` — the rebuild-time r-only probe
-  (``csrc/stage1_probe.cu``): upper bound on each pair's max depth.
+  integral normal); each with f32 or bfloat16 Horner chains (K3,
+  ``SPHERHARM_STAGE2_BF16=1`` for every call, as in the reference).
+* ``stage1_depth`` — the r-only probe (``csrc/stage1_probe.cu``): upper
+  bound on each pair's max depth, at a truncation degree l1 and in f32
+  or bfloat16 (K4 is l1 = lmax in f32, what the prefilter runs; K5 the
+  rest, with the reference's defaults l1 = 4, bf16).
 
 Each wrapper launches its kernel on a CUDA tensor (or raises) and runs
 its plain PyTorch twin on a CPU tensor; nothing else picks the route. A
-wrapper counts its kernel launches in ``<wrapper>.launches`` (for
-``pair_contact`` a dict keyed by law).
+wrapper counts its kernel launches in ``<wrapper>.launches``, a dict
+keyed by variant.
 
 Inputs keep the reference's packed layout (``_SLOTS`` of
 ``spherharm_tpu/ops/contact_pallas.py``), so tests compare like with like.
@@ -22,7 +25,9 @@ Inputs keep the reference's packed layout (``_SLOTS`` of
 from __future__ import annotations
 
 import ctypes
+import os
 
+import numpy as np
 import torch
 
 from spherharm_tpu_torch.core import state as state_mod
@@ -121,17 +126,30 @@ def _stream(device):
 
 # -- stage-2 pair contact ------------------------------------------------
 
+# Stage-2 Horner chains in bfloat16 for every pair_contact call that does
+# not choose (bf16=None): SPHERHARM_STAGE2_BF16=1, read at import, as the
+# reference reads it (contact_pallas.py _STAGE2_BF16). In the conservative
+# law the force is then the exact gradient of a ~1e-3-perturbed potential.
+STAGE2_BF16 = os.environ.get("SPHERHARM_STAGE2_BF16", "0") == "1"
+
 LAWS = ("conservative", "geometric")
+VARIANTS = LAWS + tuple(f"{law}_bf16" for law in LAWS)
 
 
-def pair_contact(packed, tbl, cap, par, lmax: int, conservative: bool = True):
+def pair_contact(packed, tbl, cap, par, lmax: int, conservative: bool = True,
+                 bf16: bool | None = None):
     """Pair contact over packed rows in the conservative or the geometric
     law. packed [P, 64], tbl [T, W] per-type power table, cap [4, G],
-    par [1, 16]. Returns [P, 24]. CUDA tensors launch
-    ``csrc/pair_contact.cu`` (launches counted per law in
-    ``pair_contact.launches``); CPU tensors run ``pair_contact_plain``."""
+    par [1, 16]. Returns [P, 24]. ``bf16`` runs the Horner chains in
+    bfloat16 (K3); None takes ``STAGE2_BF16``. CUDA tensors launch
+    ``csrc/pair_contact.cu`` (launches counted per variant in
+    ``pair_contact.launches``: law, ``_bf16`` appended for K3); CPU
+    tensors run ``pair_contact_plain``."""
+    if bf16 is None:
+        bf16 = STAGE2_BF16
     if packed.device.type == "cpu":
-        return pair_contact_plain(packed, tbl, cap, par, lmax, conservative)
+        return pair_contact_plain(packed, tbl, cap, par, lmax, conservative,
+                                  bf16)
     _check_cuda("pair_contact", packed=packed, tbl=tbl, cap=cap, par=par)
     P, T, W, G = packed.shape[0], tbl.shape[0], tbl.shape[1], cap.shape[1]
     if (packed.shape[1] != F_PACK or cap.shape[0] != 4
@@ -141,26 +159,29 @@ def pair_contact(packed, tbl, cap, par, lmax: int, conservative: bool = True):
                          f"{tuple(cap.shape)} {tuple(par.shape)}")
     out = torch.empty((P, N_OUT), dtype=torch.float32, device=packed.device)
     if P:
-        law = LAWS[0] if conservative else LAWS[1]
+        variant = (LAWS[0] if conservative else LAWS[1]) + (
+            "_bf16" if bf16 else "")
         err = cuda_build.library().sh_pair_contact(
             _ptr(packed), _ptr(tbl), T, W, _ptr(cap), G, _ptr(par), lmax,
-            P, int(conservative), _ptr(out), _stream(packed.device))
-        cuda_build.check(err, f"pair_contact[{law}]")
-        pair_contact.launches[law] += 1
+            P, int(conservative), int(bf16), _ptr(out),
+            _stream(packed.device))
+        cuda_build.check(err, f"pair_contact[{variant}]")
+        pair_contact.launches[variant] += 1
     return out
 
 
-pair_contact.launches = {law: 0 for law in LAWS}
+pair_contact.launches = {v: 0 for v in VARIANTS}
 
 
 def pair_contact_plain(packed, tbl, cap, par, lmax: int,
-                       conservative: bool = True):
+                       conservative: bool = True, bf16: bool = False):
     """Plain twin of the pair kernel. Conservative law: the inclination-
     free sampled elastic PE in the power basis, its gradient from
     ``torch.autograd.grad`` (``contact.pair_elastic_grad``), then damping,
     friction and rolling. Geometric law: the inclination-weighted probe
     (sin(gamma)^2 floored at 0, as the reference's Pallas kernel), Hertz +
     damping along the integral normal at the centroid, no autograd.
+    ``bf16``: K3's surfaces (``contact.eval_radius``).
     Masked rows (mask column <= 0.5) output zeros, as the kernel's do."""
     c = lambda name: _col(packed, name)
     mask = c("mask") > 0.5
@@ -177,7 +198,7 @@ def pair_contact_plain(packed, tbl, cap, par, lmax: int,
     inv_dist = 1.0 / dist
     cull = mask & (dist < rb_i + rb_j) & (dist > 1e-12)
     s1, s2, s1b, c1, c2, n1, n2 = contact._both_sides(
-        d, q_i, q_j, geo, cap, lmax, incl=not conservative)
+        d, q_i, q_j, geo, cap, lmax, incl=not conservative, bf16=bf16)
     denom = torch.clamp(s1, min=1e-30)
     cen = torch.where((s1 > 0)[:, None],
                       (c1 + c2 + s1b[:, None] * d) / denom[:, None], 0.5 * d)
@@ -212,7 +233,7 @@ def pair_contact_plain(packed, tbl, cap, par, lmax: int,
 
     if conservative:
         f_el, tau_ei, tau_ej = contact.pair_elastic_grad(
-            d, q_i, q_j, geo, mask, kn, r_eff, cap, lmax)
+            d, q_i, q_j, geo, mask, kn, r_eff, cap, lmax, bf16)
         fn_damp = -(poly * m_eff * gn * vn_mag)
         f_vis = torch.where(in_contact[:, None],
                             fn_damp[:, None] * n_hat + f_t, 0.0)
@@ -275,38 +296,77 @@ def friction_rolling(hist_t, hist_r, n_hat, vt, in_contact, poly, fn_mag,
 
 # -- stage-1 r-only probe ------------------------------------------------
 
-def stage1_depth(packed, tbl_ab, cap1, lmax: int):
+def stage1_table(shapes, l1: int):
+    """The stage-1 probe's per-type table at truncation degree l1:
+    ``sh_power.build_power_tables_np(coeffs[:, :(l1+1)^2], l1)`` cut to its
+    [T, (l1+1)^2] A/B prefix and padded as ``pad_type_table`` pads, on
+    the shapes' device. A table built at degree l1 is a different table
+    from the first (l1+1)^2 columns of the lmax table (whose runs hold
+    degree lmax - m polynomials): only the former gives r truncated at
+    l1, which the packed ``tail`` column (``shapes.tail1``, at
+    ``shapes.l1``) bounds. At l1 = lmax it is the A/B prefix of
+    ``shapes.power_tbl``."""
+    nc = (l1 + 1) ** 2
+    coeffs = shapes.coeffs.double().cpu().numpy()[:, :nc]
+    tbl = sh_power.build_power_tables_np(coeffs, l1)[:, :nc]
+    t = torch.tensor(np.asarray(tbl), dtype=shapes.coeffs.dtype,
+                     device=shapes.coeffs.device)
+    return pad_type_table(t).contiguous()
+
+
+def _stage1_variant(truncated: bool, bf16: bool):
+    """Launch-counter key: K4 is ``stage1_depth``; K5 adds ``_l1`` when
+    l1 < lmax and ``_bf16`` with bf16."""
+    return "stage1_depth" + ("_l1" if truncated else "") + (
+        "_bf16" if bf16 else "")
+
+
+def stage1_depth(packed, tbl1, cap1, lmax: int, l1: int = 4,
+                 bf16: bool = True):
     """Upper bound on each pair's max signed depth [P] (r_target - rho over
-    both probe directions, plus the tail column). Pairs apart by their
-    bounding spheres give rsum - dist; dead rows give -1e9.
-    tbl_ab: [T, (lmax+1)^2] A/B prefix of the per-type power table;
-    cap1: [4, G1]. CUDA tensors launch ``csrc/stage1_probe.cu``; CPU
-    tensors run ``stage1_depth_plain``."""
+    both probe directions, plus the tail column, plus 0.02 rsum with
+    bf16). Pairs apart by their bounding spheres give rsum - dist; dead
+    rows give -1e9. The defaults are the reference's
+    (``stage1_depth_pallas``: l1 = 4, bf16, K5); the prefilter passes
+    l1 = lmax, bf16 = False (K4) with the tail column zeroed.
+    tbl1: [T, (l1+1)^2] degree-l1 table (``stage1_table``; at l1 = lmax
+    the A/B prefix of the power table); cap1: [4, G1]. l1 is capped at
+    lmax. CUDA tensors launch ``csrc/stage1_probe.cu`` (launches counted
+    per (l1 < lmax, bf16) in ``stage1_depth.launches``, ``_stage1_variant``
+    keys); CPU tensors run ``stage1_depth_plain``."""
+    l1 = min(l1, lmax)
     if packed.device.type == "cpu":
-        return stage1_depth_plain(packed, tbl_ab, cap1, lmax)
-    _check_cuda("stage1_depth", packed=packed, tbl_ab=tbl_ab, cap1=cap1)
-    P, T, W, G = (packed.shape[0], tbl_ab.shape[0], tbl_ab.shape[1],
+        return stage1_depth_plain(packed, tbl1, cap1, lmax, l1, bf16)
+    _check_cuda("stage1_depth", packed=packed, tbl1=tbl1, cap1=cap1)
+    P, T, W, G = (packed.shape[0], tbl1.shape[0], tbl1.shape[1],
                   cap1.shape[1])
     if (packed.shape[1] != F_PACK or cap1.shape[0] != 4
-            or W != (lmax + 1) ** 2):
+            or W != (l1 + 1) ** 2):
         raise ValueError("stage1_depth: bad input shapes "
-                         f"{tuple(packed.shape)} {tuple(tbl_ab.shape)} "
-                         f"{tuple(cap1.shape)}")
+                         f"{tuple(packed.shape)} {tuple(tbl1.shape)} "
+                         f"{tuple(cap1.shape)} for l1={l1}")
     out = torch.empty((P,), dtype=torch.float32, device=packed.device)
     if P:
+        variant = _stage1_variant(l1 < lmax, bf16)
         err = cuda_build.library().sh_stage1_depth(
-            _ptr(packed), _ptr(tbl_ab), T, W, _ptr(cap1), G, lmax, P,
+            _ptr(packed), _ptr(tbl1), T, W, _ptr(cap1), G, l1, int(bf16), P,
             _ptr(out), _stream(packed.device))
-        cuda_build.check(err, "stage1_depth")
-        stage1_depth.launches += 1
+        cuda_build.check(err, f"stage1_depth[{variant}]")
+        stage1_depth.launches[variant] += 1
     return out
 
 
-stage1_depth.launches = 0
+stage1_depth.launches = {_stage1_variant(tr, bf): 0
+                         for tr in (False, True) for bf in (False, True)}
 
 
-def stage1_depth_plain(packed, tbl_ab, cap1, lmax: int):
-    """Plain twin of the stage-1 probe (direct tensor version)."""
+def stage1_depth_plain(packed, tbl1, cap1, lmax: int, l1: int = 4,
+                       bf16: bool = True):
+    """Plain twin of the stage-1 probe (direct tensor version), with the
+    same arguments as ``stage1_depth``. With bf16 the rows are scaled
+    first and the radius evaluates in bfloat16 (``sh_power.eval_power_r``).
+    """
+    l1 = min(l1, lmax)
     c = lambda name: _col(packed, name)
     cap_x, _, cap_cpsi, cap_spsi = cap1.unbind(0)
     d = c("d")
@@ -315,6 +375,14 @@ def stage1_depth_plain(packed, tbl_ab, cap1, lmax: int):
     rsum = c("rbi") + c("rbj")
     typ = c("typ").long()
     scl = c("scl")
+
+    def radius(tbl, s, u):
+        if bf16:
+            return sh_power.eval_power_r(tbl * s[:, None],
+                                         *contact._unit_trig(u), l1,
+                                         bf16=True)
+        return sh_power.eval_power_r(tbl, *contact._unit_trig(u),
+                                     l1) * s[:, None]
 
     def side(q_a, q_b, tbl_a, tbl_b, s_a, s_b, rb_b, rm_a, rb_a, d3):
         e_b = quat_rotate_inv(q_a, d3 * inv_dist[:, None])
@@ -331,23 +399,22 @@ def stage1_depth_plain(packed, tbl_ab, cap1, lmax: int):
         dirs = (cos_g[..., None] * e_b[:, None, :]
                 + (sin_g * cap_cpsi)[..., None] * t1[:, None, :]
                 + (sin_g * cap_spsi)[..., None] * t2[:, None, :])
-        r_a = sh_power.eval_power_r(tbl_a, *contact._unit_trig(dirs),
-                                    lmax) * s_a[:, None]
+        r_a = radius(tbl_a, s_a, dirs)
         rel = quat_rotate(q_a[:, None, :], r_a[..., None] * dirs)
         u = quat_rotate_inv(q_b[:, None, :], rel - d3[:, None, :])
         rho = torch.sqrt(torch.clamp((u * u).sum(-1), min=1e-24))
-        r_b = sh_power.eval_power_r(
-            tbl_b, *contact._unit_trig(u / rho[..., None]), lmax
-        ) * s_b[:, None]
+        r_b = radius(tbl_b, s_b, u / rho[..., None])
         return (r_b - rho).amax(-1)
 
-    tbl_i, tbl_j = tbl_ab[typ[:, 0]], tbl_ab[typ[:, 1]]
+    tbl_i, tbl_j = tbl1[typ[:, 0]], tbl1[typ[:, 1]]
     s_i, s_j = scl[:, 0], scl[:, 1]
     m_ij = side(c("qi"), c("qj"), tbl_i, tbl_j, s_i, s_j, c("rbj"),
                 c("rmi"), c("rbi"), d)
     m_ji = side(c("qj"), c("qi"), tbl_j, tbl_i, s_j, s_i, c("rbi"),
                 c("rmj"), c("rbj"), -d)
     depth = torch.maximum(m_ij, m_ji) + c("tail")
+    if bf16:
+        depth = depth + 0.02 * rsum
     # Sphere-separated pairs are not probed but still report a valid
     # upper bound: surfaces lie inside the bounding spheres.
     depth = torch.where(dist < rsum, depth, rsum - dist)

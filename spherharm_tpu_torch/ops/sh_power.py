@@ -165,7 +165,7 @@ def build_power_tables_np(coeffs, lmax: int) -> np.ndarray:
     return tbl
 
 
-def eval_power(tbl, ct, st, cp, sp, lmax: int, xp=torch):
+def eval_power(tbl, ct, st, cp, sp, lmax: int, xp=torch, bf16: bool = False):
     """Evaluate (r, dr/dtheta, dr/dphi) from flat power-table rows.
 
     tbl: [..., W] (leading dims broadcast against the node arrays);
@@ -173,15 +173,27 @@ def eval_power(tbl, ct, st, cp, sp, lmax: int, xp=torch):
     module ``xp`` (torch for the plain kernel twins, numpy for setup);
     the CUDA kernels run the identical loop per node
     (csrc/sh_device.cuh ``radius_grad_power``).
+
+    ``bf16`` (torch only; K3's arithmetic, the reference's
+    ``_radius_grad_power(bf16=True)``): the A/B/At/Bt Horner chains run in
+    bfloat16 on ``tbl`` and ``ct`` rounded to bf16, each multiply and add
+    rounding to bf16 (as torch's CPU bf16 ops do); each chain's result
+    returns to f32, and the recurrences and the m-sum stay f32. ``tbl``
+    must then be pre-scaled by the particle scale, as the reference
+    rounds its scaled rows.
     """
     lay = power_layout(lmax)
     runs = lay["runs"]
+    if bf16:
+        tbl_c, ct_c = tbl.to(torch.bfloat16), ct.to(torch.bfloat16)
+    else:
+        tbl_c, ct_c = tbl, ct
 
     def horner(off, n):
-        acc = tbl[..., off: off + 1]
+        acc = tbl_c[..., off: off + 1]
         for k in range(1, n):
-            acc = acc * ct + tbl[..., off + k: off + k + 1]
-        return acc
+            acc = acc * ct_c + tbl_c[..., off + k: off + k + 1]
+        return acc.float() if bf16 else acc
 
     A = {m: horner(off, n) for m, off, n in runs["A"]}
     B = {m: horner(off, n) for m, off, n in runs["B"]}
@@ -206,12 +218,23 @@ def eval_power(tbl, ct, st, cp, sp, lmax: int, xp=torch):
     return r, drt, drp
 
 
-def eval_power_r(tbl, ct, st, cp, sp, lmax: int):
+def eval_power_r(tbl, ct, st, cp, sp, lmax: int, bf16: bool = False):
     """r only, from the A/B prefix of power-table rows (stage-1 probe).
 
     The A and B runs are laid out first (power_layout), so a
-    [..., (lmax+1)^2] slice of the table is self-contained."""
+    [..., (lmax+1)^2] slice of the table is self-contained. ``lmax`` is
+    the table's degree: a probe truncated at degree l1 passes l1 and a
+    table built at that degree (``contact_kernels.stage1_table``).
+
+    ``bf16`` (K5's arithmetic, the reference's stage-1 probe with
+    ``bf16=True``): the whole evaluation runs in bfloat16 — ``tbl``
+    (pre-scaled by the particle scale), ct, st, cp and sp are rounded to
+    bf16 and every op of the chains, the recurrences and the m-sum
+    rounds; the result returns as f32."""
     runs = power_layout(lmax)["runs"]
+    if bf16:
+        tbl, ct, st, cp, sp = (a.to(torch.bfloat16)
+                               for a in (tbl, ct, st, cp, sp))
 
     def horner(off, n):
         acc = tbl[..., off: off + 1]
@@ -227,7 +250,7 @@ def eval_power_r(tbl, ct, st, cp, sp, lmax: int):
             cos_m, sin_m = cos_m * cp - sin_m * sp, sin_m * cp + cos_m * sp
         st_m = st_m * st
         r = r + st_m * (cos_m * horner(oa, na) + sin_m * horner(ob, nb))
-    return r
+    return r.float() if bf16 else r
 
 
 def eval_power_np(tbl, theta, phi, lmax: int):

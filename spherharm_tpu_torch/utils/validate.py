@@ -1,0 +1,81 @@
+"""Numerical sanitizers (torch twin of ``spherharm_tpu/utils/validate.py``).
+
+NaN/Inf detection, capacity-overflow audits of the fixed-size tensors,
+and determinism checks (same inputs => bitwise-identical outputs). The
+force sums are sorted segment-sums, not atomics, so a run is meant to be
+bitwise repeatable on one device.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+
+import numpy as np
+import torch
+
+
+def check_finite(state, where: str = "") -> None:
+    """Raise FloatingPointError if a dynamic field of an active particle
+    holds NaN/Inf (host-side audit)."""
+    act = state.active
+    bad = {}
+    for f in ("x", "v", "q", "angmom", "f", "tau"):
+        vals = getattr(state, f)[act]
+        n_bad = int((~torch.isfinite(vals)).sum())
+        if n_bad:
+            bad[f] = n_bad
+    if bad:
+        raise FloatingPointError(f"non-finite state {where}: {bad}")
+
+
+def audit_capacities(sim, neigh) -> dict:
+    """Report the fixed capacities and the overflow channel.
+
+    The channel is per-source gated: each count is folded in only when it
+    exceeds its own capacity, so it is 0 in a healthy run and carries the
+    exceeding count when any capacity was breached."""
+    report = {"overflow_channel": (int(neigh.overflow), 0),
+              "k_max": sim.k_max}
+    if sim.pair_capacity:
+        report["pair_capacity"] = sim.pair_capacity
+    return report
+
+
+def assert_no_overflow(sim, neigh) -> None:
+    """Raise if any fixed capacity was exceeded (gated channel != 0)."""
+    ovf = int(neigh.overflow)
+    if ovf != 0:
+        raise RuntimeError(
+            f"capacity overflow (gated channel = {ovf}): physics was "
+            "truncated — raise k_max / cell_cap / pair_capacity / "
+            "stage2_capacity / wall_capacity")
+
+
+def _leaves(obj):
+    """The arrays of a nested result (tensors, arrays, scalars inside
+    tuples, lists, dicts and the port's dataclass containers), in a fixed
+    order, as numpy."""
+    if dataclasses.is_dataclass(obj):
+        return [a for f in dataclasses.fields(obj)
+                for a in _leaves(getattr(obj, f.name))]
+    if isinstance(obj, dict):
+        return [a for k in sorted(obj) for a in _leaves(obj[k])]
+    if isinstance(obj, (tuple, list)):
+        return [a for v in obj for a in _leaves(v)]
+    if isinstance(obj, torch.Tensor):
+        return [obj.detach().cpu().numpy()]
+    return [np.asarray(obj)]
+
+
+def determinism_check(run_fn, make_inputs, n: int = 2) -> bool:
+    """Same inputs => bitwise-identical outputs: ``run_fn(*make_inputs())``
+    ``n`` times, every output array compared bit for bit with the first
+    run's."""
+    ref = _leaves(run_fn(*make_inputs()))
+    for _ in range(n - 1):
+        other = _leaves(run_fn(*make_inputs()))
+        if len(other) != len(ref) or not all(
+                a.shape == b.shape and a.dtype == b.dtype
+                and a.tobytes() == b.tobytes() for a, b in zip(ref, other)):
+            return False
+    return True

@@ -131,7 +131,7 @@ def test_stage1_depth_plain_matches_pallas(lmax):
         interpret=True))
     t = lambda a: torch.tensor(np.asarray(a))
     out = np32(ck.stage1_depth(t(packed), t(tbl[:, :nc_ab]), t(cap1),
-                               lmax=lmax))
+                               lmax=lmax, l1=lmax, bf16=False))
     dead = ref == -1e9
     assert dead.any() and (ref > 0).sum() > 3 and (ref[~dead] < 0).any()
     np.testing.assert_array_equal(out[dead], -1e9)

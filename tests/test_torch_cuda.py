@@ -102,13 +102,60 @@ def test_stage1_kernel_matches_plain(lmax, cuda_device):
     cap1 = torch.stack([shapes.cap1_x, shapes.cap1_glw, shapes.cap1_cpsi,
                         shapes.cap1_spsi])
     tbl_ab = tbl[:, :(lmax + 1) ** 2].contiguous()
-    n0 = ck.stage1_depth.launches
-    out = ck.stage1_depth(packed, tbl_ab, cap1, lmax)
+    n0 = ck.stage1_depth.launches["stage1_depth"]
+    out = ck.stage1_depth(packed, tbl_ab, cap1, lmax, l1=lmax, bf16=False)
     torch.cuda.synchronize()
-    assert ck.stage1_depth.launches == n0 + 1
-    ref = np32(ck.stage1_depth_plain(packed, tbl_ab, cap1, lmax))
+    assert ck.stage1_depth.launches["stage1_depth"] == n0 + 1
+    ref = np32(ck.stage1_depth_plain(packed, tbl_ab, cap1, lmax, l1=lmax,
+                                     bf16=False))
     assert (ref == -1e9).any() and (ref > 0).sum() > 3
     np.testing.assert_allclose(np32(out), ref, rtol=0, atol=1e-5)
+
+
+@pytest.mark.parametrize("conservative", [True, False],
+                         ids=["conservative", "geometric"])
+def test_pair_contact_bf16_kernel_matches_plain(conservative, cuda_device):
+    """K3 (bf16 Horner chains) vs its bf16 twin at Lmax 8: the chains
+    round alike op for op, the f32 assembly differs by f32 ulps; forces
+    and torques within the reference's geometric bound 2e-3 |F|max."""
+    packed, tbl, cap, par, _ = _pairs(8, cuda_device)
+    variant = ("conservative" if conservative else "geometric") + "_bf16"
+    n0 = dict(ck.pair_contact.launches)
+    out = ck.pair_contact(packed, tbl, cap, par, 8, conservative, bf16=True)
+    torch.cuda.synchronize()
+    assert ck.pair_contact.launches[variant] == n0[variant] + 1
+    out, ref = np32(out), np32(ck.pair_contact_plain(packed, tbl, cap, par,
+                                                     8, conservative, True))
+    inc = ref[:, 16] > 0.5
+    assert inc.sum() > 3
+    np.testing.assert_array_equal(out[:, 16] > 0.5, inc)
+    fmag = np.abs(ref[:, 0:3]).max()
+    np.testing.assert_allclose(out[:, 0:9], ref[:, 0:9], rtol=0,
+                               atol=2e-3 * fmag)
+    np.testing.assert_allclose(out[:, 9:16], ref[:, 9:16], rtol=0,
+                               atol=1e-6 + 2e-3 * np.abs(ref[:, 9:16]).max())
+
+
+@pytest.mark.parametrize("bf16", [False, True], ids=["f32", "bf16"])
+def test_stage1_l1_kernel_matches_plain(bf16, cuda_device):
+    """K5 (l1 = 4 of Lmax 8, with the tail column) vs its twin: f32 within
+    1e-5 rsum, bf16 within one bf16 ulp of rsum (2^-7 rsum)."""
+    lmax, l1 = 8, 4
+    packed, _, _, _, shapes = _pairs(lmax, cuda_device)
+    cap1 = torch.stack([shapes.cap1_x, shapes.cap1_glw, shapes.cap1_cpsi,
+                        shapes.cap1_spsi])
+    tbl1 = ck.stage1_table(shapes, l1)
+    key = "stage1_depth_l1" + ("_bf16" if bf16 else "")
+    n0 = ck.stage1_depth.launches[key]
+    out = ck.stage1_depth(packed, tbl1, cap1, lmax, l1=l1, bf16=bf16)
+    torch.cuda.synchronize()
+    assert ck.stage1_depth.launches[key] == n0 + 1
+    ref = np32(ck.stage1_depth_plain(packed, tbl1, cap1, lmax, l1=l1,
+                                     bf16=bf16))
+    rsum = np32(packed[:, ck.SLOTS["rbi"][0]] + packed[:, ck.SLOTS["rbj"][0]])
+    assert (ref == -1e9).any() and (ref > 0).sum() > 3
+    tol = (2.0 ** -7 if bf16 else 1e-5) * rsum
+    assert (np.abs(np32(out) - ref) <= tol).all()
 
 
 # (wall kind, cap grid): the drum's 8x16 grid and the deposition's 12x24.
