@@ -38,17 +38,18 @@ Phases, each fatal on failure (exit code != 0, no result line):
    read just after: 60 steps (3 cadence blocks) of the n = 100k drum; 100
    steps of the n = 10k deposition from a contact-rich start; 200 steps of
    the n = 500 settling box (5 plane walls, dense path) from its lattice
-   pressed onto the floor; 3,000 steps of the n = 10k drift gas from its
-   lattice, etot sampled every 100 steps (its series and fitted slope
-   printed; the first contacts form after ~1,500 steps). Guards: overflow = 0,
-   finite etot, every kernel of the path launched (and skin_violations = 0
-   for the drum's cadence, pair contacts by the end of the deposition,
-   settling box and gas); particle-steps/s of each;
+   pressed onto the floor; 2,000 steps of the n = 10k drift gas after
+   3,000 unmeasured ones from its lattice (its first contacts form after
+   ~1,800), etot and pe_pair sampled every 100 steps (the series and the
+   fitted slope printed). Guards: overflow = 0, finite etot, every kernel
+   of the path launched (and skin_violations = 0 for the drum's cadence,
+   pair contacts by the end of the deposition and settling box, and at
+   every sample of the gas); particle-steps/s of each;
 6. K5 (l1 = 4, f32 and bf16) vs its twin on the candidate list a rebuild
    of the drift gas builds after its run, with the tail column, and K4 on
    the same rows: K5 >= K4 on every probed row, fatal otherwise;
 7. the bf16 phase in a child process started with
-   SPHERHARM_STAGE2_BF16=1: the drift gas (3,000 steps) and the
+   SPHERHARM_STAGE2_BF16=1: the drift gas (as in step 5) and the
    deposition (100 steps) with every stage-2 call through K3. Guards: K3
    launched in both laws, no K1/K2 launch, overflow = 0, finite etot; the
    child's failure fails the run. Prints etot bf16 - f32 at equal steps
@@ -78,7 +79,7 @@ ROOT = Path(__file__).resolve().parent
 N_MAIN, LMAX, STEPS, R_EVERY = 100_000, 8, 60, 20
 N_DEP, DEP_STEPS = 10_000, 100
 N_SETTLE, SETTLE_STEPS = 500, 200
-N_GAS, GAS_STEPS, GAS_EVERY = 10_000, 3000, 100
+N_GAS, GAS_WARM, GAS_STEPS, GAS_EVERY = 10_000, 3000, 2000, 100
 N_PAIRS = 16_384  # kernel-vs-plain batch (the autograd twin's memory bound)
 # NVIDIA H100 SXM data sheet: f32 (non-tensor) peak and HBM3 rate. A
 # kernel's operations are timed at the peak of their type: the bf16
@@ -138,6 +139,25 @@ def bound(name, lmax, G, work_rows, bytes_moved):
 
 def nbytes(*tensors):
     return sum(t.numel() * t.element_size() for t in tensors)
+
+
+def stage1_bytes(packed, alive, probed, *once):
+    """Bytes the stage-1 probe must move over a [P, 64] list, by row class
+    in 32-byte sectors: a dead row (masked, or d = 0) only the sector of
+    its mask and d; a live row apart by its bounding spheres the sectors
+    of mask, d, rbi and rbj; a probed row the sectors of every slot the
+    probe reads; ``once`` (tables, cap grid, output) whole."""
+    from spherharm_tpu_torch.ops import contact_kernels as ck
+
+    def row_bytes(*names):
+        return 32 * len({4 * c // 32 for n in names for c in range(*ck.SLOTS[n])})
+
+    n_alive, n_probed = int(alive.sum()), int(probed.sum())
+    return (row_bytes("mask", "d") * (packed.shape[0] - n_alive)
+            + row_bytes("mask", "d", "rbi", "rbj") * (n_alive - n_probed)
+            + row_bytes("qi", "qj", "rbi", "rbj", "rmi", "rmj", "mask", "d", "tail",
+                        "typ", "scl") * n_probed
+            + nbytes(*once))
 
 
 def require(cond, msg):
@@ -360,11 +380,12 @@ def kernel_phase(sim, dep, box, gas, dev):
     require(err <= 2e-5, "K4 disagrees with its plain twin")
     rsum = probe[:, ck.SLOTS["rbi"][0]] + probe[:, ck.SLOTS["rbj"][0]]
     dist = torch.linalg.norm(probe[:, ck.SLOTS["d"][0]:ck.SLOTS["d"][1]], dim=1)
-    probed = int(((probe[:, mask_col] > 0.5) & (dist > 1e-12) & (dist < rsum)).sum())
+    alive = (probe[:, mask_col] > 0.5) & (dist > 1e-12)
+    probed = alive & (dist < rsum)
     case(results, "stage1_depth", "drum", LMAX, cap1.shape[1], N_PAIRS, err,
          lambda: ck.stage1_depth(probe, tbl_ab, cap1, LMAX, l1=LMAX, bf16=False),
          lambda: ck.stage1_depth_plain(probe, tbl_ab, cap1, LMAX, l1=LMAX, bf16=False),
-         probed, nbytes(probe, tbl_ab, cap1, out))
+         int(probed.sum()), stage1_bytes(probe, alive, probed, tbl_ab, cap1, out))
 
     # Each path's wall batch: wall_capacity compacted rows, or every
     # particle where the path packs them all (wall_capacity 0).
@@ -444,7 +465,8 @@ def stage1_l1_phase(gas, state, neigh, results):
     k4 = ck.stage1_depth(zeroed, tbl_ab, cap1, LMAX, l1=LMAX, bf16=False)
     rsum = packed[:, ck.SLOTS["rbi"][0]] + packed[:, ck.SLOTS["rbj"][0]]
     dist = torch.linalg.norm(dp, dim=1)
-    probed = live & (dist > 1e-12) & (dist < rsum)
+    alive = live & (dist > 1e-12)
+    probed = alive & (dist < rsum)
     P, n_probed = pi.shape[0], int(probed.sum())
     print(f"drift gas candidate list: {int(n_cand)} candidates in {P} slots, "
           f"{int(live.sum())} live, {n_probed} probed (bounding spheres overlap)")
@@ -456,25 +478,33 @@ def stage1_l1_phase(gas, state, neigh, results):
         out = ck.stage1_depth(packed, tbl1, cap1, LMAX, l1=l1, bf16=bf16)
         ref = ck.stage1_depth_plain(packed, tbl1, cap1, LMAX, l1=l1, bf16=bf16)
         torch.cuda.synchronize()
-        # f32: rounding of the radius chain, 1e-5 of rsum (as K4's 1e-5 on
-        # depths of order 1); bf16: one bf16 ulp of rsum (2^-7 rsum).
-        tol = (2.0 ** -7 if bf16 else 1e-5) * rsum
+        # Kernel and twin round alike op for op (bf16: an f32 op on bf16
+        # values, rounded once), so both are held to 1e-5 of rsum, as K4
+        # is to 1e-5 on depths of order 1; a K5 that ran its chains in f32
+        # would miss that on most probed rows (the bf16 rounding moves r
+        # by ~2e-3 rsum). Where an f32-ulp difference in a node's direction
+        # crosses a bf16 rounding boundary, that node's r moves by a bf16
+        # ulp (first card run: 2 of 7,055 probed rows, the worst 7.5e-3):
+        # in bf16, 0.1% of the probed rows may exceed 1e-5 rsum, none one
+        # bf16 ulp of rsum (2^-7 rsum).
         err = (out - ref).abs()
-        n_bad = int((err > tol).sum())
+        n_bad = int((err > 1e-5 * rsum).sum())
+        allowed = n_probed // 1000 if bf16 else 0
         margin = (out - k4)[probed]
         n_below = int((margin < 0).sum())
         print(f"K5 {name} on drift gas: P={P} l1={l1} probed={n_probed} "
-              f"max|d depth|={float(err.max()):.3g} (tol {2.0 ** -7 if bf16 else 1e-5:g} "
-              f"rsum; rows beyond {n_bad}) K5-K4 on probed rows: "
+              f"max|d depth|={float(err.max()):.3g} (tol 1e-5 rsum; rows beyond "
+              f"{n_bad}, allowed {allowed}) K5-K4 on probed rows: "
               f"min {float(margin.min()):.4g}, rows below 0: {n_below}")
-        require(n_bad == 0, f"K5 {name} disagrees with its plain twin")
+        require(n_bad <= allowed and bool((err <= 2.0 ** -7 * rsum).all()),
+                f"K5 {name} disagrees with its plain twin")
         require(n_below == 0, f"K5 {name} falls below the full-basis probe K4 on "
                 f"{n_below} probed rows: a finding about the reference's truncation "
                 "bound (ROADMAP Queue 3), never a tolerance to loosen")
         case(results, name, "drift gas", LMAX, cap1.shape[1], P, float(err.max()),
              lambda: ck.stage1_depth(packed, tbl1, cap1, LMAX, l1=l1, bf16=bf16),
              lambda: ck.stage1_depth_plain(packed, tbl1, cap1, LMAX, l1=l1, bf16=bf16),
-             n_probed, nbytes(packed, tbl1, cap1, out), degree=l1)
+             n_probed, stage1_bytes(packed, alive, probed, tbl1, cap1, out), degree=l1)
     return {k: ck.stage1_depth.launches[k]
             for k in ("stage1_depth_l1", "stage1_depth_l1_bf16")}
 
@@ -560,7 +590,8 @@ def reset_counts():
 def run_path(label, sim, state, neigh, steps, kernels, smi, every=0):
     """Drive one path with every launch counter at 0, sampling etot every
     ``every`` steps (0: none) as the drift harness does; returns (state,
-    neigh, launches of this run, thermo, seconds a step, [(step, etot)])."""
+    neigh, launches of this run, thermo, seconds a step, [(step, etot,
+    pe_pair)])."""
     import torch
 
     reset_counts()
@@ -570,7 +601,8 @@ def run_path(label, sim, state, neigh, steps, kernels, smi, every=0):
     if every:
         for done in range(every, steps + 1, every):
             state, neigh = sim.run(state, neigh, every)
-            samples.append((done, float(sim.thermo(state, neigh)["etot"])))
+            th = sim.thermo(state, neigh)
+            samples.append((done, float(th["etot"]), float(th["pe_pair"])))
     else:
         state, neigh = sim.run(state, neigh, steps)
     torch.cuda.synchronize()
@@ -586,7 +618,7 @@ def run_path(label, sim, state, neigh, steps, kernels, smi, every=0):
           f"pe_pair={float(th['pe_pair']):.6g} pe_wall={float(th['pe_wall']):.6g} "
           f"launches={ {k: v for k, v in launches.items() if v} }")
     require(overflow == 0, f"{label}: capacity overflow (channel={overflow})")
-    require(math.isfinite(etot) and all(math.isfinite(e) for _, e in samples),
+    require(math.isfinite(etot) and all(math.isfinite(s[1]) for s in samples),
             f"{label}: non-finite energy")
     require(all(launches[k] > 0 for k in kernels),
             f"{label}: a kernel of the path never launched: {launches}")
@@ -594,21 +626,26 @@ def run_path(label, sim, state, neigh, steps, kernels, smi, every=0):
 
 
 def drift_path(label, gas, state, neigh, kernels, smi):
-    """GAS_STEPS steps of the drift gas sampled every GAS_EVERY steps;
-    prints the etot series and the fitted slope; pair contacts must have
-    formed by the end. Returns (state, neigh, launches, samples, slope,
-    seconds a step)."""
+    """The drift gas from its lattice: GAS_WARM steps unmeasured (its
+    first contacts form after ~1,800), then the measured GAS_STEPS steps
+    sampled every GAS_EVERY steps, with pair contacts at every sample;
+    prints the etot and pe_pair series and the fitted slope. Returns
+    (state, neigh, launches, samples, slope, seconds a step)."""
     from spherharm_tpu_torch.models import drift
 
+    state, neigh = gas.run(state, neigh, GAS_WARM)
+    pe0 = float(gas.thermo(state, neigh)["pe_pair"])
+    require(pe0 > 0, f"{label}: no pair contact after {GAS_WARM} steps")
     state, neigh, launches, th, step_s, samples = run_path(
         label, gas, state, neigh, GAS_STEPS, kernels, smi, every=GAS_EVERY)
     slope = drift.drift_slope(samples)
-    print(f"{label}: etot every {GAS_EVERY} steps: "
-          + " ".join(f"{e:.8g}" for _, e in samples))
+    print(f"{label}: from step {GAS_WARM} (pe_pair {pe0:.6g}), every {GAS_EVERY} "
+          "steps: etot " + " ".join(f"{s[1]:.8g}" for s in samples)
+          + "; pe_pair " + " ".join(f"{s[2]:.4g}" for s in samples))
     print(f"{label}: fitted drift {slope:+.4%} per 1M steps over {GAS_STEPS} steps "
-          f"(contact onset, not a drift measurement); pe_pair at the end "
-          f"{float(th['pe_pair']):.6g}")
-    require(float(th["pe_pair"]) > 0, f"{label}: no collisions by the end")
+          "(too short to judge drift)")
+    require(all(s[2] > 0 for s in samples),
+            f"{label}: a sample of the measured window has no pair contact")
     return state, neigh, launches, samples, slope, step_s
 
 
@@ -810,7 +847,7 @@ def main(argv):
     torch.cuda.empty_cache()
     t0 = time.perf_counter()
     child = bf16_phase()
-    diffs = [eb - ef for (_, ef), (_, eb) in zip(samples, child["samples"])]
+    diffs = [b[1] - f[1] for f, b in zip(samples, child["samples"])]
     print(f"bf16 child: {time.perf_counter() - t0:.1f}s; drift gas etot bf16 - f32 "
           f"every {GAS_EVERY} steps: " + " ".join(f"{d:+.4g}" for d in diffs))
     print(f"drift gas fitted slope over {GAS_STEPS} steps: f32 {slope:+.4%}, bf16 "

@@ -64,9 +64,10 @@ def temperature(state, shapes):
 
 
 def _pair_pass(sim, state, neigh):
-    """The narrow phase over the stable pair list, geometric law, current
-    springs: returns (kernel output rows [P, 24], minimum-image d [P, 3],
-    live-pair mask [P])."""
+    """The narrow phase over the stable pair list, geometric law in f32
+    whatever ``SPHERHARM_STAGE2_BF16`` says (the reference's computes run
+    its f32 ``pair_contact_rows``), current springs: returns (kernel output
+    rows [P, 24], minimum-image d [P, 3], live-pair mask [P])."""
     rows = contact.particle_rows(state, sim.shapes)
     pi, pj = neigh.pair_i, neigh.pair_j
     msk = (neigh.pair_valid & (rows[pi, contact._RACT] > 0.5)
@@ -78,7 +79,7 @@ def _pair_pass(sim, state, neigh):
                                           pj, msk, neigh.pair_hist, d,
                                           rows=rows)
     out = ck.pair_contact(packed, tbl, cap, par, lmax=sim.shapes.lmax,
-                          conservative=False)
+                          conservative=False, bf16=False)
     return out, d, msk
 
 

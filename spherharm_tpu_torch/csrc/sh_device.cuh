@@ -168,50 +168,38 @@ __device__ __forceinline__ void radius_grad_power(const float* tbl, float s, int
 template <bool kBf16>
 __device__ __forceinline__ float radius_power_ab(const float* tbl, float s, int l, float ct,
                                                  float st, float cp, float sp) {
-  int oA = 0, oB = a_width(l);
+  // One body for both: mul/add/sub are f32 ops, or bf16-rounded ones.
+  const auto mul = [](float a, float b) { return kBf16 ? bmul(a, b) : a * b; };
+  const auto add = [](float a, float b) { return kBf16 ? badd(a, b) : a + b; };
+  const auto sub = [](float a, float b) { return kBf16 ? bsub(a, b) : a - b; };
   if constexpr (kBf16) {
     ct = bf(ct);
     st = bf(st);
     cp = bf(cp);
     sp = bf(sp);
-    float r = horner_bf16(tbl, s, l + 1, ct);
-    oA += l + 1;
-    float cos_m = cp, sin_m = sp, st_m = 1.0f;
-    for (int m = 1; m <= l; ++m) {
-      if (m > 1) {
-        const float c = bsub(bmul(cos_m, cp), bmul(sin_m, sp));
-        sin_m = badd(bmul(sin_m, cp), bmul(cos_m, sp));
-        cos_m = c;
-      }
-      const int nab = l - m + 1;
-      const float A = horner_bf16(tbl + oA, s, nab, ct);
-      const float B = horner_bf16(tbl + oB, s, nab, ct);
-      oA += nab;
-      oB += nab;
-      st_m = bmul(st_m, st);
-      r = badd(r, bmul(st_m, badd(bmul(cos_m, A), bmul(sin_m, B))));
-    }
-    return r;
-  } else {
-    float r = horner(tbl, l + 1, ct);
-    oA += l + 1;
-    float cos_m = cp, sin_m = sp, st_m = 1.0f;
-    for (int m = 1; m <= l; ++m) {
-      if (m > 1) {
-        const float c = cos_m * cp - sin_m * sp;
-        sin_m = sin_m * cp + cos_m * sp;
-        cos_m = c;
-      }
-      const int nab = l - m + 1;
-      const float A = horner(tbl + oA, nab, ct);
-      const float B = horner(tbl + oB, nab, ct);
-      oA += nab;
-      oB += nab;
-      st_m = st_m * st;
-      r = r + st_m * (cos_m * A + sin_m * B);
-    }
-    return r * s;
   }
+  const auto hr = [&](int off, int n) {
+    return kBf16 ? horner_bf16(tbl + off, s, n, ct) : horner(tbl + off, n, ct);
+  };
+  int oA = 0, oB = a_width(l);
+  float r = hr(oA, l + 1);
+  oA += l + 1;
+  float cos_m = cp, sin_m = sp, st_m = 1.0f;
+  for (int m = 1; m <= l; ++m) {
+    if (m > 1) {
+      const float c = sub(mul(cos_m, cp), mul(sin_m, sp));
+      sin_m = add(mul(sin_m, cp), mul(cos_m, sp));
+      cos_m = c;
+    }
+    const int nab = l - m + 1;
+    const float A = hr(oA, nab);
+    const float B = hr(oB, nab);
+    oA += nab;
+    oB += nab;
+    st_m = mul(st_m, st);
+    r = add(r, mul(st_m, add(mul(cos_m, A), mul(sin_m, B))));
+  }
+  return kBf16 ? r : r * s;
 }
 
 // Outward unit normal e_r - (r_t / r) e_t - (r_p / (r sin t)) e_p.

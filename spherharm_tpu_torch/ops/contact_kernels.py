@@ -327,8 +327,10 @@ def stage1_depth(packed, tbl1, cap1, lmax: int, l1: int = 4,
     both probe directions, plus the tail column, plus 0.02 rsum with
     bf16). Pairs apart by their bounding spheres give rsum - dist; dead
     rows give -1e9. The defaults are the reference's
-    (``stage1_depth_pallas``: l1 = 4, bf16, K5); the prefilter passes
-    l1 = lmax, bf16 = False (K4) with the tail column zeroed.
+    (``stage1_depth_pallas``: l1 = 4, bf16, K5), kept so that a call
+    without them means what it means there; the prefilter, the port's
+    only caller, passes l1 = lmax, bf16 = False (K4) by name, with the
+    tail column zeroed.
     tbl1: [T, (l1+1)^2] degree-l1 table (``stage1_table``; at l1 = lmax
     the A/B prefix of the power table); cap1: [4, G1]. l1 is capped at
     lmax. CUDA tensors launch ``csrc/stage1_probe.cu`` (launches counted

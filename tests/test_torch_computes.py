@@ -24,6 +24,7 @@ from spherharm_tpu.ops.neighbor import CellGrid as JCellGrid
 from spherharm_tpu_torch.core import computes
 from spherharm_tpu_torch.core import state as tstate
 from spherharm_tpu_torch.core.simulation import Simulation
+from spherharm_tpu_torch.ops import contact_kernels as ck
 from spherharm_tpu_torch.ops.neighbor import CellGrid
 
 from torch_port_util import np32, to_torch
@@ -127,6 +128,19 @@ def test_compute_matches_reference(gas, style):
                                    atol=2e-3 * np.abs(ref).max())
     else:
         np.testing.assert_allclose(got, ref, rtol=1e-4, atol=1e-7)
+
+
+def test_computes_stay_f32_under_stage2_bf16(gas, monkeypatch):
+    """SPHERHARM_STAGE2_BF16 switches the force calls only: the per-atom
+    computes' narrow phase stays f32, as the reference's does, so their
+    values do not move by a bit."""
+    *_, tsim, ts, tn = gas
+    styles = ("stress/atom", "contact/atom")
+    f32 = {s: np32(computes.compute(s, tsim, ts, tn)) for s in styles}
+    monkeypatch.setattr(ck, "STAGE2_BF16", True)
+    for s in styles:
+        np.testing.assert_array_equal(np32(computes.compute(s, tsim, ts, tn)),
+                                      f32[s], err_msg=s)
 
 
 def test_coord_and_contact_atom():

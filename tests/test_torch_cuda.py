@@ -138,8 +138,11 @@ def test_pair_contact_bf16_kernel_matches_plain(conservative, cuda_device):
 
 @pytest.mark.parametrize("bf16", [False, True], ids=["f32", "bf16"])
 def test_stage1_l1_kernel_matches_plain(bf16, cuda_device):
-    """K5 (l1 = 4 of Lmax 8, with the tail column) vs its twin: f32 within
-    1e-5 rsum, bf16 within one bf16 ulp of rsum (2^-7 rsum)."""
+    """K5 (l1 = 4 of Lmax 8, with the tail column) vs its twin, both within
+    1e-5 rsum: kernel and twin round alike op for op, where running the
+    chains in f32 would move r by ~2e-3 rsum. (chip_smoke.py lets 0.1% of
+    bf16 rows exceed that by up to a bf16 ulp; this batch has fewer than
+    1000 rows.)"""
     lmax, l1 = 8, 4
     packed, _, _, _, shapes = _pairs(lmax, cuda_device)
     cap1 = torch.stack([shapes.cap1_x, shapes.cap1_glw, shapes.cap1_cpsi,
@@ -154,8 +157,7 @@ def test_stage1_l1_kernel_matches_plain(bf16, cuda_device):
                                      bf16=bf16))
     rsum = np32(packed[:, ck.SLOTS["rbi"][0]] + packed[:, ck.SLOTS["rbj"][0]])
     assert (ref == -1e9).any() and (ref > 0).sum() > 3
-    tol = (2.0 ** -7 if bf16 else 1e-5) * rsum
-    assert (np.abs(np32(out) - ref) <= tol).all()
+    assert (np.abs(np32(out) - ref) <= 1e-5 * rsum).all()
 
 
 # (wall kind, cap grid): the drum's 8x16 grid and the deposition's 12x24.
