@@ -45,7 +45,9 @@ Phases, each fatal on failure (exit code != 0, no result line):
    of the path launched (and skin_violations = 0 for the drum's cadence,
    pair contacts by the end of the deposition and settling box, and at
    every sample of the gas); particle-steps/s of each;
-6. K5 (l1 = 4, f32 and bf16) vs its twin on the candidate list a rebuild
+6. K1 and K3 conservative on the drift gas's own stage-2 list after its
+   run (all 30,000 slots timed; up to 16,384 live rows held to the twin);
+   K5 (l1 = 4, f32 and bf16) vs its twin on the candidate list a rebuild
    of the drift gas builds after its run, with the tail column, and K4 on
    the same rows: K5 >= K4 on every probed row, fatal otherwise;
 7. the bf16 phase in a child process started with
@@ -282,13 +284,13 @@ def compare(out, ref, nf, f_tol, loose_rows=0):
 
 
 def case(results, name, tag, lmax, G, rows, err, time_kernel, time_plain, work,
-         moved, degree=None):
+         moved, degree=None, **extra):
     """Time one kernel case (CUDA events: kernel over 20 launches, plain
     twin over 3) and compute its bound at evaluation degree ``degree``
-    (default lmax); appends it to ``results[name]``."""
+    (default lmax); appends it, with ``extra``, to ``results[name]``."""
     c = dict(path=tag, lmax=lmax, G=G, rows=rows, max_abs_err=err,
              ms=cuda_ms(time_kernel, 20), plain_ms=cuda_ms(time_plain, 3),
-             **bound(name, degree or lmax, G, work, moved))
+             **bound(name, degree or lmax, G, work, moved), **extra)
     if degree is not None:
         c["l1"] = degree
     print(f"  {name} on {tag}: {c['ms']:.4f} ms (plain {c['plain_ms']:.2f} ms, "
@@ -424,6 +426,53 @@ def kernel_phase(sim, dep, box, gas, dev):
              lambda: wk.wall_contact_plain(*args[:4], lmax, kind),
              int((args[0][:, 16] > 0.5).sum()), nbytes(*args[:4], out))
     return results
+
+
+def gas_list_phase(gas, state, neigh, results):
+    """K1 and K3 conservative (``bf16=True`` passed) on the drift gas's own
+    stage-2 list, packed from the gas's state after its run as
+    ``contact.contact_force_pairs`` packs it, all ``stage2_capacity``
+    slots: each kernel timed on the whole list (its bound from the list's
+    live rows), held to its twin on up to N_PAIRS of the live rows (the
+    autograd twin's memory bound; the plain time is of those rows) at the
+    synthetic batches' tolerances."""
+    import torch
+
+    from spherharm_tpu_torch.ops import contact
+    from spherharm_tpu_torch.ops import contact_kernels as ck
+
+    shapes, lmax = gas.shapes, gas.shapes.lmax
+    pi, pj = neigh.pair_i, neigh.pair_j
+    rows = contact.particle_rows(state, shapes)
+    live = (neigh.pair_valid & (rows[pi, contact._RACT] > 0.5)
+            & (rows[pj, contact._RACT] > 0.5))
+    dp = contact.minimum_image(rows[pj][:, contact._RX] - rows[pi][:, contact._RX],
+                               state.box_lo, state.box_hi, gas.periodic)
+    packed, tbl, cap, par = ck.pack_pairs(state, shapes, gas.params, pi, pj, live,
+                                          neigh.pair_hist, dp, rows=rows)
+    sub = packed[torch.nonzero(live).flatten()[:N_PAIRS]].contiguous()
+    P, n_live, n_sub, G = packed.shape[0], int(live.sum()), sub.shape[0], cap.shape[1]
+    require(n_sub > 1000, f"drift gas list: only {n_sub} live rows")
+    for bf16 in (False, True):
+        name = "pair_contact_conservative" + ("_bf16" if bf16 else "")
+        label = f"K{3 if bf16 else 1} {name} on the drift gas's stage-2 list"
+        full = ck.pair_contact(packed, tbl, cap, par, lmax, True, bf16)
+        out = ck.pair_contact(sub, tbl, cap, par, lmax, True, bf16)
+        ref = ck.pair_contact_plain(sub, tbl, cap, par, lmax, True, bf16)
+        torch.cuda.synchronize()
+        n_contact = int((ref[:, 16] > 0.5).sum())
+        ok, err, flips, text = compare(out, ref, 9, 1e-4, n_sub // 1000)
+        print(f"{label}: P={P} live={n_live} compared={n_sub} contacts={n_contact} "
+              f"|F|max={float(ref[:, 0:3].abs().max()):.4g} {text}")
+        require(n_contact > 0, f"{label}: no contact on the list")
+        require(bool(torch.isfinite(full).all()), f"{label}: output not finite")
+        require(ok, f"{label}: disagrees with its plain twin")
+        require(flips <= n_sub // 1000, f"{label}: contact flags disagree")
+        case(results, name, "drift gas stage-2 list", lmax, G, P, err,
+             lambda: ck.pair_contact(packed, tbl, cap, par, lmax, True, bf16),
+             lambda: ck.pair_contact_plain(sub, tbl, cap, par, lmax, True, bf16),
+             n_live, nbytes(packed, tbl, cap, par, full), live_rows=n_live,
+             plain_rows=n_sub)
 
 
 def stage1_l1_phase(gas, state, neigh, results):
@@ -842,6 +891,7 @@ def main(argv):
         ("pair_contact_conservative", "stage1_depth"), smi)
     if profiling:
         profile_path("drift gas", gas, gst, gng, step_s, smi)
+    gas_list_phase(gas, gst, gng, kern)
     l_k5 = stage1_l1_phase(gas, gst, gng, kern)
     del gas, gst, gng
     torch.cuda.empty_cache()
@@ -855,12 +905,12 @@ def main(argv):
 
     k3 = {k: child["gas"][k] + child["deposition"][k]
           for k in ("pair_contact_conservative_bf16", "pair_contact_geometric_bf16")}
-    src = {"pair_contact_conservative": ("spherharm_tpu_torch/csrc/pair_contact.cu",
+    src = {"pair_contact_conservative": ("spherharm_tpu_torch/csrc/pair_contact_cons.cu",
                                          "spherharm_tpu/ops/contact_pallas.py:496"),
            "pair_contact_geometric": ("spherharm_tpu_torch/csrc/pair_contact.cu",
                                       "spherharm_tpu/ops/contact_pallas.py:213"),
            "pair_contact_conservative_bf16": (
-               "spherharm_tpu_torch/csrc/pair_contact.cu",
+               "spherharm_tpu_torch/csrc/pair_contact_cons.cu",
                "spherharm_tpu/ops/contact_pallas.py:142"),
            "pair_contact_geometric_bf16": ("spherharm_tpu_torch/csrc/pair_contact.cu",
                                            "spherharm_tpu/ops/contact_pallas.py:142"),

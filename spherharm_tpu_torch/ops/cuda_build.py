@@ -26,8 +26,9 @@ from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "spherharm_tpu_torch"
-SOURCES = ("pair_contact.cu", "stage1_probe.cu", "wall_contact.cu")
-HEADERS = ("sh_device.cuh",)
+SOURCES = ("pair_contact.cu", "pair_contact_cons.cu", "stage1_probe.cu",
+           "wall_contact.cu")
+HEADERS = ("sh_device.cuh", "pair_contact.cuh")
 ARCH = ("-gencode", "arch=compute_90a,code=sm_90a")
 NVCC_FLAGS = (*ARCH, "-std=c++17", "-O3", "-Xcompiler", "-fPIC")
 

@@ -1,0 +1,68 @@
+"""The yardstick of the port's kernel bounds, pinned without a card.
+
+``chip_smoke.py`` computes each kernel's least time on the card from the
+``node-flops[...]`` line beside the kernel's node loop in
+``spherharm_tpu_torch/csrc`` and from ``horner_flops``, the FLOPs of one
+surface evaluation counted from its loops. A redesign of a kernel must
+keep that count (or change it here with its reason): these tests import
+``chip_smoke`` on the CPU, where it builds nothing and writes no file.
+"""
+
+import importlib.util
+from pathlib import Path
+
+import pytest
+
+ROOT = Path(__file__).resolve().parents[1]
+
+
+@pytest.fixture(scope="module")
+def smoke():
+    spec = importlib.util.spec_from_file_location("chip_smoke", ROOT / "chip_smoke.py")
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+@pytest.mark.parametrize("name,bf16", [
+    ("pair_contact_conservative", False),
+    ("pair_contact_conservative_bf16", True),
+])
+def test_conservative_node_flops(smoke, name, bf16):
+    """K1 / K3 conservative: 468 FLOPs of probe and gradient algebra a
+    node, 2 surface evaluations with gradient, 2 sides."""
+    assert smoke.node_flops()[name] == (468, 2, True, bf16, 2)
+
+
+@pytest.mark.parametrize("bf16,flops", [(False, (441, 0)), (True, (155, 286))])
+def test_horner_flops_at_lmax8(smoke, bf16, flops):
+    """One radius_grad_power at Lmax 8: 441 FLOPs in f32; with bf16 the
+    286 FLOPs of the Horner chains count at the bf16 rate."""
+    assert smoke.horner_flops(8, bf16=bf16) == flops
+
+
+def test_every_stage2_law_has_a_count(smoke):
+    """Each stage-2 variant the launch counters name has its count."""
+    table = smoke.node_flops()
+    for law in ("conservative", "geometric"):
+        for suffix in ("", "_bf16"):
+            assert f"pair_contact_{law}{suffix}" in table
+
+
+@pytest.mark.parametrize("name,per_node_s,lo,hi", [
+    # K1 on the drum batch: 1,350 f32 FLOPs a node and side.
+    ("pair_contact_conservative", (468 + 2 * 441) / 67e12, 0.082, 0.084),
+    # K3 conservative on the gas batch: its 2 x 286 chain FLOPs at the
+    # bf16 rate.
+    ("pair_contact_conservative_bf16",
+     (468 + 2 * 155) / 67e12 + 2 * 286 / 133.8e12, 0.064, 0.066),
+])
+def test_conservative_bound_unchanged(smoke, name, per_node_s, lo, hi):
+    """The bound of 16,056 working rows of 128 nodes at Lmax 8 (the
+    synthetic batches' live rows) stays where the run-time-degree kernel's
+    count put it: K1 0.083 ms, K3 conservative 0.065 ms, both by
+    operations."""
+    b = smoke.bound(name, 8, 128, 16_056, 0)
+    assert b["bound_by"] == "operations"
+    assert b["bound_ms"] == pytest.approx(16_056 * 128 * 2 * per_node_s * 1e3)
+    assert lo < b["bound_ms"] < hi

@@ -62,9 +62,15 @@ def _pairs(lmax, device, seed=11, n=14, contact_quad=(8, 16)):
 # (lmax, law, cap grid): K1 at the reference's conservative bound 1e-4
 # |F|max, K2 at its geometric bound 2e-3 |F|max on the 128-node 8x16 grid
 # and on the deposition's 288-node 12x24 grid, and at the settling box's
-# Lmax 2.
+# Lmax 2. K1 at each degree compiled into csrc/pair_contact_cons.cu (0 on
+# the two-body collision's 12x24 grid, whose 288 nodes leave a lane's last
+# node block half empty; 2, 4, 8) and at lmax 6, which takes the run-time-
+# degree instantiation.
 LAW_CASES = [
+    pytest.param(0, True, (12, 24), id="0-12x24"),
+    pytest.param(2, True, (8, 16), id="2"),
     pytest.param(4, True, (8, 16), id="4"),
+    pytest.param(6, True, (8, 16), id="6-run-time-degree"),
     pytest.param(8, True, (8, 16), id="8"),
     pytest.param(8, False, (8, 16), id="8-geometric-8x16"),
     pytest.param(8, False, (12, 24), id="8-geometric-12x24"),
@@ -134,6 +140,36 @@ def test_pair_contact_bf16_kernel_matches_plain(conservative, cuda_device):
                                atol=2e-3 * fmag)
     np.testing.assert_allclose(out[:, 9:16], ref[:, 9:16], rtol=0,
                                atol=1e-6 + 2e-3 * np.abs(ref[:, 9:16]).max())
+
+
+@pytest.mark.parametrize("lmax,quad", [
+    pytest.param(8, (8, 16), id="8"),
+    pytest.param(6, (12, 24), id="6-run-time-degree-12x24"),
+])
+def test_pair_contact_bf16_conservative_kernel_at_card_tolerance(lmax, quad,
+                                                                 cuda_device):
+    """K3 conservative vs its bf16 twin at chip_smoke.py's allowance: kernel
+    and twin round every chain op alike, so forces and torques within
+    1e-4 |F|max, 0.1 % of rows beyond it (the ulp-level jump of the law,
+    where an f32-ulp move of a node crosses a bf16 rounding boundary),
+    none beyond 2e-2; springs and pe within 1e-6 + 1e-4 of their scale."""
+    packed, tbl, cap, par, _ = _pairs(lmax, cuda_device, contact_quad=quad)
+    n0 = ck.pair_contact.launches["conservative_bf16"]
+    out = ck.pair_contact(packed, tbl, cap, par, lmax, True, bf16=True)
+    torch.cuda.synchronize()
+    assert ck.pair_contact.launches["conservative_bf16"] == n0 + 1
+    out, ref = np32(out), np32(ck.pair_contact_plain(packed, tbl, cap, par,
+                                                     lmax, True, True))
+    inc = ref[:, 16] > 0.5
+    assert inc.sum() > 3
+    np.testing.assert_array_equal(out[:, 16] > 0.5, inc)
+    fmag = np.abs(ref[:, 0:3]).max()
+    err = np.abs(out[:, 0:9] - ref[:, 0:9]).max(1)
+    assert (err > 1e-4 * fmag).sum() <= out.shape[0] // 1000
+    assert err.max() <= 2e-2 * fmag
+    np.testing.assert_allclose(out[:, 9:16], ref[:, 9:16], rtol=0,
+                               atol=1e-6 + 1e-4 * np.abs(ref[:, 9:16]).max())
+    np.testing.assert_array_equal(out[:, 17:], 0.0)
 
 
 @pytest.mark.parametrize("bf16", [False, True], ids=["f32", "bf16"])
