@@ -8,7 +8,9 @@
 Phases, each fatal on failure (exit code != 0, no result line):
 
 1. build the CUDA kernels from ``spherharm_tpu_torch/csrc`` (nvcc, sm_90a,
-   one process per source, in parallel);
+   one process per source, in parallel); print ptxas's registers and
+   spills, and the instruction mix of the conservative kernel's Lmax-8
+   node loops (cuobjdump);
 2. set up, on the card, the main-path drum (``rotating_drum`` at
    n = 100,000, Lmax 8, 4 blob types, k_max 24, pair cap 5n, stage-2 cap
    3n, cadence R = 20, conservative law), the full-width deposition
@@ -66,6 +68,7 @@ child's, K5's those of step 6), and as the last line
 
 from __future__ import annotations
 
+import collections
 import json
 import math
 import os
@@ -181,6 +184,40 @@ def cuda_ms(fn, reps):
     stop.record()
     torch.cuda.synchronize()
     return start.elapsed_time(stop) / reps
+
+
+def print_node_loop_sass(lib, nvcc):
+    """Print the instruction mix of the node loops of the conservative
+    kernel at Lmax 8 (f32 and bf16) in ``lib``'s SASS: in each, the
+    longest backward branch whose body holds no shuffle (the side sums
+    come after the loop). Reads the library only; prints a note instead
+    where cuobjdump is missing."""
+    cuobjdump = Path(nvcc).parent / "cuobjdump"
+    if not cuobjdump.exists():
+        print(f"  sass: {cuobjdump} not found")
+        return
+    proc = subprocess.run([str(cuobjdump), "-sass", str(lib)], capture_output=True,
+                          text=True)
+    if proc.returncode != 0:
+        print(f"  sass: cuobjdump failed ({proc.returncode}): {proc.stderr[-300:]}")
+        return
+    for fn in re.split(r"\n\s*Function : ", proc.stdout)[1:]:
+        head = fn.split("\n", 1)[0]
+        m = re.search(r"pair_conservative_kernelILi8ELb([01])E", head)
+        if not m:
+            continue
+        ops = [(int(a, 16), op) for a, op in re.findall(
+            r"/\*([0-9a-f]{4,})\*/\s+(?:@!?U?P\w+\s+)?([A-Z][A-Z0-9_]*)", fn)]
+        body = lambda lo, hi: [op for a, op in ops if lo <= a <= hi]
+        loops = [(int(t, 16), int(a, 16)) for a, t in re.findall(
+            r"/\*([0-9a-f]{4,})\*/[^\n]*?BRA (0x[0-9a-f]+)", fn)]
+        loops = [(t, a) for t, a in loops if t < a and "SHFL" not in body(t, a)]
+        if not loops:
+            continue
+        mix = collections.Counter(body(*max(loops, key=lambda ta: ta[1] - ta[0])))
+        print(f"  sass <8,{'bf16' if m.group(1) == '1' else 'f32'}> node loop: "
+              f"{sum(mix.values())} instructions; "
+              + " ".join(f"{op}={n}" for op, n in mix.most_common(16)))
 
 
 def contact_pairs(sim, dev, rng):
@@ -433,9 +470,10 @@ def gas_list_phase(gas, state, neigh, results):
     stage-2 list, packed from the gas's state after its run as
     ``contact.contact_force_pairs`` packs it, all ``stage2_capacity``
     slots: each kernel timed on the whole list (its bound from the list's
-    live rows), held to its twin on up to N_PAIRS of the live rows (the
-    autograd twin's memory bound; the plain time is of those rows) at the
-    synthetic batches' tolerances."""
+    live rows); the rows of that same call held to the twin on up to
+    N_PAIRS of the live rows (the autograd twin's memory bound; the plain
+    time is of those rows) at the synthetic batches' tolerances, and its
+    masked rows to zero."""
     import torch
 
     from spherharm_tpu_torch.ops import contact
@@ -450,22 +488,23 @@ def gas_list_phase(gas, state, neigh, results):
                                state.box_lo, state.box_hi, gas.periodic)
     packed, tbl, cap, par = ck.pack_pairs(state, shapes, gas.params, pi, pj, live,
                                           neigh.pair_hist, dp, rows=rows)
-    sub = packed[torch.nonzero(live).flatten()[:N_PAIRS]].contiguous()
+    idx = torch.nonzero(live).flatten()[:N_PAIRS]
+    sub = packed[idx].contiguous()
     P, n_live, n_sub, G = packed.shape[0], int(live.sum()), sub.shape[0], cap.shape[1]
     require(n_sub > 1000, f"drift gas list: only {n_sub} live rows")
     for bf16 in (False, True):
         name = "pair_contact_conservative" + ("_bf16" if bf16 else "")
         label = f"K{3 if bf16 else 1} {name} on the drift gas's stage-2 list"
         full = ck.pair_contact(packed, tbl, cap, par, lmax, True, bf16)
-        out = ck.pair_contact(sub, tbl, cap, par, lmax, True, bf16)
         ref = ck.pair_contact_plain(sub, tbl, cap, par, lmax, True, bf16)
         torch.cuda.synchronize()
         n_contact = int((ref[:, 16] > 0.5).sum())
-        ok, err, flips, text = compare(out, ref, 9, 1e-4, n_sub // 1000)
+        ok, err, flips, text = compare(full[idx], ref, 9, 1e-4, n_sub // 1000)
         print(f"{label}: P={P} live={n_live} compared={n_sub} contacts={n_contact} "
               f"|F|max={float(ref[:, 0:3].abs().max()):.4g} {text}")
         require(n_contact > 0, f"{label}: no contact on the list")
         require(bool(torch.isfinite(full).all()), f"{label}: output not finite")
+        require(bool((full[~live] == 0).all()), f"{label}: a masked row is not zero")
         require(ok, f"{label}: disagrees with its plain twin")
         require(flips <= n_sub // 1000, f"{label}: contact flags disagree")
         case(results, name, "drift gas stage-2 list", lmax, G, P, err,
@@ -815,6 +854,7 @@ def main(argv):
     for line in log.splitlines():
         if "Compiling entry" in line or "registers" in line or "spill" in line:
             print("  ptxas:", line.strip())
+    print_node_loop_sass(path, cuda_build.nvcc_path())
 
     t0 = time.perf_counter()
     sim, state, neigh = scenarios.rotating_drum(
