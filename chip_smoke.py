@@ -9,8 +9,8 @@ Phases, each fatal on failure (exit code != 0, no result line):
 
 1. build the CUDA kernels from ``spherharm_tpu_torch/csrc`` (nvcc, sm_90a,
    one process per source, in parallel); print ptxas's registers and
-   spills, and the instruction mix of the conservative kernel's Lmax-8
-   node loops (cuobjdump);
+   spills, and the instruction mix of the Lmax-8 node loops of both
+   stage-2 laws, f32 and bf16 (cuobjdump);
 2. set up, on the card, the main-path drum (``rotating_drum`` at
    n = 100,000, Lmax 8, 4 blob types, k_max 24, pair cap 5n, stage-2 cap
    3n, cadence R = 20, conservative law), the full-width deposition
@@ -47,8 +47,11 @@ Phases, each fatal on failure (exit code != 0, no result line):
    of the path launched (and skin_violations = 0 for the drum's cadence,
    pair contacts by the end of the deposition and settling box, and at
    every sample of the gas); particle-steps/s of each;
-6. K1 and K3 conservative on the drift gas's own stage-2 list after its
-   run (all 30,000 slots timed; up to 16,384 live rows held to the twin);
+6. each law's kernels on its path's own stage-2 list after the path's
+   run: K2 and K3 geometric on the deposition's (all 100,000 slots, pair
+   cap 10n, no prefilter), K1 and K3 conservative on the drift gas's
+   (30,000 slots); each list timed whole, up to 16,384 live rows held to
+   the twin and every masked row to zero;
    K5 (l1 = 4, f32 and bf16) vs its twin on the candidate list a rebuild
    of the drift gas builds after its run, with the tail column, and K4 on
    the same rows: K5 >= K4 on every probed row, fatal otherwise;
@@ -187,11 +190,11 @@ def cuda_ms(fn, reps):
 
 
 def print_node_loop_sass(lib, nvcc):
-    """Print the instruction mix of the node loops of the conservative
-    kernel at Lmax 8 (f32 and bf16) in ``lib``'s SASS: in each, the
-    longest backward branch whose body holds no shuffle (the side sums
-    come after the loop). Reads the library only; prints a note instead
-    where cuobjdump is missing."""
+    """Print the instruction mix of the node loops of the stage-2 kernels
+    of both laws at Lmax 8 (f32 and bf16; the geometric kernel's at each
+    node block NB) in ``lib``'s SASS: in each, the longest backward branch
+    whose body holds no shuffle (the side sums come after the loop). Reads
+    the library only; prints a note instead where cuobjdump is missing."""
     cuobjdump = Path(nvcc).parent / "cuobjdump"
     if not cuobjdump.exists():
         print(f"  sass: {cuobjdump} not found")
@@ -203,7 +206,7 @@ def print_node_loop_sass(lib, nvcc):
         return
     for fn in re.split(r"\n\s*Function : ", proc.stdout)[1:]:
         head = fn.split("\n", 1)[0]
-        m = re.search(r"pair_conservative_kernelILi8ELb([01])E", head)
+        m = re.search(r"pair_(conservative|geometric)_kernelILi8ELb([01])E(?:Li(\d)E)?", head)
         if not m:
             continue
         ops = [(int(a, 16), op) for a, op in re.findall(
@@ -215,7 +218,9 @@ def print_node_loop_sass(lib, nvcc):
         if not loops:
             continue
         mix = collections.Counter(body(*max(loops, key=lambda ta: ta[1] - ta[0])))
-        print(f"  sass <8,{'bf16' if m.group(1) == '1' else 'f32'}> node loop: "
+        kind = ("bf16" if m.group(2) == "1" else "f32") + (
+            f",NB={m.group(3)}" if m.group(3) else "")
+        print(f"  sass {m.group(1)} <8,{kind}> node loop: "
               f"{sum(mix.values())} instructions; "
               + " ".join(f"{op}={n}" for op, n in mix.most_common(16)))
 
@@ -465,41 +470,44 @@ def kernel_phase(sim, dep, box, gas, dev):
     return results
 
 
-def gas_list_phase(gas, state, neigh, results):
-    """K1 and K3 conservative (``bf16=True`` passed) on the drift gas's own
-    stage-2 list, packed from the gas's state after its run as
-    ``contact.contact_force_pairs`` packs it, all ``stage2_capacity``
-    slots: each kernel timed on the whole list (its bound from the list's
-    live rows); the rows of that same call held to the twin on up to
-    N_PAIRS of the live rows (the autograd twin's memory bound; the plain
-    time is of those rows) at the synthetic batches' tolerances, and its
-    masked rows to zero."""
+def stage2_list_phase(tag, path, state, neigh, results):
+    """The stage-2 kernels of ``path``'s law, f32 and bf16 (``bf16=True``
+    passed), on the path's own stage-2 list, packed from ``state`` after
+    its run as ``contact.contact_force_pairs`` packs it, every slot: each
+    kernel timed on the whole list (its bound from the list's live rows);
+    the rows of that same call held to the twin on up to N_PAIRS of the
+    live rows (the autograd twin's memory bound; the plain time is of
+    those rows) at the synthetic batches' tolerances, and its masked rows
+    to zero."""
     import torch
 
     from spherharm_tpu_torch.ops import contact
     from spherharm_tpu_torch.ops import contact_kernels as ck
 
-    shapes, lmax = gas.shapes, gas.shapes.lmax
+    shapes, lmax, cons = path.shapes, path.shapes.lmax, path.conservative
     pi, pj = neigh.pair_i, neigh.pair_j
     rows = contact.particle_rows(state, shapes)
     live = (neigh.pair_valid & (rows[pi, contact._RACT] > 0.5)
             & (rows[pj, contact._RACT] > 0.5))
     dp = contact.minimum_image(rows[pj][:, contact._RX] - rows[pi][:, contact._RX],
-                               state.box_lo, state.box_hi, gas.periodic)
-    packed, tbl, cap, par = ck.pack_pairs(state, shapes, gas.params, pi, pj, live,
+                               state.box_lo, state.box_hi, path.periodic)
+    packed, tbl, cap, par = ck.pack_pairs(state, shapes, path.params, pi, pj, live,
                                           neigh.pair_hist, dp, rows=rows)
     idx = torch.nonzero(live).flatten()[:N_PAIRS]
     sub = packed[idx].contiguous()
     P, n_live, n_sub, G = packed.shape[0], int(live.sum()), sub.shape[0], cap.shape[1]
-    require(n_sub > 1000, f"drift gas list: only {n_sub} live rows")
+    require(n_sub > 1000, f"{tag} list: only {n_sub} live rows")
     for bf16 in (False, True):
-        name = "pair_contact_conservative" + ("_bf16" if bf16 else "")
-        label = f"K{3 if bf16 else 1} {name} on the drift gas's stage-2 list"
-        full = ck.pair_contact(packed, tbl, cap, par, lmax, True, bf16)
-        ref = ck.pair_contact_plain(sub, tbl, cap, par, lmax, True, bf16)
+        name = f"pair_contact_{'conservative' if cons else 'geometric'}" + (
+            "_bf16" if bf16 else "")
+        label = f"K{3 if bf16 else 1 if cons else 2} {name} on the {tag}'s stage-2 list"
+        full = ck.pair_contact(packed, tbl, cap, par, lmax, cons, bf16)
+        ref = ck.pair_contact_plain(sub, tbl, cap, par, lmax, cons, bf16)
         torch.cuda.synchronize()
         n_contact = int((ref[:, 16] > 0.5).sum())
-        ok, err, flips, text = compare(full[idx], ref, 9, 1e-4, n_sub // 1000)
+        loose = cons or bf16  # as in kernel_phase's pair_law
+        ok, err, flips, text = compare(full[idx], ref, 9, 1e-4 if loose else 2e-3,
+                                       n_sub // 1000 if loose else 0)
         print(f"{label}: P={P} live={n_live} compared={n_sub} contacts={n_contact} "
               f"|F|max={float(ref[:, 0:3].abs().max()):.4g} {text}")
         require(n_contact > 0, f"{label}: no contact on the list")
@@ -507,9 +515,9 @@ def gas_list_phase(gas, state, neigh, results):
         require(bool((full[~live] == 0).all()), f"{label}: a masked row is not zero")
         require(ok, f"{label}: disagrees with its plain twin")
         require(flips <= n_sub // 1000, f"{label}: contact flags disagree")
-        case(results, name, "drift gas stage-2 list", lmax, G, P, err,
-             lambda: ck.pair_contact(packed, tbl, cap, par, lmax, True, bf16),
-             lambda: ck.pair_contact_plain(sub, tbl, cap, par, lmax, True, bf16),
+        case(results, name, f"{tag} stage-2 list", lmax, G, P, err,
+             lambda: ck.pair_contact(packed, tbl, cap, par, lmax, cons, bf16),
+             lambda: ck.pair_contact_plain(sub, tbl, cap, par, lmax, cons, bf16),
              n_live, nbytes(packed, tbl, cap, par, full), live_rows=n_live,
              plain_rows=n_sub)
 
@@ -914,6 +922,7 @@ def main(argv):
     require(float(th["pe_pair"]) > 0, "deposition: no pair contact")
     if profiling:
         profile_path("deposition", dep, dst, dng, step_s, smi)
+    stage2_list_phase("deposition", dep, dst, dng, kern)
 
     bst, bng = box.init_neighbors(box_start(box, bst0, dev))
     bst, bng, l_box, th, step_s, _ = run_path(
@@ -931,7 +940,7 @@ def main(argv):
         ("pair_contact_conservative", "stage1_depth"), smi)
     if profiling:
         profile_path("drift gas", gas, gst, gng, step_s, smi)
-    gas_list_phase(gas, gst, gng, kern)
+    stage2_list_phase("drift gas", gas, gst, gng, kern)
     l_k5 = stage1_l1_phase(gas, gst, gng, kern)
     del gas, gst, gng
     torch.cuda.empty_cache()

@@ -1,9 +1,12 @@
 // Shared by the stage-2 pair kernels of both laws (pair_contact.cu: the
 // geometric law; pair_contact_cons.cu: the conservative law): the packed
-// row layout, the per-side sums and the pair-level epilogue (contact
-// geometry from both sides, Hertz + damping + friction + rolling, the
-// 24-float output row).
+// row layout, the node-blocked surface evaluation at a compile-time
+// degree, the per-side sums, the pair-level epilogue (contact geometry
+// from both sides, Hertz + damping + friction + rolling, the 24-float
+// output row), the compiled degrees and the launch.
 #pragma once
+
+#include <type_traits>
 
 #include "sh_device.cuh"
 
@@ -19,6 +22,147 @@ enum Slot {
   XJ = 17, VJ = 20, QJ = 23, OMJ = 27, MJ = 30, RBJ = 31, RMJ = 32, RCJ = 33,
   HIST = 34, MASK = 40, DV = 41, TAIL = 44, MAT = 45, TYP = 53, SCL = 55
 };
+
+template <bool kBf16>
+using Coef = std::conditional_t<kBf16, __nv_bfloat162, float>;
+
+// N nodes' Horner accumulators: f32, or bf16 pairs (two nodes an
+// instruction).
+template <int N, bool kBf16>
+struct Nodes;
+
+template <int N>
+struct Nodes<N, false> {
+  float v[N];
+  __device__ __forceinline__ void set(float c) {
+#pragma unroll
+    for (int j = 0; j < N; ++j) v[j] = c;
+  }
+  __device__ __forceinline__ void step(const Nodes& x, float c) {
+#pragma unroll
+    for (int j = 0; j < N; ++j) v[j] = v[j] * x.v[j] + c;
+  }
+  __device__ __forceinline__ float get(int j) const { return v[j]; }
+};
+
+template <int N>
+struct Nodes<N, true> {
+  static_assert(N % 2 == 0, "bf16 chains run the nodes in pairs");
+  __nv_bfloat162 v[N / 2];
+  __device__ __forceinline__ void set(__nv_bfloat162 c) {
+#pragma unroll
+    for (int i = 0; i < N / 2; ++i) v[i] = c;
+  }
+  __device__ __forceinline__ void step(const Nodes& x, __nv_bfloat162 c) {
+#pragma unroll
+    for (int i = 0; i < N / 2; ++i) v[i] = __hadd2_rn(__hmul2_rn(v[i], x.v[i]), c);
+  }
+  __device__ __forceinline__ float get(int j) const {
+    return (j & 1) ? __high2float(v[j / 2]) : __low2float(v[j / 2]);
+  }
+};
+
+template <int N, bool kBf16>
+__device__ __forceinline__ Nodes<N, kBf16> horner_nodes(const Coef<kBf16>* t, int n,
+                                                        const Nodes<N, kBf16>& x) {
+  Nodes<N, kBf16> acc;
+  acc.set(t[0]);
+#pragma unroll
+  for (int k = 1; k < n; ++k) acc.step(x, t[k]);
+  return acc;
+}
+
+// (r, dr/dtheta, dr/dphi) at N nodes from one power-table row: the
+// arithmetic of sh_device.cuh radius_grad_power<kBf16> node for node, at
+// degree L (L = -1: lmax). f32 rows are at unit scale (scaled by s at
+// the end); bf16 rows are pre-scaled (bf16_rows).
+template <int L, bool kBf16, int N>
+__device__ __forceinline__ void radius_grad_nodes(const Coef<kBf16>* t, float s, int lmax,
+                                                  const float (&ct)[N], const float (&st)[N],
+                                                  const float (&cp)[N], const float (&sp)[N],
+                                                  float (&r)[N], float (&drt)[N],
+                                                  float (&drp)[N]) {
+  const int lm = L >= 0 ? L : lmax;
+  Nodes<N, kBf16> x;
+  if constexpr (kBf16) {
+#pragma unroll
+    for (int i = 0; i < N / 2; ++i) x.v[i] = __floats2bfloat162_rn(ct[2 * i], ct[2 * i + 1]);
+  } else {
+#pragma unroll
+    for (int j = 0; j < N; ++j) x.v[j] = ct[j];
+  }
+  const int n_at0 = lm > 1 ? lm : 1;
+  const Nodes<N, kBf16> a0 = horner_nodes<N, kBf16>(t, lm + 1, x);
+  const Nodes<N, kBf16> at0 = horner_nodes<N, kBf16>(t + ab_width(lm), n_at0, x);
+  float cos_m[N], sin_m[N], st_m1[N];
+#pragma unroll
+  for (int j = 0; j < N; ++j) {
+    r[j] = a0.get(j);
+    drt[j] = st[j] * at0.get(j);
+    drp[j] = 0.0f;
+    cos_m[j] = cp[j];
+    sin_m[j] = sp[j];
+    st_m1[j] = 1.0f;
+  }
+  int oA = lm + 1, oB = a_width(lm), oAt = ab_width(lm) + n_at0;
+  int oBt = ab_width(lm) + at_width(lm);
+#pragma unroll
+  for (int m = 1; m <= lm; ++m) {
+    // A_m, B_m (nab coefficients) and At_m, Bt_m (nab + 1), side by side.
+    const int nab = lm - m + 1;
+    Nodes<N, kBf16> A, B, At, Bt;
+    A.set(t[oA]);
+    B.set(t[oB]);
+    At.set(t[oAt]);
+    Bt.set(t[oBt]);
+#pragma unroll
+    for (int k = 1; k < nab; ++k) {
+      A.step(x, t[oA + k]);
+      B.step(x, t[oB + k]);
+      At.step(x, t[oAt + k]);
+      Bt.step(x, t[oBt + k]);
+    }
+    At.step(x, t[oAt + nab]);
+    Bt.step(x, t[oBt + nab]);
+    oA += nab;
+    oB += nab;
+    oAt += nab + 1;
+    oBt += nab + 1;
+#pragma unroll
+    for (int j = 0; j < N; ++j) {
+      if (m > 1) {
+        const float c = cos_m[j] * cp[j] - sin_m[j] * sp[j];
+        sin_m[j] = sin_m[j] * cp[j] + cos_m[j] * sp[j];
+        cos_m[j] = c;
+      }
+      const float st_m = st_m1[j] * st[j];
+      r[j] = r[j] + st_m * (cos_m[j] * A.get(j) + sin_m[j] * B.get(j));
+      drt[j] = drt[j] + st_m1[j] * (cos_m[j] * At.get(j) + sin_m[j] * Bt.get(j));
+      drp[j] = drp[j] + (float)m * st_m * (cos_m[j] * B.get(j) - sin_m[j] * A.get(j));
+      st_m1[j] = st_m;
+    }
+  }
+  if constexpr (!kBf16) {
+#pragma unroll
+    for (int j = 0; j < N; ++j) {
+      r[j] *= s;
+      drt[j] *= s;
+      drp[j] *= s;
+    }
+  }
+}
+
+// A bf16 kernel's pre-scaled rows: this warp's two rows bf(t[k] s), each
+// value in both halves of a pair (one row a side of the pair), written to
+// dst[0:2W] by the warp's lanes.
+__device__ __forceinline__ void bf16_rows(const float* ri, float si, const float* rj, float sj,
+                                          int W, int lane, __nv_bfloat162* dst) {
+  for (int i = lane; i < W; i += 32) {
+    dst[i] = __bfloat162bfloat162(__float2bfloat16_rn(__fmul_rn(ri[i], si)));
+    dst[W + i] = __bfloat162bfloat162(__float2bfloat16_rn(__fmul_rn(rj[i], sj)));
+  }
+  __syncwarp();
+}
 
 // One side's depth moments s1, s2 and its centroid and normal sums.
 struct Moments {
@@ -123,9 +267,48 @@ __device__ __forceinline__ void pair_epilogue(const float* row, const Moments& m
   }
 }
 
+// The degrees compiled into the stage-2 kernels of both laws: 0 (the
+// two-body collision), 2 (the settling box, the small drums), 4 (the
+// triaxial cell, the small drums) and 8 (the drum, the deposition, the
+// drift gas). Returns fn(std::integral_constant<int, L>()) at L = lmax
+// where that degree is compiled, else at L = -1 (the degree read at run
+// time).
+template <class Fn>
+int with_degree(int lmax, Fn&& fn) {
+  switch (lmax) {
+    case 0:
+      return fn(std::integral_constant<int, 0>());
+    case 2:
+      return fn(std::integral_constant<int, 2>());
+    case 4:
+      return fn(std::integral_constant<int, 4>());
+    case 8:
+      return fn(std::integral_constant<int, 8>());
+    default:
+      return fn(std::integral_constant<int, -1>());
+  }
+}
+
+using PairKernel = void (*)(const float*, const float*, int, int, const float*, int,
+                            const float*, int, int, float*);
+
+// Launch a stage-2 kernel, a warp a pair and WARPS pairs a block, with
+// smem bytes of dynamic shared memory; returns cudaGetLastError().
+inline int launch_pairs(PairKernel kernel, size_t smem, const float* packed, const float* tbl,
+                        int T, int W, const float* cap, int G, const float* par, int lmax,
+                        int P, float* out, cudaStream_t stream) {
+  if (smem > 48 * 1024) {
+    const cudaError_t e =
+        cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (e != cudaSuccess) return (int)e;
+  }
+  const int blocks = (P + WARPS - 1) / WARPS;
+  kernel<<<blocks, WARPS * 32, smem, stream>>>(packed, tbl, T, W, cap, G, par, lmax, P, out);
+  return (int)cudaGetLastError();
+}
+
 // The conservative law's launch (pair_contact_cons.cu), for the C entry
-// in pair_contact.cu: picks the instantiation compiled for lmax, or the
-// run-time-degree one.
+// in pair_contact.cu.
 int launch_pair_conservative(const float* packed, const float* tbl, int T, int W,
                              const float* cap, int G, const float* par, int lmax, int P,
                              bool bf16, float* out, cudaStream_t stream);

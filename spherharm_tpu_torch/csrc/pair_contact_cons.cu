@@ -18,7 +18,7 @@
 // 0.327 ms against its 0.083 ms bound (25 %), K3 0.357 ms against 0.065
 // (18 %); the run-time-degree kernel this replaced took 1.06 and 1.67 ms.
 // What holds it there, from the SASS of the lmax-8 f32 kernel
-// (scripts/torch_pair_variants.py): the node loop issues 2,444
+// (chip_smoke.py's "sass" line): the node loop issues 2,444
 // instructions per 2 nodes and side, 1.81x the FMA-slots the bound
 // counts, of which 1,714 are FP32 (FFMA 1,189, FMUL 430, FADD 95) and 362
 // shared loads; at 223 registers an SM holds 2 blocks (2 warps a
@@ -29,7 +29,7 @@
 //   * the degree is a template parameter L: every Horner run's offset
 //     and length is a compile-time constant, the chains unroll fully and
 //     the table loads issue ahead of the FMAs that use them. The degrees
-//     the port's conservative callers use are compiled (launch_degree: 0
+//     the port's conservative callers use are compiled (with_degree: 0
 //     the two-body collision, 2 and 4 the small drums and tests, 8 the
 //     drum and the drift gas); any other degree takes L = -1, the same
 //     template with the degree read at run time;
@@ -51,8 +51,6 @@
 //     (pair_contact.cuh) runs redundantly on all lanes, lane 0 writes.
 // Built without fast math: approximate division would loosen parity.
 
-#include <type_traits>
-
 #include "pair_contact.cuh"
 
 using namespace shk;
@@ -63,7 +61,7 @@ constexpr int NB = 2;          // cap nodes a lane evaluates together
 // Blocks an SM must hold: 2 lets ptxas use up to 255 registers, and every
 // instantiation fits without a spill (197-255; 223 and 218 at lmax 8).
 // 3 blocks (168 registers) spill 92-216 bytes, 4 (128) 328-656
-// (scripts/torch_pair_variants.py, PERF.md section 6).
+// (throwaway builds, PERF.md section 6).
 constexpr int MIN_BLOCKS = 2;
 constexpr int NRED = 48;       // per-side sums, padded to 3 x 16
 
@@ -73,135 +71,6 @@ constexpr int NRED = 48;       // per-side sums, padded to 3 x 16
 // (1 - cos_gmax).
 enum Sum { S1 = 0, S2 = 1, CEN = 2, NSUM = 5, MO = 8, MO_W = 19 };
 enum SumMo { GD = 0, GTA = 3, GTB = 6, CEB = 9, CT1 = 12, CT2 = 15, CONEM = 18 };
-
-template <bool kBf16>
-using Coef = std::conditional_t<kBf16, __nv_bfloat162, float>;
-
-// N nodes' Horner accumulators: f32, or bf16 pairs (two nodes an
-// instruction).
-template <int N, bool kBf16>
-struct Nodes;
-
-template <int N>
-struct Nodes<N, false> {
-  float v[N];
-  __device__ __forceinline__ void set(float c) {
-#pragma unroll
-    for (int j = 0; j < N; ++j) v[j] = c;
-  }
-  __device__ __forceinline__ void step(const Nodes& x, float c) {
-#pragma unroll
-    for (int j = 0; j < N; ++j) v[j] = v[j] * x.v[j] + c;
-  }
-  __device__ __forceinline__ float get(int j) const { return v[j]; }
-};
-
-template <int N>
-struct Nodes<N, true> {
-  static_assert(N % 2 == 0, "bf16 chains run the nodes in pairs");
-  __nv_bfloat162 v[N / 2];
-  __device__ __forceinline__ void set(__nv_bfloat162 c) {
-#pragma unroll
-    for (int i = 0; i < N / 2; ++i) v[i] = c;
-  }
-  __device__ __forceinline__ void step(const Nodes& x, __nv_bfloat162 c) {
-#pragma unroll
-    for (int i = 0; i < N / 2; ++i) v[i] = __hadd2_rn(__hmul2_rn(v[i], x.v[i]), c);
-  }
-  __device__ __forceinline__ float get(int j) const {
-    return (j & 1) ? __high2float(v[j / 2]) : __low2float(v[j / 2]);
-  }
-};
-
-template <int N, bool kBf16>
-__device__ __forceinline__ Nodes<N, kBf16> horner_nodes(const Coef<kBf16>* t, int n,
-                                                        const Nodes<N, kBf16>& x) {
-  Nodes<N, kBf16> acc;
-  acc.set(t[0]);
-#pragma unroll
-  for (int k = 1; k < n; ++k) acc.step(x, t[k]);
-  return acc;
-}
-
-// (r, dr/dtheta, dr/dphi) at N nodes from one power-table row: the
-// arithmetic of sh_device.cuh radius_grad_power<kBf16> node for node, at
-// degree L (L = -1: lmax). f32 rows are at unit scale (scaled by s at
-// the end); bf16 rows are pre-scaled.
-template <int L, bool kBf16, int N>
-__device__ __forceinline__ void radius_grad_nodes(const Coef<kBf16>* t, float s, int lmax,
-                                                  const float (&ct)[N], const float (&st)[N],
-                                                  const float (&cp)[N], const float (&sp)[N],
-                                                  float (&r)[N], float (&drt)[N],
-                                                  float (&drp)[N]) {
-  const int lm = L >= 0 ? L : lmax;
-  Nodes<N, kBf16> x;
-  if constexpr (kBf16) {
-#pragma unroll
-    for (int i = 0; i < N / 2; ++i) x.v[i] = __floats2bfloat162_rn(ct[2 * i], ct[2 * i + 1]);
-  } else {
-#pragma unroll
-    for (int j = 0; j < N; ++j) x.v[j] = ct[j];
-  }
-  const int n_at0 = lm > 1 ? lm : 1;
-  const Nodes<N, kBf16> a0 = horner_nodes<N, kBf16>(t, lm + 1, x);
-  const Nodes<N, kBf16> at0 = horner_nodes<N, kBf16>(t + ab_width(lm), n_at0, x);
-  float cos_m[N], sin_m[N], st_m1[N];
-#pragma unroll
-  for (int j = 0; j < N; ++j) {
-    r[j] = a0.get(j);
-    drt[j] = st[j] * at0.get(j);
-    drp[j] = 0.0f;
-    cos_m[j] = cp[j];
-    sin_m[j] = sp[j];
-    st_m1[j] = 1.0f;
-  }
-  int oA = lm + 1, oB = a_width(lm), oAt = ab_width(lm) + n_at0;
-  int oBt = ab_width(lm) + at_width(lm);
-#pragma unroll
-  for (int m = 1; m <= lm; ++m) {
-    // A_m, B_m (nab coefficients) and At_m, Bt_m (nab + 1), side by side.
-    const int nab = lm - m + 1;
-    Nodes<N, kBf16> A, B, At, Bt;
-    A.set(t[oA]);
-    B.set(t[oB]);
-    At.set(t[oAt]);
-    Bt.set(t[oBt]);
-#pragma unroll
-    for (int k = 1; k < nab; ++k) {
-      A.step(x, t[oA + k]);
-      B.step(x, t[oB + k]);
-      At.step(x, t[oAt + k]);
-      Bt.step(x, t[oBt + k]);
-    }
-    At.step(x, t[oAt + nab]);
-    Bt.step(x, t[oBt + nab]);
-    oA += nab;
-    oB += nab;
-    oAt += nab + 1;
-    oBt += nab + 1;
-#pragma unroll
-    for (int j = 0; j < N; ++j) {
-      if (m > 1) {
-        const float c = cos_m[j] * cp[j] - sin_m[j] * sp[j];
-        sin_m[j] = sin_m[j] * cp[j] + cos_m[j] * sp[j];
-        cos_m[j] = c;
-      }
-      const float st_m = st_m1[j] * st[j];
-      r[j] = r[j] + st_m * (cos_m[j] * A.get(j) + sin_m[j] * B.get(j));
-      drt[j] = drt[j] + st_m1[j] * (cos_m[j] * At.get(j) + sin_m[j] * Bt.get(j));
-      drp[j] = drp[j] + (float)m * st_m * (cos_m[j] * B.get(j) - sin_m[j] * A.get(j));
-      st_m1[j] = st_m;
-    }
-  }
-  if constexpr (!kBf16) {
-#pragma unroll
-    for (int j = 0; j < N; ++j) {
-      r[j] *= s;
-      drt[j] *= s;
-      drp[j] *= s;
-    }
-  }
-}
 
 __device__ __forceinline__ void add3(float (&acc)[NRED], int i, V3 v) {
   acc[i] += v.x;
@@ -459,13 +328,7 @@ __global__ void __launch_bounds__(WARPS * 32, MIN_BLOCKS)
     // ([WARPS, 2, W] after the side totals).
     __nv_bfloat162* tb =
         reinterpret_cast<__nv_bfloat162*>(s_red + WARPS * 2 * NRED) + warp * 2 * W;
-    const float* ri = s_tbl + ti * W;
-    const float* rj = s_tbl + tj * W;
-    for (int i = lane; i < W; i += 32) {
-      tb[i] = __bfloat162bfloat162(__float2bfloat16_rn(__fmul_rn(ri[i], si)));
-      tb[W + i] = __bfloat162bfloat162(__float2bfloat16_rn(__fmul_rn(rj[i], sj)));
-    }
-    __syncwarp();
+    bf16_rows(s_tbl + ti * W, si, s_tbl + tj * W, sj, W, lane, tb);
     a = probe_side<L, true>(tb, si, tb + W, sj, qi, qj, d, dist, inv_dist, rbj, row[RMI], rbi,
                             s_cap, G, lmax, lane, red);
     b = probe_side<L, true>(tb + W, sj, tb, si, qj, qi, -d, dist, inv_dist, rbi, row[RMJ], rbj,
@@ -479,46 +342,17 @@ __global__ void __launch_bounds__(WARPS * 32, MIN_BLOCKS)
   pair_epilogue<true>(row, a, b, a, b, d, dist, inv_dist, rbi, rbj, par, lane, o);
 }
 
-template <int L, bool kBf16>
-int launch(const float* packed, const float* tbl, int T, int W, const float* cap, int G,
-           const float* par, int lmax, int P, float* out, cudaStream_t stream) {
-  size_t smem = sizeof(float) * (size_t)(T * W + 4 * G + WARPS * 2 * NRED);
-  if (kBf16) smem += sizeof(__nv_bfloat162) * (size_t)(WARPS * 2 * W);
-  if (smem > 48 * 1024) {
-    const cudaError_t e = cudaFuncSetAttribute(pair_conservative_kernel<L, kBf16>,
-                                               cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                               (int)smem);
-    if (e != cudaSuccess) return (int)e;
-  }
-  const int blocks = (P + WARPS - 1) / WARPS;
-  pair_conservative_kernel<L, kBf16><<<blocks, WARPS * 32, smem, stream>>>(
-      packed, tbl, T, W, cap, G, par, lmax, P, out);
-  return (int)cudaGetLastError();
-}
-
-// The compiled degrees; any other lmax runs L = -1.
-template <bool kBf16>
-int launch_degree(const float* packed, const float* tbl, int T, int W, const float* cap,
-                  int G, const float* par, int lmax, int P, float* out, cudaStream_t stream) {
-  switch (lmax) {
-    case 0:
-      return launch<0, kBf16>(packed, tbl, T, W, cap, G, par, lmax, P, out, stream);
-    case 2:
-      return launch<2, kBf16>(packed, tbl, T, W, cap, G, par, lmax, P, out, stream);
-    case 4:
-      return launch<4, kBf16>(packed, tbl, T, W, cap, G, par, lmax, P, out, stream);
-    case 8:
-      return launch<8, kBf16>(packed, tbl, T, W, cap, G, par, lmax, P, out, stream);
-    default:
-      return launch<-1, kBf16>(packed, tbl, T, W, cap, G, par, lmax, P, out, stream);
-  }
-}
-
 }  // namespace
 
 int shk::launch_pair_conservative(const float* packed, const float* tbl, int T, int W,
                                   const float* cap, int G, const float* par, int lmax, int P,
                                   bool bf16, float* out, cudaStream_t stream) {
-  return bf16 ? launch_degree<true>(packed, tbl, T, W, cap, G, par, lmax, P, out, stream)
-              : launch_degree<false>(packed, tbl, T, W, cap, G, par, lmax, P, out, stream);
+  size_t smem = sizeof(float) * (size_t)(T * W + 4 * G + WARPS * 2 * NRED);
+  if (bf16) smem += sizeof(__nv_bfloat162) * (size_t)(WARPS * 2 * W);
+  return with_degree(lmax, [&](auto degree) {
+    constexpr int L = decltype(degree)::value;
+    const PairKernel kernel =
+        bf16 ? pair_conservative_kernel<L, true> : pair_conservative_kernel<L, false>;
+    return launch_pairs(kernel, smem, packed, tbl, T, W, cap, G, par, lmax, P, out, stream);
+  });
 }

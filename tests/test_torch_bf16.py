@@ -10,6 +10,8 @@ differ from the eager ones by up to one bf16 ulp, which sets the kernel-
 level tolerances below (each with the value measured on these inputs).
 """
 
+from pathlib import Path
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -230,3 +232,17 @@ def test_stage2_bf16_switch(monkeypatch):
     calls.clear()
     sim.run(st, ng, 2)
     assert len(calls) == 2 and all(calls)
+
+
+def test_kernel_bf16_chains_never_fuse():
+    """The CUDA kernels' bf16 chains round as the twins do, an op then one
+    rounding: a packed step is __hmul2_rn then __hadd2_rn, in the one
+    helper both stage-2 laws share. A fused __hfma2 rounds once per step
+    instead and moves many rows of K3 past chip_smoke.py's 1e-4 |F|max,
+    so no source in csrc/ may call it."""
+    csrc = Path(ck.__file__).resolve().parent.parent / "csrc"
+    sources = sorted(csrc.glob("*.cu*"))
+    assert len(sources) >= 6
+    steps = [p.name for p in sources if "__hadd2_rn(__hmul2_rn(" in p.read_text()]
+    assert steps == ["pair_contact.cuh"]
+    assert not [p.name for p in sources if "hfma" in p.read_text().lower()]

@@ -34,6 +34,16 @@ def test_conservative_node_flops(smoke, name, bf16):
     assert smoke.node_flops()[name] == (468, 2, True, bf16, 2)
 
 
+@pytest.mark.parametrize("name,bf16", [
+    ("pair_contact_geometric", False),
+    ("pair_contact_geometric_bf16", True),
+])
+def test_geometric_node_flops(smoke, name, bf16):
+    """K2 / K3 geometric: 248 FLOPs of probe and normal algebra a node, 2
+    surface evaluations with gradient, 2 sides."""
+    assert smoke.node_flops()[name] == (248, 2, True, bf16, 2)
+
+
 @pytest.mark.parametrize("bf16,flops", [(False, (441, 0)), (True, (155, 286))])
 def test_horner_flops_at_lmax8(smoke, bf16, flops):
     """One radius_grad_power at Lmax 8: 441 FLOPs in f32; with bf16 the
@@ -65,4 +75,21 @@ def test_conservative_bound_unchanged(smoke, name, per_node_s, lo, hi):
     b = smoke.bound(name, 8, 128, 16_056, 0)
     assert b["bound_by"] == "operations"
     assert b["bound_ms"] == pytest.approx(16_056 * 128 * 2 * per_node_s * 1e3)
+    assert lo < b["bound_ms"] < hi
+
+
+@pytest.mark.parametrize("name,per_node_s,lo,hi", [
+    # K2 on the deposition batch: 1,130 f32 FLOPs a node and side.
+    ("pair_contact_geometric", (248 + 2 * 441) / 67e12, 0.155, 0.157),
+    # K3 geometric: its 2 x 286 chain FLOPs at the bf16 rate.
+    ("pair_contact_geometric_bf16",
+     (248 + 2 * 155) / 67e12 + 2 * 286 / 133.8e12, 0.116, 0.118),
+])
+def test_geometric_bound_unchanged(smoke, name, per_node_s, lo, hi):
+    """The bound of 16,056 working rows of the deposition's 288 nodes at
+    Lmax 8 stays where the run-time-degree kernel's count put it: K2 0.156
+    ms, K3 geometric 0.117 ms, both by operations."""
+    b = smoke.bound(name, 8, 288, 16_056, 0)
+    assert b["bound_by"] == "operations"
+    assert b["bound_ms"] == pytest.approx(16_056 * 288 * 2 * per_node_s * 1e3)
     assert lo < b["bound_ms"] < hi

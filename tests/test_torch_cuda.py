@@ -62,10 +62,11 @@ def _pairs(lmax, device, seed=11, n=14, contact_quad=(8, 16)):
 # (lmax, law, cap grid): K1 at the reference's conservative bound 1e-4
 # |F|max, K2 at its geometric bound 2e-3 |F|max on the 128-node 8x16 grid
 # and on the deposition's 288-node 12x24 grid, and at the settling box's
-# Lmax 2. K1 at each degree compiled into csrc/pair_contact_cons.cu (0 on
-# the two-body collision's 12x24 grid, whose 288 nodes leave a lane's last
-# node block half empty; 2, 4, 8) and at lmax 6, which takes the run-time-
-# degree instantiation.
+# Lmax 2. Both laws at each degree compiled into csrc/ (0 on the two-body
+# collision's 12x24 grid, whose 288 nodes leave K1's last 2-node block
+# half empty and fill the geometric f32 kernel's 3-node blocks; 2, 4, 8)
+# and at lmax 6, which takes the run-time-degree instantiation. The 11x25
+# grid's 275 nodes take 3-node blocks with the last partly empty.
 LAW_CASES = [
     pytest.param(0, True, (12, 24), id="0-12x24"),
     pytest.param(2, True, (8, 16), id="2"),
@@ -75,6 +76,10 @@ LAW_CASES = [
     pytest.param(8, False, (8, 16), id="8-geometric-8x16"),
     pytest.param(8, False, (12, 24), id="8-geometric-12x24"),
     pytest.param(2, False, (8, 16), id="2-geometric-8x16"),
+    pytest.param(0, False, (12, 24), id="0-geometric-12x24"),
+    pytest.param(4, False, (8, 16), id="4-geometric-8x16"),
+    pytest.param(6, False, (8, 16), id="6-geometric-run-time-degree"),
+    pytest.param(8, False, (11, 25), id="8-geometric-11x25"),
 ]
 
 
@@ -119,12 +124,15 @@ def test_stage1_kernel_matches_plain(lmax, cuda_device):
 
 
 # (lmax, law, cap grid) of K3: conservative at the compiled Lmax 8 and at
-# lmax 6 on the 12x24 grid (the run-time-degree instantiation), geometric
-# at Lmax 8.
+# lmax 6 on the 12x24 grid (the run-time-degree instantiation); geometric
+# at Lmax 8 on both grids (the deposition's 12x24 leaves a half-empty node
+# block) and at lmax 6.
 BF16_CASES = [
     pytest.param(8, True, (8, 16), id="conservative"),
     pytest.param(8, False, (8, 16), id="geometric"),
     pytest.param(6, True, (12, 24), id="conservative-6-run-time-degree-12x24"),
+    pytest.param(8, False, (12, 24), id="geometric-12x24"),
+    pytest.param(6, False, (8, 16), id="geometric-6-run-time-degree"),
 ]
 
 
