@@ -49,10 +49,9 @@
 //     writes the 24-float row; a masked row (mask <= 0.5) writes zeros.
 // Measured by chip_smoke.py on an NVIDIA H100 80GB HBM3 at 700.00 W, on
 // 16,384 contact-rich pairs at Lmax 8 and 288 nodes: K2 0.49 ms against
-// its 0.156 ms bound (32 %), K3 geometric 0.61 ms against 0.117 (19 %);
-// the run-time-degree kernel this replaced took 1.60 and 2.95 ms. The
-// Lmax-8 f32 node loop issues 1,005 instructions a node and side (3-node
-// blocks), 1.78x the issue slots the bound counts.
+// its 0.156 ms bound (32 %), K3 geometric 0.61 ms against 0.117 (19 %).
+// The Lmax-8 f32 node loop issues 1,005 instructions a node and side
+// (3-node blocks), 1.78x the issue slots the bound counts.
 // Built without fast math: approximate division would loosen parity.
 
 #include "pair_contact.cuh"

@@ -269,8 +269,8 @@ __device__ __forceinline__ void pair_epilogue(const float* row, const Moments& m
 
 // The degrees compiled into the stage-2 kernels of both laws: 0 (the
 // two-body collision), 2 (the settling box, the small drums), 4 (the
-// triaxial cell, the small drums) and 8 (the drum, the deposition, the
-// drift gas). Returns fn(std::integral_constant<int, L>()) at L = lmax
+// small drums; the reference's triaxial cell) and 8 (the drum, the
+// deposition, the drift gas). Returns fn(std::integral_constant<int, L>()) at L = lmax
 // where that degree is compiled, else at L = -1 (the degree read at run
 // time).
 template <class Fn>
