@@ -10,7 +10,7 @@ Phases, each fatal on failure (exit code != 0, no result line):
 1. build the CUDA kernels from ``spherharm_tpu_torch/csrc`` (nvcc, sm_90a,
    one process per source, in parallel); print ptxas's registers and
    spills, and the instruction mix of the Lmax-8 node loops of both
-   stage-2 laws, f32 and bf16 (cuobjdump);
+   stage-2 laws, f32 and bf16, and of both wall kinds (cuobjdump);
 2. set up, on the card, the main-path drum (``rotating_drum`` at
    n = 100,000, Lmax 8, 4 blob types, k_max 24, pair cap 5n, stage-2 cap
    3n, cadence R = 20, conservative law), the full-width deposition
@@ -30,8 +30,9 @@ Phases, each fatal on failure (exit code != 0, no result line):
    (32 nodes); K6 on the drum and the deposition; K7 on the drum, the
    deposition and the settling box's floor. Forces, springs and pe
    against the stated tolerances, contact-flag flips, CUDA-event times of
-   the kernel and of its plain PyTorch twin, and the kernel's bound, per
-   case;
+   a wrapper call and of the plain PyTorch twin, the kernel's own device
+   time (torch.profiler, exactly 20 launches of its symbol seen) and its
+   bound, per case;
 4. small contact-rich runs of 40 steps on the card and on the CPU (plain
    twins), thermo and positions compared: the drum (n = 128, Lmax 8), the
    deposition (n = 128, Lmax 8, 288 nodes) and the settling box (n = 64,
@@ -62,11 +63,14 @@ Phases, each fatal on failure (exit code != 0, no result line):
    child's failure fails the run. Prints etot bf16 - f32 at equal steps
    and both slopes.
 
-Prints the card's name and power limit (nvidia-smi), one JSON line with the
-kernels' launches, errors, times and bounds (the path's own shape at the
-top level of each kernel, every case under ``cases``; K3's launches are the
-child's, K5's those of step 6), and as the last line
-``{"ok": true, "device": {...}}``. Exits non-zero without a CUDA device.
+Prints the kernels ranked by launches x (device_ms - bound_ms) over this
+run (``ranking``), the card's name and power limit (nvidia-smi), one JSON
+line with the kernels' launches, errors, times and bounds (the path's own
+shape at the top level of each kernel, every case under ``cases``; K3's
+launches are the child's, K5's those of step 6; ``ms`` is a wrapper call
+timed by CUDA events, ``device_ms`` the kernel alone), and as the last
+line ``{"ok": true, "device": {...}}``. Exits non-zero without a CUDA
+device.
 """
 
 from __future__ import annotations
@@ -174,7 +178,9 @@ def require(cond, msg):
 
 
 def cuda_ms(fn, reps):
-    """Mean CUDA-event time of fn() over reps calls, after one warm-up."""
+    """Mean CUDA-event time of fn() over reps calls, after one warm-up: for
+    a kernel's wrapper, the time a call takes, which for a kernel shorter
+    than the wrapper's host work is the host's issue interval."""
     import torch
 
     fn()
@@ -189,12 +195,59 @@ def cuda_ms(fn, reps):
     return start.elapsed_time(stop) / reps
 
 
+# Each kernel-line name's kernel symbol in csrc/ (device_ms counts the
+# profiler's device events whose name holds it).
+SYMBOLS = {"pair_contact_conservative": "pair_conservative_kernel",
+           "pair_contact_geometric": "pair_geometric_kernel",
+           "stage1_depth": "stage1_kernel", "wall": "wall_kernel"}
+MARGIN_S = 0.25  # idle time on each side of device_ms's launches
+
+
+def kernel_symbol(name):
+    return next(sym for key, sym in SYMBOLS.items() if name.startswith(key))
+
+
+def device_ms(fn, symbol, reps=20):
+    """Mean device time of the kernel ``symbol`` over reps calls of fn(),
+    after one warm-up: torch.profiler's self device time of the device
+    events whose name holds the symbol, as ``profile_path`` reads device
+    time. Fails unless the profiler saw exactly reps launches of it."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        # Idle margins inside the window: a window that opened right before
+        # the launches and closed right after the synchronize kept only 5-8
+        # of 20 half-millisecond kernels a few minutes into a run (the
+        # profiler keeps the device events whose times fall inside its
+        # window).
+        time.sleep(MARGIN_S)
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+        time.sleep(MARGIN_S)
+    events = [e for e in prof.key_averages()
+              if e.device_type == DeviceType.CUDA and symbol in e.key]
+    seen = sum(e.count for e in events)
+    if seen != reps:
+        at = lambda dev, pick: [round(e.time_range.start) for e in prof.events()
+                                if e.device_type == dev and pick(e.name)]
+        print(f"  device_ms: launches at {at(DeviceType.CPU, lambda n: 'LaunchKernel' in n)}"
+              f" us, {symbol} seen at {at(DeviceType.CUDA, lambda n: symbol in n)} us")
+    require(seen == reps, f"the profiler saw {seen} launches of {symbol}, expected {reps}")
+    return sum(e.self_device_time_total for e in events) / 1e3 / reps
+
+
 def print_node_loop_sass(lib, nvcc):
     """Print the instruction mix of the node loops of the stage-2 kernels
     of both laws at Lmax 8 (f32 and bf16; the geometric kernel's at each
-    node block NB) in ``lib``'s SASS: in each, the longest backward branch
-    whose body holds no shuffle (the side sums come after the loop). Reads
-    the library only; prints a note instead where cuobjdump is missing."""
+    node block NB) and of the wall kernel of both kinds at Lmax 8 (each
+    NB) in ``lib``'s SASS: in each, the longest backward branch whose body
+    holds no shuffle (the side sums come after the loop). Reads the
+    library only; prints a note instead where cuobjdump is missing."""
     cuobjdump = Path(nvcc).parent / "cuobjdump"
     if not cuobjdump.exists():
         print(f"  sass: {cuobjdump} not found")
@@ -207,7 +260,8 @@ def print_node_loop_sass(lib, nvcc):
     for fn in re.split(r"\n\s*Function : ", proc.stdout)[1:]:
         head = fn.split("\n", 1)[0]
         m = re.search(r"pair_(conservative|geometric)_kernelILi8ELb([01])E(?:Li(\d)E)?", head)
-        if not m:
+        w = re.search(r"wall_kernelILi([01])ELi8ELi(\d)E", head)
+        if not (m or w):
             continue
         ops = [(int(a, 16), op) for a, op in re.findall(
             r"/\*([0-9a-f]{4,})\*/\s+(?:@!?U?P\w+\s+)?([A-Z][A-Z0-9_]*)", fn)]
@@ -218,9 +272,12 @@ def print_node_loop_sass(lib, nvcc):
         if not loops:
             continue
         mix = collections.Counter(body(*max(loops, key=lambda ta: ta[1] - ta[0])))
-        kind = ("bf16" if m.group(2) == "1" else "f32") + (
-            f",NB={m.group(3)}" if m.group(3) else "")
-        print(f"  sass {m.group(1)} <8,{kind}> node loop: "
+        if w:
+            label = f"wall_{('plane', 'cylinder')[int(w.group(1))]} <8,NB={w.group(2)}>"
+        else:
+            label = f"{m.group(1)} <8," + ("bf16" if m.group(2) == "1" else "f32") + (
+                f",NB={m.group(3)}" if m.group(3) else "") + ">"
+        print(f"  sass {label} node loop: "
               f"{sum(mix.values())} instructions; "
               + " ".join(f"{op}={n}" for op, n in mix.most_common(16)))
 
@@ -327,16 +384,21 @@ def compare(out, ref, nf, f_tol, loose_rows=0):
 
 def case(results, name, tag, lmax, G, rows, err, time_kernel, time_plain, work,
          moved, degree=None, **extra):
-    """Time one kernel case (CUDA events: kernel over 20 launches, plain
-    twin over 3) and compute its bound at evaluation degree ``degree``
-    (default lmax); appends it, with ``extra``, to ``results[name]``."""
+    """Time one kernel case: ``ms``, a wrapper call (CUDA events over 20
+    calls); ``device_ms``, the kernel alone (``device_ms`` over 20 more
+    calls); ``plain_ms``, the plain twin (CUDA events over 3 calls). Its
+    bound at evaluation degree ``degree`` (default lmax). Appends it, with
+    ``extra``, to ``results[name]``."""
     c = dict(path=tag, lmax=lmax, G=G, rows=rows, max_abs_err=err,
-             ms=cuda_ms(time_kernel, 20), plain_ms=cuda_ms(time_plain, 3),
+             ms=cuda_ms(time_kernel, 20),
+             device_ms=device_ms(time_kernel, kernel_symbol(name)),
+             plain_ms=cuda_ms(time_plain, 3),
              **bound(name, degree or lmax, G, work, moved), **extra)
     if degree is not None:
         c["l1"] = degree
-    print(f"  {name} on {tag}: {c['ms']:.4f} ms (plain {c['plain_ms']:.2f} ms, "
-          f"bound {c['bound_ms']:.4f} ms, {c['bound_by']})")
+    print(f"  {name} on {tag}: device {c['device_ms']:.4f} ms, wrapper call "
+          f"{c['ms']:.4f} ms (plain {c['plain_ms']:.2f} ms, bound "
+          f"{c['bound_ms']:.4f} ms, {c['bound_by']})")
     results.setdefault(name, []).append(c)
 
 
@@ -800,6 +862,26 @@ def bf16_phase():
     return json.loads(tagged[0][len(CHILD_TAG):])
 
 
+def ranking(kern, counted):
+    """Each kernel's time over its bound in this run, in ms: the sum over
+    the paths that launched it (``counted``: {kernel: [(path, launches)]})
+    of launches x (time - bound_ms) at the case of that path's own stage-2
+    list, else of that path's batch, else the kernel's first case; by the
+    kernel's device time (``device_ms``) and by the wrapper call's
+    (``ms``). Returns {kernel: (loss by device_ms, loss by ms)}."""
+    out = {}
+    for name, paths in counted.items():
+        cases = kern[name]
+        loss = [0.0, 0.0]
+        for path, n in paths:
+            c = next((c for c in cases if c["path"] == f"{path} stage-2 list"),
+                     next((c for c in cases if c["path"] == path), cases[0]))
+            loss[0] += n * (c["device_ms"] - c["bound_ms"])
+            loss[1] += n * (c["ms"] - c["bound_ms"])
+        out[name] = tuple(loss)
+    return out
+
+
 def profile_path(tag, sim, state, neigh, step_s, smi, steps=20):
     """torch.profiler over ``steps`` more steps of a path: its table by
     device time goes to build/chip_smoke_profile_<tag>.txt; the device's
@@ -903,8 +985,11 @@ def main(argv):
     print(f"card-vs-CPU phases: {time.perf_counter() - t0:.1f}s")
 
     # The paths: counters from each path's own run only; with --profile,
-    # 20 more steps of each under torch.profiler after its counted run.
+    # 20 more steps of each under torch.profiler after every kernel case is
+    # timed (after a long profiled window, the next short profiler session
+    # has missed kernel launches: device_ms requires all 20).
     profiling = "--profile" in argv
+    to_profile = []
     state, neigh, l_drum, _, step_s, _ = run_path(
         f"drum n={N_MAIN}", sim, state, neigh, STEPS,
         ("pair_contact_conservative", "stage1_depth", "wall_cylinder", "wall_plane"),
@@ -912,7 +997,7 @@ def main(argv):
     skin = int(neigh.skin_violations)
     require(skin == 0, f"drum: {skin} skin violations at cadence {R_EVERY}")
     if profiling:
-        profile_path("drum", sim, state, neigh, step_s, smi)
+        to_profile.append(("drum", sim, state, neigh, step_s))
     del sim, state, neigh
 
     dst, dng = dep.init_neighbors(drum_start(dep, dep_st0, dev))
@@ -921,7 +1006,7 @@ def main(argv):
         ("pair_contact_geometric", "wall_cylinder", "wall_plane"), smi)
     require(float(th["pe_pair"]) > 0, "deposition: no pair contact")
     if profiling:
-        profile_path("deposition", dep, dst, dng, step_s, smi)
+        to_profile.append(("deposition", dep, dst, dng, step_s))
     stage2_list_phase("deposition", dep, dst, dng, kern)
 
     bst, bng = box.init_neighbors(box_start(box, bst0, dev))
@@ -930,7 +1015,7 @@ def main(argv):
         ("pair_contact_geometric", "wall_plane"), smi)
     require(float(th["pe_pair"]) > 0, "settling box: no pair contact")
     if profiling:
-        profile_path("settling box", box, bst, bng, step_s, smi)
+        to_profile.append(("settling box", box, bst, bng, step_s))
     del dep, dst, dng, box, bst, bng
 
     # The drift gas (periodic, no walls): f32 here, bf16 stage-2 in a child
@@ -939,10 +1024,13 @@ def main(argv):
         f"drift gas n={N_GAS} f32", gas, gst, gng,
         ("pair_contact_conservative", "stage1_depth"), smi)
     if profiling:
-        profile_path("drift gas", gas, gst, gng, step_s, smi)
+        to_profile.append(("drift gas", gas, gst, gng, step_s))
     stage2_list_phase("drift gas", gas, gst, gng, kern)
     l_k5 = stage1_l1_phase(gas, gst, gng, kern)
     del gas, gst, gng
+    for job in to_profile:
+        profile_path(*job, smi)
+    del to_profile
     torch.cuda.empty_cache()
     t0 = time.perf_counter()
     child = bf16_phase()
@@ -952,8 +1040,7 @@ def main(argv):
     print(f"drift gas fitted slope over {GAS_STEPS} steps: f32 {slope:+.4%}, bf16 "
           f"{child['slope']:+.4%} per 1M steps [{smi}]")
 
-    k3 = {k: child["gas"][k] + child["deposition"][k]
-          for k in ("pair_contact_conservative_bf16", "pair_contact_geometric_bf16")}
+    k3 = ("pair_contact_conservative_bf16", "pair_contact_geometric_bf16")
     src = {"pair_contact_conservative": ("spherharm_tpu_torch/csrc/pair_contact_cons.cu",
                                          "spherharm_tpu/ops/contact_pallas.py:496"),
            "pair_contact_geometric": ("spherharm_tpu_torch/csrc/pair_contact.cu",
@@ -973,9 +1060,19 @@ def main(argv):
                              "spherharm_tpu/ops/walls_pallas.py:50"),
            "wall_plane": ("spherharm_tpu_torch/csrc/wall_contact.cu",
                           "spherharm_tpu/ops/walls_pallas.py:139")}
-    launches = {k: l_drum[k] + l_dep[k] + l_box[k] + l_gas[k] for k in src}
-    launches.update(k3)
-    launches.update(l_k5)
+    by_path = {"drum": l_drum, "deposition": l_dep, "settling box": l_box,
+               "drift gas": l_gas}
+    counted = {k: [(p, n[k]) for p, n in by_path.items() if n[k]] for k in src}
+    counted.update({k: [(p, child[c][k]) for p, c in (("drift gas", "gas"),
+                                                      ("deposition", "deposition"))
+                        if child[c][k]] for k in k3})
+    counted.update({k: [("drift gas", n)] for k, n in l_k5.items()})
+    launches = {k: sum(n for _, n in counted[k]) for k in src}
+    loss = ranking(kern, counted)
+    print("ranking by launches x (device_ms - bound_ms), ms of this run "
+          "(by the wrapper call's ms in brackets): " + "; ".join(
+              f"{k} {d:.2f} ({w:.2f})"
+              for k, (d, w) in sorted(loss.items(), key=lambda kv: -kv[1][0])))
     notes = {k: {"path": "chip_smoke kernel phase (no Simulation path calls it, "
                          "as in the reference)"} for k in l_k5}
     notes.update({k: {"path": "bf16 child under SPHERHARM_STAGE2_BF16=1: drift "
@@ -985,7 +1082,8 @@ def main(argv):
         {"name": name, "route": "cuda", "source": src[name][0],
          "replaces": src[name][1], "launches": launches[name],
          "max_abs_err": max(c["max_abs_err"] for c in kern[name]),
-         **{k: kern[name][0][k] for k in ("ms", "plain_ms", "bound_ms", "bound_by")},
+         **{k: kern[name][0][k]
+            for k in ("ms", "device_ms", "plain_ms", "bound_ms", "bound_by")},
          "library_ms": None, **notes.get(name, {}), "cases": kern[name]}
         for name in src]}))
     print(json.dumps({"ok": True, "device": {

@@ -69,6 +69,13 @@ class Simulation:
             raise ValueError(f"unknown neighbor_mode {neighbor_mode!r}")
         if neighbor_mode == "cell" and grid is None:
             raise ValueError("neighbor_mode='cell' requires a CellGrid")
+        if bool((params.shear_rate != 0).any()):
+            # apply_deformation applies only the diagonal deform_rate: a
+            # sheared run would diverge from the reference without a word.
+            raise ValueError(
+                "SimParams.shear_rate is not supported yet: the off-diagonal "
+                "shear with its tilt flip is ROADMAP Queue 1 item 12 "
+                "(triaxial_cell); pass shear_rate=(0, 0, 0)")
         self.shapes = shapes
         self.params = params
         self.grid = grid

@@ -16,7 +16,7 @@
 // lmax 8, chip_smoke.horner_flops) plus 248 FLOP a node of probe and
 // normal algebra, against 64 + 24 floats of traffic per pair. The design
 // is the conservative kernel's (pair_contact_cons.cu), with the helpers
-// it shares in pair_contact.cuh:
+// it shares in pair_contact.cuh and sh_nodes.cuh:
 //   * one warp per pair, lanes striding over the cap nodes (any G: 128 at
 //     8x16, 288 at the deposition's 12x24); the per-type power table and
 //     the cap grid in shared memory, indexed by the type id carried in
@@ -206,9 +206,6 @@ __global__ void __launch_bounds__(WARPS * 32, MIN_BLOCKS)
   const Side none{};
   pair_epilogue<false>(row, ma, mb, none, none, d, dist, inv_dist, rbi, rbj, par, lane, o);
 }
-
-// Node slots a lane's blocks of nb nodes span over G cap nodes.
-int node_slots(int G, int nb) { return (G + 32 * nb - 1) / (32 * nb) * nb; }
 
 int launch_geometric(const float* packed, const float* tbl, int T, int W, const float* cap,
                      int G, const float* par, int lmax, int P, bool bf16, float* out,

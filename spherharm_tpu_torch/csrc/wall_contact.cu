@@ -1,7 +1,8 @@
 // Wall contact (plane / inside of a cylinder), hand-written for sm_90a.
 //
 // Replaces: spherharm_tpu/ops/walls_pallas.py
-//   wall_contact_pallas -> _make_wall_kernel(lmax, "plane" | "cylinder").
+//   wall_contact_pallas -> _make_wall_kernel(lmax, "plane" | "cylinder")
+//   (K7: the plane; K6: the cylinder).
 //
 // Per near-wall particle: a cap toward the wall (cos gamma_max =
 // dist_w / rmax), power-basis r, gradient and surface normal at each cap
@@ -11,17 +12,44 @@
 // velocity v0 + W x c.
 //
 // What bounds it on this card: arithmetic (one surface evaluation per
-// node, ~1.3 kFLOP at lmax 8, against 32 + 177 + 16 floats of traffic
-// per particle). Design: the pair kernel's layout with one side — one
-// warp per particle, lanes striding over the cap nodes, the cap grid in
-// shared memory, each warp staging its particle's pre-scaled table row
-// in shared memory, 8 node sums reduced by xor shuffles, the force law
-// on every lane and lane 0 writing the 16-float row. The wall kind is a
-// template parameter. Particles whose bounding sphere misses the wall
-// skip the node loop (their sums are zero) but still run the spring
-// update, as the reference does.
+// node, 441 FLOP at lmax 8 (chip_smoke.horner_flops), plus 139-155 FLOP
+// of cap, normal and depth algebra, against 32 + 16 floats of traffic per
+// particle). The design is the stage-2 pair kernels' (pair_contact.cu)
+// with one side, on the helpers of sh_nodes.cuh:
+//   * one warp per particle, lanes striding over the cap nodes (any G: 128
+//     at 8x16, 288 at the deposition's 12x24); the unit-scale per-type
+//     power table [T, W] and the cap grid [4, G] in shared memory, staged
+//     once per block; a particle's row is picked by the type id in its
+//     packed row and its surface scaled by its scale at the end, so no
+//     per-particle table row is gathered in device memory;
+//   * the degree is a template parameter L (with_degree: 0, 2, 4, 8
+//     compiled, any other lmax L = -1, read at run time): every Horner
+//     run's offset and length is a compile-time constant and the chains
+//     unroll fully;
+//   * a lane evaluates NB of its cap nodes together (radius_grad_nodes):
+//     each shared-memory coefficient load feeds NB FMAs. NB is 3 where
+//     3-node blocks span fewer node slots than 2-node ones (node_slots:
+//     the deposition's 288 nodes), else 2; a node past G repeats a valid
+//     node behind a flag and adds nothing;
+//   * the table loads stay in the node loop, behind an offset the compiler
+//     cannot see through (at a fixed degree it would hoist them all and
+//     spill them to local memory);
+//   * the 8 node sums (s1, s2, centroid, normal) reduce with xor shuffles,
+//     the force law runs on every lane and lane 0 writes the 16-float row.
+// The wall kind is a template parameter. Particles whose bounding sphere
+// misses the wall skip the node loop (their sums are zero) but still run
+// the spring update, as the reference does.
+// Measured by scripts/torch_wall_variants.py (device time, 20 launches)
+// on an NVIDIA H100 80GB HBM3 at 700.00 W: on the drum's 9,072-row batch
+// (128 nodes, Lmax 8) K6 0.0431 ms and K7 0.0410 ms against 0.0099 /
+// 0.0097 ms bounds (23 %), 2.9x faster than the per-particle-row kernel
+// this replaces; on the deposition's 1,954 rows (288 nodes) 0.0207 /
+// 0.0194 ms (23-24 %), 2.9-3.0x. The Lmax-8 cylinder node loop issues
+// 597 instructions a node (2-node blocks), 2.0x the FMA slots the bound
+// counts.
+// Built without fast math: approximate division would loosen parity.
 
-#include "sh_device.cuh"
+#include "sh_nodes.cuh"
 
 using namespace shk;
 
@@ -30,17 +58,22 @@ namespace {
 constexpr int FW = 32;     // packed row width
 constexpr int NOUTW = 16;  // output row width
 constexpr int WARPS = 4;   // particles per block
+// Blocks an SM must hold (__launch_bounds__): at most 65536 / (128 x 4)
+// = 128 registers a thread, the most blocks at which no instantiation
+// spills (93-128 registers; at 3 blocks the Lmax-8 kernels take 128-143).
+constexpr int MIN_BLOCKS = 4;
 enum Slot { X = 0, V = 3, Q = 6, OM = 10, M = 13, RMAX = 14, RCHAR = 15, NEAR = 16,
-            DC = 17, NC = 18, HIST = 21 };
+            DC = 17, NC = 18, HIST = 21, TYP = 27, SCL = 28 };
 
-template <int KIND>  // 0: plane, 1: cylinder
-__global__ void __launch_bounds__(WARPS * 32)
-    wall_kernel(const float* __restrict__ packed, const float* __restrict__ tbl, int W,
+template <int KIND, int L, int NB>  // KIND 0: plane, 1: cylinder
+__global__ void __launch_bounds__(WARPS * 32, MIN_BLOCKS)
+    wall_kernel(const float* __restrict__ packed, const float* __restrict__ tbl, int T, int W,
                 const float* __restrict__ cap, int G, const float* __restrict__ par, int lmax,
                 int B, float* __restrict__ out) {
   extern __shared__ float smem[];
-  float* s_cap = smem;
-  float* s_row = smem + 4 * G + (threadIdx.x >> 5) * W;
+  float* s_tbl = smem;           // [T, W] unit-scale power table
+  float* s_cap = s_tbl + T * W;  // [4, G] cap grid
+  for (int i = threadIdx.x; i < T * W; i += blockDim.x) s_tbl[i] = tbl[i];
   for (int i = threadIdx.x; i < 4 * G; i += blockDim.x) s_cap[i] = cap[i];
   __syncthreads();
 
@@ -65,8 +98,8 @@ __global__ void __launch_bounds__(WARPS * 32)
   float s1 = 0.0f, s2 = 0.0f;
   V3 cen_num = z, nh = z;
   if (near) {
-    for (int i = lane; i < W; i += 32) s_row[i] = tbl[(size_t)p * W + i];
-    __syncwarp();
+    const float* t_row = s_tbl + min(max((int)row[TYP], 0), T - 1) * W;
+    const float scl = row[SCL];
     const V3 e_b = rot_inv(q, -nc);
     const float cos_gmax = clampf(-row[DC] / fmaxf(rmax, 1e-12f), -1.0f, 1.0f - 1e-6f);
     const float one_m = 1.0f - cos_gmax;
@@ -77,37 +110,60 @@ __global__ void __launch_bounds__(WARPS * 32)
     // arithmetic op 1; chip_smoke.py's bound reads these lines):
     // node-flops[wall_plane]: 139 + 1 x radius_grad_power per node and side, 1 side
     // node-flops[wall_cylinder]: 155 + 1 x radius_grad_power per node and side, 1 side
-    for (int k = lane; k < G; k += 32) {
-      const float cos_g = 1.0f - one_m * s_cap[k];
-      const float sin_g = sqrtf(fmaxf(1.0f - cos_g * cos_g, 0.0f));
-      const V3 dir =
-          cos_g * e_b + (sin_g * s_cap[2 * G + k]) * t1 + (sin_g * s_cap[3 * G + k]) * t2;
-      float ct, st, cp, sp, r, drt, drp;
-      unit_trig(dir, ct, st, cp, sp);
-      radius_grad_power<false>(s_row, 1.0f, lmax, ct, st, cp, sp, r, drt, drp);
-      const V3 nb = surface_normal(r, drt, drp, ct, st, cp, sp);
-      const float cos_incl = clampf(dot3(nb, dir), 0.05f, 1.0f);
-      const float dA = (one_m * s_cap[G + k]) * r * r / cos_incl;
-      const V3 rel = rot(q, r * dir);
-      const V3 pw = x + rel;
-      float depth;
-      V3 n_at;
-      if (KIND == 0) {
-        depth = -dot3(pw - p0, u0);
-        n_at = u0;
-      } else {
-        const V3 r2 = pw - p0;
-        const V3 rv = r2 - dot3(r2, u0) * u0;
-        const float rad = sqrtf(fmaxf(dot3(rv, rv), 1e-24f));
-        depth = rad - R;
-        n_at = (-1.0f / rad) * rv;
+    for (int k0 = lane; k0 < G; k0 += 32 * NB) {
+      // The table row does not change in this loop, and with the degree
+      // known the compiler would hoist all W of its loads out of it: they
+      // do not fit in registers and spill to local memory. An offset it
+      // cannot see through keeps the loads in the loop, in shared memory.
+      int row0 = 0;
+      asm volatile("" : "+r"(row0));
+      const float* t = t_row + row0;
+      // Node j of this block is k0 + 32 j; one past G repeats node k0 and
+      // adds nothing.
+      bool valid[NB];
+      float glw[NB];
+      V3 dir[NB];
+      float ct[NB], st[NB], cp[NB], sp[NB], r[NB], drt[NB], drp[NB];
+#pragma unroll
+      for (int j = 0; j < NB; ++j) {
+        const int k = k0 + 32 * j;
+        valid[j] = k < G;
+        const int kc = valid[j] ? k : k0;
+        const float cos_g = 1.0f - one_m * s_cap[kc];
+        const float sin_g = sqrtf(fmaxf(1.0f - cos_g * cos_g, 0.0f));
+        dir[j] = cos_g * e_b + (sin_g * s_cap[2 * G + kc]) * t1 +
+                 (sin_g * s_cap[3 * G + kc]) * t2;
+        glw[j] = s_cap[G + kc];
+        unit_trig(dir[j], ct[j], st[j], cp[j], sp[j]);
       }
-      depth = fmaxf(depth, 0.0f);
-      const float wd = dA * depth;
-      s1 += wd;
-      s2 += wd * depth;
-      cen_num = cen_num + wd * rel;
-      nh = nh + wd * n_at;
+      radius_grad_nodes<L, false, NB>(t, scl, lmax, ct, st, cp, sp, r, drt, drp);
+#pragma unroll
+      for (int j = 0; j < NB; ++j) {
+        if (!valid[j]) continue;
+        const V3 nb = surface_normal(r[j], drt[j], drp[j], ct[j], st[j], cp[j], sp[j]);
+        const float cos_incl = clampf(dot3(nb, dir[j]), 0.05f, 1.0f);
+        const float dA = (one_m * glw[j]) * r[j] * r[j] / cos_incl;
+        const V3 rel = rot(q, r[j] * dir[j]);
+        const V3 pw = x + rel;
+        float depth;
+        V3 n_at;
+        if constexpr (KIND == 0) {
+          depth = -dot3(pw - p0, u0);
+          n_at = u0;
+        } else {
+          const V3 r2 = pw - p0;
+          const V3 rv = r2 - dot3(r2, u0) * u0;
+          const float rad = sqrtf(fmaxf(dot3(rv, rv), 1e-24f));
+          depth = rad - R;
+          n_at = (-1.0f / rad) * rv;
+        }
+        depth = fmaxf(depth, 0.0f);
+        const float wd = dA * depth;
+        s1 += wd;
+        s2 += wd * depth;
+        cen_num = cen_num + wd * rel;
+        nh = nh + wd * n_at;
+      }
     }
     s1 = warp_sum(s1);
     s2 = warp_sum(s2);
@@ -149,27 +205,36 @@ __global__ void __launch_bounds__(WARPS * 32)
   }
 }
 
+using WallKernel = void (*)(const float*, const float*, int, int, const float*, int,
+                            const float*, int, int, float*);
+
+// A warp a particle and WARPS particles a block, the table and the cap
+// grid in dynamic shared memory; returns cudaGetLastError().
 template <int KIND>
-int launch(const float* packed, const float* tbl, int W, const float* cap, int G,
+int launch(const float* packed, const float* tbl, int T, int W, const float* cap, int G,
            const float* par, int lmax, int B, float* out, cudaStream_t stream) {
-  const size_t smem = sizeof(float) * (size_t)(4 * G + WARPS * W);
-  if (smem > 48 * 1024) {
-    const cudaError_t e = cudaFuncSetAttribute(
-        wall_kernel<KIND>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-    if (e != cudaSuccess) return (int)e;
-  }
-  const int blocks = (B + WARPS - 1) / WARPS;
-  wall_kernel<KIND><<<blocks, WARPS * 32, smem, stream>>>(packed, tbl, W, cap, G, par, lmax, B,
-                                                          out);
-  return (int)cudaGetLastError();
+  const size_t smem = sizeof(float) * (size_t)(T * W + 4 * G);
+  const bool nb3 = node_slots(G, 3) < node_slots(G, 2);
+  return with_degree(lmax, [&](auto degree) {
+    constexpr int L = decltype(degree)::value;
+    const WallKernel kernel = nb3 ? wall_kernel<KIND, L, 3> : wall_kernel<KIND, L, 2>;
+    if (smem > 48 * 1024) {
+      const cudaError_t e =
+          cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+      if (e != cudaSuccess) return (int)e;
+    }
+    const int blocks = (B + WARPS - 1) / WARPS;
+    kernel<<<blocks, WARPS * 32, smem, stream>>>(packed, tbl, T, W, cap, G, par, lmax, B, out);
+    return (int)cudaGetLastError();
+  });
 }
 
 }  // namespace
 
-extern "C" int sh_wall_contact(const float* packed, const float* tbl, int W, const float* cap,
-                               int G, const float* par, int lmax, int B, int kind, float* out,
-                               cudaStream_t stream) {
-  if (kind == 0) return launch<0>(packed, tbl, W, cap, G, par, lmax, B, out, stream);
-  if (kind == 1) return launch<1>(packed, tbl, W, cap, G, par, lmax, B, out, stream);
+extern "C" int sh_wall_contact(const float* packed, const float* tbl, int T, int W,
+                               const float* cap, int G, const float* par, int lmax, int B,
+                               int kind, float* out, cudaStream_t stream) {
+  if (kind == 0) return launch<0>(packed, tbl, T, W, cap, G, par, lmax, B, out, stream);
+  if (kind == 1) return launch<1>(packed, tbl, T, W, cap, G, par, lmax, B, out, stream);
   return (int)cudaErrorInvalidValue;
 }

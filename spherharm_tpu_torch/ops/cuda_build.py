@@ -28,7 +28,7 @@ CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "spherharm_tpu_torch"
 SOURCES = ("pair_contact.cu", "pair_contact_cons.cu", "stage1_probe.cu",
            "wall_contact.cu")
-HEADERS = ("sh_device.cuh", "pair_contact.cuh")
+HEADERS = ("sh_device.cuh", "sh_nodes.cuh", "pair_contact.cuh")
 ARCH = ("-gencode", "arch=compute_90a,code=sm_90a")
 NVCC_FLAGS = (*ARCH, "-std=c++17", "-O3", "-Xcompiler", "-fPIC")
 
@@ -39,8 +39,8 @@ _SIGNATURES = {
     "sh_pair_contact": (_P, _P, _I, _I, _P, _I, _P, _I, _I, _I, _I, _P, _P),
     # packed, tbl1, T, W, cap1, G, l1, bf16, P, out, stream
     "sh_stage1_depth": (_P, _P, _I, _I, _P, _I, _I, _I, _I, _P, _P),
-    # packed, tbl, W, cap, G, par, lmax, B, kind, out, stream
-    "sh_wall_contact": (_P, _P, _I, _P, _I, _P, _I, _I, _I, _P, _P),
+    # packed, tbl, T, W, cap, G, par, lmax, B, kind, out, stream
+    "sh_wall_contact": (_P, _P, _I, _I, _P, _I, _P, _I, _I, _I, _P, _P),
 }
 
 

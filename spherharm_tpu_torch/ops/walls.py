@@ -25,6 +25,14 @@ def _vec(a, dtype, device):
                            device=device)
 
 
+def _mat(mat, dtype, device):
+    if mat is None:
+        return None
+    if np.shape(mat) != (8,):
+        raise ValueError(f"a wall's mat row takes 8 values, got {mat!r}")
+    return _vec(mat, dtype, device)
+
+
 @dataclass
 class PlaneWall(_Container):
     """Half-space wall: particles confined to the side ``normal`` points
@@ -34,15 +42,20 @@ class PlaneWall(_Container):
     point: torch.Tensor
     normal: torch.Tensor
     velocity: torch.Tensor
+    # Optional per-wall material row [8] (kn, kt, gamma_n, gamma_t, mu,
+    # k_roll, gamma_roll, mu_roll), as LAMMPS fix wall/gran carries its
+    # own coefficients; None takes the global SimParams scalars.
+    mat: torch.Tensor | None = None
 
     @classmethod
-    def create(cls, point, normal, velocity=(0.0, 0.0, 0.0),
+    def create(cls, point, normal, velocity=(0.0, 0.0, 0.0), mat=None,
                dtype=torch.float32, device="cuda"):
         n = _vec(normal, dtype, device)
         return cls(
             point=_vec(point, dtype, device),
             normal=n / torch.linalg.norm(n),
             velocity=_vec(velocity, dtype, device),
+            mat=_mat(mat, dtype, device),
         )
 
     def depth_and_normal(self, p):
@@ -60,9 +73,10 @@ class CylinderWall(_Container):
     axis_dir: torch.Tensor
     radius: torch.Tensor
     omega: torch.Tensor
+    mat: torch.Tensor | None = None  # see PlaneWall.mat
 
     @classmethod
-    def create(cls, axis_point, axis_dir, radius, omega=0.0,
+    def create(cls, axis_point, axis_dir, radius, omega=0.0, mat=None,
                dtype=torch.float32, device="cuda"):
         ad = _vec(axis_dir, dtype, device)
         return cls(
@@ -70,6 +84,7 @@ class CylinderWall(_Container):
             axis_dir=ad / torch.linalg.norm(ad),
             radius=_vec(radius, dtype, device),
             omega=_vec(omega, dtype, device),
+            mat=_mat(mat, dtype, device),
         )
 
     def depth_and_normal(self, p):

@@ -9,8 +9,11 @@ against the wall surface velocity v0 + W x c.
 
 Packed layouts follow ``spherharm_tpu/ops/walls_pallas.py``: particle rows
 [B, 32] (x 0:3, v 3:6, q 6:10, om 10:13, m 13, rmax 14, rchar 15, near 16,
-depth_c 17, n_c 18:21, hist 21:27), pre-scaled per-particle power-table
-rows [B, W], params [1, 24] (dt, 8 materials, v0, W, p0, u0, R).
+depth_c 17, n_c 18:21, hist 21:27), params [1, 24] (dt, 8 materials, v0,
+W, p0, u0, R). Unlike the reference's pre-scaled per-particle table rows
+[B, W], the table is the pair kernels' unit-scale per-type one [T8, W]
+(``contact_kernels.pad_type_table``), and each particle row carries its
+shape type (slot 27) and scale (slot 28), as the pair rows do.
 """
 
 from __future__ import annotations
@@ -23,20 +26,28 @@ from spherharm_tpu_torch.ops.contact_kernels import (
     _ptr,
     _stream,
     friction_rolling,
+    pad_type_table,
 )
 from spherharm_tpu_torch.ops.rotation import quat_rotate, quat_rotate_inv
 
 F_WALL = 32
 N_PAR_WALL = 24
 N_OUT_WALL = 16  # force 0:3, torque 3:6, hist 6:12, pe 12, contact 13
+TYP, SCL = 27, 28  # shape-type id (float) and scale slots
 KINDS = ("plane", "cylinder")
+# Shared memory a block can take (H100: 227 KB), in floats: the kernel
+# stages the [T8, W] table and the [4, G] cap grid.
+SMEM_FLOATS = 232_448 // 4
 
 
 def pack_wall(state, shapes, params, wall, hist, depth_c, n_c, om):
     """Build (packed, tbl, cap, par, kind) kernel inputs for one wall.
 
     depth_c / n_c: the wall's centre depth and inward normal at each
-    particle centre; om: world-frame angular velocities."""
+    particle centre; om: world-frame angular velocities. The wall's
+    ``mat`` row (kn, kt, gamma_n, gamma_t, mu, k_roll, gamma_roll,
+    mu_roll), where it has one, takes the place of the global materials
+    in ``par[1:9]``."""
     from spherharm_tpu_torch.ops.walls import PlaneWall
 
     f32 = torch.float32
@@ -47,9 +58,10 @@ def pack_wall(state, shapes, params, wall, hist, depth_c, n_c, om):
     packed = torch.cat([
         state.x, state.v, state.q, om, m[:, None], rmax[:, None],
         rchar[:, None], near[:, None].to(f32), depth_c[:, None], n_c, hist,
+        state.shtype[:, None].to(f32), state.scale[:, None],
     ], dim=1).to(f32)
     packed = torch.nn.functional.pad(packed, (0, F_WALL - packed.shape[1]))
-    tbl = (shapes.power_tbl[state.shtype] * state.scale[:, None]).contiguous()
+    tbl = pad_type_table(shapes.power_tbl).contiguous()
     cap = torch.stack([shapes.cap_x, shapes.cap_glw, shapes.cap_cpsi,
                        shapes.cap_spsi])
     z = torch.zeros((), dtype=f32, device=packed.device)
@@ -63,8 +75,11 @@ def pack_wall(state, shapes, params, wall, hist, depth_c, n_c, om):
         Wv = wall.omega * wall.axis_dir
         v0 = -torch.linalg.cross(Wv, wall.axis_point)
         p0, u0, R = wall.axis_point, wall.axis_dir, wall.radius
-    mat8 = [params.kn, params.kt, params.gamma_n, params.gamma_t,
-            params.mu, params.k_roll, params.gamma_roll, params.mu_roll]
+    if wall.mat is not None:
+        mat8 = list(wall.mat.unbind(0))
+    else:
+        mat8 = [params.kn, params.kt, params.gamma_n, params.gamma_t,
+                params.mu, params.k_roll, params.gamma_roll, params.mu_roll]
     par = torch.stack([
         params.dt, *mat8, *v0.unbind(0), *Wv.unbind(0), *p0.unbind(0),
         *u0.unbind(0), R, z, z,
@@ -73,8 +88,9 @@ def pack_wall(state, shapes, params, wall, hist, depth_c, n_c, om):
 
 
 def wall_contact_kernel(packed, tbl, cap, par, lmax: int, kind: str):
-    """Wall contact over packed particle rows. Returns [B, 16]. CUDA
-    tensors launch ``csrc/wall_contact.cu`` (launches counted per kind in
+    """Wall contact over packed particle rows [B, 32] with the per-type
+    table tbl [T8, W]. Returns [B, 16]. CUDA tensors launch
+    ``csrc/wall_contact.cu`` (launches counted per kind in
     ``wall_contact_kernel.launches``); CPU tensors run
     ``wall_contact_plain``."""
     if kind not in KINDS:
@@ -82,18 +98,22 @@ def wall_contact_kernel(packed, tbl, cap, par, lmax: int, kind: str):
     if packed.device.type == "cpu":
         return wall_contact_plain(packed, tbl, cap, par, lmax, kind)
     _check_cuda("wall_contact", packed=packed, tbl=tbl, cap=cap, par=par)
-    B, W, G = packed.shape[0], tbl.shape[1], cap.shape[1]
-    if (packed.shape[1] != F_WALL or tbl.shape[0] != B or cap.shape[0] != 4
-            or par.numel() != N_PAR_WALL
-            or W != sh_power.power_layout(lmax)["W"]):
+    B, T, G = packed.shape[0], tbl.shape[0], cap.shape[1]
+    W = sh_power.power_layout(lmax)["W"]
+    if (packed.shape[1] != F_WALL or tbl.dim() != 2 or T == 0 or T % 8
+            or tbl.shape[1] != W or cap.shape[0] != 4
+            or par.numel() != N_PAR_WALL):
         raise ValueError("wall_contact: bad input shapes "
                          f"{tuple(packed.shape)} {tuple(tbl.shape)} "
                          f"{tuple(cap.shape)} {tuple(par.shape)}")
+    if T * W + 4 * G > SMEM_FLOATS:
+        raise ValueError(f"wall_contact: a [{T}, {W}] table and {G} cap "
+                         "nodes exceed a block's shared memory")
     out = torch.empty((B, N_OUT_WALL), dtype=torch.float32,
                       device=packed.device)
     if B:
         err = cuda_build.library().sh_wall_contact(
-            _ptr(packed), _ptr(tbl), W, _ptr(cap), G, _ptr(par), lmax, B,
+            _ptr(packed), _ptr(tbl), T, W, _ptr(cap), G, _ptr(par), lmax, B,
             KINDS.index(kind), _ptr(out), _stream(packed.device))
         cuda_build.check(err, f"wall_contact[{kind}]")
         wall_contact_kernel.launches[kind] += 1
@@ -104,7 +124,10 @@ wall_contact_kernel.launches = {k: 0 for k in KINDS}
 
 
 def wall_contact_plain(packed, tbl, cap, par, lmax: int, kind: str):
-    """Plain twin of the wall kernel (direct tensor version)."""
+    """Plain twin of the wall kernel (direct tensor version): each
+    particle's surface at unit scale from its type's table row, then r and
+    its derivatives times its scale (``contact.eval_radius``), as the
+    kernel evaluates it."""
     col = lambda k: packed[:, k]
     vec = lambda lo: packed[:, lo:lo + 3]
     cap_x, cap_glw, cap_cpsi, cap_spsi = cap.unbind(0)
@@ -129,7 +152,9 @@ def wall_contact_plain(packed, tbl, cap, par, lmax: int, kind: str):
             + (sin_g * cap_cpsi)[..., None] * t1[:, None, :]
             + (sin_g * cap_spsi)[..., None] * t2[:, None, :])
     ct, st, cp, sp = contact._unit_trig(dirs)
-    r, drt, drp = sh_power.eval_power(tbl, ct, st, cp, sp, lmax)
+    typ = col(TYP).long().clamp(0, tbl.shape[0] - 1)
+    r, drt, drp = contact.eval_radius(tbl[typ], col(SCL), ct, st, cp, sp,
+                                      lmax)
     nb = contact.surface_normal_trig(r, drt, drp, ct, st, cp, sp)
     cos_incl = torch.clamp((nb * dirs).sum(-1), 0.05, 1.0)
     dA = (one_m * cap_glw) * r * r / cos_incl

@@ -237,12 +237,13 @@ def test_stage2_bf16_switch(monkeypatch):
 def test_kernel_bf16_chains_never_fuse():
     """The CUDA kernels' bf16 chains round as the twins do, an op then one
     rounding: a packed step is __hmul2_rn then __hadd2_rn, in the one
-    helper both stage-2 laws share. A fused __hfma2 rounds once per step
+    helper both stage-2 laws share (sh_nodes.cuh, with the wall kernel's
+    f32 chains). A fused __hfma2 rounds once per step
     instead and moves many rows of K3 past chip_smoke.py's 1e-4 |F|max,
     so no source in csrc/ may call it."""
     csrc = Path(ck.__file__).resolve().parent.parent / "csrc"
     sources = sorted(csrc.glob("*.cu*"))
     assert len(sources) >= 6
     steps = [p.name for p in sources if "__hadd2_rn(__hmul2_rn(" in p.read_text()]
-    assert steps == ["pair_contact.cuh"]
+    assert steps == ["sh_nodes.cuh"]
     assert not [p.name for p in sources if "hfma" in p.read_text().lower()]

@@ -93,3 +93,25 @@ def test_geometric_bound_unchanged(smoke, name, per_node_s, lo, hi):
     assert b["bound_by"] == "operations"
     assert b["bound_ms"] == pytest.approx(16_056 * 288 * 2 * per_node_s * 1e3)
     assert lo < b["bound_ms"] < hi
+
+
+@pytest.mark.parametrize("name,extra", [("wall_plane", 139), ("wall_cylinder", 155)])
+def test_wall_node_flops(smoke, name, extra):
+    """K7 / K6: the cap, normal and depth algebra of a node (the plane's
+    depth a dot product, the cylinder's a radial distance and its normal),
+    1 surface evaluation with gradient, 1 side."""
+    assert smoke.node_flops()[name] == (extra, 1, True, False, 1)
+
+
+@pytest.mark.parametrize("name,extra,lo,hi", [
+    ("wall_cylinder", 155, 0.0102, 0.0104),
+    ("wall_plane", 139, 0.0099, 0.0101),
+])
+def test_wall_bound_unchanged(smoke, name, extra, lo, hi):
+    """The drum's wall batch: its wall capacity at n = 100,000 (9,072 rows,
+    ``8 n rmax / R_drum``), every row near the wall, 128 nodes at Lmax 8:
+    K6 0.0103 ms, K7 0.0101 ms, both by operations."""
+    b = smoke.bound(name, 8, 128, 9_072, 0)
+    assert b["bound_by"] == "operations"
+    assert b["bound_ms"] == pytest.approx(9_072 * 128 * (extra + 441) / 67e12 * 1e3)
+    assert lo < b["bound_ms"] < hi

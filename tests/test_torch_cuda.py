@@ -192,19 +192,26 @@ def test_stage1_l1_kernel_matches_plain(bf16, cuda_device):
     assert (np.abs(np32(out) - ref) <= 1e-5 * rsum).all()
 
 
-# (wall kind, cap grid): the drum's 8x16 grid and the deposition's 12x24.
+# (wall kind, lmax, cap grid): both kinds at Lmax 8 on the drum's 8x16
+# grid (2-node blocks) and on the deposition's 12x24 (288 nodes: 3-node
+# blocks), at each other degree compiled into csrc/ (0, 2, 4) and at lmax
+# 6, which takes the run-time-degree instantiation; the 11x25 grid's 275
+# nodes take 3-node blocks with the last partly empty.
 WALL_CASES = [
-    pytest.param("plane", (8, 16), id="plane"),
-    pytest.param("cylinder", (8, 16), id="cylinder"),
-    pytest.param("plane", (12, 24), id="plane-12x24"),
-    pytest.param("cylinder", (12, 24), id="cylinder-12x24"),
+    pytest.param(kind, lmax, quad, id=f"{kind}{tag}")
+    for kind in ("plane", "cylinder")
+    for lmax, quad, tag in ((8, (8, 16), ""), (8, (12, 24), "-12x24"),
+                            (0, (8, 16), "-0"), (2, (8, 16), "-2"),
+                            (4, (8, 16), "-4"),
+                            (6, (8, 16), "-6-run-time-degree"),
+                            (8, (11, 25), "-11x25"))
 ]
 
 
-@pytest.mark.parametrize("kind,quad", WALL_CASES)
-def test_wall_kernel_matches_plain(kind, quad, cuda_device):
+@pytest.mark.parametrize("kind,lmax,quad", WALL_CASES)
+def test_wall_kernel_matches_plain(kind, lmax, quad, cuda_device):
     rng = np.random.default_rng(1)
-    lmax, n = 8, 64
+    n = 64
     shapes = shapes_library.build_shapes(blob_coeffs(lmax, 2), lmax,
                                          contact_quad=quad,
                                          device=cuda_device)
@@ -258,6 +265,15 @@ def test_kernels_reject_bad_inputs(cuda_device):
         ck.pair_contact(packed, tbl, cap, par, 8)  # table width of lmax 4
     with pytest.raises(ValueError):
         ck.pair_contact(packed, tbl.cpu(), cap, par, 4)
+    wpacked = torch.zeros((5, wk.F_WALL), device=cuda_device)
+    wpar = torch.zeros((1, wk.N_PAR_WALL), device=cuda_device)
+    with pytest.raises(ValueError):  # [T, W] with T not padded to 8
+        wk.wall_contact_kernel(wpacked, tbl[:3].contiguous(), cap, wpar, 4,
+                               "plane")
+    with pytest.raises(ValueError):  # beyond a block's shared memory
+        wk.wall_contact_kernel(wpacked, torch.zeros((1200, tbl.shape[1]),
+                                                    device=cuda_device),
+                               cap, wpar, 4, "plane")
 
 
 def _card_vs_cpu(runs):

@@ -1,8 +1,8 @@
 """Wall contact of the torch port vs the JAX reference
 (ops/walls.py's jnp path with exact SH evaluation): plane and rotating
-cylinder, friction + rolling, mid-contact springs, wall_cap compaction.
-Tolerance 2e-3 |F|max, the reference's own kernel-vs-jnp bound
-(tests/test_walls_pallas.py)."""
+cylinder, friction + rolling, mid-contact springs, wall_cap compaction,
+the per-wall material row. Tolerance 2e-3 |F|max, the reference's own
+kernel-vs-jnp bound (tests/test_walls_pallas.py)."""
 
 import jax.numpy as jnp
 import numpy as np
@@ -19,10 +19,10 @@ from spherharm_tpu_torch.ops import walls as twalls
 from torch_port_util import blob_coeffs, np32, to_torch
 
 
-def _system(seed=0, n=48, lmax=4):
+def _system(seed=0, n=48, lmax=4, quad=(8, 16)):
     rng = np.random.default_rng(seed)
     shapes = jshapes.build_shapes(blob_coeffs(lmax, 2, seed=seed), lmax,
-                                  contact_quad=(8, 16))
+                                  contact_quad=quad)
     params = JParams.create(dt=1e-4, kn=1e5, gamma_n=20.0, mu=0.4,
                             k_roll=2e4, gamma_roll=10.0, mu_roll=0.2,
                             cutoff=1.4, skin=0.2)
@@ -70,15 +70,23 @@ def _compare(got, ref, tol=2e-3):
                                atol=tol * max(pe_ref.max(), 1e-6))
 
 
+def _run_torch(shapes, params, state, wall, hist, **kw):
+    return twalls.wall_contact(
+        to_torch(tstate.State, state), to_torch(tstate.Shapes, shapes),
+        to_torch(tstate.SimParams, params), wall, torch.tensor(hist), **kw)
+
+
+# (lmax, cap grid): the drum's 8x16 grid at Lmax 4, and the deposition's
+# Lmax 8 on its 12x24 grid.
+@pytest.mark.parametrize("lmax,quad", [(4, (8, 16)), (8, (12, 24))],
+                         ids=["lmax4-8x16", "lmax8-12x24"])
 @pytest.mark.parametrize("kind", ["plane", "cylinder"])
-def test_wall_contact_matches_reference(kind):
-    shapes, params, state, hist = _system()
+def test_wall_contact_matches_reference(kind, lmax, quad):
+    shapes, params, state, hist = _system(lmax=lmax, quad=quad)
     jw, tw, state = _walls(kind, state)
     ref = jwalls.wall_contact(state, shapes, params, jw, jnp.asarray(hist),
                               exact=True)
-    got = twalls.wall_contact(
-        to_torch(tstate.State, state), to_torch(tstate.Shapes, shapes),
-        to_torch(tstate.SimParams, params), tw, torch.tensor(hist))
+    got = _run_torch(shapes, params, state, tw, hist)
     assert int(got[4]) == int(ref[4])
     _compare(got, ref)
 
@@ -89,10 +97,7 @@ def test_wall_contact_with_compaction():
     jw, tw, state = _walls("plane", state)
     ref = jwalls.wall_contact(state, shapes, params, jw, jnp.asarray(hist),
                               exact=True)
-    got = twalls.wall_contact(
-        to_torch(tstate.State, state), to_torch(tstate.Shapes, shapes),
-        to_torch(tstate.SimParams, params), tw, torch.tensor(hist),
-        wall_cap=32)
+    got = _run_torch(shapes, params, state, tw, hist, wall_cap=32)
     assert 0 < int(got[4]) <= 32 < state.cap
     # Forces, torques and pe match; springs of particles compacted out
     # stay zero instead of carrying the reference's rolling residue.
@@ -103,3 +108,34 @@ def test_wall_contact_with_compaction():
     np.testing.assert_allclose(
         np32(got[3]), np.asarray(ref[3]), rtol=0,
         atol=2e-3 * max(np.asarray(ref[3]).max(), 1e-6))
+
+
+def test_per_wall_material_override():
+    """A wall's mat row acts as the reference's (ops/walls.py: it replaces
+    the global materials): the port's mat wall matches the JAX mat wall
+    and the port's plain wall under matching global params, and differs
+    from the plain wall under the original params
+    (tests/test_walls_pallas.py::test_per_wall_material_override)."""
+    shapes, params, state, hist = _system(seed=6)
+    soft = [2e4, 8e3, 10.0, 5.0, 0.2, 0.0, 0.0, 0.0]
+    args = ([0.0, 0.0, 0.5], [0.0, 0.0, 1.0])
+    params_soft = JParams.create(
+        dt=1e-4, kn=soft[0], kt=soft[1], gamma_n=soft[2], gamma_t=soft[3],
+        mu=soft[4], cutoff=1.4, skin=0.2)
+    jref = jwalls.wall_contact(state, shapes, params,
+                               jwalls.PlaneWall.create(*args, mat=soft),
+                               jnp.asarray(hist), exact=True)
+    wall_soft = twalls.PlaneWall.create(*args, mat=soft, device="cpu")
+    wall_plain = twalls.PlaneWall.create(*args, device="cpu")
+    got = _run_torch(shapes, params, state, wall_soft, hist)
+    _compare(got, jref)
+    _compare(got, _run_torch(shapes, params_soft, state, wall_plain, hist))
+    f_g = np32(_run_torch(shapes, params, state, wall_plain, hist)[0])
+    fmag = np.abs(np.asarray(jref[0])).max()
+    assert not np.allclose(f_g, np32(got[0]), atol=1e-3 * fmag)
+
+
+def test_wall_mat_row_takes_eight_values():
+    with pytest.raises(ValueError, match="8 values"):
+        twalls.CylinderWall.create([0, 0, 0], [0, 1, 0], 3.0, mat=[1.0] * 5,
+                                   device="cpu")
