@@ -985,11 +985,8 @@ def main(argv):
     print(f"card-vs-CPU phases: {time.perf_counter() - t0:.1f}s")
 
     # The paths: counters from each path's own run only; with --profile,
-    # 20 more steps of each under torch.profiler after every kernel case is
-    # timed (after a long profiled window, the next short profiler session
-    # has missed kernel launches: device_ms requires all 20).
+    # 20 more steps of each under torch.profiler after its counted run.
     profiling = "--profile" in argv
-    to_profile = []
     state, neigh, l_drum, _, step_s, _ = run_path(
         f"drum n={N_MAIN}", sim, state, neigh, STEPS,
         ("pair_contact_conservative", "stage1_depth", "wall_cylinder", "wall_plane"),
@@ -997,7 +994,7 @@ def main(argv):
     skin = int(neigh.skin_violations)
     require(skin == 0, f"drum: {skin} skin violations at cadence {R_EVERY}")
     if profiling:
-        to_profile.append(("drum", sim, state, neigh, step_s))
+        profile_path("drum", sim, state, neigh, step_s, smi)
     del sim, state, neigh
 
     dst, dng = dep.init_neighbors(drum_start(dep, dep_st0, dev))
@@ -1006,7 +1003,7 @@ def main(argv):
         ("pair_contact_geometric", "wall_cylinder", "wall_plane"), smi)
     require(float(th["pe_pair"]) > 0, "deposition: no pair contact")
     if profiling:
-        to_profile.append(("deposition", dep, dst, dng, step_s))
+        profile_path("deposition", dep, dst, dng, step_s, smi)
     stage2_list_phase("deposition", dep, dst, dng, kern)
 
     bst, bng = box.init_neighbors(box_start(box, bst0, dev))
@@ -1015,7 +1012,7 @@ def main(argv):
         ("pair_contact_geometric", "wall_plane"), smi)
     require(float(th["pe_pair"]) > 0, "settling box: no pair contact")
     if profiling:
-        to_profile.append(("settling box", box, bst, bng, step_s))
+        profile_path("settling box", box, bst, bng, step_s, smi)
     del dep, dst, dng, box, bst, bng
 
     # The drift gas (periodic, no walls): f32 here, bf16 stage-2 in a child
@@ -1024,13 +1021,10 @@ def main(argv):
         f"drift gas n={N_GAS} f32", gas, gst, gng,
         ("pair_contact_conservative", "stage1_depth"), smi)
     if profiling:
-        to_profile.append(("drift gas", gas, gst, gng, step_s))
+        profile_path("drift gas", gas, gst, gng, step_s, smi)
     stage2_list_phase("drift gas", gas, gst, gng, kern)
     l_k5 = stage1_l1_phase(gas, gst, gng, kern)
     del gas, gst, gng
-    for job in to_profile:
-        profile_path(*job, smi)
-    del to_profile
     torch.cuda.empty_cache()
     t0 = time.perf_counter()
     child = bf16_phase()

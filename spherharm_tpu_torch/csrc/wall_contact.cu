@@ -39,9 +39,10 @@
 // The wall kind is a template parameter. Particles whose bounding sphere
 // misses the wall skip the node loop (their sums are zero) but still run
 // the spring update, as the reference does.
-// Measured by scripts/torch_wall_variants.py (device time, 20 launches)
-// on an NVIDIA H100 80GB HBM3 at 700.00 W: on the drum's 9,072-row batch
-// (128 nodes, Lmax 8) K6 0.0431 ms and K7 0.0410 ms against 0.0099 /
+// Measured by device time over 20 launches (the variant timing in
+// PERF.md section 6) on an NVIDIA H100 80GB HBM3 at 700.00 W: on the
+// drum's 9,072-row batch (128 nodes, Lmax 8) K6 0.0431 ms and K7
+// 0.0410 ms against 0.0099 /
 // 0.0097 ms bounds (23 %), 2.9x faster than the per-particle-row kernel
 // this replaces; on the deposition's 1,954 rows (288 nodes) 0.0207 /
 // 0.0194 ms (23-24 %), 2.9-3.0x. The Lmax-8 cylinder node loop issues
