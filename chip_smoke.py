@@ -200,7 +200,6 @@ def cuda_ms(fn, reps):
 SYMBOLS = {"pair_contact_conservative": "pair_conservative_kernel",
            "pair_contact_geometric": "pair_geometric_kernel",
            "stage1_depth": "stage1_kernel", "wall": "wall_kernel"}
-MARGIN_S = 0.25  # idle time on each side of device_ms's launches
 
 
 def kernel_symbol(name):
@@ -209,26 +208,27 @@ def kernel_symbol(name):
 
 def device_ms(fn, symbol, reps=20):
     """Mean device time of the kernel ``symbol`` over reps calls of fn(),
-    after one warm-up: torch.profiler's self device time of the device
-    events whose name holds the symbol, as ``profile_path`` reads device
-    time. Fails unless the profiler saw exactly reps launches of it."""
+    after one warm-up call and a warm-up profiler step of reps calls:
+    torch.profiler's self device time of the device events whose name
+    holds the symbol, as ``profile_path`` reads device time. Fails unless
+    the profiler saw exactly reps launches of it."""
     import torch
     from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
+    from torch.profiler import ProfilerActivity, profile, schedule
 
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        # Idle margins inside the window: a window that opened right before
-        # the launches and closed right after the synchronize kept only 5-8
-        # of 20 half-millisecond kernels a few minutes into a run (the
-        # profiler keeps the device events whose times fall inside its
-        # window).
-        time.sleep(MARGIN_S)
-        for _ in range(reps):
-            fn()
-        torch.cuda.synchronize()
-        time.sleep(MARGIN_S)
+    # A profiler step of the same launches before the recorded one: late in
+    # a run, a window recorded from its start lost the first 7-15 of 20
+    # half-millisecond kernels of the deposition's stage-2 list (the rest
+    # in place, the launches all in the window).
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                 schedule=schedule(wait=0, warmup=1, active=1, repeat=1)) as prof:
+        for _ in range(2):
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+            prof.step()
     events = [e for e in prof.key_averages()
               if e.device_type == DeviceType.CUDA and symbol in e.key]
     seen = sum(e.count for e in events)
