@@ -10,7 +10,8 @@ Phases, each fatal on failure (exit code != 0, no result line):
 1. build the CUDA kernels from ``spherharm_tpu_torch/csrc`` (nvcc, sm_90a,
    one process per source, in parallel); print ptxas's registers and
    spills, and the instruction mix of the Lmax-8 node loops of both
-   stage-2 laws, f32 and bf16, and of both wall kinds (cuobjdump);
+   stage-2 laws, f32 and bf16, of both wall kinds and of the stage-1
+   probe (Lmax 8 f32, K4; l1 4 bf16, K5) (cuobjdump);
 2. set up, on the card, the main-path drum (``rotating_drum`` at
    n = 100,000, Lmax 8, 4 blob types, k_max 24, pair cap 5n, stage-2 cap
    3n, cadence R = 20, conservative law), the full-width deposition
@@ -26,8 +27,9 @@ Phases, each fatal on failure (exit code != 0, no result line):
    parameters: K1 on the drum (Lmax 8, 128 nodes); K2 on the deposition
    (Lmax 8, 288 nodes), the drum's shapes (Lmax 8, 128) and the settling
    box (Lmax 2, 128); K3 (bf16 chains) conservative on the drift gas
-   (Lmax 8, 128) and geometric on the deposition (288); K4 on the drum
-   (32 nodes); K6 on the drum and the deposition; K7 on the drum, the
+   (Lmax 8, 128) and geometric on the deposition (288); K4 on 16,384
+   pairs of the drum's shapes (32 nodes; the batch the unit tests
+   mirror); K6 on the drum and the deposition; K7 on the drum, the
    deposition and the settling box's floor. Forces, springs and pe
    against the stated tolerances, contact-flag flips, CUDA-event times of
    a wrapper call and of the plain PyTorch twin, the kernel's own device
@@ -53,9 +55,13 @@ Phases, each fatal on failure (exit code != 0, no result line):
    cap 10n, no prefilter), K1 and K3 conservative on the drift gas's
    (30,000 slots); each list timed whole, up to 16,384 live rows held to
    the twin and every masked row to zero;
-   K5 (l1 = 4, f32 and bf16) vs its twin on the candidate list a rebuild
-   of the drift gas builds after its run, with the tail column, and K4 on
-   the same rows: K5 >= K4 on every probed row, fatal otherwise;
+   K4 on the candidate list a rebuild builds after the path's run, on the
+   drum's (all 500,000 slots, pair cap 5n) and the drift gas's (60,000):
+   the row classes printed, each list timed whole, up to 16,384 probed
+   rows held to the twin, every dead row to -1e9 and every
+   sphere-separated row to rsum - dist; K5 (l1 = 4, f32 and bf16) vs its
+   twin on the drift gas's list with the tail column: K5 >= K4 on every
+   probed row, fatal otherwise;
 7. the bf16 phase in a child process started with
    SPHERHARM_STAGE2_BF16=1: the drift gas (as in step 5) and the
    deposition (100 steps) with every stage-2 call through K3. Guards: K3
@@ -64,9 +70,11 @@ Phases, each fatal on failure (exit code != 0, no result line):
    and both slopes.
 
 Prints the kernels ranked by launches x (device_ms - bound_ms) over this
-run (``ranking``), the card's name and power limit (nvidia-smi), one JSON
-line with the kernels' launches, errors, times and bounds (the path's own
-shape at the top level of each kernel, every case under ``cases``; K3's
+run (``ranking``; each path's launches at that path's own candidate list,
+else its stage-2 list, else its batch), the card's name and power limit
+(nvidia-smi), one JSON line with the kernels' launches, errors, times and
+bounds (at the top level of each kernel the case the ranking prices for
+its first path, every case under ``cases``; K3's
 launches are the child's, K5's those of step 6; ``ms`` is a wrapper call
 timed by CUDA events, ``device_ms`` the kernel alone), and as the last
 line ``{"ok": true, "device": {...}}``. Exits non-zero without a CUDA
@@ -244,10 +252,12 @@ def device_ms(fn, symbol, reps=20):
 def print_node_loop_sass(lib, nvcc):
     """Print the instruction mix of the node loops of the stage-2 kernels
     of both laws at Lmax 8 (f32 and bf16; the geometric kernel's at each
-    node block NB) and of the wall kernel of both kinds at Lmax 8 (each
-    NB) in ``lib``'s SASS: in each, the longest backward branch whose body
-    holds no shuffle (the side sums come after the loop). Reads the
-    library only; prints a note instead where cuobjdump is missing."""
+    node block NB), of the wall kernel of both kinds at Lmax 8 (each NB)
+    and of the stage-1 probe at Lmax 8 f32 (K4) and l1 4 bf16 (K5) in
+    ``lib``'s SASS: in each, the longest backward branch whose body holds
+    no shuffle (the side sums and the probe's max come after the loop).
+    Reads the library only; prints a note instead where cuobjdump is
+    missing."""
     cuobjdump = Path(nvcc).parent / "cuobjdump"
     if not cuobjdump.exists():
         print(f"  sass: {cuobjdump} not found")
@@ -261,7 +271,8 @@ def print_node_loop_sass(lib, nvcc):
         head = fn.split("\n", 1)[0]
         m = re.search(r"pair_(conservative|geometric)_kernelILi8ELb([01])E(?:Li(\d)E)?", head)
         w = re.search(r"wall_kernelILi([01])ELi8ELi(\d)E", head)
-        if not (m or w):
+        s1 = re.search(r"stage1_kernelILi(8ELb0|4ELb1)E", head)
+        if not (m or w or s1):
             continue
         ops = [(int(a, 16), op) for a, op in re.findall(
             r"/\*([0-9a-f]{4,})\*/\s+(?:@!?U?P\w+\s+)?([A-Z][A-Z0-9_]*)", fn)]
@@ -272,7 +283,9 @@ def print_node_loop_sass(lib, nvcc):
         if not loops:
             continue
         mix = collections.Counter(body(*max(loops, key=lambda ta: ta[1] - ta[0])))
-        if w:
+        if s1:
+            label = "stage1 " + ("<8,f32>" if s1.group(1) == "8ELb0" else "<4,bf16>")
+        elif w:
             label = f"wall_{('plane', 'cylinder')[int(w.group(1))]} <8,NB={w.group(2)}>"
         else:
             label = f"{m.group(1)} <8," + ("bf16" if m.group(2) == "1" else "f32") + (
@@ -584,50 +597,115 @@ def stage2_list_phase(tag, path, state, neigh, results):
              plain_rows=n_sub)
 
 
-def stage1_l1_phase(gas, state, neigh, results):
-    """K5 (l1 = 4 of Lmax 8, f32 and bf16) vs its plain twin on the
-    candidate list a rebuild of the drift gas builds at ``state``, packed
-    with the tail column; K4 (full basis, tail zeroed, as the prefilter
-    runs it) on the same rows. K5 >= K4 on every probed live row, or the
-    run fails. ``state`` is the gas after its drift path: at its start the
-    lattice pitch clears 2 rmax, so no pair would be probed. Returns the
-    K5 launches of this phase."""
+def candidate_list(path, state, neigh):
+    """The candidate list a rebuild of ``path`` builds at ``state`` (wrap,
+    neighbour list, ``contact.build_pair_list``, every slot of the pair
+    capacity), packed for the stage-1 probe as
+    ``contact.prefilter_pair_list`` packs it, the tail column kept. Returns
+    (packed [P, 64], live rows, candidates)."""
     import torch
 
     from spherharm_tpu_torch.ops import contact, neighbor
     from spherharm_tpu_torch.ops import contact_kernels as ck
 
-    l1, shapes = 4, gas.shapes
+    shapes = path.shapes
     x, image = neighbor.wrap_positions(state.x, state.image, state.box_lo,
-                                       state.box_hi, gas.periodic)
+                                       state.box_hi, path.periodic)
     st = state.replace(x=x, image=image)
-    idx, mask, _ = gas._build_list(st)
+    idx, mask, _ = path._build_list(st)
     fields, n_cand = contact.build_pair_list(
-        st, shapes, gas.params, idx, mask, torch.zeros_like(neigh.hist), st.active,
-        gas.pair_capacity, gas.periodic)
+        st, shapes, path.params, idx, mask, torch.zeros_like(neigh.hist), st.active,
+        path.pair_capacity, path.periodic)
     pi, pj = fields["pair_i"], fields["pair_j"]
     rows = contact.particle_rows(st, shapes)
     live = (fields["pair_valid"] & (rows[pi, contact._RACT] > 0.5)
             & (rows[pj, contact._RACT] > 0.5))
     dp = contact.minimum_image(rows[pj][:, contact._RX] - rows[pi][:, contact._RX],
-                               st.box_lo, st.box_hi, gas.periodic)
-    packed = ck.pack_pairs(st, shapes, gas.params, pi, pj, live,
+                               st.box_lo, st.box_hi, path.periodic)
+    packed = ck.pack_pairs(st, shapes, path.params, pi, pj, live,
                            dp.new_zeros((pi.shape[0], 6)), dp, rows=rows,
                            probe_only=True)[0]
+    return packed, live, int(n_cand)
+
+
+def stage1_list_phase(tag, path, state, neigh, results):
+    """K4 (full basis, tail zeroed, as the prefilter runs it) on the whole
+    candidate list a rebuild of ``path`` builds at ``state``, timed as the
+    case ``"{tag} candidate list"`` (its bound from the list's probed rows
+    and ``stage1_bytes``). That call's rows are held to: the plain twin at
+    2e-5 on up to N_PAIRS probed rows (where none is probed, on N_PAIRS
+    rows of the list; the plain time is of those rows); -1e9 exactly on
+    every dead row; rsum - dist within 1e-6 on every sphere-separated row.
+    Rows within 1e-6 rsum of touching spheres may be sorted either way by
+    the kernel's rounding of dist and are held to neither. Returns
+    (packed with its tail, live, dist, rsum, probed, K4's output)."""
+    import torch
+
+    from spherharm_tpu_torch.ops import contact_kernels as ck
+
+    shapes, lmax = path.shapes, path.shapes.lmax
+    packed, live, n_cand = candidate_list(path, state, neigh)
     zeroed = packed.clone()
     zeroed[:, ck.SLOTS["tail"][0]] = 0.0
     cap1 = torch.stack([shapes.cap1_x, shapes.cap1_glw, shapes.cap1_cpsi,
                         shapes.cap1_spsi])
-    tbl_ab = ck.pad_type_table(shapes.power_tbl)[:, :(LMAX + 1) ** 2].contiguous()
-    tbl1 = ck.stage1_table(shapes, l1)
-    k4 = ck.stage1_depth(zeroed, tbl_ab, cap1, LMAX, l1=LMAX, bf16=False)
+    tbl_ab = ck.pad_type_table(shapes.power_tbl)[:, :(lmax + 1) ** 2].contiguous()
+    out = ck.stage1_depth(zeroed, tbl_ab, cap1, lmax, l1=lmax, bf16=False)
+    d = packed[:, ck.SLOTS["d"][0]:ck.SLOTS["d"][1]]
+    dist = torch.sqrt(torch.clamp((d * d).sum(-1), min=1e-24))
     rsum = packed[:, ck.SLOTS["rbi"][0]] + packed[:, ck.SLOTS["rbj"][0]]
-    dist = torch.linalg.norm(dp, dim=1)
     alive = live & (dist > 1e-12)
     probed = alive & (dist < rsum)
-    P, n_probed = pi.shape[0], int(probed.sum())
-    print(f"drift gas candidate list: {int(n_cand)} candidates in {P} slots, "
-          f"{int(live.sum())} live, {n_probed} probed (bounding spheres overlap)")
+    band = (dist - rsum).abs() <= 1e-6 * rsum
+    sep = alive & ~probed & ~band
+    idx = torch.nonzero(probed & ~band).flatten()[:N_PAIRS]
+    if idx.numel() == 0:
+        idx = torch.nonzero(~band).flatten()[:N_PAIRS]
+    sub = zeroed[idx].contiguous()
+    ref = ck.stage1_depth_plain(sub, tbl_ab, cap1, lmax, l1=lmax, bf16=False)
+    torch.cuda.synchronize()
+    P, n_alive, n_probed = packed.shape[0], int(alive.sum()), int(probed.sum())
+    err = float((out[idx] - ref).abs().max())
+    sep_err = float((out[sep] - (rsum - dist)[sep]).abs().max()) if sep.any() else 0.0
+    dead_ok = bool((out[~alive] == -1e9).all())
+    label = f"K4 stage1_depth on the {tag}'s candidate list"
+    print(f"{tag} candidate list: {n_cand} candidates in {P} slots, {int(live.sum())} "
+          f"live, {n_alive - n_probed} sphere-separated, {n_probed} probed (bounding "
+          f"spheres overlap), {int((alive & band).sum())} within 1e-6 rsum of touching")
+    print(f"{label}: max|d depth| on {idx.numel()} rows vs the twin={err:.3g} (tol 2e-5); "
+          f"separated rows max|depth - (rsum - dist)|={sep_err:.3g} (tol 1e-6); dead rows "
+          f"all -1e9: {dead_ok}")
+    require(bool(torch.isfinite(out[alive]).all()), f"{label}: output not finite")
+    require(err <= 2e-5, f"{label}: disagrees with its plain twin")
+    require(sep_err <= 1e-6, f"{label}: a sphere-separated row is not rsum - dist")
+    require(dead_ok, f"{label}: a dead row is not -1e9")
+    case(results, "stage1_depth", f"{tag} candidate list", lmax, cap1.shape[1], P, err,
+         lambda: ck.stage1_depth(zeroed, tbl_ab, cap1, lmax, l1=lmax, bf16=False),
+         lambda: ck.stage1_depth_plain(sub, tbl_ab, cap1, lmax, l1=lmax, bf16=False),
+         n_probed, stage1_bytes(packed, alive, probed, tbl_ab, cap1, out),
+         live_rows=n_alive, probed_rows=n_probed, plain_rows=idx.numel())
+    return packed, live, dist, rsum, probed, out
+
+
+def stage1_l1_phase(gas, state, neigh, results):
+    """K4 on the candidate list a rebuild of the drift gas builds at
+    ``state`` (``stage1_list_phase``), then K5 (l1 = 4 of Lmax 8, f32 and
+    bf16, with the tail column) vs its plain twin on the same list. K5 >=
+    K4 on every probed live row, or the run fails. ``state`` is the gas
+    after its drift path: at its start the lattice pitch clears 2 rmax, so
+    no pair would be probed. Returns the K5 launches of this phase."""
+    import torch
+
+    from spherharm_tpu_torch.ops import contact_kernels as ck
+
+    l1, shapes = 4, gas.shapes
+    packed, live, dist, rsum, probed, k4 = stage1_list_phase(
+        "drift gas", gas, state, neigh, results)
+    cap1 = torch.stack([shapes.cap1_x, shapes.cap1_glw, shapes.cap1_cpsi,
+                        shapes.cap1_spsi])
+    tbl1 = ck.stage1_table(shapes, l1)
+    alive = live & (dist > 1e-12)
+    P, n_probed = packed.shape[0], int(probed.sum())
     require(n_probed > 1000, "K5: too few probed rows on the drift gas's list")
     for k in ck.stage1_depth.launches:
         ck.stage1_depth.launches[k] = 0
@@ -659,7 +737,8 @@ def stage1_l1_phase(gas, state, neigh, results):
         require(n_below == 0, f"K5 {name} falls below the full-basis probe K4 on "
                 f"{n_below} probed rows: a finding about the reference's truncation "
                 "bound (ROADMAP Queue 3), never a tolerance to loosen")
-        case(results, name, "drift gas", LMAX, cap1.shape[1], P, float(err.max()),
+        case(results, name, "drift gas candidate list", LMAX, cap1.shape[1], P,
+             float(err.max()),
              lambda: ck.stage1_depth(packed, tbl1, cap1, LMAX, l1=l1, bf16=bf16),
              lambda: ck.stage1_depth_plain(packed, tbl1, cap1, LMAX, l1=l1, bf16=bf16),
              n_probed, stage1_bytes(packed, alive, probed, tbl1, cap1, out), degree=l1)
@@ -862,20 +941,29 @@ def bf16_phase():
     return json.loads(tagged[0][len(CHILD_TAG):])
 
 
+def path_case(cases, path):
+    """A kernel's case for ``path``: the path's own candidate list (the
+    stage-1 probe), else its own stage-2 list, else its batch, else the
+    kernel's first case."""
+    for tag in (f"{path} candidate list", f"{path} stage-2 list", path):
+        c = next((c for c in cases if c["path"] == tag), None)
+        if c is not None:
+            return c
+    return cases[0]
+
+
 def ranking(kern, counted):
     """Each kernel's time over its bound in this run, in ms: the sum over
     the paths that launched it (``counted``: {kernel: [(path, launches)]})
-    of launches x (time - bound_ms) at the case of that path's own stage-2
-    list, else of that path's batch, else the kernel's first case; by the
-    kernel's device time (``device_ms``) and by the wrapper call's
+    of launches x (time - bound_ms) at that path's case (``path_case``);
+    by the kernel's device time (``device_ms``) and by the wrapper call's
     (``ms``). Returns {kernel: (loss by device_ms, loss by ms)}."""
     out = {}
     for name, paths in counted.items():
         cases = kern[name]
         loss = [0.0, 0.0]
         for path, n in paths:
-            c = next((c for c in cases if c["path"] == f"{path} stage-2 list"),
-                     next((c for c in cases if c["path"] == path), cases[0]))
+            c = path_case(cases, path)
             loss[0] += n * (c["device_ms"] - c["bound_ms"])
             loss[1] += n * (c["ms"] - c["bound_ms"])
         out[name] = tuple(loss)
@@ -995,6 +1083,7 @@ def main(argv):
     require(skin == 0, f"drum: {skin} skin violations at cadence {R_EVERY}")
     if profiling:
         profile_path("drum", sim, state, neigh, step_s, smi)
+    stage1_list_phase("drum", sim, state, neigh, kern)
     del sim, state, neigh
 
     dst, dng = dep.init_neighbors(drum_start(dep, dep_st0, dev))
@@ -1071,12 +1160,16 @@ def main(argv):
                          "as in the reference)"} for k in l_k5}
     notes.update({k: {"path": "bf16 child under SPHERHARM_STAGE2_BF16=1: drift "
                               "gas + deposition"} for k in k3})
+    # At the top level of each kernel: the case of the first path that
+    # launched it (path_case), as the ranking prices it.
+    top = {k: path_case(kern[k], counted[k][0][0]) if counted[k] else kern[k][0]
+           for k in src}
     print(f"total wall time: {time.perf_counter() - t_start:.1f}s")
     print(json.dumps({"kernels": [
         {"name": name, "route": "cuda", "source": src[name][0],
          "replaces": src[name][1], "launches": launches[name],
          "max_abs_err": max(c["max_abs_err"] for c in kern[name]),
-         **{k: kern[name][0][k]
+         **{k: top[name][k]
             for k in ("ms", "device_ms", "plain_ms", "bound_ms", "bound_by")},
          "library_ms": None, **notes.get(name, {}), "cases": kern[name]}
         for name in src]}))

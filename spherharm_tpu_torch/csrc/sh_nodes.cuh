@@ -141,6 +141,112 @@ __device__ __forceinline__ void radius_grad_nodes(const Coef<kBf16>* t, float s,
   }
 }
 
+// The arithmetic of N nodes' values, one element a node (f32) or a node
+// pair (bf16): every bf16 multiply and add rounds once, never fused, as
+// the twins round each op.
+template <bool kBf16>
+struct NodeOps;
+
+template <>
+struct NodeOps<false> {
+  static constexpr int kPer = 1;  // nodes an element
+  static __device__ __forceinline__ float from(float a, float) { return a; }
+  static __device__ __forceinline__ float one() { return 1.0f; }
+  static __device__ __forceinline__ float mul(float a, float b) { return a * b; }
+  static __device__ __forceinline__ float add(float a, float b) { return a + b; }
+  static __device__ __forceinline__ float sub(float a, float b) { return a - b; }
+  static __device__ __forceinline__ float get(float e, int) { return e; }
+};
+
+template <>
+struct NodeOps<true> {
+  using E = __nv_bfloat162;
+  static constexpr int kPer = 2;
+  static __device__ __forceinline__ E from(float a, float b) {
+    return __floats2bfloat162_rn(a, b);
+  }
+  static __device__ __forceinline__ E one() { return __float2bfloat162_rn(1.0f); }
+  static __device__ __forceinline__ E mul(E a, E b) { return __hmul2_rn(a, b); }
+  static __device__ __forceinline__ E add(E a, E b) { return __hadd2_rn(a, b); }
+  static __device__ __forceinline__ E sub(E a, E b) { return __hadd2_rn(a, __hneg2(b)); }
+  static __device__ __forceinline__ float get(E e, int j) {
+    return j ? __high2float(e) : __low2float(e);
+  }
+};
+
+// r at N nodes from one degree-l A/B table row (the stage-1 probe): the
+// arithmetic of sh_device.cuh radius_power_ab<kBf16> node for node, at
+// degree L (L = -1: l), so each coefficient load feeds N nodes. f32: the
+// unit-scale row, scaled by s at the end. bf16: a row pre-scaled and
+// rounded to bf16, each value in both halves of a pair; ct, st, cp, sp are
+// rounded to bf16 and every op of the chains, of the cos/sin(m phi) and
+// sin^m recurrences and of the m-sum runs on node pairs (s unused).
+template <int L, bool kBf16, int N>
+__device__ __forceinline__ void radius_ab_nodes(const Coef<kBf16>* t, float s, int l,
+                                                const float (&ct)[N], const float (&st)[N],
+                                                const float (&cp)[N], const float (&sp)[N],
+                                                float (&r)[N]) {
+  using Op = NodeOps<kBf16>;
+  constexpr int K = Op::kPer, M = N / K;
+  static_assert(N % K == 0, "bf16 runs the nodes in pairs");
+  const int lm = L >= 0 ? L : l;
+  Coef<kBf16> x[M], stv[M], cpv[M], spv[M], acc[M], cos_m[M], sin_m[M], st_m[M];
+#pragma unroll
+  for (int i = 0; i < M; ++i) {
+    x[i] = Op::from(ct[K * i], ct[K * i + K - 1]);
+    stv[i] = Op::from(st[K * i], st[K * i + K - 1]);
+    cpv[i] = Op::from(cp[K * i], cp[K * i + K - 1]);
+    spv[i] = Op::from(sp[K * i], sp[K * i + K - 1]);
+    acc[i] = t[0];
+    cos_m[i] = cpv[i];
+    sin_m[i] = spv[i];
+    st_m[i] = Op::one();
+  }
+#pragma unroll
+  for (int k = 1; k <= lm; ++k) {
+#pragma unroll
+    for (int i = 0; i < M; ++i) acc[i] = Op::add(Op::mul(acc[i], x[i]), t[k]);
+  }
+  int oA = lm + 1, oB = a_width(lm);
+#pragma unroll
+  for (int m = 1; m <= lm; ++m) {
+    // A_m and B_m (nab coefficients each), side by side.
+    const int nab = lm - m + 1;
+    Coef<kBf16> A[M], B[M];
+#pragma unroll
+    for (int i = 0; i < M; ++i) {
+      A[i] = t[oA];
+      B[i] = t[oB];
+    }
+#pragma unroll
+    for (int k = 1; k < nab; ++k) {
+#pragma unroll
+      for (int i = 0; i < M; ++i) {
+        A[i] = Op::add(Op::mul(A[i], x[i]), t[oA + k]);
+        B[i] = Op::add(Op::mul(B[i], x[i]), t[oB + k]);
+      }
+    }
+    oA += nab;
+    oB += nab;
+#pragma unroll
+    for (int i = 0; i < M; ++i) {
+      if (m > 1) {
+        const Coef<kBf16> c = Op::sub(Op::mul(cos_m[i], cpv[i]), Op::mul(sin_m[i], spv[i]));
+        sin_m[i] = Op::add(Op::mul(sin_m[i], cpv[i]), Op::mul(cos_m[i], spv[i]));
+        cos_m[i] = c;
+      }
+      st_m[i] = Op::mul(st_m[i], stv[i]);
+      acc[i] = Op::add(acc[i], Op::mul(st_m[i], Op::add(Op::mul(cos_m[i], A[i]),
+                                                        Op::mul(sin_m[i], B[i]))));
+    }
+  }
+#pragma unroll
+  for (int j = 0; j < N; ++j) {
+    r[j] = Op::get(acc[j / K], j % K);
+    if constexpr (!kBf16) r[j] *= s;
+  }
+}
+
 // The degrees compiled into the stage-2 and wall kernels: 0 (the two-body
 // collision), 2 (the settling box, the small drums), 4 (the small drums;
 // the reference's triaxial cell) and 8 (the drum, the deposition, the

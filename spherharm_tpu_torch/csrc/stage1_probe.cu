@@ -6,8 +6,8 @@
 //   rebuild-time prefilter runs) and K5 (l1 < lmax and/or bf16 = True,
 //   the function's own defaults l1 = 4, bf16 = True). The surface is
 //   evaluated at degree l1 from a degree-l1 table; bf16 is the template
-//   parameter kBf16 (the whole radius evaluation in bfloat16,
-//   sh_device.cuh radius_power_ab<true>).
+//   parameter kBf16 (the whole radius evaluation in bfloat16, as
+//   sh_device.cuh radius_power_ab<true> rounds it).
 //
 // Per candidate pair it writes an upper bound on the max signed node depth
 // (r_target - rho) over both probe directions on the coarse cap1 grid,
@@ -15,37 +15,71 @@
 // plus 0.02 (rb_i + rb_j) with bf16 (the reference's rounding margin);
 // pairs apart by their bounding spheres give rsum - dist, dead rows -1e9.
 //
-// What bounds it on this card: arithmetic again, though 8x lighter than
-// the stage-2 kernel (r only, from the 81-float A/B prefix at lmax 8, on
-// 32 nodes, no gradients): ~2 x 32 x 2 x 0.5 kFLOP per 256-byte row. It
-// runs once per rebuild over the whole candidate list (5n rows). At
-// l1 = 4 (25 floats, ~4x fewer FLOPs) on a list whose rows are mostly
-// masked or sphere-separated, the 256-byte row read bounds it instead.
-// Design: one warp per pair, one lane per cap1 node (stride loop for
-// G1 > 32), the table and the grid in shared memory, a warp max
-// reduce; masked and sphere-separated rows skip the probe entirely. The
-// bf16 instance rounds each pre-scaled coefficient in registers as the
-// chain reads it, like pair_contact.cu's K3.
+// What bounds it on this card: the rows it must read, and the arithmetic
+// of the probed ones. A candidate list is mostly dead (masked) or
+// sphere-separated rows, which need one or three 32-byte sectors of their
+// 256-byte row; only the probed rows (bounding spheres overlapping) run
+// the surface: at Lmax 8, 2 sides x 32 nodes x 540 FLOP a row.
+// Design:
+//   * rows are sorted out by thread, probed by warp: a block takes a tile
+//     of rows, one a thread; each thread reads its row's mask and d (one
+//     16-byte load) and, if live, rb_i and rb_j, writes the dead and
+//     separated rows' outputs itself and appends a probed row's index to
+//     a shared-memory queue (a warp ballot, one shared atomic a warp);
+//     the warps then drain the queue. A dead row costs one thread;
+//   * a grid of about SMs x blocks-an-SM blocks strides over the tiles
+//     (a tile shrinks to at most 256 rows so that short lists still fill
+//     the card), so each block stages the unit-scale [T8, W] table and the
+//     [4, G] cap grid in shared memory once for many rows;
+//   * a warp probes one row: lanes 0-15 take side ij (i's cap nodes
+//     against j's surface), lanes 16-31 side ji, each lane NB = 2 nodes
+//     (G = 32: one pass), and one warp max reduces both sides;
+//   * the degree is a template parameter L (with_degree: 0, 2, 4, 8
+//     compiled, any other l1 L = -1, read at run time): K4 runs L = 8 on
+//     every prefiltered path, K5 L = 4; the chains unroll fully and each
+//     shared-memory coefficient load feeds NB nodes (sh_nodes.cuh
+//     radius_ab_nodes). The table loads stay in the node loop behind an
+//     offset the compiler cannot see through (at a fixed degree it would
+//     hoist them and spill);
+//   * bf16 (K5): each probed pair's two rows, pre-scaled and rounded to
+//     bf16, are built once in shared memory by the warp; the chains, the
+//     recurrences and the m-sum run two nodes a packed __hmul2_rn /
+//     __hadd2_rn instruction, bit for bit the twin's per-op rounding.
+// Compiled for L in {0, 2, 4, 8, -1} x {f32, bf16}; launched on the card
+// by chip_smoke.py and tests/test_torch_cuda.py at L = 8 f32 (K4), L = 4
+// f32 and bf16 (K5), and the card tests' other degrees.
+// Built without fast math: approximate division would loosen parity.
 
 #include <math.h>
 
-#include "sh_device.cuh"
+#include "sh_nodes.cuh"
 
 using namespace shk;
 
 namespace {
 
 constexpr int F = 64;
-constexpr int WARPS = 8;
+constexpr int THREADS = 256;  // at most one tile of rows, one a thread
+constexpr int WARPS = THREADS / 32;
+constexpr int ROWS = 1;                // probed rows a warp takes at a time
+constexpr int LPR = 32 / ROWS;         // lanes a row
+constexpr int LPS = LPR / 2;           // lanes a side
+constexpr int NB = 2;                  // cap nodes a lane evaluates together
+// Blocks an SM must hold (__launch_bounds__): at most 65536 / (256 x 3) =
+// 85 registers a thread.
+constexpr int MIN_BLOCKS = 3;
 enum Slot { QI = 6, RBI = 14, RMI = 15, QJ = 23, RBJ = 31, RMJ = 32, MASK = 40, DV = 41,
             TAIL = 44, TYP = 53, SCL = 55 };
 
-// Max over a's cap1 nodes of (r_b(u) - rho); d3 = x_b - x_a.
-template <bool kBf16>
-__device__ float probe_side(const float* tbl_a, float s_a, const float* tbl_b, float s_b,
-                            Q4 q_a, Q4 q_b, V3 d3, float dist, float inv_dist, float rb_b,
-                            float rm_a, float rb_a, const float* cap, int G, int l1,
-                            int lane) {
+// Max over this lane's cap nodes of a (k_lane + LPS j, j < NB, then
+// striding) of (r_b(u) - rho); d3 = x_b - x_a. f32 rows t_a, t_b are at
+// unit scale (scaled by s_a, s_b), bf16 rows pre-scaled.
+template <int L, bool kBf16>
+__device__ __forceinline__ float probe_side(const Coef<kBf16>* t_a, float s_a,
+                                            const Coef<kBf16>* t_b, float s_b, Q4 q_a, Q4 q_b,
+                                            V3 d3, float dist, float inv_dist, float rb_b,
+                                            float rm_a, float rb_a, const float* cap, int G,
+                                            int l1, int k_lane) {
   const V3 e_b = rot_inv(q_a, inv_dist * d3);
   const float rho_star = sqrtf(fmaxf(dist * dist - rb_b * rb_b, 0.0f));
   const float rho_c = clampf(rho_star, rm_a, rb_a);
@@ -63,85 +97,174 @@ __device__ float probe_side(const float* tbl_a, float s_a, const float* tbl_b, f
   // node-flops[stage1_depth]: 120 + 2 x radius_power_ab per node and side, 2 sides
   // node-flops[stage1_depth_l1]: 120 + 2 x radius_power_ab per node and side, 2 sides
   // node-flops[stage1_depth_l1_bf16]: 120 + 2 x radius_power_ab_bf16 per node and side, 2 sides
-  for (int k = lane; k < G; k += 32) {
-    const float cos_g = 1.0f - one_m * cap[k];
-    const float sin_g = sqrtf(fmaxf(1.0f - cos_g * cos_g, 0.0f));
-    const V3 dir = cos_g * e_b + (sin_g * cap[2 * G + k]) * t1 + (sin_g * cap[3 * G + k]) * t2;
-    float ct, st, cp, sp;
-    unit_trig(dir, ct, st, cp, sp);
-    const float r_a = radius_power_ab<kBf16>(tbl_a, s_a, l1, ct, st, cp, sp);
-    const V3 u = rot_inv(q_b, rot(q_a, r_a * dir) - d3);
-    const float rho = sqrtf(fmaxf(dot3(u, u), 1e-24f));
-    unit_trig((1.0f / rho) * u, ct, st, cp, sp);
-    const float r_b = radius_power_ab<kBf16>(tbl_b, s_b, l1, ct, st, cp, sp);
-    best = fmaxf(best, r_b - rho);
+  for (int k0 = k_lane; k0 < G; k0 += LPS * NB) {
+    // The rows do not change in this loop, and with the degree known the
+    // compiler would hoist their loads out of it into registers that
+    // spill. An offset it cannot see through keeps them in shared memory.
+    int off = 0;
+    asm volatile("" : "+r"(off));
+    // Node j of this block is k0 + LPS j; one past G repeats node k0,
+    // which leaves the max as it is.
+    V3 dir[NB];
+    float ct[NB], st[NB], cp[NB], sp[NB], r[NB], rho[NB];
+#pragma unroll
+    for (int j = 0; j < NB; ++j) {
+      const int k = k0 + LPS * j < G ? k0 + LPS * j : k0;
+      const float cos_g = 1.0f - one_m * cap[k];
+      const float sin_g = sqrtf(fmaxf(1.0f - cos_g * cos_g, 0.0f));
+      dir[j] = cos_g * e_b + (sin_g * cap[2 * G + k]) * t1 + (sin_g * cap[3 * G + k]) * t2;
+      unit_trig(dir[j], ct[j], st[j], cp[j], sp[j]);
+    }
+    radius_ab_nodes<L, kBf16, NB>(t_a + off, s_a, l1, ct, st, cp, sp, r);
+#pragma unroll
+    for (int j = 0; j < NB; ++j) {
+      const V3 u = rot_inv(q_b, rot(q_a, r[j] * dir[j]) - d3);
+      rho[j] = sqrtf(fmaxf(dot3(u, u), 1e-24f));
+      unit_trig((1.0f / rho[j]) * u, ct[j], st[j], cp[j], sp[j]);
+    }
+    radius_ab_nodes<L, kBf16, NB>(t_b + off, s_b, l1, ct, st, cp, sp, r);
+#pragma unroll
+    for (int j = 0; j < NB; ++j) best = fmaxf(best, r[j] - rho[j]);
   }
-  return warp_max(best);
+  return best;
 }
 
-template <bool kBf16>
-__global__ void __launch_bounds__(WARPS * 32)
+template <int L, bool kBf16>
+__global__ void __launch_bounds__(THREADS, MIN_BLOCKS)
     stage1_kernel(const float* __restrict__ packed, const float* __restrict__ tbl, int T,
-                  int W, const float* __restrict__ cap, int G, int l1, int P,
+                  int W, const float* __restrict__ cap, int G, int l1, int P, int tile_rows,
                   float* __restrict__ out) {
   extern __shared__ float smem[];
-  float* s_tbl = smem;
-  float* s_cap = smem + T * W;
-  for (int i = threadIdx.x; i < T * W; i += blockDim.x) s_tbl[i] = tbl[i];
-  for (int i = threadIdx.x; i < 4 * G; i += blockDim.x) s_cap[i] = cap[i];
+  float* s_tbl = smem;                                 // [T, W] unit-scale table
+  float* s_cap = s_tbl + T * W;                        // [4, G] cap1 grid
+  int* s_queue = reinterpret_cast<int*>(s_cap + 4 * G);  // probed rows of a tile
+  // bf16: each warp's pairs' two pre-scaled rows, [WARPS, ROWS, 2, W].
+  __nv_bfloat162* s_rows = reinterpret_cast<__nv_bfloat162*>(s_queue + THREADS);
+  __shared__ int s_count[2];
+  for (int i = threadIdx.x; i < T * W; i += THREADS) s_tbl[i] = tbl[i];
+  for (int i = threadIdx.x; i < 4 * G; i += THREADS) s_cap[i] = cap[i];
+  if (threadIdx.x == 0) s_count[0] = 0;
   __syncthreads();
 
-  const int lane = threadIdx.x & 31;
-  const int p = blockIdx.x * WARPS + (threadIdx.x >> 5);
-  if (p >= P) return;
-  const float* row = packed + (size_t)p * F;
-  const V3 d = load3(row + DV);
-  const float dist = sqrtf(fmaxf(dot3(d, d), 1e-24f));
-  const float rbi = row[RBI], rbj = row[RBJ];
-  const float rsum = rbi + rbj;
-  float depth;
-  if (!(row[MASK] > 0.5f && dist > 1e-12f)) {
-    depth = -1e9f;
-  } else if (!(dist < rsum)) {
-    // Not probed (the cap geometry assumes dist < rsum), but surfaces lie
-    // inside the bounding spheres, so rsum - dist bounds the depth.
-    depth = rsum - dist;
-  } else {
-    const float inv_dist = 1.0f / dist;
-    const Q4 qi = load4(row + QI), qj = load4(row + QJ);
-    const int ti = min(max((int)row[TYP], 0), T - 1);
-    const int tj = min(max((int)row[TYP + 1], 0), T - 1);
-    const float si = row[SCL], sj = row[SCL + 1];
-    const float m_ij = probe_side<kBf16>(s_tbl + ti * W, si, s_tbl + tj * W, sj, qi, qj, d,
-                                         dist, inv_dist, rbj, row[RMI], rbi, s_cap, G, l1,
-                                         lane);
-    const float m_ji = probe_side<kBf16>(s_tbl + tj * W, sj, s_tbl + ti * W, si, qj, qi, -d,
-                                         dist, inv_dist, rbi, row[RMJ], rbj, s_cap, G, l1,
-                                         lane);
-    depth = fmaxf(m_ij, m_ji) + row[TAIL];
-    if (kBf16) depth += 0.02f * rsum;
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int tiles = (P + tile_rows - 1) / tile_rows;
+  int par = 0;
+  for (int tile = blockIdx.x; tile < tiles; tile += gridDim.x, par ^= 1) {
+    // Sort the tile's rows out, one a thread.
+    const int p = tile * tile_rows + threadIdx.x;
+    bool probed = false;
+    if (threadIdx.x < tile_rows && p < P) {
+      const float* row = packed + (size_t)p * F;
+      const float4 md = *reinterpret_cast<const float4*>(row + MASK);  // mask, d
+      const V3 d = v3(md.y, md.z, md.w);
+      const float dist = sqrtf(fmaxf(dot3(d, d), 1e-24f));
+      if (!(md.x > 0.5f && dist > 1e-12f)) {
+        out[p] = -1e9f;
+      } else {
+        const float rsum = row[RBI] + row[RBJ];
+        // Not probed (the cap geometry assumes dist < rsum), but surfaces
+        // lie inside the bounding spheres, so rsum - dist bounds the depth.
+        if (!(dist < rsum)) {
+          out[p] = rsum - dist;
+        } else {
+          probed = true;
+        }
+      }
+    }
+    const unsigned ballot = __ballot_sync(0xffffffffu, probed);
+    int base = 0;
+    if (lane == 0 && ballot) base = atomicAdd(&s_count[par], __popc(ballot));
+    base = __shfl_sync(0xffffffffu, base, 0);
+    if (probed) s_queue[base + __popc(ballot & ((1u << lane) - 1u))] = p;
+    __syncthreads();
+    const int n = s_count[par];
+    if (threadIdx.x == 0) s_count[par ^ 1] = 0;
+
+    // Probe the queued rows, a warp a row (ROWS rows a warp at a time).
+    for (int i0 = warp * ROWS; i0 < n; i0 += WARPS * ROWS) {
+      const int i = i0 + lane / LPR;
+      const bool own = i < n;  // else repeat row i0, write nothing
+      const int q = s_queue[own ? i : i0];
+      const float* row = packed + (size_t)q * F;
+      const V3 d = load3(row + DV);
+      const float dist = sqrtf(fmaxf(dot3(d, d), 1e-24f));
+      const float inv_dist = 1.0f / dist;
+      const float rbi = row[RBI], rbj = row[RBJ];
+      const int ti = min(max((int)row[TYP], 0), T - 1);
+      const int tj = min(max((int)row[TYP + 1], 0), T - 1);
+      const float si = row[SCL], sj = row[SCL + 1];
+      const bool ji = (lane % LPR) >= LPS;  // this lane's side: j's cap probes i
+      const Coef<kBf16>*t_i, *t_j;
+      if constexpr (kBf16) {
+        __nv_bfloat162* rows = s_rows + (warp * ROWS + lane / LPR) * 2 * W;
+        for (int k = lane % LPR; k < W; k += LPR) {
+          rows[k] = __bfloat162bfloat162(__float2bfloat16_rn(__fmul_rn(s_tbl[ti * W + k], si)));
+          rows[W + k] =
+              __bfloat162bfloat162(__float2bfloat16_rn(__fmul_rn(s_tbl[tj * W + k], sj)));
+        }
+        __syncwarp();
+        t_i = rows;
+        t_j = rows + W;
+      } else {
+        t_i = s_tbl + ti * W;
+        t_j = s_tbl + tj * W;
+      }
+      float best = probe_side<L, kBf16>(
+          ji ? t_j : t_i, ji ? sj : si, ji ? t_i : t_j, ji ? si : sj,
+          load4(row + (ji ? QJ : QI)), load4(row + (ji ? QI : QJ)), ji ? -d : d, dist,
+          inv_dist, ji ? rbi : rbj, row[ji ? RMJ : RMI], ji ? rbj : rbi, s_cap, G, l1,
+          lane % LPS);
+#pragma unroll
+      for (int o = LPR / 2; o > 0; o >>= 1)
+        best = fmaxf(best, __shfl_xor_sync(0xffffffffu, best, o));
+      if (own && lane % LPR == 0) {
+        float depth = best + row[TAIL];
+        if (kBf16) depth += 0.02f * (rbi + rbj);
+        out[q] = depth;
+      }
+      if constexpr (kBf16) __syncwarp();  // the rows are rebuilt for the next pair
+    }
+    __syncthreads();  // the queue is refilled for the next tile
   }
-  if (lane == 0) out[p] = depth;
 }
+
+using Stage1Kernel = void (*)(const float*, const float*, int, int, const float*, int, int,
+                              int, int, float*);
 
 template <bool kBf16>
 int launch(const float* packed, const float* tbl1, int T, int W, const float* cap1, int G,
            int l1, int P, float* out, cudaStream_t stream) {
-  const size_t smem = sizeof(float) * (size_t)(T * W + 4 * G);
-  if (smem > 48 * 1024) {
-    const cudaError_t e = cudaFuncSetAttribute(
-        stage1_kernel<kBf16>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-    if (e != cudaSuccess) return (int)e;
-  }
-  const int blocks = (P + WARPS - 1) / WARPS;
-  stage1_kernel<kBf16><<<blocks, WARPS * 32, smem, stream>>>(packed, tbl1, T, W, cap1, G, l1,
-                                                             P, out);
-  return (int)cudaGetLastError();
+  const size_t smem = sizeof(float) * (size_t)(T * W + 4 * G + THREADS) +
+                      (kBf16 ? sizeof(__nv_bfloat162) * (size_t)(WARPS * ROWS * 2 * W) : 0);
+  return with_degree(l1, [&](auto degree) {
+    constexpr int L = decltype(degree)::value;
+    const Stage1Kernel kernel = stage1_kernel<L, kBf16>;
+    cudaError_t e = cudaSuccess;
+    if (smem > 48 * 1024) {
+      e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+      if (e != cudaSuccess) return (int)e;
+    }
+    int dev = 0, sms = 0, per_sm = 0;
+    if ((e = cudaGetDevice(&dev)) != cudaSuccess ||
+        (e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev)) != cudaSuccess ||
+        (e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, THREADS, smem)) !=
+            cudaSuccess)
+      return (int)e;
+    // Tiles of a multiple of 32 rows, at most THREADS, small enough that
+    // the list gives every resident block a tile where it can.
+    const int slots = sms * (per_sm > 0 ? per_sm : 1);
+    const int tile_rows = min(THREADS, ((P + slots - 1) / slots + 31) / 32 * 32);
+    const int tiles = (P + tile_rows - 1) / tile_rows;
+    const int blocks = min(tiles, slots);
+    kernel<<<blocks, THREADS, smem, stream>>>(packed, tbl1, T, W, cap1, G, l1, P, tile_rows,
+                                              out);
+    return (int)cudaGetLastError();
+  });
 }
 
 }  // namespace
 
-// tbl1: [T, (l1+1)^2] degree-l1 A/B table rows (W = (l1+1)^2).
+// tbl1: [T, (l1+1)^2] degree-l1 A/B table rows at unit scale (W = (l1+1)^2).
 extern "C" int sh_stage1_depth(const float* packed, const float* tbl1, int T, int W,
                                const float* cap1, int G, int l1, int bf16, int P, float* out,
                                cudaStream_t stream) {

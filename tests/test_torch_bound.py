@@ -115,3 +115,61 @@ def test_wall_bound_unchanged(smoke, name, extra, lo, hi):
     assert b["bound_by"] == "operations"
     assert b["bound_ms"] == pytest.approx(9_072 * 128 * (extra + 441) / 67e12 * 1e3)
     assert lo < b["bound_ms"] < hi
+
+
+@pytest.mark.parametrize("name,bf16", [
+    ("stage1_depth", False),
+    ("stage1_depth_l1", False),
+    ("stage1_depth_l1_bf16", True),
+])
+def test_stage1_node_flops(smoke, name, bf16):
+    """K4 / K5: 120 FLOPs of cap, rotation and direction algebra a node, 2
+    r-only surface evaluations, 2 sides; K5 bf16 evaluates in bfloat16.
+    The redesigned loop keeps the count: the bound prices the function."""
+    assert smoke.node_flops()[name] == (120, 2, False, bf16, 2)
+
+
+@pytest.mark.parametrize("lmax,bf16,flops", [
+    (8, False, (210, 0)),
+    (4, False, (70, 0)),
+    (4, True, (0, 70)),
+])
+def test_horner_flops_r_only(smoke, lmax, bf16, flops):
+    """One radius_power_ab: 210 FLOPs at Lmax 8 (K4), 70 at l1 4 (K5), all
+    at the bf16 rate when K5 runs in bfloat16."""
+    assert smoke.horner_flops(lmax, grad=False, bf16=bf16) == flops
+
+
+def test_stage1_bound_unchanged(smoke):
+    """K4 on the 16,384-pair batch of the drum's shapes: its 8,898 probed
+    rows (the others dead or sphere-separated), 32 cap1 nodes, 2 sides at
+    540 FLOPs a node and side: 0.00459 ms by operations, as the
+    run-time-degree kernel's count put it."""
+    b = smoke.bound("stage1_depth", 8, 32, 8_898, 0)
+    assert b["bound_by"] == "operations"
+    assert b["bound_ms"] == pytest.approx(8_898 * 32 * 2 * 540 / 67e12 * 1e3)
+    assert 0.00458 < b["bound_ms"] < 0.00460
+
+
+def test_ranking_prices_each_path_at_its_own_list(smoke):
+    """A path's launches are priced at the path's own candidate list (the
+    stage-1 probe), else its stage-2 list, else its batch; never at
+    another path's case."""
+    c = lambda path, dev, bnd, ms: dict(path=path, device_ms=dev, bound_ms=bnd, ms=ms)
+    kern = {
+        "stage1_depth": [c("drum", 0.05, 0.004, 0.06), c("drum candidate list", 0.03, 0.01, 0.04),
+                         c("drift gas candidate list", 0.01, 0.002, 0.02)],
+        "pair_contact_conservative": [c("drum", 0.3, 0.1, 0.31),
+                                      c("drift gas stage-2 list", 0.4, 0.1, 0.42)],
+        "wall_plane": [c("drum", 0.04, 0.01, 0.08)],
+    }
+    counted = {"stage1_depth": [("drum", 3), ("drift gas", 2)],
+               "pair_contact_conservative": [("drum", 60), ("drift gas", 100)],
+               "wall_plane": [("settling box", 10)]}
+    loss = smoke.ranking(kern, counted)
+    assert loss["stage1_depth"] == pytest.approx((3 * 0.02 + 2 * 0.008,
+                                                  3 * 0.03 + 2 * 0.018))
+    assert loss["pair_contact_conservative"] == pytest.approx((60 * 0.2 + 100 * 0.3,
+                                                               60 * 0.21 + 100 * 0.32))
+    assert loss["wall_plane"] == pytest.approx((10 * 0.03, 10 * 0.07))
+    assert smoke.path_case(kern["stage1_depth"], "drum")["path"] == "drum candidate list"

@@ -136,3 +136,70 @@ def test_stage1_depth_plain_matches_pallas(lmax):
     assert dead.any() and (ref > 0).sum() > 3 and (ref[~dead] < 0).any()
     np.testing.assert_array_equal(out[dead], -1e9)
     np.testing.assert_allclose(out[~dead], ref[~dead], rtol=0, atol=1e-5)
+
+
+def _ulps_from(x, k):
+    """The f32 value k ulps above (k < 0: below) the f32 value x."""
+    x = np.float32(x)
+    for _ in range(abs(k)):
+        x = np.nextafter(x, np.float32(np.inf if k > 0 else -np.inf), dtype=np.float32)
+    return x
+
+
+def test_stage1_depth_plain_matches_pallas_row_classes():
+    """The full-basis probe over a list that mixes every row class the
+    kernel sorts out: the pairs of ``_pairs`` (dead, sphere-separated and
+    probed rows), rows whose centres sit 0, 1, 2 and 3 f32 ulps either
+    side of touching bounding spheres (d along x, so that dist = |d_x|
+    exactly and both sides sort them alike: below rsum probed, at or
+    above it rsum - dist), and a full block of masked rows, which the
+    reference skips without probing (``contact_pallas.py:776-781``, block
+    64 here). Dead rows exactly -1e9, the rest within 1e-5."""
+    lmax, block = 8, 64
+    shapes, params, state, pi, pj, mask, hist, d = _pairs(lmax, seed=5)
+    packed, tbl, _, _ = contact_pallas.pack_pairs(
+        state, shapes, params, pi, pj, mask, hist, d, probe_only=True)
+    base = np.asarray(packed, np.float32).copy()
+    base[:, contact_pallas._SLOTS["tail"][0]] = 0.0
+    col = lambda name: contact_pallas._SLOTS[name][0]
+    live = np.flatnonzero(base[:, col("mask")] > 0.5)
+    ks = list(range(-3, 4))
+    touching = base[live[:2 * len(ks)]].copy()
+    for r, k in zip(touching, ks + ks):
+        rsum = np.float32(r[col("rbi")]) + np.float32(r[col("rbj")])
+        r[col("d"):col("d") + 3] = (_ulps_from(rsum, k), 0.0, 0.0)
+    masked = base[live[:block]].copy()
+    masked[:, col("mask")] = 0.0
+    head = np.concatenate([base, touching])
+    fill = -(-head.shape[0] // block) * block - head.shape[0]
+    rows = np.concatenate([head, base[live[:fill]], masked, base[live[-5:]]])
+    start = head.shape[0] + fill  # the masked rows fill block start // block
+    assert start % block == 0 and (rows[start:start + block, col("mask")] == 0).all()
+
+    nc_ab = (lmax + 1) ** 2
+    cap1 = jnp.stack([shapes.cap1_x, shapes.cap1_glw, shapes.cap1_cpsi,
+                      shapes.cap1_spsi])
+    ref = np.asarray(contact_pallas.stage1_depth_pallas(
+        jnp.asarray(rows), tbl[:, :nc_ab], cap1, lmax=lmax, l1=lmax, bf16=False,
+        block=block, interpret=True))
+    t = lambda a: torch.tensor(np.asarray(a, np.float32))
+    out = np32(ck.stage1_depth(t(rows), t(tbl[:, :nc_ab]), t(cap1), lmax=lmax, l1=lmax,
+                               bf16=False))
+    dead = ref == -1e9
+    assert dead[start:start + block].all()
+    np.testing.assert_array_equal(out[dead], -1e9)
+    np.testing.assert_allclose(out[~dead], ref[~dead], rtol=0, atol=1e-5)
+
+    # The touching rows: at or beyond rsum exactly rsum - dist, below it
+    # probed (a depth of the surfaces, not the spheres' few ulps).
+    at = slice(base.shape[0], base.shape[0] + touching.shape[0])
+    rsum = rows[at, col("rbi")] + rows[at, col("rbj")]
+    apart = rsum - rows[at, col("d")]
+    k = np.array(ks + ks)
+    np.testing.assert_array_equal(out[at][k >= 0], apart[k >= 0])
+    assert (np.abs(out[at][k < 0] - apart[k < 0]) > 1e-4).all()
+    # Every class is there: dead, sphere-separated and probed rows.
+    dd = rows[:, col("d"):col("d") + 3].astype(np.float64)
+    apart_all = rows[:, col("rbi")] + rows[:, col("rbj")] - np.sqrt((dd * dd).sum(1))
+    assert ((~dead) & (apart_all < -1e-3)).sum() > 3
+    assert ((~dead) & (apart_all > 1e-3)).sum() > 3

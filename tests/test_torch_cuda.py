@@ -105,7 +105,11 @@ def test_pair_contact_kernel_matches_plain(lmax, conservative, quad,
     np.testing.assert_array_equal(out[:, 17:], 0.0)
 
 
-@pytest.mark.parametrize("lmax", [4, 8])
+# K4 at each degree compiled into csrc/stage1_probe.cu (0, 2, 4, 8) and
+# at lmax 6, which takes the run-time-degree instantiation.
+@pytest.mark.parametrize("lmax", [
+    pytest.param(0, id="0"), pytest.param(2, id="2"), pytest.param(4, id="4"),
+    pytest.param(6, id="6-run-time-degree"), pytest.param(8, id="8")])
 def test_stage1_kernel_matches_plain(lmax, cuda_device):
     """Tolerance 1e-5 absolute on depths of order 0.1-1."""
     packed, tbl, _, _, shapes = _pairs(lmax, cuda_device)
@@ -168,14 +172,16 @@ def test_pair_contact_bf16_kernel_matches_plain(lmax, conservative, quad,
     np.testing.assert_array_equal(out[:, 17:], 0.0)
 
 
-@pytest.mark.parametrize("bf16", [False, True], ids=["f32", "bf16"])
-def test_stage1_l1_kernel_matches_plain(bf16, cuda_device):
-    """K5 (l1 = 4 of Lmax 8, with the tail column) vs its twin, both within
-    1e-5 rsum: kernel and twin round alike op for op, where running the
-    chains in f32 would move r by ~2e-3 rsum. (chip_smoke.py lets 0.1% of
-    bf16 rows exceed that by up to a bf16 ulp; this batch has fewer than
-    1000 rows.)"""
-    lmax, l1 = 8, 4
+@pytest.mark.parametrize("l1,bf16", [
+    pytest.param(2, False, id="2-f32"), pytest.param(2, True, id="2-bf16"),
+    pytest.param(4, False, id="4-f32"), pytest.param(4, True, id="4-bf16")])
+def test_stage1_l1_kernel_matches_plain(l1, bf16, cuda_device):
+    """K5 (l1 = 2 and 4 of Lmax 8, with the tail column) vs its twin, both
+    within 1e-5 rsum: kernel and twin round alike op for op, where running
+    the chains in f32 would move r by ~2e-3 rsum. (chip_smoke.py lets 0.1%
+    of bf16 rows exceed that by up to a bf16 ulp; this batch has fewer
+    than 1000 rows.)"""
+    lmax = 8
     packed, _, _, _, shapes = _pairs(lmax, cuda_device)
     cap1 = torch.stack([shapes.cap1_x, shapes.cap1_glw, shapes.cap1_cpsi,
                         shapes.cap1_spsi])
@@ -190,6 +196,76 @@ def test_stage1_l1_kernel_matches_plain(bf16, cuda_device):
     rsum = np32(packed[:, ck.SLOTS["rbi"][0]] + packed[:, ck.SLOTS["rbj"][0]])
     assert (ref == -1e9).any() and (ref > 0).sum() > 3
     assert (np.abs(np32(out) - ref) <= 1e-5 * rsum).all()
+
+
+def _sorted_rows(packed, P):
+    """P rows built from the live rows of ``packed``: 512 dead (masked)
+    rows, then 512 sphere-separated ones (d stretched to 3 rsum), then 14
+    rows whose centres sit 0-3 f32 ulps either side of touching bounding
+    spheres (d along x: dist = |d_x| exactly, so kernel and twin sort them
+    alike), then the list itself, repeated. Returns (rows, touching slice,
+    ulps of each touching row)."""
+    col = lambda name: ck.SLOTS[name][0]
+    base = np32(packed)
+    live = base[base[:, col("mask")] > 0.5]
+    dead = live[np.arange(512) % live.shape[0]].copy()
+    dead[:, col("mask")] = 0.0
+    apart = live[np.arange(512) % live.shape[0]].copy()
+    rsum = apart[:, col("rbi")] + apart[:, col("rbj")]
+    dv = apart[:, col("d"):col("d") + 3]
+    dv *= (3.0 * rsum / np.linalg.norm(dv, axis=1))[:, None]
+    ks = np.tile(np.arange(-3, 4), 2)
+    touching = live[:ks.size].copy()
+    for r, k in zip(touching, ks):
+        x = np.float32(r[col("rbi")]) + np.float32(r[col("rbj")])
+        for _ in range(abs(k)):
+            x = np.nextafter(x, np.float32(np.inf if k > 0 else -np.inf), dtype=np.float32)
+        r[col("d"):col("d") + 3] = (x, 0.0, 0.0)
+    head = np.concatenate([dead, apart, touching])
+    rows = np.concatenate([head, base[np.arange(P - head.shape[0]) % base.shape[0]]])
+    return rows, slice(1024, 1024 + ks.size), ks
+
+
+# (rows, l1, bf16): K4 and K5 bf16 on a short list (32-row tiles) and on a
+# long one (256-row tiles, the last one ragged).
+SORT_CASES = [
+    pytest.param(4_101, 8, False, id="K4-short"),
+    pytest.param(131_149, 8, False, id="K4-long"),
+    pytest.param(4_101, 4, True, id="K5-bf16-short"),
+    pytest.param(131_149, 4, True, id="K5-bf16-long"),
+]
+
+
+@pytest.mark.parametrize("P,l1,bf16", SORT_CASES)
+def test_stage1_kernel_sorts_rows_by_thread(P, l1, bf16, cuda_device):
+    """The rows a thread sorts out: leading tiles all dead, then all
+    sphere-separated, rows a few ulps either side of touching spheres,
+    then the ordinary list. Dead rows exactly -1e9, every other row at the
+    kernel's tolerance (K4 1e-5, K5 1e-5 rsum); the touching rows at or
+    beyond rsum exactly rsum - dist, below it probed."""
+    lmax = 8
+    packed, tbl, _, _, shapes = _pairs(lmax, cuda_device)
+    if l1 == lmax:
+        packed[:, ck.SLOTS["tail"][0]] = 0.0
+        tbl1 = tbl[:, :(lmax + 1) ** 2].contiguous()
+    else:
+        tbl1 = ck.stage1_table(shapes, l1)
+    cap1 = torch.stack([shapes.cap1_x, shapes.cap1_glw, shapes.cap1_cpsi,
+                        shapes.cap1_spsi])
+    rows_np, at, ks = _sorted_rows(packed, P)
+    rows = torch.tensor(rows_np, device=cuda_device)
+    out = np32(ck.stage1_depth(rows, tbl1, cap1, lmax, l1=l1, bf16=bf16))
+    ref = np32(ck.stage1_depth_plain(rows, tbl1, cap1, lmax, l1=l1, bf16=bf16))
+    rsum = rows_np[:, ck.SLOTS["rbi"][0]] + rows_np[:, ck.SLOTS["rbj"][0]]
+    dead = rows_np[:, ck.SLOTS["mask"][0]] <= 0.5
+    assert dead[:512].all() and (ref[512:1024] < 0).all() and (ref > 0).sum() > 100
+    np.testing.assert_array_equal(out[dead], -1e9)
+    np.testing.assert_array_equal(ref[dead], -1e9)
+    tol = 1e-5 * rsum if l1 < lmax or bf16 else 1e-5
+    assert (np.abs(out - ref)[~dead] <= np.broadcast_to(tol, out.shape)[~dead]).all()
+    apart = rsum[at] - rows_np[at, ck.SLOTS["d"][0]]
+    np.testing.assert_array_equal(out[at][ks >= 0], apart[ks >= 0])
+    assert (np.abs(out[at][ks < 0] - apart[ks < 0]) > 1e-4).all()
 
 
 # (wall kind, lmax, cap grid): both kinds at Lmax 8 on the drum's 8x16
