@@ -638,7 +638,7 @@ def stage1_list_phase(tag, path, state, neigh, results):
     every dead row; rsum - dist within 1e-6 on every sphere-separated row.
     Rows within 1e-6 rsum of touching spheres may be sorted either way by
     the kernel's rounding of dist and are held to neither. Returns
-    (packed with its tail, live, dist, rsum, probed, K4's output)."""
+    (packed with its tail, alive rows, rsum, probed rows, K4's output)."""
     import torch
 
     from spherharm_tpu_torch.ops import contact_kernels as ck
@@ -684,7 +684,7 @@ def stage1_list_phase(tag, path, state, neigh, results):
          lambda: ck.stage1_depth_plain(sub, tbl_ab, cap1, lmax, l1=lmax, bf16=False),
          n_probed, stage1_bytes(packed, alive, probed, tbl_ab, cap1, out),
          live_rows=n_alive, probed_rows=n_probed, plain_rows=idx.numel())
-    return packed, live, dist, rsum, probed, out
+    return packed, alive, rsum, probed, out
 
 
 def stage1_l1_phase(gas, state, neigh, results):
@@ -699,12 +699,11 @@ def stage1_l1_phase(gas, state, neigh, results):
     from spherharm_tpu_torch.ops import contact_kernels as ck
 
     l1, shapes = 4, gas.shapes
-    packed, live, dist, rsum, probed, k4 = stage1_list_phase(
+    packed, alive, rsum, probed, k4 = stage1_list_phase(
         "drift gas", gas, state, neigh, results)
     cap1 = torch.stack([shapes.cap1_x, shapes.cap1_glw, shapes.cap1_cpsi,
                         shapes.cap1_spsi])
     tbl1 = ck.stage1_table(shapes, l1)
-    alive = live & (dist > 1e-12)
     P, n_probed = packed.shape[0], int(probed.sum())
     require(n_probed > 1000, "K5: too few probed rows on the drift gas's list")
     for k in ck.stage1_depth.launches:

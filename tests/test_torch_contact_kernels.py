@@ -19,7 +19,7 @@ from spherharm_tpu.ops.contact import minimum_image
 from spherharm_tpu_torch.core import state as tstate
 from spherharm_tpu_torch.ops import contact_kernels as ck
 
-from torch_port_util import blob_coeffs, np32, to_torch
+from torch_port_util import blob_coeffs, f32_ulps_from, np32, to_torch
 
 
 def _pairs(lmax, seed=0, n=14, contact_quad=(8, 16)):
@@ -138,14 +138,6 @@ def test_stage1_depth_plain_matches_pallas(lmax):
     np.testing.assert_allclose(out[~dead], ref[~dead], rtol=0, atol=1e-5)
 
 
-def _ulps_from(x, k):
-    """The f32 value k ulps above (k < 0: below) the f32 value x."""
-    x = np.float32(x)
-    for _ in range(abs(k)):
-        x = np.nextafter(x, np.float32(np.inf if k > 0 else -np.inf), dtype=np.float32)
-    return x
-
-
 def test_stage1_depth_plain_matches_pallas_row_classes():
     """The full-basis probe over a list that mixes every row class the
     kernel sorts out: the pairs of ``_pairs`` (dead, sphere-separated and
@@ -167,7 +159,7 @@ def test_stage1_depth_plain_matches_pallas_row_classes():
     touching = base[live[:2 * len(ks)]].copy()
     for r, k in zip(touching, ks + ks):
         rsum = np.float32(r[col("rbi")]) + np.float32(r[col("rbj")])
-        r[col("d"):col("d") + 3] = (_ulps_from(rsum, k), 0.0, 0.0)
+        r[col("d"):col("d") + 3] = (f32_ulps_from(rsum, k), 0.0, 0.0)
     masked = base[live[:block]].copy()
     masked[:, col("mask")] = 0.0
     head = np.concatenate([base, touching])

@@ -22,7 +22,7 @@ from spherharm_tpu_torch.ops import walls_kernels as wk
 from spherharm_tpu_torch.ops.rotation import omega_from_angmom
 
 from torch_port_util import (blob_coeffs, contact_rich_state,  # noqa: F401
-                             cuda_device, np32, pressed_box_state)
+                             cuda_device, f32_ulps_from, np32, pressed_box_state)
 
 pytestmark = pytest.mark.cuda
 
@@ -217,10 +217,8 @@ def _sorted_rows(packed, P):
     ks = np.tile(np.arange(-3, 4), 2)
     touching = live[:ks.size].copy()
     for r, k in zip(touching, ks):
-        x = np.float32(r[col("rbi")]) + np.float32(r[col("rbj")])
-        for _ in range(abs(k)):
-            x = np.nextafter(x, np.float32(np.inf if k > 0 else -np.inf), dtype=np.float32)
-        r[col("d"):col("d") + 3] = (x, 0.0, 0.0)
+        rsum = np.float32(r[col("rbi")]) + np.float32(r[col("rbj")])
+        r[col("d"):col("d") + 3] = (f32_ulps_from(rsum, k), 0.0, 0.0)
     head = np.concatenate([dead, apart, touching])
     rows = np.concatenate([head, base[np.arange(P - head.shape[0]) % base.shape[0]]])
     return rows, slice(1024, 1024 + ks.size), ks

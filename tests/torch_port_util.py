@@ -32,6 +32,14 @@ def np32(t):
     return t.detach().cpu().numpy()
 
 
+def f32_ulps_from(x, k):
+    """The f32 value k ulps above (k < 0: below) the f32 value x."""
+    x = np.float32(x)
+    for _ in range(abs(k)):
+        x = np.nextafter(x, np.float32(np.inf if k > 0 else -np.inf), dtype=np.float32)
+    return x
+
+
 def blob_coeffs(lmax: int, n_types: int, seed: int = 0):
     from spherharm_tpu_torch.models import shapes_library
 
