@@ -31,9 +31,10 @@
 //     (a tile shrinks to at most 256 rows so that short lists still fill
 //     the card), so each block stages the unit-scale [T8, W] table and the
 //     [4, G] cap grid in shared memory once for many rows;
-//   * a warp probes one row: lanes 0-15 take side ij (i's cap nodes
-//     against j's surface), lanes 16-31 side ji, each lane NB = 2 nodes
-//     (G = 32: one pass), and one warp max reduces both sides;
+//   * a warp probes two rows at a time, half a warp a row: in each half,
+//     lanes 0-7 take side ij (i's cap nodes against j's surface), lanes
+//     8-15 side ji, each lane NB = 2 nodes a pass (G = 32: two passes),
+//     and one max over the half reduces both sides;
 //   * the degree is a template parameter L (with_degree: 0, 2, 4, 8
 //     compiled, any other l1 L = -1, read at run time): K4 runs L = 8 on
 //     every prefiltered path, K5 L = 4; the chains unroll fully and each
@@ -45,9 +46,17 @@
 //     bf16, are built once in shared memory by the warp; the chains, the
 //     recurrences and the m-sum run two nodes a packed __hmul2_rn /
 //     __hadd2_rn instruction, bit for bit the twin's per-op rounding.
-// Compiled for L in {0, 2, 4, 8, -1} x {f32, bf16}; launched on the card
-// by chip_smoke.py and tests/test_torch_cuda.py at L = 8 f32 (K4), L = 4
-// f32 and bf16 (K5), and the card tests' other degrees.
+// Compiled for L in {0, 2, 4, 8, -1} x {f32, bf16}. Launched on the card:
+// f32 at L = 8 (K4, chip_smoke.py and the card tests), 4 (K5) and, in
+// tests/test_torch_cuda.py, 0, 2 and -1 (lmax 6); bf16 at L = 4 (K5) and
+// 2 (the card tests). bf16 at L = 0, 8 and -1 is compiled, never launched.
+// Measured by device time over 20 launches (the variant timing in PERF.md
+// section 6) on an NVIDIA H100 80GB HBM3 at 700.00 W, two rows a warp: K4
+// 0.0209 ms on the drum's 500,000-slot candidate list (none probed; bound
+// 0.0069 ms by bytes; 6.3x faster than the warp-a-row kernel this
+// replaces), 0.0211 ms on the 16,384-pair batch (2.7x), 0.0281 ms on the
+// drift gas's 60,000-slot list (2.0x); K5 there 0.0185 ms f32, 0.0195 ms
+// bf16 (1.8x, 2.5x). 80 registers at most, no spill.
 // Built without fast math: approximate division would loosen parity.
 
 #include <math.h>
@@ -61,7 +70,7 @@ namespace {
 constexpr int F = 64;
 constexpr int THREADS = 256;  // at most one tile of rows, one a thread
 constexpr int WARPS = THREADS / 32;
-constexpr int ROWS = 1;                // probed rows a warp takes at a time
+constexpr int ROWS = 2;                // probed rows a warp takes at a time
 constexpr int LPR = 32 / ROWS;         // lanes a row
 constexpr int LPS = LPR / 2;           // lanes a side
 constexpr int NB = 2;                  // cap nodes a lane evaluates together
@@ -180,7 +189,7 @@ __global__ void __launch_bounds__(THREADS, MIN_BLOCKS)
     const int n = s_count[par];
     if (threadIdx.x == 0) s_count[par ^ 1] = 0;
 
-    // Probe the queued rows, a warp a row (ROWS rows a warp at a time).
+    // Probe the queued rows, ROWS rows a warp at a time, LPR lanes a row.
     for (int i0 = warp * ROWS; i0 < n; i0 += WARPS * ROWS) {
       const int i = i0 + lane / LPR;
       const bool own = i < n;  // else repeat row i0, write nothing
