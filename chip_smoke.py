@@ -19,9 +19,13 @@ Phases, each fatal on failure (exit code != 0, no result line):
    types, 12x24 = 288 cap nodes, geometric law, pair cap 10n,
    skin-triggered rebuild), the settling box (``settling_box`` at
    n = 500: Lmax 2, one type, 128 cap nodes, 5 plane walls, dense path)
-   and the drift gas (``models/drift.build_gas`` at n = 10,000: the
+   the drift gas (``models/drift.build_gas`` at n = 10,000: the
    reference's energy-drift harness, a periodic undamped NVE gas of Lmax 8
-   blobs, 128 cap nodes, pair cap 6n, stage-2 cap 3n, conservative law);
+   blobs, 128 cap nodes, pair cap 6n, stage-2 cap 3n, conservative law)
+   and the sheared triaxial cell (``triaxial_cell`` at n = 100,000,
+   config 5: Lmax 4, 2 blob types, 6x12 = 72 cap nodes, geometric law,
+   pair cap 12n, skin-triggered rebuild, strain rate -0.05 on each axis,
+   shear_rate (0.05, 0, 0) so triclinic, no servo; ``deform_min`` 0.8);
 3. every kernel vs its plain twin at the shapes each path gives it, on
    contact-rich synthetic inputs built from that path's shapes and
    parameters: K1 on the drum (Lmax 8, 128 nodes); K2 on the deposition
@@ -30,7 +34,11 @@ Phases, each fatal on failure (exit code != 0, no result line):
    (Lmax 8, 128) and geometric on the deposition (288); K4 on 16,384
    pairs of the drum's shapes (32 nodes; the batch the unit tests
    mirror); K6 on the drum and the deposition; K7 on the drum, the
-   deposition and the settling box's floor. Forces, springs and pe
+   deposition and the settling box's floor; K2 on the triaxial cell's
+   shapes (Lmax 4, 72 nodes: 3-node blocks, the last partial); K1 on the
+   drum's and K2 on the triaxial cell's shapes with a two-material
+   ``pair_tab`` (``with_pair_coeffs``: one explicit (0, 1) entry, the
+   rest from the scalars and geometric mixing). Forces, springs and pe
    against the stated tolerances, contact-flag flips, CUDA-event times of
    a wrapper call and of the plain PyTorch twin, the kernel's own device
    time (torch.profiler over 20 launches, per launch it recorded) and its
@@ -38,7 +46,11 @@ Phases, each fatal on failure (exit code != 0, no result line):
 4. small contact-rich runs of 40 steps on the card and on the CPU (plain
    twins), thermo and positions compared: the drum (n = 128, Lmax 8), the
    deposition (n = 128, Lmax 8, 288 nodes) and the settling box (n = 64,
-   Lmax 2, dense [N, K] path);
+   Lmax 2, dense [N, K] path); and the sheared triaxial cell (n = 128,
+   fill 0.09 so its grid has 3 cells an axis, xy shear 0.05, the servo
+   on), its xy tilt started 5e-5 Lx under Lx/2 so the shear flips it:
+   flips (at least one), image counters, tilt, box, thermo, press and
+   the stress tensor compared;
 5. the paths, each with every launch counter set to 0 just before it and
    read just after: 60 steps (3 cadence blocks) of the n = 100k drum; 100
    steps of the n = 10k deposition from a contact-rich start; 200 steps of
@@ -46,14 +58,19 @@ Phases, each fatal on failure (exit code != 0, no result line):
    pressed onto the floor; 2,000 steps of the n = 10k drift gas after
    3,000 unmeasured ones from its lattice (its first contacts form after
    ~1,800), etot and pe_pair sampled every 100 steps (the series and the
-   fitted slope printed). Guards: overflow = 0, finite etot, every kernel
+   fitted slope printed); 60 steps of the n = 100k sheared triaxial cell
+   from its lattice compressed into contact (mean coordination printed
+   at its start and end; finite stress; pe_pair > 0 at start and end; its
+   xy tilt held to the reference's recurrence replayed in float64). Guards:
+   overflow = 0, finite etot, every kernel
    of the path launched (and skin_violations = 0 for the drum's cadence,
    pair contacts by the end of the deposition and settling box, and at
    every sample of the gas); particle-steps/s of each;
 6. each law's kernels on its path's own stage-2 list after the path's
    run: K2 and K3 geometric on the deposition's (all 100,000 slots, pair
-   cap 10n, no prefilter), K1 and K3 conservative on the drift gas's
-   (30,000 slots); each list timed whole, up to 16,384 live rows held to
+   cap 10n, no prefilter), K2 on the triaxial cell's (1,200,000 slots),
+   K1 and K3 conservative on the drift gas's (30,000 slots); each list
+   timed whole, up to 16,384 live rows held to
    the twin and every masked row to zero;
    K4 on the candidate list a rebuild builds after the path's run, on the
    drum's (all 500,000 slots, pair cap 5n) and the drift gas's (60,000):
@@ -100,6 +117,14 @@ N_MAIN, LMAX, STEPS, R_EVERY = 100_000, 8, 60, 20
 N_DEP, DEP_STEPS = 10_000, 100
 N_SETTLE, SETTLE_STEPS = 500, 200
 N_GAS, GAS_WARM, GAS_STEPS, GAS_EVERY = 10_000, 3000, 2000, 100
+# The triaxial cell: shear (0.05, 0, 0) as the reference's config-5 shear
+# test (tests/test_triclinic.py:111). deform_min 0.8, not triaxial_cell's
+# default 0.6: at 0.6 the tilt-inflated grid has 18 cells an axis for the 47
+# lattice sites, 17.8 particles a cell against cell_cap 16 (overflow).
+N_TRI, TRI_STEPS, TRI_SHEAR, TRI_DEFORM_MIN = 100_000, 60, (0.05, 0.0, 0.0), 0.8
+# The two-material (0, 1) pair_coeff row: kn, kt, gamma_n, gamma_t, mu,
+# k_roll, gamma_roll, mu_roll.
+TWO_MATERIAL = (3e5, 1e5, 30.0, 10.0, 0.2, 1e4, 5.0, 0.1)
 N_PAIRS = 16_384  # kernel-vs-plain batch (the autograd twin's memory bound)
 # NVIDIA H100 SXM data sheet: f32 (non-tensor) peak and HBM3 rate. A
 # kernel's operations are timed at the peak of their type: the bf16
@@ -419,10 +444,10 @@ def case(results, name, tag, lmax, G, rows, err, time_kernel, time_plain, work,
     results.setdefault(name, []).append(c)
 
 
-def kernel_phase(sim, dep, box, gas, dev):
+def kernel_phase(sim, dep, box, gas, tri, dev):
     """Every kernel vs its plain twin at the shapes each path gives it
     (the drum ``sim``, the deposition ``dep``, the settling box ``box``,
-    the drift gas ``gas``); returns {kernel: [case, ...]}, the path's own
+    the drift gas ``gas``, the triaxial cell ``tri``); returns {kernel: [case, ...]}, the path's own
     shape first, each case with its error, times and bound. K5 runs later,
     on the drift gas's candidate list (``stage1_l1_phase``)."""
     import torch
@@ -435,14 +460,19 @@ def kernel_phase(sim, dep, box, gas, dev):
     results = {}
     mask_col = ck.SLOTS["mask"][0]
 
-    def pair_law(conservative, tag, path, bf16=False):
+    def pair_law(conservative, tag, path, bf16=False, params=None):
         law = "conservative" if conservative else "geometric"
         name = f"pair_contact_{law}" + ("_bf16" if bf16 else "")
         label = f"K{3 if bf16 else 1 if conservative else 2} {name} on {tag}"
         lmax = path.shapes.lmax
         st, pi, pj, mask, hist, d = contact_pairs(path, dev, rng)
-        packed, tbl, cap, par = ck.pack_pairs(st, path.shapes, path.params, pi, pj,
-                                              mask, hist, d)
+        packed, tbl, cap, par = ck.pack_pairs(st, path.shapes, params or path.params,
+                                              pi, pj, mask, hist, d)
+        if params is not None:
+            kn = packed[:, ck.SLOTS["mat"][0]].unique()
+            print(f"{label}: pair_tab {tuple(params.pair_tab.shape)}, row kn values "
+                  f"{[float(k) for k in kn]}")
+            require(kn.numel() > 1, f"{label}: every row has the same material")
         out = ck.pair_contact(packed, tbl, cap, par, lmax, conservative, bf16)
         ref = ck.pair_contact_plain(packed, tbl, cap, par, lmax, conservative, bf16)
         torch.cuda.synchronize()
@@ -480,8 +510,13 @@ def kernel_phase(sim, dep, box, gas, dev):
     pair_law(False, "deposition", dep)
     pair_law(False, "drum shapes", sim)
     pair_law(False, "settling box", box)
+    pair_law(False, "triaxial", tri)
     pair_law(True, "drift gas", gas, bf16=True)
     pair_law(False, "deposition", dep, bf16=True)
+    for conservative, tag, path in ((True, "drum two-material", sim),
+                                    (False, "triaxial two-material", tri)):
+        pair_law(conservative, tag, path, params=path.params.with_pair_coeffs(
+            path.shapes.n_types, {(0, 1): TWO_MATERIAL}))
 
     shapes = sim.shapes
     st, pi, pj, mask, hist, d = contact_pairs(sim, dev, rng)
@@ -549,11 +584,13 @@ def kernel_phase(sim, dep, box, gas, dev):
     return results
 
 
-def stage2_list_phase(tag, path, state, neigh, results):
-    """The stage-2 kernels of ``path``'s law, f32 and bf16 (``bf16=True``
-    passed), on the path's own stage-2 list, packed from ``state`` after
-    its run as ``contact.contact_force_pairs`` packs it, every slot: each
-    kernel timed on the whole list (its bound from the list's live rows);
+def stage2_list_phase(tag, path, state, neigh, results, bf16s=(False, True),
+                      case_tag=None):
+    """The stage-2 kernels of ``path``'s law, in f32 and in bf16 (``bf16s``),
+    on the path's own stage-2 list, packed from ``state`` after its run as
+    ``contact.contact_force_pairs`` packs it, every slot: each kernel
+    timed on the whole list as the case ``case_tag`` (default "{tag}
+    stage-2 list"; its bound from the list's live rows);
     the rows of that same call held to the twin on up to N_PAIRS of the
     live rows (the autograd twin's memory bound; the plain time is of
     those rows) at the synthetic batches' tolerances, and its masked rows
@@ -569,17 +606,19 @@ def stage2_list_phase(tag, path, state, neigh, results):
     live = (neigh.pair_valid & (rows[pi, contact._RACT] > 0.5)
             & (rows[pj, contact._RACT] > 0.5))
     dp = contact.minimum_image(rows[pj][:, contact._RX] - rows[pi][:, contact._RX],
-                               state.box_lo, state.box_hi, path.periodic)
+                               state.box_lo, state.box_hi, path.periodic,
+                               path._tilt(state))
     packed, tbl, cap, par = ck.pack_pairs(state, shapes, path.params, pi, pj, live,
                                           neigh.pair_hist, dp, rows=rows)
     idx = torch.nonzero(live).flatten()[:N_PAIRS]
     sub = packed[idx].contiguous()
     P, n_live, n_sub, G = packed.shape[0], int(live.sum()), sub.shape[0], cap.shape[1]
     require(n_sub > 1000, f"{tag} list: only {n_sub} live rows")
-    for bf16 in (False, True):
+    case_tag = case_tag or f"{tag} stage-2 list"
+    for bf16 in bf16s:
         name = f"pair_contact_{'conservative' if cons else 'geometric'}" + (
             "_bf16" if bf16 else "")
-        label = f"K{3 if bf16 else 1 if cons else 2} {name} on the {tag}'s stage-2 list"
+        label = f"K{3 if bf16 else 1 if cons else 2} {name} on the {case_tag}"
         full = ck.pair_contact(packed, tbl, cap, par, lmax, cons, bf16)
         ref = ck.pair_contact_plain(sub, tbl, cap, par, lmax, cons, bf16)
         torch.cuda.synchronize()
@@ -594,7 +633,7 @@ def stage2_list_phase(tag, path, state, neigh, results):
         require(bool((full[~live] == 0).all()), f"{label}: a masked row is not zero")
         require(ok, f"{label}: disagrees with its plain twin")
         require(flips <= n_sub // 1000, f"{label}: contact flags disagree")
-        case(results, name, f"{tag} stage-2 list", lmax, G, P, err,
+        case(results, name, case_tag, lmax, G, P, err,
              lambda: ck.pair_contact(packed, tbl, cap, par, lmax, cons, bf16),
              lambda: ck.pair_contact_plain(sub, tbl, cap, par, lmax, cons, bf16),
              n_live, nbytes(packed, tbl, cap, par, full), live_rows=n_live,
@@ -614,18 +653,18 @@ def candidate_list(path, state, neigh):
 
     shapes = path.shapes
     x, image = neighbor.wrap_positions(state.x, state.image, state.box_lo,
-                                       state.box_hi, path.periodic)
+                                       state.box_hi, path.periodic, path._tilt(state))
     st = state.replace(x=x, image=image)
     idx, mask, _ = path._build_list(st)
     fields, n_cand = contact.build_pair_list(
         st, shapes, path.params, idx, mask, torch.zeros_like(neigh.hist), st.active,
-        path.pair_capacity, path.periodic)
+        path.pair_capacity, path.periodic, tilt=path._tilt(st))
     pi, pj = fields["pair_i"], fields["pair_j"]
     rows = contact.particle_rows(st, shapes)
     live = (fields["pair_valid"] & (rows[pi, contact._RACT] > 0.5)
             & (rows[pj, contact._RACT] > 0.5))
     dp = contact.minimum_image(rows[pj][:, contact._RX] - rows[pi][:, contact._RX],
-                               st.box_lo, st.box_hi, path.periodic)
+                               st.box_lo, st.box_hi, path.periodic, path._tilt(st))
     packed = ck.pack_pairs(st, shapes, path.params, pi, pj, live,
                            dp.new_zeros((pi.shape[0], 6)), dp, rows=rows,
                            probe_only=True)[0]
@@ -806,6 +845,112 @@ def card_vs_cpu(label, build, start, dev, steps=40):
             f"{label}: card and CPU disagree")
 
 
+def triaxial_card_vs_cpu(dev, steps=40):
+    """The small sheared triaxial cell (n = 128, fill 0.09: 3 grid cells an
+    axis; xy shear 0.05, the servo on) for ``steps`` steps on the card and
+    on the CPU, from ``triaxial_state`` with its xy tilt 5e-5 Lx under
+    Lx/2: the flips counted step by step (at least one, equal on both),
+    image counters equal, tilt within 1e-5 relative, box within 1e-6,
+    thermo and press within 2e-3 relative, the stress tensor within 2e-3
+    of its scale, positions within 1e-3."""
+    import torch
+
+    from torch_port_util import triaxial_state
+
+    from spherharm_tpu_torch.models import scenarios
+
+    runs = []
+    for device in (dev, torch.device("cpu")):
+        sim, st0, _ = scenarios.triaxial_cell(
+            n=128, fill_fraction=0.09, shear_rate=TRI_SHEAR, press_tau=1.0,
+            device=device)
+        require(sim.grid.dims == (3, 3, 3) and sim.triclinic and sim.press_control,
+                f"small triaxial: grid {sim.grid.dims}")
+        st, ng = sim.init_neighbors(triaxial_state(st0, device,
+                                                   xy_frac=0.5 * (1 - 1e-4))[0])
+        flips = 0
+        for _ in range(steps):
+            xy0 = float(st.tilt[0])
+            st, ng = sim.step(st, ng)
+            flips += round(abs(xy0 - float(st.tilt[0])) / float(st.box_hi[0] - st.box_lo[0]))
+        th = sim.thermo(st, ng)
+        require(int(ng.overflow) == 0, f"small triaxial on {device}: overflow")
+        runs.append((
+            {k: float(v) for k, v in th.items() if v.ndim == 0},
+            {k: getattr(st, k).cpu().numpy() for k in ("x", "tilt", "box_lo", "box_hi",
+                                                       "image")},
+            th["stress"].cpu().numpy(), flips))
+    (tg, sg, stress_g, fg), (tc, sc, stress_c, fc) = runs
+    rel = {k: abs(tg[k] - tc[k]) / max(abs(tc[k]), 1e-30)
+           for k in ("ke", "erot", "pe_pair", "etot", "press")}
+    d_tilt = float(np.abs(sg["tilt"] - sc["tilt"]).max() / np.abs(sc["tilt"]).max())
+    d_box = float(max(np.abs(sg[k] - sc[k]).max() for k in ("box_lo", "box_hi")))
+    d_stress = float(np.abs(stress_g - stress_c).max() / np.abs(stress_c).max())
+    dx = float(np.abs(sg["x"] - sc["x"]).max())
+    same_image = bool((sg["image"] == sc["image"]).all())
+    print(f"small sheared triaxial n=128 Lmax=4, {steps} steps, card vs CPU: flips "
+          f"{fg} / {fc}, tilt {sg['tilt']} (rel {d_tilt:.2e}), max|d box|={d_box:.3g}, "
+          "images equal: " + str(same_image) + " "
+          + " ".join(f"{k}={tg[k]:.6g}(rel {v:.2e})" for k, v in rel.items())
+          + f" stress rel {d_stress:.2e} max|dx|={dx:.3g} (tol: tilt 1e-5, box 1e-6 "
+          "rel, thermo and stress 2e-3, dx 1e-3)")
+    require(fc >= 1 and fg == fc, f"small triaxial: flips card {fg}, CPU {fc}")
+    require(tc["pe_pair"] > 0, "small triaxial has no contacts")
+    require(same_image and d_tilt <= 1e-5
+            and d_box <= 1e-6 * float(np.abs(sc["box_hi"]).max())
+            and max(rel.values()) <= 2e-3 and d_stress <= 2e-3 and dx <= 1e-3,
+            "small triaxial: card and CPU disagree")
+
+
+def triaxial_path(tri, st0, dev, smi):
+    """The n = 100k sheared triaxial cell from its lattice compressed into
+    contact (``triaxial_state``), TRI_STEPS steps through ``run_path``.
+    Guards besides run_path's: pe_pair > 0 and a finite stress tensor at
+    the start and the end, no flip, and the xy tilt within 1e-5 relative
+    of the reference's recurrence (xy <- xy f_x + g_xy L_y, L_y <- L_y f_y
+    each step, spherharm_tpu/ops/integrate.py:117-118) replayed in float64
+    from the start's box and the params. Prints the mean coordination at
+    the start and the end. Returns (state, neigh, launches, seconds a
+    step)."""
+    import torch
+
+    from torch_port_util import triaxial_state
+
+    from spherharm_tpu_torch.core import computes
+
+    state, c = triaxial_state(st0, dev)
+    state, neigh = tri.init_neighbors(state)
+    ends = []
+    for when in ("start", "end"):
+        if when == "end":
+            state, neigh, launches, _, step_s, _ = run_path(
+                f"triaxial n={N_TRI}", tri, state, neigh, TRI_STEPS,
+                ("pair_contact_geometric",), smi)
+        th = tri.thermo(state, neigh)
+        coord = float(computes.coordination(tri, state, neigh)[state.active].double().mean())
+        stress = th["stress"].cpu().numpy()
+        print(f"triaxial {when}: mean coordination {coord:.4f}, pe_pair "
+              f"{float(th['pe_pair']):.6g}, press {float(th['press']):.6g}, tilt "
+              f"{state.tilt.cpu().numpy()}, box {(state.box_hi - state.box_lo).cpu().numpy()}")
+        require(float(th["pe_pair"]) > 0, f"triaxial {when}: no pair contact")
+        require(np.isfinite(stress).all(), f"triaxial {when}: stress not finite")
+        ends.append((float(state.box_hi[1] - state.box_lo[1]), float(state.tilt[0])))
+    print(f"triaxial: compressed by {c:.4f} into contact; {1e3 * step_s:.3f} ms a step")
+    p = tri.params
+    f_x, f_y = (1.0 + float(p.deform_rate[k]) * float(p.dt) for k in (0, 1))
+    g = float(p.shear_rate[0]) * float(p.dt)
+    (ly, xy), (_, xy_end) = ends
+    for _ in range(TRI_STEPS):
+        ly *= f_y
+        xy = xy * f_x + g * ly
+    rel = abs(xy_end - xy) / abs(xy)
+    print(f"triaxial: xy tilt {xy_end:.8g}, float64 replay {xy:.8g} (rel {rel:.2e}, "
+          "tol 1e-5)")
+    require(rel <= 1e-5, "triaxial: xy tilt off the replayed recurrence")
+    torch.cuda.synchronize()
+    return state, neigh, launches, step_s
+
+
 def launch_counts():
     """Every kernel wrapper's launch counter, by kernel-line name."""
     from spherharm_tpu_torch.ops import contact_kernels as ck
@@ -946,9 +1091,10 @@ def bf16_phase():
 
 def path_case(cases, path):
     """A kernel's case for ``path``: the path's own candidate list (the
-    stage-1 probe), else its own stage-2 list, else its batch, else the
-    kernel's first case."""
-    for tag in (f"{path} candidate list", f"{path} stage-2 list", path):
+    stage-1 probe), else its own stage-2 or pair list, else its batch, else
+    the kernel's first case."""
+    for tag in (f"{path} candidate list", f"{path} stage-2 list", f"{path} pair list",
+                path):
         c = next((c for c in cases if c["path"] == tag), None)
         if c is not None:
             return c
@@ -1046,6 +1192,8 @@ def main(argv):
     box, bst0, _ = scenarios.settling_box(n=N_SETTLE, device=dev)
     gas, gas_st0 = drift.build_gas(N_GAS, device=dev)
     gst, gng = gas.init_neighbors(gas_st0)
+    tri, tri_st0, _ = scenarios.triaxial_cell(n=N_TRI, shear_rate=TRI_SHEAR,
+                                              deform_min=TRI_DEFORM_MIN, device=dev)
     torch.cuda.synchronize()
     print(f"setup: {time.perf_counter() - t0:.1f}s; drum n={N_MAIN} lmax={LMAX} "
           f"grid={sim.grid.dims} pair_cap={sim.pair_capacity} "
@@ -1058,9 +1206,13 @@ def main(argv):
           f"conservative={box.conservative}; drift gas n={N_GAS} "
           f"lmax={gas.shapes.lmax} box={float(gas_st0.box_hi[0]):.4g} periodic "
           f"grid={gas.grid.dims} pair_cap={gas.pair_capacity} "
-          f"stage2_cap={gas.stage2_capacity} conservative={gas.conservative}")
+          f"stage2_cap={gas.stage2_capacity} conservative={gas.conservative}; "
+          f"triaxial n={N_TRI} lmax={tri.shapes.lmax} G={tri.shapes.cap_x.shape[0]} "
+          f"box={float(tri_st0.box_hi[0]):.4g} grid={tri.grid.dims} "
+          f"pair_cap={tri.pair_capacity} triclinic={tri.triclinic} "
+          f"conservative={tri.conservative}")
 
-    kern = kernel_phase(sim, dep, box, gas, dev)
+    kern = kernel_phase(sim, dep, box, gas, tri, dev)
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     card_vs_cpu("small drum n=128 Lmax=8",
@@ -1072,6 +1224,7 @@ def main(argv):
                 lambda d: scenarios.deposition(n=128, device=d), drum_start, dev)
     card_vs_cpu("small settling box n=64 Lmax=2 dense",
                 lambda d: scenarios.settling_box(n=64, device=d), box_start, dev)
+    triaxial_card_vs_cpu(dev)
     torch.cuda.synchronize()
     print(f"card-vs-CPU phases: {time.perf_counter() - t0:.1f}s")
 
@@ -1106,6 +1259,14 @@ def main(argv):
     if profiling:
         profile_path("settling box", box, bst, bng, step_s, smi)
     del dep, dst, dng, box, bst, bng
+
+    tst, tng, l_tri, step_s = triaxial_path(tri, tri_st0, dev, smi)
+    if profiling:
+        profile_path("triaxial", tri, tst, tng, step_s, smi)
+    stage2_list_phase("triaxial", tri, tst, tng, kern, bf16s=(False,),
+                      case_tag="triaxial pair list")
+    del tri, tri_st0, tst, tng
+    torch.cuda.empty_cache()
 
     # The drift gas (periodic, no walls): f32 here, bf16 stage-2 in a child
     # process under SPHERHARM_STAGE2_BF16=1 (with the deposition).
@@ -1147,7 +1308,7 @@ def main(argv):
            "wall_plane": ("spherharm_tpu_torch/csrc/wall_contact.cu",
                           "spherharm_tpu/ops/walls_pallas.py:139")}
     by_path = {"drum": l_drum, "deposition": l_dep, "settling box": l_box,
-               "drift gas": l_gas}
+               "triaxial": l_tri, "drift gas": l_gas}
     counted = {k: [(p, n[k]) for p, n in by_path.items() if n[k]] for k in src}
     counted.update({k: [(p, child[c][k]) for p, c in (("drift gas", "gas"),
                                                       ("deposition", "deposition"))

@@ -74,7 +74,8 @@ def _pair_pass(sim, state, neigh):
            & (rows[pj, contact._RACT] > 0.5))
     d = contact.minimum_image(rows[pj][:, contact._RX]
                               - rows[pi][:, contact._RX],
-                              state.box_lo, state.box_hi, sim.periodic)
+                              state.box_lo, state.box_hi, sim.periodic,
+                              sim._tilt(state))
     packed, tbl, cap, par = ck.pack_pairs(state, sim.shapes, sim.params, pi,
                                           pj, msk, neigh.pair_hist, d,
                                           rows=rows)
@@ -117,7 +118,8 @@ def coordination(sim, state, neigh):
     idx, mask = neigh.idx[:state.cap], neigh.mask[:state.cap]
     rb = sim.shapes.rmax[state.shtype] * state.scale
     d = contact.minimum_image(state.x[idx] - state.x[:, None, :],
-                              state.box_lo, state.box_hi, sim.periodic)
+                              state.box_lo, state.box_hi, sim.periodic,
+                              sim._tilt(state))
     rsum = rb[:, None] + rb[idx]
     hit = mask & ((d * d).sum(-1) < rsum * rsum)
     return torch.where(state.active, hit.sum(1), 0)

@@ -9,8 +9,9 @@ Per step:
                        the pair list)
   force eval          (SH pair kernel over the pair list, or over the
                        dense [N,K] tensor when pair_capacity == 0; wall
-                       kernels; gravity)
-  final_integrate     (second half kick)
+                       kernels; gravity; group fixes)
+  final_integrate     (second half kick; then the Berendsen box servo
+                       when ``press_control``)
 
 PyTorch runs eagerly, so ``run`` is a Python loop; on the static cadence
 no step reads a value back to the host. Capacities are fixed and overflow
@@ -23,6 +24,7 @@ kernels, CPU tensors their plain twins.
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 from spherharm_tpu_torch.core.state import (
@@ -38,13 +40,24 @@ from spherharm_tpu_torch.ops import walls as walls_mod
 
 class Simulation:
     """Binds static configuration: capacities, cadence, walls, elastic
-    law, device.
+    law, box control, group fixes, device.
 
     ``conservative`` picks the elastic law: the exact gradient of the
     sampled PE (the default) or the geometric assembly. ``neighbor_mode``
-    is "cell" (needs ``grid``) or "allpairs" (O(N^2), small systems).
-    ``pair_capacity == 0`` evaluates contacts over the dense [N, K]
-    tensor instead of a pair list."""
+    is "cell" (needs ``grid``), "allpairs" (O(N^2), small systems) or
+    "static" (the allpairs list built once at setup and never rebuilt;
+    ``rebuild_every`` is ignored). ``pair_capacity == 0`` evaluates
+    contacts over the dense [N, K] tensor instead of a pair list.
+
+    ``triclinic`` threads ``state.tilt`` through every geometric op (size
+    the CellGrid with a tilt-inflated cutoff: binning runs in the
+    unsheared frame). ``press_control`` runs the Berendsen servo after
+    each step. ``gravity_pe_origin`` is the zero of thermo's pe_grav.
+    ``group_fixes`` (LAMMPS ``fix freeze`` / ``fix setforce`` with NULL
+    components) act last in ``compute_forces``; each entry is
+    ("freeze", bit, (0, 0, 0), (0, 0, 0)) or ("setforce", bit, values3,
+    keep3), keep marking NULL components, and a particle is a member when
+    bit ``bit`` of ``group_tab[tag]`` is set."""
 
     def __init__(
         self,
@@ -62,20 +75,23 @@ class Simulation:
         rebuild_every: int = 0,
         wall_capacity: int = 0,
         stage2_capacity: int = 0,
+        triclinic: bool = False,
+        press_control: bool = False,
         conservative: bool = True,
+        gravity_pe_origin=(0.0, 0.0, 0.0),
+        group_fixes: tuple = (),
+        group_tab=None,
         device="cuda",
     ):
-        if neighbor_mode not in ("cell", "allpairs"):
+        if neighbor_mode not in ("cell", "allpairs", "static"):
             raise ValueError(f"unknown neighbor_mode {neighbor_mode!r}")
         if neighbor_mode == "cell" and grid is None:
             raise ValueError("neighbor_mode='cell' requires a CellGrid")
-        if bool((params.shear_rate != 0).any()):
-            # apply_deformation applies only the diagonal deform_rate: a
-            # sheared run would diverge from the reference without a word.
-            raise ValueError(
-                "SimParams.shear_rate is not supported yet: the off-diagonal "
-                "shear with its tilt flip is ROADMAP Queue 1 item 12 "
-                "(triaxial_cell); pass shear_rate=(0, 0, 0)")
+        if group_fixes and group_tab is None:
+            raise ValueError("group_fixes requires group_tab")
+        for kind, *_ in group_fixes:
+            if kind not in ("freeze", "setforce"):
+                raise ValueError(f"unknown group fix {kind!r}")
         self.shapes = shapes
         self.params = params
         self.grid = grid
@@ -98,11 +114,21 @@ class Simulation:
         # near-contact pairs, the persistent per-step list.
         self.prefilter = self.stage2_capacity > 0 and self.pair_capacity > 0
         self.conservative = bool(conservative)
+        self.triclinic = bool(triclinic)
+        self.press_control = bool(press_control)
         self.device = torch.device(device)
+        self.gravity_pe_origin = torch.as_tensor(
+            gravity_pe_origin, dtype=params.dt.dtype, device=self.device)
+        self.group_fixes = tuple(group_fixes)
+        self.group_tab = None if group_tab is None else torch.as_tensor(
+            np.array(group_tab, dtype=np.int64), device=self.device)
 
     @property
     def pair_list_cap(self) -> int:
         return self.stage2_capacity if self.prefilter else self.pair_capacity
+
+    def _tilt(self, state: State):
+        return state.tilt if self.triclinic else None
 
     # -- neighbour handling ----------------------------------------------
 
@@ -115,26 +141,26 @@ class Simulation:
             ratio = neighbor.approach_ratio(
                 state.x, neigh.x_build, state.q, neigh.q_build, gmax_s,
                 neigh.budget, state.active, state.box_lo, state.box_hi,
-                self.periodic)
+                self.periodic, self._tilt(state))
             return ratio > 1.0
         disp2 = neighbor.max_displacement2(
             state.x, neigh.x_build, state.active, state.box_lo,
-            state.box_hi, self.periodic)
+            state.box_hi, self.periodic, self._tilt(state))
         return disp2 > (0.5 * self.params.skin) ** 2
 
     def _build_list(self, state: State):
         cutoff = self.params.cutoff + self.params.skin
-        if self.neighbor_mode == "allpairs":
+        if self.neighbor_mode in ("allpairs", "static"):
             idx, mask, count = neighbor.allpairs_neighbors(
                 state.x, state.active, state.box_lo, state.box_hi, cutoff,
-                self.k_max, self.periodic)
+                self.k_max, self.periodic, self._tilt(state))
             mx = count.max()
             return idx, mask, torch.where(mx > self.k_max, mx,
                                           torch.zeros_like(mx))
         idx, mask, count, cell_ovf = neighbor.cell_list_neighbors(
             state.x, state.active, state.box_lo, state.box_hi, cutoff,
             self.grid.dims, self.cell_cap, self.k_max, self.periodic,
-            row_chunk=self.rebuild_chunk)
+            self._tilt(state), row_chunk=self.rebuild_chunk)
         mx = count.max()
         zero = torch.zeros_like(mx)
         return idx, mask, torch.maximum(
@@ -143,7 +169,8 @@ class Simulation:
 
     def _rebuild(self, state: State, neigh: NeighborState):
         x, image = neighbor.wrap_positions(
-            state.x, state.image, state.box_lo, state.box_hi, self.periodic)
+            state.x, state.image, state.box_lo, state.box_hi, self.periodic,
+            self._tilt(state))
         state = state.replace(x=x, image=image)
         if self.pair_capacity > 0:
             # Live springs ride in pair space between rebuilds; fold them
@@ -162,7 +189,7 @@ class Simulation:
             return state, neigh
         pair_fields, n_pairs = contact.build_pair_list(
             state, self.shapes, self.params, idx, mask, hist, state.active,
-            self.pair_capacity, self.periodic)
+            self.pair_capacity, self.periodic, tilt=self._tilt(state))
         zero = torch.zeros_like(n_pairs)
         overflow = torch.maximum(
             neigh.overflow,
@@ -174,7 +201,7 @@ class Simulation:
                 # Motion-budget horizon: the cadence, or an estimate when
                 # the skin trigger decides.
                 window_steps=self.rebuild_every or 16,
-                periodic=self.periodic,
+                periodic=self.periodic, tilt=self._tilt(state),
                 probe_chunk=self.rebuild_chunk)
             overflow = torch.maximum(
                 overflow,
@@ -203,12 +230,14 @@ class Simulation:
         if self.pair_capacity > 0:
             f, tau, pair_hist, pe_pair, virial = contact.contact_force_pairs(
                 state, self.shapes, self.params, neigh,
-                periodic=self.periodic, conservative=self.conservative)
+                periodic=self.periodic, tilt=self._tilt(state),
+                conservative=self.conservative)
             neigh = neigh.replace(pair_hist=pair_hist)
         else:
             f, tau, hist, pe_pair, virial = contact.contact_force_dense(
                 state, self.shapes, self.params, neigh,
-                periodic=self.periodic, conservative=self.conservative)
+                periodic=self.periodic, tilt=self._tilt(state),
+                conservative=self.conservative)
             neigh = neigh.replace(hist=hist)
 
         pe_wall = torch.zeros((), dtype=f.dtype, device=f.device)
@@ -233,6 +262,21 @@ class Simulation:
         m = self.shapes.mass_of(state.shtype, state.scale)
         f = f + torch.where(state.active[:, None],
                             m[:, None] * self.params.gravity[None, :], 0.0)
+        # Group fixes act last, after pair, wall and gravity forces (the
+        # reference's post_force order: setforce overrides what summed).
+        if self.group_fixes:
+            bits = self.group_tab[torch.clamp(
+                state.tag, 0, self.group_tab.shape[0] - 1)]
+            for kind, bit, vals, keep in self.group_fixes:
+                mem3 = (state.active & ((bits & (1 << bit)) != 0))[:, None]
+                if kind == "freeze":
+                    f = torch.where(mem3, 0.0, f)
+                    tau = torch.where(mem3, 0.0, tau)
+                else:  # setforce
+                    v = torch.as_tensor(vals, dtype=f.dtype, device=f.device)
+                    kp = torch.as_tensor(keep, dtype=torch.bool,
+                                         device=f.device)
+                    f = torch.where(mem3 & ~kp[None, :], v[None, :], f)
         state = state.replace(f=f, tau=tau)
         return state, neigh, {"pe_pair": pe_pair, "pe_wall": pe_wall,
                               "virial": virial}
@@ -245,9 +289,19 @@ class Simulation:
         (rebuild when the skin trigger fires; reads it on the host) or
         'never'."""
         state = integrate.initial_integrate(state, self.shapes, self.params)
-        state, x_build = integrate.apply_deformation(state, neigh.x_build,
-                                                     self.params)
+        state, x_build, _ = integrate.apply_deformation(
+            state, neigh.x_build, self.params, self.periodic)
         neigh = neigh.replace(x_build=x_build)
+        if self.triclinic:
+            # A tilt past L/2 on an axis that cannot flip (not periodic)
+            # breaks minimum_image's sequential image removal: fail
+            # loudly through the overflow channel (sentinel 1 << 21).
+            L = state.box_hi - state.box_lo
+            bound = 0.5 * torch.stack([L[0], L[0], L[1]])
+            bad = (state.tilt.abs() > bound * (1 + 1e-6)).any()
+            neigh = neigh.replace(overflow=torch.maximum(
+                neigh.overflow, torch.where(
+                    bad, 1 << 21, torch.zeros_like(neigh.overflow))))
         if rebuild == "always":
             viol = self._stale(state, neigh).long()
             state, neigh = self._rebuild(state, neigh)
@@ -255,21 +309,30 @@ class Simulation:
                 skin_violations=neigh.skin_violations + viol)
         elif rebuild == "check" and bool(self._stale(state, neigh)):
             state, neigh = self._rebuild(state, neigh)
-        state, neigh, _ = self.compute_forces(state, neigh)
+        state, neigh, aux = self.compute_forces(state, neigh)
         state = integrate.final_integrate(state, self.shapes, self.params)
+        if self.press_control:
+            state, x_build = integrate.berendsen_box_control(
+                state, neigh.x_build, self.params, aux["virial"],
+                self.shapes)
+            neigh = neigh.replace(x_build=x_build)
         return state, neigh
 
     def step(self, state: State, neigh: NeighborState):
-        """One step with the skin-triggered rebuild."""
-        return self._step_core(state, neigh, "check")
+        """One step with the skin-triggered rebuild (none in static
+        mode)."""
+        return self._step_core(
+            state, neigh, "never" if self.neighbor_mode == "static"
+            else "check")
 
     def run(self, state: State, neigh: NeighborState, n_steps: int):
         """``n_steps`` steps. With ``rebuild_every = R > 0`` the static
         cadence (LAMMPS ``neigh_modify every R check no``): blocks of one
         rebuild step + R-1 plain steps, a remainder being a short block
         (one rebuild + rem-1 plain steps); skin violations are counted in
-        ``neigh.skin_violations``. With R = 0, ``step`` n_steps times."""
-        R = self.rebuild_every
+        ``neigh.skin_violations``. With R = 0, or in static mode, ``step``
+        n_steps times."""
+        R = 0 if self.neighbor_mode == "static" else self.rebuild_every
         if R <= 0:
             for _ in range(n_steps):
                 state, neigh = self.step(state, neigh)
@@ -291,7 +354,8 @@ class Simulation:
         m = shapes.mass_of(state.shtype, state.scale)
         pe_grav = -torch.where(
             state.active,
-            m * (params.gravity[None, :] * state.x).sum(-1),
+            m * (params.gravity[None, :]
+                 * (state.x - self.gravity_pe_origin[None, :])).sum(-1),
             0.0).sum()
         vol_box = torch.prod(state.box_hi - state.box_lo)
         kin = torch.einsum("n,na,nb->ab",

@@ -223,6 +223,43 @@ class SimParams(_Container):
             pair_tab=pair_tab,
         )
 
+    def with_pair_coeffs(self, n_types: int, coeffs: dict):
+        """Per-type-pair material table from explicit ``pair_coeff i j``
+        entries: {(i, j): (kn, kt, gamma_n, gamma_t, mu[, k_roll,
+        gamma_roll, mu_roll])}, 0-based types in either order.
+
+        Unset diagonal entries default to the global scalars; unset
+        off-diagonal (i, j) mix geometrically from the diagonals,
+        sqrt(c_ii * c_jj) componentwise (LAMMPS granular ``mix
+        geometric``: a component disabled in either material is disabled
+        for the pair). Returns params with a [T, T, 8] ``pair_tab`` on
+        the params' device."""
+        diag_default = np.array([
+            float(self.kn), float(self.kt), float(self.gamma_n),
+            float(self.gamma_t), float(self.mu), float(self.k_roll),
+            float(self.gamma_roll), float(self.mu_roll),
+        ])
+        tab = np.zeros((n_types, n_types, 8))
+        have = np.zeros((n_types, n_types), bool)
+        for (i, j), vals in coeffs.items():
+            v = np.asarray([float(x) for x in vals])
+            if v.shape[0] == 5:
+                v = np.concatenate([v, np.zeros(3)])
+            if v.shape[0] != 8:
+                raise ValueError(
+                    f"pair_coeff needs 5 or 8 values, got {v.shape[0]}")
+            tab[i, j] = tab[j, i] = v
+            have[i, j] = have[j, i] = True
+        for i in range(n_types):
+            if not have[i, i]:
+                tab[i, i] = diag_default
+        for i in range(n_types):
+            for j in range(i + 1, n_types):
+                if not have[i, j]:
+                    tab[i, j] = tab[j, i] = np.sqrt(tab[i, i] * tab[j, j])
+        return self.replace(pair_tab=torch.as_tensor(
+            tab, dtype=self.kn.dtype, device=self.kn.device))
+
 
 def pair_material(params: SimParams, t_i, t_j):
     """Per-pair material rows [..., 8] from the [T, T, 8] table. Indices

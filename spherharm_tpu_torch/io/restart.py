@@ -5,9 +5,8 @@ One ``.npz`` holds the State, the NeighborState with its contact history
 (tangential and rolling springs and their tag keys) and the SimParams,
 under the reference's keys (``state.<field>``, ``neigh.<field>``,
 ``params.<field>``, ``extra.<key>``), so a restart written by either
-package loads into the other and the run continues (a sheared run's
-nonzero ``shear_rate`` loads, but ``Simulation`` refuses it: the port
-has no off-diagonal shear yet).
+package loads into the other and the run continues (a sheared
+triaxial cell too: ``state.tilt`` and ``params.shear_rate`` carry it).
 """
 
 from __future__ import annotations

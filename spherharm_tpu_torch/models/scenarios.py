@@ -18,18 +18,22 @@ from spherharm_tpu_torch.ops.walls import CylinderWall, PlaneWall
 
 # Builders take the reference's arguments less its ``use_pallas`` /
 # ``exact_eval`` / ``pair_chunk`` switches (the port always evaluates
-# exactly, through the kernels), plus ``device``.
+# exactly, through the kernels) and the slab decomposition's ``mesh`` /
+# ``cap_local`` / ``halo_cap``, plus ``device``.
 
 
 def make_state(x, box_lo, box_hi, *, v=None, q=None, angmom=None,
-               scale=None, shtype=None, cap=None, dtype=torch.float32,
-               device="cuda") -> State:
+               scale=None, shtype=None, cap=None, tilt=None,
+               dtype=torch.float32, device="cuda") -> State:
     """Pack numpy arrays into a fixed-capacity State (extra slots
-    inactive)."""
+    inactive); ``tilt`` the triclinic (xy, xz, yz)."""
     x = np.asarray(x, dtype=np.float64)
     n = x.shape[0]
     cap = cap or n
     st = zeros_state(cap, box_lo, box_hi, dtype, device)
+    if tilt is not None:
+        st = st.replace(tilt=torch.as_tensor(
+            np.asarray(tilt, np.float64), dtype=dtype, device=device))
 
     def put(field, val):
         field = field.clone()
@@ -260,3 +264,82 @@ def deposition(n: int = 10_000, lmax: int = 8, contact_quad=(12, 24), **kw):
     kw.setdefault("conservative", False)
     return rotating_drum(n=n, lmax=lmax, drum_omega=0.0,
                          contact_quad=contact_quad, **kw)
+
+
+def triaxial_cell(
+    n: int = 512,
+    lmax: int = 4,
+    mean_radius: float = 0.5,
+    fill_fraction: float = 0.35,
+    strain_rate=(-0.05, -0.05, -0.05),
+    shear_rate=(0.0, 0.0, 0.0),
+    press_target: float = 0.0,
+    press_tau: float = 0.0,
+    kn: float = 1.0e5,
+    gamma_n: float = 50.0,
+    mu: float = 0.4,
+    dt: float = 1.0e-4,
+    seed: int = 0,
+    k_max: int = 32,
+    n_shape_types: int = 2,
+    deform_min: float = 0.6,
+    dtype=torch.float32,
+    sharded: bool = False,
+    conservative: bool = False,
+    device="cuda",
+):
+    """Config 5: triaxial shear cell, periodic on every axis, with
+    stress-tensor output. The diagonal strain rate compresses the cell
+    about its centre; a nonzero ``shear_rate`` shears it (triclinic, with
+    the tilt flip); ``press_tau > 0`` turns on the Berendsen servo toward
+    ``press_target``. The grid's cells are sized for the box at
+    ``deform_min`` of its start (1.4x wider when triclinic: binning runs
+    in the unsheared frame). Geometric law by default."""
+    if sharded:
+        raise ValueError("triaxial_cell(sharded=True): the slab decomposition "
+                         "is not ported yet (ROADMAP Queue 1 item 16)")
+    rng = np.random.default_rng(seed)
+    coeffs = np.stack([
+        shapes_library.blob_coeffs(lmax, seed=seed + 100 + t,
+                                   mean_radius=mean_radius, roughness=0.10)
+        for t in range(n_shape_types)
+    ])
+    shapes = shapes_library.build_shapes(coeffs, lmax, density=1.0,
+                                         dtype=dtype, device=device)
+    rmax = float(shapes.rmax.max())
+
+    # Cubic periodic cell sized for the target initial solid fraction.
+    vol_mean = float(shapes.vol.mean())
+    box = (n * vol_mean / fill_fraction) ** (1 / 3)
+    side = int(np.ceil(n ** (1 / 3)))
+    pitch = box / side
+    if pitch < 2.0 * rmax:
+        raise ValueError("fill_fraction too high for non-overlapping start")
+    i = np.arange(n)
+    x = np.stack([(i % side + 0.5) * pitch, ((i // side) % side + 0.5) * pitch,
+                  (i // side**2 + 0.5) * pitch], axis=1)
+    x = x + rng.uniform(-0.05, 0.05, (n, 3)) * rmax
+    q = rng.normal(size=(n, 4))
+    q /= np.linalg.norm(q, axis=1, keepdims=True)
+    v = rng.normal(size=(n, 3)) * 0.05
+    shtype = rng.integers(0, n_shape_types, n)
+
+    params = SimParams.create(
+        dt=dt, kn=kn, gamma_n=gamma_n, mu=mu,
+        skin=0.4 * rmax, cutoff=2.0 * rmax,
+        deform_rate=strain_rate, shear_rate=shear_rate,
+        press_target=(press_target,) * 3, press_tau=press_tau,
+        dtype=dtype, device=device)
+    state = make_state(x, [0, 0, 0], [box, box, box], v=v, q=q,
+                       shtype=shtype, dtype=dtype, device=device)
+    periodic = (True, True, True)
+    triclinic = any(abs(r) > 0 for r in shear_rate)
+    grid = CellGrid([0, 0, 0], [box * deform_min] * 3,
+                    2.4 * rmax * (1.4 if triclinic else 1.0), periodic)
+    sim = Simulation(
+        shapes, params, periodic=periodic, neighbor_mode="cell", grid=grid,
+        k_max=k_max, cell_cap=16, pair_capacity=max(12 * n, 512),
+        press_control=press_tau > 0, triclinic=triclinic,
+        conservative=conservative, device=device)
+    state, neigh = sim.init_neighbors(state)
+    return sim, state, neigh

@@ -32,13 +32,45 @@ from spherharm_tpu_torch.ops import rotation, sh_power
 from spherharm_tpu_torch.ops.rotation import quat_rotate, quat_rotate_inv
 
 
-def minimum_image(d, box_lo, box_hi, periodic):
-    """Minimum-image displacement for periodic dims (orthogonal box)."""
+def minimum_image(d, box_lo, box_hi, periodic, tilt=None):
+    """Minimum-image displacement for periodic dims.
+
+    ``tilt`` = (xy, xz, yz) triclinic tilt factors (box edge vectors
+    a = (Lx, 0, 0), b = (xy, Ly, 0), c = (xz, yz, Lz)): images are removed
+    in the order c, b, a, valid for |tilt| <= L/2 (the LAMMPS bound).
+    ``tilt=None`` is the orthogonal box."""
     if not any(periodic):
         return d
     L = box_hi - box_lo
     pmask = torch.as_tensor(periodic, dtype=d.dtype, device=d.device)
-    return d - torch.round(d / L) * L * pmask
+    if tilt is None:
+        return d - torch.round(d / L) * L * pmask
+    xy, xz, yz = tilt[0], tilt[1], tilt[2]
+    dx, dy, dz = d[..., 0], d[..., 1], d[..., 2]
+    n3 = torch.round(dz / L[2]) * pmask[2]
+    dx = dx - n3 * xz
+    dy = dy - n3 * yz
+    dz = dz - n3 * L[2]
+    n2 = torch.round(dy / L[1]) * pmask[1]
+    dx = dx - n2 * xy
+    dy = dy - n2 * L[1]
+    n1 = torch.round(dx / L[0]) * pmask[0]
+    dx = dx - n1 * L[0]
+    return torch.stack([dx, dy, dz], dim=-1)
+
+
+def unshear_coords(x, box_lo, box_hi, tilt):
+    """Positions in the unsheared (orthogonalised) frame: x' = lo + L *
+    frac(x), frac = H^-1 (x - lo) by back-substitution through the
+    upper-triangular cell matrix H = [a|b|c]. Periodic images are
+    orthogonal translations there, so cell binning stays complete under
+    tilt (with a tilt-inflated cell size)."""
+    L = box_hi - box_lo
+    f3 = (x[..., 2] - box_lo[2]) / L[2]
+    f2 = (x[..., 1] - box_lo[1] - tilt[2] * f3) / L[1]
+    xp = x[..., 0] - tilt[0] * f2 - tilt[1] * f3
+    yp = box_lo[1] + L[1] * f2
+    return torch.stack([xp, yp, x[..., 2]], dim=-1)
 
 
 def _cross(a, b):
@@ -296,7 +328,7 @@ def _compact(keep, cap: int, n_src: int):
 
 def build_pair_list(state, shapes, params, neigh_idx, neigh_mask, hist,
                     owned, pair_cap: int, periodic=(False, False, False),
-                    half: bool = True):
+                    half: bool = True, tilt=None):
     """Compact the [N, K] Verlet tensor into a stable half pair list, once
     per rebuild. Keeps every pair whose bounding spheres can touch before
     the next rebuild (dist < rb_i + rb_j + skin). pair_i stays sorted; a
@@ -309,7 +341,7 @@ def build_pair_list(state, shapes, params, neigh_idx, neigh_mask, hist,
     dev = neigh_idx.device
     rb = shapes.rmax[state.shtype] * state.scale
     d = minimum_image(state.x[neigh_idx] - state.x[:, None, :],
-                      state.box_lo, state.box_hi, periodic)
+                      state.box_lo, state.box_hi, periodic, tilt)
     dist2 = (d * d).sum(-1)
     margin = rb[:, None] + rb[neigh_idx] + params.skin
     owned_j = owned[neigh_idx]
@@ -346,7 +378,7 @@ def build_pair_list(state, shapes, params, neigh_idx, neigh_mask, hist,
 def prefilter_pair_list(state, shapes, params, fields, keep_cap: int,
                         k_max: int, window_steps: int = 16,
                         floor_frac: float = 0.25,
-                        periodic=(False, False, False),
+                        periodic=(False, False, False), tilt=None,
                         probe_chunk: int = 0):
     """Rebuild-time narrow-phase prefilter: keep candidate pairs that can
     touch before the next rebuild.
@@ -371,7 +403,7 @@ def prefilter_pair_list(state, shapes, params, fields, keep_cap: int,
     msk = (fields["pair_valid"] & (rows[pi, _RACT] > 0.5)
            & (rows[pj, _RACT] > 0.5))
     dp = minimum_image(rows[pj][:, _RX] - rows[pi][:, _RX],
-                       state.box_lo, state.box_hi, periodic)
+                       state.box_lo, state.box_hi, periodic, tilt)
     tail_lo = ck.SLOTS["tail"][0]
     nc_ab = (shapes.lmax + 1) ** 2  # A/B prefix of the power layout
     hw = fields["pair_hist"].shape[-1]
@@ -475,7 +507,7 @@ def sorted_segment_sum(data, seg_ids, num_segments: int):
 
 
 def contact_force_pairs(state, shapes, params, neigh,
-                        periodic=(False, False, False),
+                        periodic=(False, False, False), tilt=None,
                         conservative: bool = True):
     """Per-step force/torque over the stable pair list (the hot path):
     two row-gathers, the pair kernel (``contact_kernels.pair_contact``,
@@ -492,7 +524,7 @@ def contact_force_pairs(state, shapes, params, neigh,
     msk = (neigh.pair_valid & (rows_i[:, _RACT] > 0.5)
            & (rows_j[:, _RACT] > 0.5))
     dp = minimum_image(rows_j[:, _RX] - rows_i[:, _RX],
-                       state.box_lo, state.box_hi, periodic)
+                       state.box_lo, state.box_hi, periodic, tilt)
     packed, tbl, cap, par = ck.pack_pairs(
         state, shapes, params, pi, pj, msk, neigh.pair_hist, dp, rows=rows)
     out = ck.pair_contact(packed, tbl, cap, par, lmax=shapes.lmax,
@@ -519,7 +551,7 @@ def contact_force_pairs(state, shapes, params, neigh,
 
 
 def contact_force_dense(state, shapes, params, neigh,
-                        periodic=(False, False, False),
+                        periodic=(False, False, False), tilt=None,
                         conservative: bool = True):
     """Force/torque over the dense [N, K] neighbour tensor (the path for
     ``pair_capacity == 0``): the N*K rows are packed as the pair list is
@@ -538,7 +570,7 @@ def contact_force_dense(state, shapes, params, neigh,
     msk = (neigh.mask.reshape(-1) & (rows[pi, _RACT] > 0.5)
            & (rows[pj, _RACT] > 0.5))
     dp = minimum_image(rows[pj, _RX] - rows[pi, _RX],
-                       state.box_lo, state.box_hi, periodic)
+                       state.box_lo, state.box_hi, periodic, tilt)
     packed, tbl, cap, par = ck.pack_pairs(
         state, shapes, params, pi, pj, msk,
         neigh.hist.reshape(N * K, -1), dp, rows=rows)

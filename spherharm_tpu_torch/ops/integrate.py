@@ -4,6 +4,9 @@
   initial_integrate:  v += dt/2 f/m;  x += dt v;  L += dt/2 tau;
                       q <- richardson(q, L, I_body, dt)
   final_integrate:    v += dt/2 f/m;  L += dt/2 tau
+
+plus the box: ``apply_deformation`` (strain and shear rates, tilt flip)
+and the ``berendsen_box_control`` stress servo.
 """
 
 from __future__ import annotations
@@ -58,21 +61,92 @@ def final_integrate(state, shapes, params):
     return state.replace(v=v, angmom=angmom)
 
 
-def apply_deformation(state, x_build, params):
+def apply_deformation(state, x_build, params, periodic=(False, False, False)):
     """Affine box deformation about the box centre (fix deform analogue).
 
-    Only the diagonal strain rate is ported; the drum runs with zero
-    rates, where this is an exact no-op. Returns (state, x_build)."""
+    The diagonal strain rate scales box edges, positions and the build
+    positions ``x_build`` (so no spurious skin trigger) by 1 + rate dt;
+    the off-diagonal ``shear_rate`` (d vx/dy, d vx/dz, d vy/dz) shears
+    them and grows the (xy, xz, yz) tilt (fix deform xy/xz/yz with remap).
+    Zero rates are an exact no-op.
+
+    Sustained shear flips the tilt back into |xy|, |xz| <= Lx/2,
+    |yz| <= Ly/2 (the LAMMPS flip: a whole box edge vector subtracted, a
+    relabelling of the periodic lattice) where the shifted axis is
+    periodic; elsewhere ``Simulation._step_core`` flags |tilt| > L/2
+    through the overflow channel.
+
+    Returns (state, x_build, flip): ``flip`` [3] is the whole-edge
+    multiple removed from each tilt component (zeros when none).
+    """
     factor = 1.0 + params.deform_rate * params.dt
     center = 0.5 * (state.box_lo + state.box_hi)
     x = center + (state.x - center) * factor
     xb = center + (x_build - center) * factor
+    box_lo = center + (state.box_lo - center) * factor
+    box_hi = center + (state.box_hi - center) * factor
+
+    g = params.shear_rate * params.dt  # (d_xy, d_xz, d_yz) increments
+    L = box_hi - box_lo
+
+    def shear(p):
+        sx = (p[..., 0] + g[0] * (p[..., 1] - center[1])
+              + g[1] * (p[..., 2] - center[2]))
+        sy = p[..., 1] + g[2] * (p[..., 2] - center[2])
+        return torch.stack([sx, sy, p[..., 2]], dim=-1)
+
+    x = shear(x)
+    xb = shear(xb)
+    # Tilts are x-offsets (xy, xz) and a y-offset (yz): they scale with
+    # the matching diagonal factor, then grow with the shear; shearing
+    # the cell vectors b = (xy, Ly, 0), c = (xz, yz, Lz) as positions are
+    # sheared gives xz the g_xy * yz cross-term.
+    t = state.tilt * torch.stack([factor[0], factor[0], factor[1]])
+    xy = t[0] + g[0] * L[1]
+    xz = t[1] + g[0] * t[2] + g[1] * L[2]
+    yz = t[2] + g[2] * L[2]
+    # The flip: yz by the b vector (periodic y), dragging xz by -xy a
+    # flip (c' = c - b); then xy and xz by the a vector (periodic x).
+    # Positions need no remap: the next wrap uses the current cell.
+    can_x = float(periodic[0])
+    can_y = float(periodic[1])
+    f_yz = torch.round(yz / L[1]) * can_y
+    yz = yz - f_yz * L[1]
+    xz = xz - f_yz * xy
+    f_xy = torch.round(xy / L[0]) * can_x
+    f_xz = torch.round(xz / L[0]) * can_x
+    xy = xy - f_xy * L[0]
+    xz = xz - f_xz * L[0]
+    state = state.replace(x=x, box_lo=box_lo, box_hi=box_hi,
+                          tilt=torch.stack([xy, xz, yz]))
+    return state, xb, torch.stack([f_xy, f_xz, f_yz])
+
+
+def berendsen_box_control(state, x_build, params, virial, shapes):
+    """Anisotropic Berendsen stress servo (fix press/berendsen analogue):
+    per-axis dilation mu_a = 1 - dt/(3 tau) (P_target_a - P_a), clipped
+    to 0.99-1.01 a step, applied about the box centre to the box,
+    positions and ``x_build``; the tilt scales by (mu_x, mu_x, mu_y).
+    ``virial`` is the step's own; press_tau = 0 gives mu = 1.
+    Returns (state, x_build)."""
+    m = shapes.mass_of(state.shtype, state.scale)
+    kin = torch.einsum("n,na,na->a", torch.where(state.active, m, 0.0),
+                       state.v, state.v)
+    vol = torch.prod(state.box_hi - state.box_lo)
+    p_diag = (kin + torch.diagonal(virial)) / vol
+    inv_tau = torch.where(params.press_tau > 0,
+                          1.0 / torch.clamp(params.press_tau, min=1e-30),
+                          torch.zeros_like(params.press_tau))
+    mu = 1.0 - (params.dt * inv_tau / 3.0) * (params.press_target - p_diag)
+    mu = torch.clamp(mu, 0.99, 1.01)
+    center = 0.5 * (state.box_lo + state.box_hi)
     state = state.replace(
-        x=x,
-        box_lo=center + (state.box_lo - center) * factor,
-        box_hi=center + (state.box_hi - center) * factor,
+        x=center + (state.x - center) * mu,
+        box_lo=center + (state.box_lo - center) * mu,
+        box_hi=center + (state.box_hi - center) * mu,
+        tilt=state.tilt * torch.stack([mu[0], mu[0], mu[1]]),
     )
-    return state, xb
+    return state, center + (x_build - center) * mu
 
 
 def kinetic_energy(state, shapes):

@@ -1,5 +1,6 @@
 """Cell-list / Verlet neighbour build over fixed-capacity tensors (torch
-twin of ``spherharm_tpu/ops/neighbor.py``, orthogonal boxes).
+twin of ``spherharm_tpu/ops/neighbor.py``). Every geometric function
+takes the triclinic ``tilt`` (xy, xz, yz) or None (orthogonal box).
 
 Dense ``[N, K]`` index tensor + mask built with sort / scatter / stable
 compaction, so every shape is static. Full-list semantics: pair (i, j)
@@ -15,7 +16,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from spherharm_tpu_torch.ops.contact import minimum_image
+from spherharm_tpu_torch.ops.contact import minimum_image, unshear_coords
 
 
 class CellGrid:
@@ -43,12 +44,12 @@ def stable_topk_true(valid, k: int):
 
 
 def allpairs_neighbors(x, active, box_lo, box_hi, cutoff, k_max: int,
-                       periodic=(False, False, False)):
+                       periodic=(False, False, False), tilt=None):
     """O(N^2) neighbour build, the small-system path. Returns (idx, mask,
     count) with K = min(k_max, N) slots a row, lowest index first."""
     N = x.shape[0]
     d = minimum_image(x[None, :, :] - x[:, None, :], box_lo, box_hi,
-                      periodic)
+                      periodic, tilt)
     dist2 = (d * d).sum(-1)
     eye = torch.eye(N, dtype=torch.bool, device=x.device)
     valid = ((dist2 < cutoff**2) & ~eye & active[None, :]
@@ -59,7 +60,7 @@ def allpairs_neighbors(x, active, box_lo, box_hi, cutoff, k_max: int,
 
 def cell_list_neighbors(x, active, box_lo, box_hi, cutoff,
                         grid_dims: tuple, cell_cap: int, k_max: int,
-                        periodic=(False, False, False),
+                        periodic=(False, False, False), tilt=None,
                         row_chunk: int = 0):
     """Cell-binned neighbour build. Returns (idx, mask, count,
     cell_overflow).
@@ -67,7 +68,10 @@ def cell_list_neighbors(x, active, box_lo, box_hi, cutoff,
     bin -> rank in cell (stable sort) -> scatter into the [cells, cap]
     table -> 27-stencil gather -> distance filter -> stable compaction to
     k_max. ``row_chunk`` > 0 runs the stencil stage over row blocks to
-    bound the [N, 27 * cell_cap] transients.
+    bound the [N, 27 * cell_cap] transients. A tilted box bins in the
+    unsheared frame (``unshear_coords``: periodic images are orthogonal
+    translations there; the caller inflates the cell size to cover the
+    skew) and filters by the exact tilted minimum image.
     """
     N = x.shape[0]
     dev = x.device
@@ -75,7 +79,8 @@ def cell_list_neighbors(x, active, box_lo, box_hi, cutoff,
     n_cells = int(grid_dims[0] * grid_dims[1] * grid_dims[2])
     cell_sz = (box_hi - box_lo) / torch.as_tensor(grid_dims, dtype=x.dtype,
                                                  device=dev)
-    cc = torch.floor((x - box_lo) / cell_sz).long()
+    x_bin = x if tilt is None else unshear_coords(x, box_lo, box_hi, tilt)
+    cc = torch.floor((x_bin - box_lo) / cell_sz).long()
     cc = torch.minimum(torch.clamp(cc, min=0), D - 1)
     cid = (cc[:, 0] * D[1] + cc[:, 1]) * D[2] + cc[:, 2]
     cid = torch.where(active, cid, n_cells)  # inactive -> overflow bin
@@ -120,7 +125,7 @@ def cell_list_neighbors(x, active, box_lo, box_hi, cutoff,
         cand = cand.reshape(cand.shape[0], 27 * cell_cap)
         safe = torch.clamp(cand, min=0)
         d = minimum_image(x[safe] - x_b[:, None, :], box_lo, box_hi,
-                          periodic)
+                          periodic, tilt)
         dist2 = (d * d).sum(-1)
         valid = ((cand >= 0) & (cand != self_b[:, None])
                  & (dist2 < cutoff**2) & active[safe]
@@ -161,26 +166,48 @@ def remap_history(new_key, new_mask, old_key, old_mask, old_hist,
     return torch.cat(out)
 
 
-def wrap_positions(x, image, box_lo, box_hi, periodic):
-    """Wrap x into the box for periodic dims, tracking image counters."""
+def wrap_positions(x, image, box_lo, box_hi, periodic, tilt=None):
+    """Wrap x into the box for periodic dims, tracking image counters.
+
+    With ``tilt`` the wrap runs in fractional lattice coordinates:
+    n = floor(H^-1 (x - lo)) per periodic dim, x -= H n, whole lattice
+    vectors only, so x + image @ H^T recovers the unwrapped position and
+    the wrapped fractional coordinate lies in [0, 1)."""
     L = box_hi - box_lo
     pmask = torch.as_tensor(periodic, dtype=x.dtype, device=x.device)
-    shifts = torch.floor((x - box_lo) / L) * pmask
-    return x - shifts * L, image + shifts.long()
+    if tilt is None:
+        shifts = torch.floor((x - box_lo) / L) * pmask
+        return x - shifts * L, image + shifts.long()
+    xy, xz, yz = tilt[0], tilt[1], tilt[2]
+    px, py, pz = x[..., 0], x[..., 1], x[..., 2]
+    # Fractional coordinates by back-substitution through the
+    # upper-triangular H = [a|b|c], from the original coordinates.
+    f3 = (pz - box_lo[2]) / L[2]
+    f2 = (py - box_lo[1] - yz * f3) / L[1]
+    f1 = (px - box_lo[0] - xy * f2 - xz * f3) / L[0]
+    n3 = torch.floor(f3) * pmask[2]
+    n2 = torch.floor(f2) * pmask[1]
+    n1 = torch.floor(f1) * pmask[0]
+    px = px - n1 * L[0] - n2 * xy - n3 * xz
+    py = py - n2 * L[1] - n3 * yz
+    pz = pz - n3 * L[2]
+    shifts = torch.stack([n1, n2, n3], dim=-1)
+    return torch.stack([px, py, pz], dim=-1), image + shifts.long()
 
 
-def max_displacement2(x, x_build, active, box_lo, box_hi, periodic):
+def max_displacement2(x, x_build, active, box_lo, box_hi, periodic,
+                      tilt=None):
     """Max squared displacement since the last build (skin trigger)."""
-    d = minimum_image(x - x_build, box_lo, box_hi, periodic)
+    d = minimum_image(x - x_build, box_lo, box_hi, periodic, tilt)
     d2 = (d * d).sum(-1)
     return torch.where(active, d2, torch.zeros_like(d2)).max()
 
 
 def surface_motion(x, x_build, q, q_build, gmax_s, active,
-                   box_lo, box_hi, periodic):
+                   box_lo, box_hi, periodic, tilt=None):
     """Per-particle surface-motion bound since the last build:
     |dx| + gmax * (rotation angle). Inactive rows report 0."""
-    d = minimum_image(x - x_build, box_lo, box_hi, periodic)
+    d = minimum_image(x - x_build, box_lo, box_hi, periodic, tilt)
     disp = torch.sqrt((d * d).sum(-1))
     qdot = (q * q_build).sum(-1).abs()
     alpha = 2.0 * torch.arccos(torch.clamp(qdot, 0.0, 1.0))
@@ -189,10 +216,10 @@ def surface_motion(x, x_build, q, q_build, gmax_s, active,
 
 
 def approach_ratio(x, x_build, q, q_build, gmax_s, budget, active,
-                   box_lo, box_hi, periodic):
+                   box_lo, box_hi, periodic, tilt=None):
     """Rebuild trigger for the prefiltered pair list: max over particles
     of (surface motion since build) / (its recorded motion budget)."""
     appr = surface_motion(x, x_build, q, q_build, gmax_s, active,
-                          box_lo, box_hi, periodic)
+                          box_lo, box_hi, periodic, tilt)
     ratio = appr / budget.clamp(min=1e-30)
     return torch.where(active, ratio, torch.zeros_like(ratio)).max()

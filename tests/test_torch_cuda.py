@@ -22,7 +22,8 @@ from spherharm_tpu_torch.ops import walls_kernels as wk
 from spherharm_tpu_torch.ops.rotation import omega_from_angmom
 
 from torch_port_util import (blob_coeffs, contact_rich_state,  # noqa: F401
-                             cuda_device, f32_ulps_from, np32, pressed_box_state)
+                             cuda_device, f32_ulps_from, np32, pressed_box_state,
+                             triaxial_state)
 
 pytestmark = pytest.mark.cuda
 
@@ -33,9 +34,10 @@ def _params(device):
                             cutoff=1.4, skin=0.2, device=device)
 
 
-def _pairs(lmax, device, seed=11, n=14, contact_quad=(8, 16)):
+def _pairs(lmax, device, seed=11, n=14, contact_quad=(8, 16), params=None):
     """All ordered pairs of n particles in a small box (deep, grazing and
-    separated pairs), mid-contact springs, a few masked rows."""
+    separated pairs), mid-contact springs, a few masked rows; ``params``
+    (default ``_params``) gives the materials."""
     rng = np.random.default_rng(seed)
     shapes = shapes_library.build_shapes(blob_coeffs(lmax, 3, seed), lmax,
                                          contact_quad=contact_quad,
@@ -54,8 +56,8 @@ def _pairs(lmax, device, seed=11, n=14, contact_quad=(8, 16)):
     pi, pj = t(pi.ravel()[sel]), t(pj.ravel()[sel])
     mask = t(rng.uniform(size=pi.shape[0]) > 0.05)
     hist = t(rng.normal(size=(pi.shape[0], 6)).astype(np.float32) * 1e-4)
-    packed, tbl, cap, par = ck.pack_pairs(st, shapes, _params(device), pi,
-                                          pj, mask, hist, st.x[pj] - st.x[pi])
+    packed, tbl, cap, par = ck.pack_pairs(st, shapes, params or _params(device),
+                                          pi, pj, mask, hist, st.x[pj] - st.x[pi])
     return packed, tbl, cap, par, shapes
 
 
@@ -66,7 +68,8 @@ def _pairs(lmax, device, seed=11, n=14, contact_quad=(8, 16)):
 # collision's 12x24 grid, whose 288 nodes leave K1's last 2-node block
 # half empty and fill the geometric f32 kernel's 3-node blocks; 2, 4, 8)
 # and at lmax 6, which takes the run-time-degree instantiation. The 11x25
-# grid's 275 nodes take 3-node blocks with the last partly empty.
+# grid's 275 nodes take 3-node blocks with the last partly empty, as the
+# triaxial cell's 6x12 grid's 72 nodes do at Lmax 4.
 LAW_CASES = [
     pytest.param(0, True, (12, 24), id="0-12x24"),
     pytest.param(2, True, (8, 16), id="2"),
@@ -80,6 +83,7 @@ LAW_CASES = [
     pytest.param(4, False, (8, 16), id="4-geometric-8x16"),
     pytest.param(6, False, (8, 16), id="6-geometric-run-time-degree"),
     pytest.param(8, False, (11, 25), id="8-geometric-11x25"),
+    pytest.param(4, False, (6, 12), id="4-geometric-6x12-triaxial"),
 ]
 
 
@@ -103,6 +107,30 @@ def test_pair_contact_kernel_matches_plain(lmax, conservative, quad,
     np.testing.assert_allclose(out[:, 9:16], ref[:, 9:16], rtol=0,
                                atol=1e-6 + 1e-4 * np.abs(ref[:, 9:16]).max())
     np.testing.assert_array_equal(out[:, 17:], 0.0)
+
+
+@pytest.mark.parametrize("conservative", [True, False],
+                         ids=["conservative", "geometric"])
+def test_pair_contact_kernel_two_materials(conservative, cuda_device):
+    """K1 and K2 with a per-type-pair table (``with_pair_coeffs``: one
+    explicit (0, 1) entry, the rest from the scalars and geometric mixing),
+    rows of different materials in one launch, at the laws' tolerances."""
+    lmax = 4
+    params = _params(cuda_device).with_pair_coeffs(
+        3, {(0, 1): (3e5, 1e5, 30.0, 10.0, 0.2, 1e4, 5.0, 0.1),
+            (2, 2): (5e4, 2e4, 5.0, 2.0, 0.7, 0.0, 0.0, 0.0)})
+    packed, tbl, cap, par, _ = _pairs(lmax, cuda_device, params=params)
+    assert packed[:, ck.SLOTS["mat"][0]].unique().numel() >= 3
+    out = np32(ck.pair_contact(packed, tbl, cap, par, lmax, conservative))
+    ref = np32(ck.pair_contact_plain(packed, tbl, cap, par, lmax, conservative))
+    inc = ref[:, 16] > 0.5
+    assert inc.sum() > 3
+    np.testing.assert_array_equal(out[:, 16] > 0.5, inc)
+    fmag = np.abs(ref[:, 0:3]).max()
+    np.testing.assert_allclose(out[:, 0:9], ref[:, 0:9], rtol=0,
+                               atol=(1e-4 if conservative else 2e-3) * fmag)
+    np.testing.assert_allclose(out[:, 9:16], ref[:, 9:16], rtol=0,
+                               atol=1e-6 + 1e-4 * np.abs(ref[:, 9:16]).max())
 
 
 # K4 at each degree compiled into csrc/stage1_probe.cu (0, 2, 4, 8) and
@@ -426,3 +454,33 @@ def test_drum_on_card_matches_cpu(cuda_device):
     for k in ("ke", "erot", "pe_pair", "pe_wall", "pe_grav", "etot"):
         np.testing.assert_allclose(tg[k], tc[k], rtol=2e-3, err_msg=k)
     np.testing.assert_allclose(xg, xc, rtol=0, atol=1e-3)
+
+
+def test_sheared_triaxial_step_on_card_matches_cpu(cuda_device):
+    """One step of the sheared triaxial cell (n = 128, fill 0.09, xy shear,
+    the servo on) from a contact-rich start with its xy tilt at the flip:
+    forces within 2e-3 |F|max, tilt, box and positions at f32 precision,
+    card vs CPU; the card step launched K2."""
+    runs = []
+    for device in (cuda_device, torch.device("cpu")):
+        sim, st0, _ = scenarios.triaxial_cell(
+            n=128, fill_fraction=0.09, shear_rate=(0.05, 0.0, 0.0),
+            press_tau=1.0, device=device)
+        st, ng = sim.init_neighbors(
+            triaxial_state(st0, device, xy_frac=0.5 * (1 - 1e-6))[0])
+        n0 = ck.pair_contact.launches["geometric"]
+        st, ng = sim.run(st, ng, 1)
+        if device.type == "cuda":
+            assert ck.pair_contact.launches["geometric"] > n0
+        assert int(ng.overflow) == 0
+        runs.append({k: np32(getattr(st, k)) for k in
+                     ("f", "x", "tilt", "box_lo", "box_hi", "image")})
+    card, cpu = runs
+    assert cpu["tilt"][0] < 0  # flipped in this step
+    fmag = np.abs(cpu["f"]).max()
+    assert fmag > 0
+    np.testing.assert_allclose(card["f"], cpu["f"], rtol=0, atol=2e-3 * fmag)
+    for k in ("x", "tilt", "box_lo", "box_hi"):
+        np.testing.assert_allclose(card[k], cpu[k], rtol=1e-6, atol=1e-6,
+                                   err_msg=k)
+    np.testing.assert_array_equal(card["image"], cpu["image"])

@@ -1,8 +1,9 @@
 """Restart and thermo-log I/O of the torch port (``io/restart.py``,
 ``io/thermo_log.py``): the port's own round trip is bit-exact with
 contact history, and a restart written by the JAX package loads into the
-port and the run continues as the reference continues it (tolerances as
-tests/test_torch_scenarios.py: energies rtol 2e-3, positions 1e-3)."""
+port and the run continues as the reference continues it, a sheared
+triaxial cell too (tolerances as tests/test_torch_scenarios.py: energies
+rtol 2e-3, positions 1e-3)."""
 
 import jax
 import numpy as np
@@ -12,6 +13,7 @@ from spherharm_tpu.models import scenarios as jscen
 from spherharm_tpu_torch.io import restart, thermo_log
 from spherharm_tpu_torch.models import scenarios
 
+from test_torch_triclinic import triaxial_pair
 from torch_port_util import contact_rich_state, np32, pressed_box_state
 
 
@@ -83,6 +85,40 @@ def test_jax_restart_continues_in_port(tmp_path):
         np.testing.assert_allclose(tth[k], jth[k], rtol=2e-3, err_msg=k)
     np.testing.assert_allclose(np32(ts.x), np.asarray(js2.x), rtol=0,
                                atol=1e-3)
+
+
+def test_jax_restart_of_sheared_cell_continues_in_port(tmp_path):
+    """A JAX restart of the sheared triaxial cell (n = 128, xy shear, the
+    servo on, 15 steps in, its tilt past its flip) loads into the port with
+    its tilt and shear_rate, and 10 more steps in the port match the
+    reference's own continuation from the same file."""
+    jsim, js, jn, tsim, _, _ = triaxial_pair(shear_rate=(0.05, 0.0, 0.0),
+                                             press_tau=1.0)
+    js, jn = jsim.run(js, jn, 15)
+    assert float(js.tilt[0]) < 0  # flipped
+    path = tmp_path / "sheared.npz"
+    jrestart.write_restart(path, js, jn, jsim.params, extra={"done": 15})
+    ts, tn, tp, extra = restart.read_restart(path, device="cpu")
+    np.testing.assert_array_equal(np32(ts.tilt), np.asarray(js.tilt))
+    for f in ("shear_rate", "press_tau", "pair_tab", "deform_rate"):
+        np.testing.assert_array_equal(np32(getattr(tp, f)),
+                                      np32(getattr(tsim.params, f)))
+    ts, tn = tsim.run(ts, tn, 10)
+    js2, jn2, _, _ = jrestart.read_restart(path)
+    js2, jn2 = jsim.run(js2, jn2, 10)
+    jax.block_until_ready(js2.x)
+    assert int(tn.overflow) == int(jn2.overflow) == 0
+    np.testing.assert_allclose(np32(ts.tilt), np.asarray(js2.tilt), rtol=1e-5)
+    np.testing.assert_allclose(np32(ts.box_hi), np.asarray(js2.box_hi),
+                               rtol=1e-6)
+    np.testing.assert_array_equal(np32(ts.image), np.asarray(js2.image))
+    np.testing.assert_allclose(np32(ts.x), np.asarray(js2.x), rtol=0,
+                               atol=1e-4)
+    jth, tth = jsim.thermo(js2, jn2), tsim.thermo(ts, tn)
+    assert float(tth["pe_pair"]) > 0
+    for k in ("ke", "pe_pair", "etot", "press"):
+        np.testing.assert_allclose(float(tth[k]), float(jth[k]), rtol=2e-3,
+                                   err_msg=k)
 
 
 def test_thermo_log_roundtrip(tmp_path):

@@ -58,7 +58,7 @@ def test_entry_points_default_to_cuda():
            tstate.zeros_state, tstate.empty_neighbors,
            tsim_mod.Simulation.__init__, tscen.make_state,
            tscen.two_body_collision, tscen.settling_box,
-           tscen.rotating_drum, tshapes.build_shapes,
+           tscen.rotating_drum, tscen.triaxial_cell, tshapes.build_shapes,
            twalls.PlaneWall.create, twalls.CylinderWall.create]
     for fn in fns:
         assert inspect.signature(fn).parameters["device"].default == "cuda", \

@@ -159,34 +159,12 @@ def test_rotation_and_integration_match_reference():
         np.testing.assert_allclose(np32(getattr(t2, name)),
                                    np.asarray(getattr(j2, name)), **tol)
     j3, jxb, _ = jint.apply_deformation(j2, j2.x, params)
-    t3, txb = tint.apply_deformation(t2, t2.x, tp)
+    t3, txb, _ = tint.apply_deformation(t2, t2.x, tp)
     np.testing.assert_array_equal(np32(t3.x), np.asarray(j3.x))
     np.testing.assert_array_equal(np32(txb), np.asarray(jxb))
     for a, b in zip(tint.kinetic_energy(t2, ts),
                     jint.kinetic_energy(j2, shapes)):
         np.testing.assert_allclose(float(a), float(b), rtol=1e-5)
-
-
-@pytest.mark.parametrize("shear", [(0.0, 0.0, 0.0), (0.05, 0.0, 0.0),
-                                   (0.0, 0.0, -0.02)],
-                         ids=["zero", "xy", "yz"])
-def test_simulation_rejects_shear_rate(shear):
-    """The port applies only the diagonal deform_rate, so a nonzero
-    off-diagonal shear_rate (the reference shears positions and x_build
-    every step) raises at set-up instead of being ignored; zero builds."""
-    from spherharm_tpu_torch.core.simulation import Simulation
-
-    shapes = tshapes.build_shapes(blob_coeffs(2, 1), 2, contact_quad=(8, 16),
-                                  device="cpu")
-    params = tstate.SimParams.create(dt=1e-4, kn=1e5, cutoff=1.4,
-                                     shear_rate=shear, device="cpu")
-    build = lambda: Simulation(shapes, params, neighbor_mode="allpairs",
-                               device="cpu")
-    if any(shear):
-        with pytest.raises(ValueError, match="Queue 1 item 12"):
-            build()
-    else:
-        assert build().params is params
 
 
 def test_import_without_jax():

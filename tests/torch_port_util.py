@@ -91,6 +91,37 @@ def pressed_box_state(x, rmax, c=0.88, floor=0.75, seed=1):
     return x, rng.normal(size=x.shape) * 0.01
 
 
+def triaxial_start(x, box_lo, box_hi, rchar, overlap=0.05, c_min=0.6):
+    """A contact-rich start for the triaxial cell from its jittered cubic
+    lattice x (``ceil(n^(1/3))`` sites a side in the cube [box_lo,
+    box_hi]): compress positions and box affinely about the centre by
+    c = (1 - overlap) * 2 rchar / pitch, so lattice neighbours overlap
+    by about ``overlap`` of a diameter, but never below ``c_min`` (the
+    ``deform_min`` of ``triaxial_cell``: below it the fixed CellGrid's
+    cells shrink under the cutoff). Returns (x, box_lo, box_hi, c)."""
+    x = np.array(x, np.float64)
+    lo = np.asarray(box_lo, np.float64)
+    hi = np.asarray(box_hi, np.float64)
+    pitch = (hi[0] - lo[0]) / int(np.ceil(x.shape[0] ** (1 / 3)))
+    c = max(c_min, (1.0 - overlap) * 2.0 * rchar / pitch)
+    ctr = 0.5 * (lo + hi)
+    return (ctr + c * (x - ctr), ctr + c * (lo - ctr), ctr + c * (hi - ctr),
+            c)
+
+
+def triaxial_state(st0, device, overlap=0.02, xy_frac=0.0):
+    """The port's State of ``triaxial_start`` from ``triaxial_cell``'s
+    state ``st0`` (rchar 0.5, its blobs'), its xy tilt ``xy_frac`` Lx
+    (just under 0.5: the shear flips it soon). Returns (State, c)."""
+    from spherharm_tpu_torch.models import scenarios
+
+    x, lo, hi, c = triaxial_start(np32(st0.x), np32(st0.box_lo),
+                                  np32(st0.box_hi), 0.5, overlap=overlap)
+    return scenarios.make_state(
+        x, lo, hi, v=np32(st0.v), q=np32(st0.q), shtype=np32(st0.shtype),
+        tilt=[xy_frac * (hi[0] - lo[0]), 0.0, 0.0], device=device), c
+
+
 @pytest.fixture
 def cuda_device():
     """The card for a ``cuda``-marked test; skips where there is none."""
