@@ -84,7 +84,22 @@ Phases, each fatal on failure (exit code != 0, no result line):
    deposition (100 steps) with every stage-2 call through K3. Guards: K3
    launched in both laws, no K1/K2 launch, overflow = 0, finite etot; the
    child's failure fails the run. Prints etot bf16 - f32 at equal steps
-   and both slopes.
+   and both slopes;
+8. (run between the triaxial cell's path and the drift gas's) the deck
+   runner, ``spherharm_tpu_torch.io.deck``: every ``examples/*.in`` deck,
+   and ``two_materials.in`` again with ``conservative off``, on the card
+   (counters set to 0 just before each) and on the CPU, cut to 30 steps
+   (``deck_cuts``), dumps into build/chip_smoke_decks/: thermo
+   etot, ke and pe_pair within rtol 2e-3, positions within 1e-3, the same
+   ids in every dump frame, overflow 0 (``DECKS_THAT_OVERFLOW``: the CPU's
+   count; they overflow in the reference too); then ``DRUM_DECK``, ``examples/drum.in`` at
+   full size (Lmax 8, conservative, no prefilter, pair cap 4n, k_max 32,
+   cell_cap 12: the deck's own capacities), 60 steps, on the card only:
+   particle-steps/s, pe_pair at start and end, K1/K6/K7 launches, the
+   dump's bytes, formatter and write time. Guards: overflow 0, finite
+   etot, pe_pair > 0 at step 0, K1, K6 and K7 launched, the native
+   formatter, the dump read back with the state's tags. Then K1 on that
+   deck's own pair list after its run (all 357,120 slots, as in step 6).
 
 Prints the kernels ranked by launches x (device_ms - bound_ms) over this
 run (``ranking``; each path's launches at that path's own candidate list,
@@ -1034,6 +1049,231 @@ def drift_path(label, gas, state, neigh, kernels, smi):
     return state, neigh, launches, samples, slope, step_s
 
 
+DECK_DIR = ROOT / "build" / "chip_smoke_decks"
+DECK_DUMP_EVERY = 15  # dump frames at steps 0, 15 and 30 of a cut deck
+# Example decks whose overflow channel fires in the reference's runner as
+# well: triaxial.in (a periodic axis of 2 grid cells), two_materials.in
+# (830 pairs at set-up in the runner's pair capacity of 600).
+DECKS_THAT_OVERFLOW = ("triaxial.in", "two_materials.in")
+
+
+def deck_cuts():
+    """The example decks as the deck phase runs them: (label, text, run,
+    thermo). Each takes at most 32 steps in all (shear_cell.in's four
+    stages 8 each; the CPU twins' time bounds the cut); thermo every 10
+    (4), dumps every 15;
+    two_materials.in once more with ``conservative off`` (K2 with a
+    two-material pair_tab through the deck)."""
+    from torch_port_util import EXAMPLES
+
+    out = []
+    for path in sorted(EXAMPLES.glob("*.in")):
+        text = path.read_text()
+        run, thermo = (8, 4) if path.name == "shear_cell.in" else (30, 10)
+        out.append((path.name, text, run, thermo))
+        if path.name == "two_materials.in":
+            out.append((f"{path.name} conservative off",
+                        text.replace("lmax 8\n", "lmax 8 conservative off\n"),
+                        run, thermo))
+    return out
+
+
+def deck_examples_phase(dev):
+    """Every example deck through ``spherharm_tpu_torch.io.deck`` on the card
+    (counters set to 0 just before, read just after) and on the CPU: thermo
+    etot, ke and pe_pair within rtol 2e-3 (a floor of 1e-7 |etot| for
+    zeros), positions in the last dump frame and of every particle at the
+    end within 1e-3, the same ids and atom counts in every dump frame;
+    overflow 0, but for DECKS_THAT_OVERFLOW, which overflow in the
+    reference as well (there the same count on the card and the CPU).
+    Returns {label: launches}."""
+    import shutil
+
+    import torch
+
+    from torch_port_util import cut_deck
+
+    from spherharm_tpu_torch.io.deck import DeckRunner
+    from spherharm_tpu_torch.io.dump import read_dump
+
+    launched = {}
+    for label, text, run, thermo in deck_cuts():
+        runs = []  # the card's run, then the CPU's
+        for device in (dev, torch.device("cpu")):
+            out_dir = DECK_DIR / label.replace(" ", "_") / device.type
+            shutil.rmtree(out_dir, ignore_errors=True)
+            out_dir.mkdir(parents=True)
+            deck = cut_deck(text, out_dir, run, thermo, DECK_DUMP_EVERY)
+            if device == dev:
+                torch.cuda.synchronize()
+                reset_counts()
+            t0 = time.perf_counter()
+            r = DeckRunner(device=device).run_text(deck)
+            if device == dev:
+                torch.cuda.synchronize()
+                launched[label] = launch_counts()
+            secs = time.perf_counter() - t0
+            act = r.state.active.cpu().numpy()
+            tag = r.state.tag.cpu().numpy()[act]
+            frames = [read_dump(d[1]) for d in r.dumps]
+            runs.append((r, r.state.x.cpu().numpy()[act][np.argsort(tag)], frames))
+            print(f"deck {label} on {device.type}: n={int(act.sum())} "
+                  f"steps={r.total_steps} {secs:.2f}s overflow={int(r.neigh.overflow)}"
+                  + (f" launches={ {k: v for k, v in launched[label].items() if v} }"
+                     if device == dev else ""))
+        (g, xg, fg), (c, xc, fc) = runs
+        # Two example decks overflow in the reference too (ROADMAP Queue 3,
+        # tests/test_torch_deck.py::test_example_overflows_as_reference):
+        # the card must truncate as the CPU does.
+        ovf = (int(g.neigh.overflow), int(c.neigh.overflow))
+        require(ovf[0] == ovf[1] and (ovf[0] == 0 or label.split()[0]
+                                      in DECKS_THAT_OVERFLOW),
+                f"deck {label}: overflow {ovf[0]} on the card, {ovf[1]} on the CPU")
+        rows_g, rows_c = g.thermo_log.rows, c.thermo_log.rows
+        require(len(rows_g) == len(rows_c) >= 2, f"deck {label}: thermo rows "
+                f"{len(rows_g)} on the card, {len(rows_c)} on the CPU")
+        floor = 1e-7 * max(abs(row["etot"]) for row in rows_c)
+        worst = {k: max(abs(a[k] - b[k]) / max(abs(b[k]), floor)
+                        for a, b in zip(rows_g, rows_c))
+                 for k in ("etot", "ke", "pe_pair")}
+        require(all(a["step"] == b["step"] and a["n"] == b["n"]
+                    for a, b in zip(rows_g, rows_c)), f"deck {label}: thermo steps")
+        dx = float(np.abs(xg - xc).max())
+        dump_dx = 0.0
+        for a, b in zip(fg, fc):
+            require(len(a) == len(b) >= 2 and all(
+                fa["n"] == fb["n"] and fa["step"] == fb["step"]
+                and np.array_equal(fa["data"]["id"], fb["data"]["id"])
+                for fa, fb in zip(a, b)), f"deck {label}: dump frames differ")
+            dump_dx = max(dump_dx, max(float(np.abs(a[-1]["data"][k]
+                                                    - b[-1]["data"][k]).max())
+                                       for k in ("x", "y", "z")))
+        print(f"deck {label}, card vs CPU: "
+              + " ".join(f"{k} rel {v:.2e}" for k, v in worst.items())
+              + f" (pe_pair {rows_c[0]['pe_pair']:.6g} -> {rows_c[-1]['pe_pair']:.6g}) "
+              f"max|dx| {dx:.3g}, last dump frame {dump_dx:.3g} "
+              f"({sum(len(a) for a in fg)} frames; tol: rel 2e-3, dx 1e-3)")
+        require(max(worst.values()) <= 2e-3 and dx <= 1e-3 and dump_dx <= 1e-3,
+                f"deck {label}: card and CPU disagree")
+    return launched
+
+
+# The full-size drum deck: examples/drum.in command for command, its
+# geometry scaled (box, drum radius 100, end planes at y = +-52, lattice
+# pitch 2.2 over a fill 140 x 98 x 68 below the axis); 60 steps, thermo
+# every 20, one dump after the run (all default columns).
+DRUM_DECK = """\
+units           lj
+dimension       3
+boundary        f f f
+atom_style      spherharm
+
+region          box block -101 101 -53 53 -101 101
+create_box      2 box
+shape           1 blob 11 0.12
+shape           2 blob 12 0.12
+density         1 1.0
+density         2 1.0
+
+lattice         sc 2.2
+region          fill block -70 70 -49 49 -70 -2
+create_atoms    1 region fill seed 3 scale 0.8 1.2
+
+pair_style      spherharm 1e5 2.857e4 50.0 25.0 0.5 lmax 8
+pair_coeff      * *
+neighbor        0.25 bin
+
+fix             1 all nve/sh
+fix             2 all gravity 10.0 vector 0 0 -1
+fix             3 all wall/gran cylinder 0 0 0  0 1 0  100.0 0.5
+fix             4 all wall/gran plane 0 -52 0  0 1 0
+fix             5 all wall/gran plane 0 52 0  0 -1 0
+
+timestep        1e-4
+thermo          20
+run             60
+dump            1 all custom 1 {dump}
+run             0
+"""
+DRUM_DECK_STEPS = 60
+
+
+def deck_drum_phase(dev, smi, profiling):
+    """DRUM_DECK on the card through ``DeckRunner`` (counters set to 0 just
+    before the deck, read just after): particle-steps/s from the host
+    clock (synchronized) between the thermo rows of steps 0 and 60 (the
+    set-up before step 0 timed apart); pe_pair at the start and the end;
+    the dump's bytes, its formatter and the seconds of one more
+    ``write_dump`` of the final state (the same bytes). Guards: overflow 0,
+    finite etot, pe_pair > 0 at step 0, K1, K6 and K7 launched, the native
+    formatter, ``read_dump`` giving n rows whose ids are the tags. Returns
+    (launches, runner, seconds a step)."""
+    import torch
+
+    from spherharm_tpu_torch.io import dump
+    from spherharm_tpu_torch.io.deck import DeckRunner
+
+    DECK_DIR.mkdir(parents=True, exist_ok=True)
+    path = DECK_DIR / "drum_full.dump"
+    r = DeckRunner(device=dev)
+    stamps = []
+    log = r.thermo_log.log
+
+    def stamped(row):  # the device is idle once the row reached the host
+        torch.cuda.synchronize()
+        stamps.append(time.perf_counter())
+        log(row)
+
+    r.thermo_log.log = stamped
+    torch.cuda.synchronize()
+    reset_counts()
+    t0 = time.perf_counter()
+    r.run_text(DRUM_DECK.format(dump=path))
+    torch.cuda.synchronize()
+    launches = launch_counts()
+    rows = r.thermo_log.rows
+    n = int(r.state.n_active)
+    step_s = (stamps[3] - stamps[0]) / DRUM_DECK_STEPS
+    t1 = time.perf_counter()
+    dump_fmt = dump.write_dump(DECK_DIR / "drum_full_again.dump", r.state, r.sim.shapes,
+                               periodic=r.periodic)
+    write_s = time.perf_counter() - t1
+    nbytes = path.stat().st_size
+    frames = dump.read_dump(path)
+    act = r.state.active.cpu().numpy()
+    tags = np.sort(r.state.tag.cpu().numpy()[act])
+    overflow = int(r.neigh.overflow)
+    print(f"deck drum full: n={n} lmax={r.sim.shapes.lmax} grid={r.sim.grid.dims} "
+          f"pair_cap={r.sim.pair_capacity} k_max={r.sim.k_max} "
+          f"cell_cap={r.sim.cell_cap}; set-up {stamps[0] - t0:.2f}s; "
+          f"{DRUM_DECK_STEPS} steps (thermo every 20 included) in "
+          f"{DRUM_DECK_STEPS * step_s:.3f}s -> {n / step_s:.1f} particle-steps/s "
+          f"[{smi}] overflow={overflow} pe_pair {rows[0]['pe_pair']:.6g} -> "
+          f"{rows[3]['pe_pair']:.6g} etot {rows[0]['etot']:.6g} -> "
+          f"{rows[3]['etot']:.6g} launches={ {k: v for k, v in launches.items() if v} }")
+    print(f"deck drum full dump: {nbytes} bytes, formatter {r.dump_formatters}, "
+          f"one more write_dump {write_s:.3f}s ({dump_fmt}), read back "
+          f"{[f['n'] for f in frames]} rows")
+    require(overflow == 0, f"deck drum full: overflow (channel={overflow})")
+    require(all(math.isfinite(row["etot"]) for row in rows), "deck drum full: "
+            "non-finite etot")
+    require(rows[0]["pe_pair"] > 0, "deck drum full: no pair contact at step 0")
+    require(all(launches[k] > 0 for k in ("pair_contact_conservative", "wall_cylinder",
+                                          "wall_plane")),
+            f"deck drum full: a kernel of the path never launched: {launches}")
+    require(r.dump_formatters == ["native"] and dump_fmt == "native",
+            f"deck drum full: dump formatter {r.dump_formatters}")
+    require(len(frames) == 1 and frames[0]["n"] == n
+            and np.array_equal(np.sort(frames[0]["data"]["id"]), tags)
+            and np.array_equal(frames[0]["data"]["id"], tags),
+            "deck drum full: the dump does not read back as the state's tags")
+    require((DECK_DIR / "drum_full_again.dump").read_bytes() == path.read_bytes(),
+            "deck drum full: write_dump of the same state wrote other bytes")
+    if profiling:
+        profile_path("deck drum full", r.sim, r.state, r.neigh, step_s, smi)
+    return launches, r, step_s
+
+
 CHILD_TAG = "BF16_CHILD_RESULT "
 
 
@@ -1268,6 +1508,17 @@ def main(argv):
     del tri, tri_st0, tst, tng
     torch.cuda.empty_cache()
 
+    # The deck runner: every example deck on the card and on the CPU, then
+    # the full-size drum deck on the card.
+    t0 = time.perf_counter()
+    l_decks = deck_examples_phase(dev)
+    print(f"deck examples phase: {time.perf_counter() - t0:.1f}s")
+    l_deck_drum, runner, _ = deck_drum_phase(dev, smi, profiling)
+    stage2_list_phase("deck drum full", runner.sim, runner.state, runner.neigh, kern,
+                      bf16s=(False,), case_tag="deck drum full pair list")
+    del runner
+    torch.cuda.empty_cache()
+
     # The drift gas (periodic, no walls): f32 here, bf16 stage-2 in a child
     # process under SPHERHARM_STAGE2_BF16=1 (with the deposition).
     gst, gng, l_gas, samples, slope, step_s = drift_path(
@@ -1308,7 +1559,8 @@ def main(argv):
            "wall_plane": ("spherharm_tpu_torch/csrc/wall_contact.cu",
                           "spherharm_tpu/ops/walls_pallas.py:139")}
     by_path = {"drum": l_drum, "deposition": l_dep, "settling box": l_box,
-               "triaxial": l_tri, "drift gas": l_gas}
+               "triaxial": l_tri, "drift gas": l_gas, "deck drum full": l_deck_drum,
+               **{f"deck {label}": n for label, n in l_decks.items()}}
     counted = {k: [(p, n[k]) for p, n in by_path.items() if n[k]] for k in src}
     counted.update({k: [(p, child[c][k]) for p, c in (("drift gas", "gas"),
                                                       ("deposition", "deposition"))

@@ -33,6 +33,12 @@ def _to_tensor(a, device):
     return torch.tensor(a.astype(np.float32), device=device)
 
 
+def to_numpy(a):
+    """A tensor (on any device) or array-like as a numpy array on the host:
+    the inverse of ``from_numpy``'s conversion, for the I/O modules."""
+    return a.detach().cpu().numpy() if hasattr(a, "detach") else np.asarray(a)
+
+
 class _Container:
     """replace / from_numpy shared by the tensor dataclasses."""
 

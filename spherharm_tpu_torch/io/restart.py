@@ -16,7 +16,8 @@ import os
 
 import numpy as np
 
-from spherharm_tpu_torch.core.state import NeighborState, SimParams, State
+from spherharm_tpu_torch.core.state import (NeighborState, SimParams, State,
+                                            to_numpy)
 
 
 def _fields(cls):
@@ -28,21 +29,17 @@ _NEIGH_FIELDS = _fields(NeighborState)
 _PARAM_FIELDS = _fields(SimParams)
 
 
-def _np(v):
-    return v.detach().cpu().numpy() if hasattr(v, "detach") else np.asarray(v)
-
-
 def write_restart(path, state: State, neigh: NeighborState | None,
                   params: SimParams, extra: dict | None = None):
     """Serialize (state, neighbours + history, params) to one .npz file;
     ``neigh=None`` writes a state-only checkpoint."""
-    blob = {f"state.{f}": _np(getattr(state, f)) for f in _STATE_FIELDS}
+    blob = {f"state.{f}": to_numpy(getattr(state, f)) for f in _STATE_FIELDS}
     for f in _NEIGH_FIELDS if neigh is not None else ():
-        blob[f"neigh.{f}"] = _np(getattr(neigh, f))
+        blob[f"neigh.{f}"] = to_numpy(getattr(neigh, f))
     for f in _PARAM_FIELDS:
-        blob[f"params.{f}"] = _np(getattr(params, f))
+        blob[f"params.{f}"] = to_numpy(getattr(params, f))
     for k, v in (extra or {}).items():
-        blob[f"extra.{k}"] = _np(v)
+        blob[f"extra.{k}"] = to_numpy(v)
     np.savez_compressed(path, **blob)
 
 

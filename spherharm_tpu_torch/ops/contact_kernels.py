@@ -148,8 +148,16 @@ def pair_contact(packed, tbl, cap, par, lmax: int, conservative: bool = True,
     if bf16 is None:
         bf16 = STAGE2_BF16
     if packed.device.type == "cpu":
-        return pair_contact_plain(packed, tbl, cap, par, lmax, conservative,
-                                  bf16)
+        # Rows are independent and masked rows are zeros: the twin runs on
+        # the live rows only (a fixed-capacity list is mostly dead slots).
+        live = torch.nonzero(_col(packed, "mask") > 0.5).squeeze(1)
+        if live.numel() == packed.shape[0]:
+            return pair_contact_plain(packed, tbl, cap, par, lmax,
+                                      conservative, bf16)
+        out = packed.new_zeros((packed.shape[0], N_OUT))
+        out[live] = pair_contact_plain(packed[live], tbl, cap, par, lmax,
+                                       conservative, bf16)
+        return out
     _check_cuda("pair_contact", packed=packed, tbl=tbl, cap=cap, par=par)
     P, T, W, G = packed.shape[0], tbl.shape[0], tbl.shape[1], cap.shape[1]
     if (packed.shape[1] != F_PACK or cap.shape[0] != 4

@@ -484,3 +484,35 @@ def test_sheared_triaxial_step_on_card_matches_cpu(cuda_device):
         np.testing.assert_allclose(card[k], cpu[k], rtol=1e-6, atol=1e-6,
                                    err_msg=k)
     np.testing.assert_array_equal(card["image"], cpu["image"])
+
+
+def test_deck_two_body_cli_on_card(cuda_device, tmp_path):
+    """``examples/two_body.in`` through the deck CLI with ``--device cuda``:
+    the head-on elastic collision swaps the velocities (the reference's
+    tests/test_io.py::test_deck_two_body), read from the last dump frame;
+    thermo rows on cadence; etot kept within 5e-3."""
+    import subprocess
+    import sys
+
+    from torch_port_util import EXAMPLES, cut_deck
+
+    from spherharm_tpu_torch.io.dump import read_dump
+
+    deck = tmp_path / "two_body.in"
+    deck.write_text(cut_deck((EXAMPLES / "two_body.in").read_text(),
+                             tmp_path, 3000, 250, 500))
+    out = subprocess.run(
+        [sys.executable, "-m", "spherharm_tpu_torch.io.deck", "--device",
+         "cuda", str(deck)], capture_output=True, text=True, timeout=600,
+        cwd=EXAMPLES.parent)
+    assert out.returncode == 0, out.stderr
+    rows = [ln.split() for ln in out.stdout.splitlines()[1:]]
+    assert [int(r[0]) for r in rows] == list(range(0, 3001, 250))
+    etot = [float(r[7]) for r in rows]
+    assert abs(etot[-1] - etot[0]) / abs(etot[0]) < 5e-3
+    frames = read_dump(tmp_path / "two_body.dump")
+    assert [f["step"] for f in frames] == list(range(0, 3001, 500))
+    last = frames[-1]["data"]
+    np.testing.assert_array_equal(last["id"], [1, 2])
+    assert last["vx"][0] == pytest.approx(-1.0, abs=5e-3)
+    assert last["vx"][1] == pytest.approx(1.0, abs=5e-3)

@@ -6,15 +6,18 @@ triaxial cell too (tolerances as tests/test_torch_scenarios.py: energies
 rtol 2e-3, positions 1e-3)."""
 
 import jax
+import pytest
+import torch
 import numpy as np
 
 from spherharm_tpu.io import restart as jrestart
 from spherharm_tpu.models import scenarios as jscen
 from spherharm_tpu_torch.io import restart, thermo_log
-from spherharm_tpu_torch.models import scenarios
+from spherharm_tpu_torch.models import scenarios, shapes_library
 
 from test_torch_triclinic import triaxial_pair
-from torch_port_util import contact_rich_state, np32, pressed_box_state
+from torch_port_util import (contact_rich_state, np32, pressed_box_state,
+                             to_torch)
 
 
 def test_restart_roundtrip_bitexact(tmp_path):
@@ -142,3 +145,116 @@ def test_thermo_log_roundtrip(tmp_path):
     np.testing.assert_allclose([r[7] for r in rows], log.series("etot"),
                                rtol=1e-5)
     assert "neigh_overflow" in log.rows[0] and "stress" not in log.rows[0]
+
+
+# -- dump, coeff and data files (tests/test_io.py, tests/test_native.py) ----
+
+
+def _jax_and_port_states():
+    """A JAX settling box (n = 8) with motion and spin, and the same state
+    and shapes as the port's containers."""
+    from spherharm_tpu_torch.core.state import Shapes, State
+
+    jsim, js, _ = jscen.settling_box(n=8, k_max=8)
+    rng = np.random.default_rng(5)
+    js = js.replace(
+        v=jax.numpy.asarray(rng.normal(size=js.v.shape), np.float32),
+        angmom=jax.numpy.asarray(rng.normal(size=js.angmom.shape) * 0.1,
+                                 np.float32),
+        step=js.step + 7)
+    return jsim, js, to_torch(Shapes, jsim.shapes), to_torch(State, js)
+
+
+def test_dump_files_match_reference_bytes(tmp_path):
+    """The port's dump of a state is the JAX package's dump of the same
+    state, byte for byte (two frames, default and custom columns, a
+    per-atom extra column); each package reads the other's."""
+    from spherharm_tpu.io import dump as jdump
+    from spherharm_tpu_torch.io import dump
+
+    jsim, js, tshapes, ts = _jax_and_port_states()
+    extra = np.arange(ts.cap, dtype=np.float32) * 0.5
+    cols = ("id", "type", "x", "z", "radius", "scale", "c_k")
+    for pkg, st, sh, ex in (("jax", js, jsim.shapes, extra),
+                            ("port", ts, tshapes, torch.as_tensor(extra))):
+        mod = jdump if pkg == "jax" else dump
+        mod.write_dump(tmp_path / f"{pkg}.dump", st, sh,
+                       periodic=(True, False, False))
+        mod.write_dump(tmp_path / f"{pkg}.dump", st, sh, columns=cols,
+                       append=True, extra={"c_k": ex})
+    raw = (tmp_path / "port.dump").read_bytes()
+    assert raw == (tmp_path / "jax.dump").read_bytes()
+    assert raw.startswith(b"ITEM: TIMESTEP\n7\nITEM: NUMBER OF ATOMS\n8\n")
+    for reader in (dump.read_dump, jdump.read_dump):
+        for pkg in ("jax", "port"):
+            a, b = reader(tmp_path / f"{pkg}.dump")
+            assert a["columns"] == list(dump.DEFAULT_COLUMNS)
+            assert b["columns"] == list(cols) and b["step"] == 7
+            np.testing.assert_array_equal(a["data"]["id"], np.arange(1, 9))
+            np.testing.assert_allclose(a["data"]["vx"], np32(ts.v)[:, 0],
+                                       rtol=1e-7)
+            np.testing.assert_allclose(b["data"]["c_k"], extra[:8])
+
+
+def test_native_formatter_matches_python(tmp_path):
+    """The port's native C++ formatter writes the Python formatter's bytes
+    (tests/test_native.py's parity, on the two-body state and on rows at
+    the edges of %.8g), and ``write_dump`` says which one wrote."""
+    from spherharm_tpu_torch import native
+    from spherharm_tpu_torch.io import dump
+
+    if native.get_lib() is None:
+        pytest.skip("g++ unavailable")
+    rows = np.asarray([[1.0, 2.0, 0.5], [2.0, 1.0, -0.25]])
+    assert native.format_dump_rows(rows, [1, 1, 0], "HDR\n") == \
+        b"HDR\n1 2 0.5\n2 1 -0.25\n"
+    np.testing.assert_allclose(
+        native.parse_table("1 2.5 -3e4\n7 0.125 9\n", 2, 3),
+        [[1, 2.5, -3e4], [7, 0.125, 9]])
+    rng = np.random.default_rng(0)
+    mat = np.concatenate([np.arange(1, 7)[:, None], rng.integers(1, 3, (6, 1)),
+                          [[1e-30], [-123456789.0], [0.1], [-0.0], [3e38],
+                           [1.0 / 3.0]]], axis=1)
+    cols = ("id", "type", "x")
+    hdr = "ITEM: ATOMS id type x\n"
+    assert native.format_dump_rows(mat, [1, 1, 0], hdr) == \
+        dump._format_rows_python(mat, cols, hdr)
+    sim, st, _ = scenarios.two_body_collision(device="cpu")
+    assert dump.write_dump(tmp_path / "two.dump", st, sim.shapes) == "native"
+    c = dump._column_data(st, sim.shapes, dump.DEFAULT_COLUMNS)
+    m = np.stack([c[k] for k in dump.DEFAULT_COLUMNS], axis=1)
+    assert (tmp_path / "two.dump").read_bytes().endswith(
+        dump._format_rows_python(m, dump.DEFAULT_COLUMNS, ""))
+
+
+def test_coeff_and_data_files_match_reference_bytes(tmp_path):
+    """Coefficient and data files the port writes are the JAX package's
+    bytes for the same inputs; each package reads the other's, and the
+    port's data file round-trips the state."""
+    from spherharm_tpu.io import data as jdata
+    from spherharm_tpu_torch.io import data
+
+    lmax = 6
+    c = shapes_library.blob_coeffs(lmax, seed=4)
+    jdata.write_coeff_file(tmp_path / "j.sh", c, lmax)
+    data.write_coeff_file(tmp_path / "t.sh", torch.as_tensor(c), lmax)
+    assert (tmp_path / "t.sh").read_bytes() == (tmp_path / "j.sh").read_bytes()
+    for path in ("j.sh", "t.sh"):
+        c2, lmax2 = data.read_coeff_file(tmp_path / path)
+        assert lmax2 == lmax
+        np.testing.assert_allclose(c2, c, rtol=1e-15)
+
+    _, js, _, ts = _jax_and_port_states()
+    jdata.write_data_file(tmp_path / "j.data", js)
+    data.write_data_file(tmp_path / "t.data", ts)
+    assert (tmp_path / "t.data").read_bytes() == \
+        (tmp_path / "j.data").read_bytes()
+    d, dj = (data.read_data_file(tmp_path / "j.data"),
+             jdata.read_data_file(tmp_path / "t.data"))
+    assert sorted(d) == sorted(dj)
+    for k in d:
+        np.testing.assert_array_equal(d[k], dj[k])
+    assert d["x"].shape == (8, 3)
+    for f in ("x", "v", "q", "angmom", "scale"):
+        np.testing.assert_allclose(d[f], np32(getattr(ts, f)), rtol=1e-6)
+

@@ -174,6 +174,9 @@ def test_import_without_jax():
         "import spherharm_tpu_torch\n"
         "from spherharm_tpu_torch.models import scenarios\n"
         "from spherharm_tpu_torch.ops import contact_kernels, walls_kernels\n"
+        "from spherharm_tpu_torch.ops import sh_math\n"
+        "from spherharm_tpu_torch.io import data, deck, dump\n"
+        "from spherharm_tpu_torch import native\n"
         "assert not any(m == 'jax' or m.startswith(('jax.', 'spherharm_tpu.'))"
         " for m in sys.modules if sys.modules[m] is not None)\n"
         "print('ok')\n"

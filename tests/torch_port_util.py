@@ -8,6 +8,8 @@ from __future__ import annotations
 
 import dataclasses
 import os
+import re
+from pathlib import Path
 
 import numpy as np
 import pytest
@@ -120,6 +122,33 @@ def triaxial_state(st0, device, overlap=0.02, xy_frac=0.0):
     return scenarios.make_state(
         x, lo, hi, v=np32(st0.v), q=np32(st0.q), shtype=np32(st0.shtype),
         tilt=[xy_frac * (hi[0] - lo[0]), 0.0, 0.0], device=device), c
+
+
+EXAMPLES = Path(__file__).resolve().parents[1] / "examples"
+
+
+def deck_setup_and_rest(text):
+    """Split a deck before its first ``run`` or ``label`` line."""
+    m = re.search(r"^(run|label)\b", text, re.M)
+    return text[:m.start()], text[m.start():]
+
+
+def cut_deck(text, out_dir, run, thermo, dump_every=None, subs=()):
+    """An example deck cut to size: ``subs`` (old, new) replaced verbatim
+    first, then each ``run`` to ``run`` steps, the thermo and dump cadences
+    (dump: ``thermo``'s unless given) shortened, dump files from ``/tmp/``
+    into ``out_dir``, and the example data file by absolute path."""
+    dump_every = dump_every or thermo
+    for old, new in subs:
+        if old not in text:
+            raise ValueError(f"cut_deck: {old!r} not in the deck")
+        text = text.replace(old, new)
+    text = re.sub(r"^run\s+\d+", f"run {run}", text, flags=re.M)
+    text = re.sub(r"^thermo\s+\d+", f"thermo {thermo}", text, flags=re.M)
+    text = re.sub(r"^(dump\s+\S+\s+\S+\s+custom\s+)\d+\s+/tmp/",
+                  rf"\g<1>{dump_every} {out_dir}/", text, flags=re.M)
+    return text.replace("examples/two_body.data",
+                        str(EXAMPLES / "two_body.data"))
 
 
 @pytest.fixture
