@@ -459,6 +459,99 @@ def case(results, name, tag, lmax, G, rows, err, time_kernel, time_plain, work,
     results.setdefault(name, []).append(c)
 
 
+def pair_batch(results, conservative, tag, path, dev, rng, bf16=False, params=None):
+    """K1 (``conservative``) or K2, or K3 with ``bf16``, against its plain
+    twin on N_PAIRS synthetic pairs (``contact_pairs``) of ``path``'s
+    shapes and parameters (``params``, where given): each row held to the
+    twin, the case recorded under ``tag``."""
+    import torch
+
+    from spherharm_tpu_torch.ops import contact_kernels as ck
+
+    law = "conservative" if conservative else "geometric"
+    name = f"pair_contact_{law}" + ("_bf16" if bf16 else "")
+    label = f"K{3 if bf16 else 1 if conservative else 2} {name} on {tag}"
+    lmax = path.shapes.lmax
+    st, pi, pj, mask, hist, d = contact_pairs(path, dev, rng)
+    packed, tbl, cap, par = ck.pack_pairs(st, path.shapes, params or path.params,
+                                          pi, pj, mask, hist, d)
+    if params is not None:
+        kn = packed[:, ck.SLOTS["mat"][0]].unique()
+        print(f"{label}: pair_tab {tuple(params.pair_tab.shape)}, row kn values "
+              f"{[float(k) for k in kn]}")
+        require(kn.numel() > 1, f"{label}: every row has the same material")
+    out = ck.pair_contact(packed, tbl, cap, par, lmax, conservative, bf16)
+    ref = ck.pair_contact_plain(packed, tbl, cap, par, lmax, conservative, bf16)
+    torch.cuda.synchronize()
+    n_contact = int((ref[:, 16] > 0.5).sum())
+    fmag = float(ref[:, 0:3].abs().max())
+    # The conservative law is not smooth at the ulp level: d(s1) jumps
+    # when a cap node crosses the partner's surface, so rounding alone
+    # moves a few rows by up to ~1% (the plain twin itself, on inputs
+    # perturbed by 2e-7 relative: 3 of 16,384 rows beyond 1e-4 |F|max,
+    # the worst by 1% of its row): 0.1% of rows may exceed 1e-4, none
+    # 2e-2. The geometric law holds every row to the reference's own
+    # bound, 2e-3 |F|max (tests/test_pallas.py). K3 rounds its chains
+    # as its twin does, op for op, but where an f32-ulp difference in
+    # a node's cos(theta) crosses a bf16 rounding boundary the chains
+    # differ by a bf16 ulp (first card run: at most 4 of 16,384 rows
+    # beyond 1e-4 |F|max, the worst 5.1e-4; pe 3 rows beyond 1e-4): in
+    # both laws 0.1% of rows may exceed 1e-4, none 2e-2.
+    ok, err, flips, text = compare(
+        out, ref, 9, 1e-4 if conservative or bf16 else 2e-3,
+        N_PAIRS // 1000 if conservative or bf16 else 0)
+    G = cap.shape[1]
+    print(f"{label}: P={N_PAIRS} lmax={lmax} G={G} contacts={n_contact} "
+          f"|F|max={fmag:.4g} {text}")
+    require(n_contact > N_PAIRS // 4, f"{label}: batch has too few contacts")
+    require(torch.isfinite(out).all(), f"{label}: output not finite")
+    require(ok, f"{label}: disagrees with its plain twin")
+    require(flips <= N_PAIRS // 1000, f"{label}: contact flags disagree")
+    case(results, name, tag, lmax, G, N_PAIRS, err,
+         lambda: ck.pair_contact(packed, tbl, cap, par, lmax, conservative, bf16),
+         lambda: ck.pair_contact_plain(packed, tbl, cap, par, lmax, conservative,
+                                       bf16),
+         int((packed[:, ck.SLOTS["mask"][0]] > 0.5).sum()),
+         nbytes(packed, tbl, cap, par, out))
+
+
+def wall_batch(results, kind, tag, path, wall, B, dev, rng):
+    """K6 (``kind`` "cylinder") or K7 against its plain twin on B synthetic
+    particles of ``path``'s shapes touching ``wall`` (``wall_particles``),
+    the case recorded under ``tag``."""
+    import torch
+
+    from spherharm_tpu_torch.ops import walls_kernels as wk
+    from spherharm_tpu_torch.ops.rotation import omega_from_angmom
+
+    label = f"K{6 if kind == 'cylinder' else 7} wall[{kind}] on {tag}"
+    lmax = path.shapes.lmax
+    ws = wall_particles(path, wall, kind, B, dev, rng)
+    depth_c, n_c = wall.depth_and_normal(ws.x)
+    om = omega_from_angmom(ws.q, ws.angmom, path.shapes.inertia_of(ws.shtype, ws.scale))
+    whist = torch.as_tensor(rng.normal(size=(B, 6)) * 1e-4, dtype=torch.float32,
+                            device=dev)
+    args = wk.pack_wall(ws, path.shapes, path.params, wall, whist, depth_c, n_c, om)
+    require(args[4] == kind, f"pack_wall picked {args[4]} for {kind}")
+    out = wk.wall_contact_kernel(*args[:4], lmax, kind)
+    ref = wk.wall_contact_plain(*args[:4], lmax, kind)
+    torch.cuda.synchronize()
+    n_contact = int((ref[:, 13] > 0.5).sum())
+    fmag = float(ref[:, 0:3].abs().max())
+    ok, err, flips, text = compare(out, ref, 6, 1e-4)
+    G = args[2].shape[1]
+    print(f"{label}: B={B} lmax={lmax} G={G} contacts={n_contact} "
+          f"|F|max={fmag:.4g} {text}")
+    require(n_contact > B // 4, f"{label}: batch has too few contacts")
+    require(torch.isfinite(out).all(), f"{label}: output not finite")
+    require(ok, f"{label}: disagrees with its plain twin")
+    require(flips <= max(B // 1000, 1), f"{label}: contact flags disagree")
+    case(results, f"wall_{kind}", tag, lmax, G, B, err,
+         lambda: wk.wall_contact_kernel(*args[:4], lmax, kind),
+         lambda: wk.wall_contact_plain(*args[:4], lmax, kind),
+         int((args[0][:, 16] > 0.5).sum()), nbytes(*args[:4], out))
+
+
 def kernel_phase(sim, dep, box, gas, tri, dev):
     """Every kernel vs its plain twin at the shapes each path gives it
     (the drum ``sim``, the deposition ``dep``, the settling box ``box``,
@@ -468,70 +561,23 @@ def kernel_phase(sim, dep, box, gas, tri, dev):
     import torch
 
     from spherharm_tpu_torch.ops import contact_kernels as ck
-    from spherharm_tpu_torch.ops import walls_kernels as wk
-    from spherharm_tpu_torch.ops.rotation import omega_from_angmom
 
     rng = np.random.default_rng(7)
     results = {}
     mask_col = ck.SLOTS["mask"][0]
-
-    def pair_law(conservative, tag, path, bf16=False, params=None):
-        law = "conservative" if conservative else "geometric"
-        name = f"pair_contact_{law}" + ("_bf16" if bf16 else "")
-        label = f"K{3 if bf16 else 1 if conservative else 2} {name} on {tag}"
-        lmax = path.shapes.lmax
-        st, pi, pj, mask, hist, d = contact_pairs(path, dev, rng)
-        packed, tbl, cap, par = ck.pack_pairs(st, path.shapes, params or path.params,
-                                              pi, pj, mask, hist, d)
-        if params is not None:
-            kn = packed[:, ck.SLOTS["mat"][0]].unique()
-            print(f"{label}: pair_tab {tuple(params.pair_tab.shape)}, row kn values "
-                  f"{[float(k) for k in kn]}")
-            require(kn.numel() > 1, f"{label}: every row has the same material")
-        out = ck.pair_contact(packed, tbl, cap, par, lmax, conservative, bf16)
-        ref = ck.pair_contact_plain(packed, tbl, cap, par, lmax, conservative, bf16)
-        torch.cuda.synchronize()
-        n_contact = int((ref[:, 16] > 0.5).sum())
-        fmag = float(ref[:, 0:3].abs().max())
-        # The conservative law is not smooth at the ulp level: d(s1) jumps
-        # when a cap node crosses the partner's surface, so rounding alone
-        # moves a few rows by up to ~1% (the plain twin itself, on inputs
-        # perturbed by 2e-7 relative: 3 of 16,384 rows beyond 1e-4 |F|max,
-        # the worst by 1% of its row): 0.1% of rows may exceed 1e-4, none
-        # 2e-2. The geometric law holds every row to the reference's own
-        # bound, 2e-3 |F|max (tests/test_pallas.py). K3 rounds its chains
-        # as its twin does, op for op, but where an f32-ulp difference in
-        # a node's cos(theta) crosses a bf16 rounding boundary the chains
-        # differ by a bf16 ulp (first card run: at most 4 of 16,384 rows
-        # beyond 1e-4 |F|max, the worst 5.1e-4; pe 3 rows beyond 1e-4): in
-        # both laws 0.1% of rows may exceed 1e-4, none 2e-2.
-        ok, err, flips, text = compare(
-            out, ref, 9, 1e-4 if conservative or bf16 else 2e-3,
-            N_PAIRS // 1000 if conservative or bf16 else 0)
-        G = cap.shape[1]
-        print(f"{label}: P={N_PAIRS} lmax={lmax} G={G} contacts={n_contact} "
-              f"|F|max={fmag:.4g} {text}")
-        require(n_contact > N_PAIRS // 4, f"{label}: batch has too few contacts")
-        require(torch.isfinite(out).all(), f"{label}: output not finite")
-        require(ok, f"{label}: disagrees with its plain twin")
-        require(flips <= N_PAIRS // 1000, f"{label}: contact flags disagree")
-        case(results, name, tag, lmax, G, N_PAIRS, err,
-             lambda: ck.pair_contact(packed, tbl, cap, par, lmax, conservative, bf16),
-             lambda: ck.pair_contact_plain(packed, tbl, cap, par, lmax, conservative,
-                                           bf16),
-             int((packed[:, mask_col] > 0.5).sum()), nbytes(packed, tbl, cap, par, out))
-
-    pair_law(True, "drum", sim)
-    pair_law(False, "deposition", dep)
-    pair_law(False, "drum shapes", sim)
-    pair_law(False, "settling box", box)
-    pair_law(False, "triaxial", tri)
-    pair_law(True, "drift gas", gas, bf16=True)
-    pair_law(False, "deposition", dep, bf16=True)
+    for conservative, tag, path, bf16 in ((True, "drum", sim, False),
+                                          (False, "deposition", dep, False),
+                                          (False, "drum shapes", sim, False),
+                                          (False, "settling box", box, False),
+                                          (False, "triaxial", tri, False),
+                                          (True, "drift gas", gas, True),
+                                          (False, "deposition", dep, True)):
+        pair_batch(results, conservative, tag, path, dev, rng, bf16=bf16)
     for conservative, tag, path in ((True, "drum two-material", sim),
                                     (False, "triaxial two-material", tri)):
-        pair_law(conservative, tag, path, params=path.params.with_pair_coeffs(
-            path.shapes.n_types, {(0, 1): TWO_MATERIAL}))
+        pair_batch(results, conservative, tag, path, dev, rng,
+                   params=path.params.with_pair_coeffs(
+                       path.shapes.n_types, {(0, 1): TWO_MATERIAL}))
 
     shapes = sim.shapes
     st, pi, pj, mask, hist, d = contact_pairs(sim, dev, rng)
@@ -568,39 +614,13 @@ def kernel_phase(sim, dep, box, gas, tri, dev):
             ("plane", "drum", sim, sim.walls[1]),
             ("plane", "deposition", dep, dep.walls[1]),
             ("plane", "settling box", box, box.walls[0])):
-        label = f"K{6 if kind == 'cylinder' else 7} wall[{kind}] on {tag}"
-        lmax = path.shapes.lmax
-        B = path.wall_capacity or N_SETTLE
-        ws = wall_particles(path, wall, kind, B, dev, rng)
-        depth_c, n_c = wall.depth_and_normal(ws.x)
-        om = omega_from_angmom(ws.q, ws.angmom,
-                               path.shapes.inertia_of(ws.shtype, ws.scale))
-        whist = torch.as_tensor(rng.normal(size=(B, 6)) * 1e-4,
-                                dtype=torch.float32, device=dev)
-        args = wk.pack_wall(ws, path.shapes, path.params, wall, whist, depth_c, n_c, om)
-        require(args[4] == kind, f"pack_wall picked {args[4]} for {kind}")
-        out = wk.wall_contact_kernel(*args[:4], lmax, kind)
-        ref = wk.wall_contact_plain(*args[:4], lmax, kind)
-        torch.cuda.synchronize()
-        n_contact = int((ref[:, 13] > 0.5).sum())
-        fmag = float(ref[:, 0:3].abs().max())
-        ok, err, flips, text = compare(out, ref, 6, 1e-4)
-        G = args[2].shape[1]
-        print(f"{label}: B={B} lmax={lmax} G={G} contacts={n_contact} "
-              f"|F|max={fmag:.4g} {text}")
-        require(n_contact > B // 4, f"{label}: batch has too few contacts")
-        require(torch.isfinite(out).all(), f"{label}: output not finite")
-        require(ok, f"{label}: disagrees with its plain twin")
-        require(flips <= max(B // 1000, 1), f"{label}: contact flags disagree")
-        case(results, f"wall_{kind}", tag, lmax, G, B, err,
-             lambda: wk.wall_contact_kernel(*args[:4], lmax, kind),
-             lambda: wk.wall_contact_plain(*args[:4], lmax, kind),
-             int((args[0][:, 16] > 0.5).sum()), nbytes(*args[:4], out))
+        wall_batch(results, kind, tag, path, wall, path.wall_capacity or N_SETTLE,
+                   dev, rng)
     return results
 
 
 def stage2_list_phase(tag, path, state, neigh, results, bf16s=(False, True),
-                      case_tag=None):
+                      case_tag=None, min_live=1000, need_contact=True):
     """The stage-2 kernels of ``path``'s law, in f32 and in bf16 (``bf16s``),
     on the path's own stage-2 list, packed from ``state`` after its run as
     ``contact.contact_force_pairs`` packs it, every slot: each kernel
@@ -608,8 +628,10 @@ def stage2_list_phase(tag, path, state, neigh, results, bf16s=(False, True),
     stage-2 list"; its bound from the list's live rows);
     the rows of that same call held to the twin on up to N_PAIRS of the
     live rows (the autograd twin's memory bound; the plain time is of
-    those rows) at the synthetic batches' tolerances, and its masked rows
-    to zero."""
+    those rows; a list with no live row, its first row) at the synthetic
+    batches' tolerances, and its masked rows to zero. Fails where the
+    list has fewer than ``min_live`` live rows, or no contact with
+    ``need_contact``."""
     import torch
 
     from spherharm_tpu_torch.ops import contact
@@ -626,10 +648,12 @@ def stage2_list_phase(tag, path, state, neigh, results, bf16s=(False, True),
     packed, tbl, cap, par = ck.pack_pairs(state, shapes, path.params, pi, pj, live,
                                           neigh.pair_hist, dp, rows=rows)
     idx = torch.nonzero(live).flatten()[:N_PAIRS]
+    if idx.numel() == 0:
+        idx = torch.zeros(1, dtype=torch.long, device=live.device)
     sub = packed[idx].contiguous()
     P, n_live, n_sub, G = packed.shape[0], int(live.sum()), sub.shape[0], cap.shape[1]
-    require(n_sub > 1000, f"{tag} list: only {n_sub} live rows")
     case_tag = case_tag or f"{tag} stage-2 list"
+    require(n_live >= min_live, f"{case_tag}: only {n_live} live rows")
     for bf16 in bf16s:
         name = f"pair_contact_{'conservative' if cons else 'geometric'}" + (
             "_bf16" if bf16 else "")
@@ -638,12 +662,12 @@ def stage2_list_phase(tag, path, state, neigh, results, bf16s=(False, True),
         ref = ck.pair_contact_plain(sub, tbl, cap, par, lmax, cons, bf16)
         torch.cuda.synchronize()
         n_contact = int((ref[:, 16] > 0.5).sum())
-        loose = cons or bf16  # as in kernel_phase's pair_law
+        loose = cons or bf16  # as in pair_batch
         ok, err, flips, text = compare(full[idx], ref, 9, 1e-4 if loose else 2e-3,
                                        n_sub // 1000 if loose else 0)
-        print(f"{label}: P={P} live={n_live} compared={n_sub} contacts={n_contact} "
-              f"|F|max={float(ref[:, 0:3].abs().max()):.4g} {text}")
-        require(n_contact > 0, f"{label}: no contact on the list")
+        print(f"{label}: P={P} lmax={lmax} G={G} live={n_live} compared={n_sub} "
+              f"contacts={n_contact} |F|max={float(ref[:, 0:3].abs().max()):.4g} {text}")
+        require(n_contact > 0 or not need_contact, f"{label}: no contact on the list")
         require(bool(torch.isfinite(full).all()), f"{label}: output not finite")
         require(bool((full[~live] == 0).all()), f"{label}: a masked row is not zero")
         require(ok, f"{label}: disagrees with its plain twin")
@@ -653,6 +677,80 @@ def stage2_list_phase(tag, path, state, neigh, results, bf16s=(False, True),
              lambda: ck.pair_contact_plain(sub, tbl, cap, par, lmax, cons, bf16),
              n_live, nbytes(packed, tbl, cap, par, full), live_rows=n_live,
              plain_rows=n_sub)
+
+
+def wall_list_phase(tag, path, state, neigh, results):
+    """K6 and K7 on ``path``'s own wall batches, packed from ``state``
+    after its run as ``walls.wall_contact`` packs them (every particle: the
+    path has no wall_capacity), for the first wall of each kind: each
+    kernel timed on the whole batch as the case "{tag} wall batch" (its
+    bound from the near rows), the rows of that same call held to the
+    twin on up to N_PAIRS rows, the near rows first (the plain time is
+    of those rows)."""
+    import torch
+
+    from spherharm_tpu_torch.ops import walls_kernels as wk
+    from spherharm_tpu_torch.ops.rotation import omega_from_angmom
+
+    require(path.wall_capacity == 0, f"{tag}: wall_list_phase packs every particle")
+    shapes, lmax = path.shapes, path.shapes.lmax
+    om = omega_from_angmom(state.q, state.angmom,
+                           shapes.inertia_of(state.shtype, state.scale))
+    done = set()
+    for w_i, wall in enumerate(path.walls):
+        depth_c, n_c = wall.depth_and_normal(state.x)
+        packed, tbl, cap, par, kind = wk.pack_wall(
+            state, shapes, path.params, wall, neigh.wall_hist[:, w_i], depth_c, n_c, om)
+        if kind in done:
+            continue
+        done.add(kind)
+        label = f"K{6 if kind == 'cylinder' else 7} wall[{kind}] on the {tag} wall batch"
+        near = packed[:, 16] > 0.5
+        idx = torch.argsort((~near).to(torch.int8), stable=True)[:N_PAIRS]
+        sub = packed[idx].contiguous()
+        full = wk.wall_contact_kernel(packed, tbl, cap, par, lmax, kind)
+        ref = wk.wall_contact_plain(sub, tbl, cap, par, lmax, kind)
+        torch.cuda.synchronize()
+        B, n_near, n_sub, G = packed.shape[0], int(near.sum()), sub.shape[0], cap.shape[1]
+        ok, err, flips, text = compare(full[idx], ref, 6, 1e-4)
+        print(f"{label}: B={B} lmax={lmax} G={G} near={n_near} compared={n_sub} "
+              f"contacts={int((ref[:, 13] > 0.5).sum())} "
+              f"|F|max={float(ref[:, 0:3].abs().max()):.4g} {text}")
+        require(bool(torch.isfinite(full).all()), f"{label}: output not finite")
+        require(ok, f"{label}: disagrees with its plain twin")
+        require(flips <= max(n_sub // 1000, 1), f"{label}: contact flags disagree")
+        case(results, f"wall_{kind}", f"{tag} wall batch", lmax, G, B, err,
+             lambda: wk.wall_contact_kernel(packed, tbl, cap, par, lmax, kind),
+             lambda: wk.wall_contact_plain(sub, tbl, cap, par, lmax, kind),
+             n_near, nbytes(packed, tbl, cap, par, full), near_rows=n_near,
+             plain_rows=n_sub)
+
+
+def deck_kernel_cases(tag, runner, results, dev, rng, example=True):
+    """Each kernel a deck launched, against its plain twin at the deck's
+    own shapes, after its card run (``runner``): its pair law on N_PAIRS
+    synthetic pairs of its shapes and pair_tab (``pair_batch``) and on its
+    own pair list ("{tag} pair list"); each wall kind on synthetic
+    particles touching its first wall of the kind (``wall_batch``: as many
+    as the deck has, at most N_PAIRS) and on its own wall batches
+    (``wall_list_phase``). An ``example`` deck's list may hold no live row
+    or contact: settling.in and shear_cell.in touch nowhere in their cut,
+    so the synthetic batches carry their check."""
+    from spherharm_tpu_torch.ops.walls import PlaneWall
+
+    sim, state, neigh = runner.sim, runner.state, runner.neigh
+    pair_batch(results, sim.conservative, tag, sim, dev, rng)
+    stage2_list_phase(tag, sim, state, neigh, results, bf16s=(False,),
+                      case_tag=f"{tag} pair list", min_live=0 if example else 1000,
+                      need_contact=not example)
+    B = min(int(state.n_active), N_PAIRS)
+    for kind in ("cylinder", "plane"):
+        wall = next((w for w in sim.walls
+                     if isinstance(w, PlaneWall) == (kind == "plane")), None)
+        if wall is not None:
+            wall_batch(results, kind, tag, sim, wall, B, dev, rng)
+    if sim.walls:
+        wall_list_phase(tag, sim, state, neigh, results)
 
 
 def candidate_list(path, state, neigh):
@@ -1078,24 +1176,26 @@ def deck_cuts():
     return out
 
 
-def deck_examples_phase(dev):
+def deck_examples_phase(dev, results):
     """Every example deck through ``spherharm_tpu_torch.io.deck`` on the card
-    (counters set to 0 just before, read just after) and on the CPU: thermo
-    etot, ke and pe_pair within rtol 2e-3 (a floor of 1e-7 |etot| for
-    zeros), positions in the last dump frame and of every particle at the
-    end within 1e-3, the same ids and atom counts in every dump frame;
+    (counters set to 0 just before, read just after) and on the CPU, held
+    together by ``torch_port_util.compare_deck_runs`` (thermo etot, ke and
+    pe_pair at rtol 2e-3, positions at the end and in each dump's last
+    frame within 1e-3, the same ids and atom counts in every dump frame);
     overflow 0, but for DECKS_THAT_OVERFLOW, which overflow in the
     reference as well (there the same count on the card and the CPU).
+    After each card run, ``deck_kernel_cases`` holds the deck's kernels to
+    their twins at its shapes (cases "deck <label>" in ``results``).
     Returns {label: launches}."""
     import shutil
 
     import torch
 
-    from torch_port_util import cut_deck
+    from torch_port_util import DECK_DX, DECK_RTOL, compare_deck_runs, cut_deck
 
     from spherharm_tpu_torch.io.deck import DeckRunner
-    from spherharm_tpu_torch.io.dump import read_dump
 
+    rng = np.random.default_rng(11)
     launched = {}
     for label, text, run, thermo in deck_cuts():
         runs = []  # the card's run, then the CPU's
@@ -1113,15 +1213,14 @@ def deck_examples_phase(dev):
                 torch.cuda.synchronize()
                 launched[label] = launch_counts()
             secs = time.perf_counter() - t0
-            act = r.state.active.cpu().numpy()
-            tag = r.state.tag.cpu().numpy()[act]
-            frames = [read_dump(d[1]) for d in r.dumps]
-            runs.append((r, r.state.x.cpu().numpy()[act][np.argsort(tag)], frames))
-            print(f"deck {label} on {device.type}: n={int(act.sum())} "
+            runs.append(r)
+            print(f"deck {label} on {device.type}: n={int(r.state.n_active)} "
                   f"steps={r.total_steps} {secs:.2f}s overflow={int(r.neigh.overflow)}"
                   + (f" launches={ {k: v for k, v in launched[label].items() if v} }"
                      if device == dev else ""))
-        (g, xg, fg), (c, xc, fc) = runs
+            if device == dev:
+                deck_kernel_cases(f"deck {label}", r, results, dev, rng)
+        g, c = runs
         # Two example decks overflow in the reference too (ROADMAP Queue 3,
         # tests/test_torch_deck.py::test_example_overflows_as_reference):
         # the card must truncate as the CPU does.
@@ -1129,32 +1228,14 @@ def deck_examples_phase(dev):
         require(ovf[0] == ovf[1] and (ovf[0] == 0 or label.split()[0]
                                       in DECKS_THAT_OVERFLOW),
                 f"deck {label}: overflow {ovf[0]} on the card, {ovf[1]} on the CPU")
-        rows_g, rows_c = g.thermo_log.rows, c.thermo_log.rows
-        require(len(rows_g) == len(rows_c) >= 2, f"deck {label}: thermo rows "
-                f"{len(rows_g)} on the card, {len(rows_c)} on the CPU")
-        floor = 1e-7 * max(abs(row["etot"]) for row in rows_c)
-        worst = {k: max(abs(a[k] - b[k]) / max(abs(b[k]), floor)
-                        for a, b in zip(rows_g, rows_c))
-                 for k in ("etot", "ke", "pe_pair")}
-        require(all(a["step"] == b["step"] and a["n"] == b["n"]
-                    for a, b in zip(rows_g, rows_c)), f"deck {label}: thermo steps")
-        dx = float(np.abs(xg - xc).max())
-        dump_dx = 0.0
-        for a, b in zip(fg, fc):
-            require(len(a) == len(b) >= 2 and all(
-                fa["n"] == fb["n"] and fa["step"] == fb["step"]
-                and np.array_equal(fa["data"]["id"], fb["data"]["id"])
-                for fa, fb in zip(a, b)), f"deck {label}: dump frames differ")
-            dump_dx = max(dump_dx, max(float(np.abs(a[-1]["data"][k]
-                                                    - b[-1]["data"][k]).max())
-                                       for k in ("x", "y", "z")))
+        rows = c.thermo_log.rows
+        err = compare_deck_runs(c, g)
         print(f"deck {label}, card vs CPU: "
-              + " ".join(f"{k} rel {v:.2e}" for k, v in worst.items())
-              + f" (pe_pair {rows_c[0]['pe_pair']:.6g} -> {rows_c[-1]['pe_pair']:.6g}) "
-              f"max|dx| {dx:.3g}, last dump frame {dump_dx:.3g} "
-              f"({sum(len(a) for a in fg)} frames; tol: rel 2e-3, dx 1e-3)")
-        require(max(worst.values()) <= 2e-3 and dx <= 1e-3 and dump_dx <= 1e-3,
-                f"deck {label}: card and CPU disagree")
+              + " ".join(f"{k} rel {err[k]:.2e}" for k in ("etot", "ke", "pe_pair"))
+              + f" (pe_pair {rows[0]['pe_pair']:.6g} -> {rows[-1]['pe_pair']:.6g}) "
+              f"max|dx| {err['x']:.3g}, last dump frame {err['dump_x']:.3g} "
+              f"({err['frames']} frames; tol: rel {DECK_RTOL}, dx {DECK_DX})")
+        require(err["ok"], f"deck {label}: card and CPU disagree")
     return launched
 
 
@@ -1331,10 +1412,10 @@ def bf16_phase():
 
 def path_case(cases, path):
     """A kernel's case for ``path``: the path's own candidate list (the
-    stage-1 probe), else its own stage-2 or pair list, else its batch, else
-    the kernel's first case."""
+    stage-1 probe), else its own stage-2 or pair list or wall batch, else
+    its synthetic batch, else the kernel's first case."""
     for tag in (f"{path} candidate list", f"{path} stage-2 list", f"{path} pair list",
-                path):
+                f"{path} wall batch", path):
         c = next((c for c in cases if c["path"] == tag), None)
         if c is not None:
             return c
@@ -1511,11 +1592,11 @@ def main(argv):
     # The deck runner: every example deck on the card and on the CPU, then
     # the full-size drum deck on the card.
     t0 = time.perf_counter()
-    l_decks = deck_examples_phase(dev)
+    l_decks = deck_examples_phase(dev, kern)
     print(f"deck examples phase: {time.perf_counter() - t0:.1f}s")
     l_deck_drum, runner, _ = deck_drum_phase(dev, smi, profiling)
-    stage2_list_phase("deck drum full", runner.sim, runner.state, runner.neigh, kern,
-                      bf16s=(False,), case_tag="deck drum full pair list")
+    deck_kernel_cases("deck drum full", runner, kern, dev, np.random.default_rng(13),
+                      example=False)
     del runner
     torch.cuda.empty_cache()
 

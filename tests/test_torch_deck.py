@@ -16,6 +16,7 @@ JAX package's (``spherharm_tpu/io/deck.py``), on the CPU.
 """
 
 import functools
+import inspect
 import subprocess
 import sys
 from pathlib import Path
@@ -26,14 +27,16 @@ import torch
 
 from spherharm_tpu.core.simulation import Simulation as JaxSimulation
 from spherharm_tpu.io import deck as jdeck
-from spherharm_tpu_torch.core.state import to_numpy
+from spherharm_tpu_torch.io import deck as tdeck
 from spherharm_tpu_torch.io.deck import (
     BlockRegion, CylinderRegion, DeckRunner as _DeckRunner, PrismRegion,
     SphereRegion,
 )
 from spherharm_tpu_torch.io.dump import read_dump
 
-from torch_port_util import EXAMPLES, cut_deck, deck_setup_and_rest, np32
+from torch_port_util import (
+    EXAMPLES, by_tag, compare_deck_runs, cut_deck, deck_setup_and_rest, np32,
+)
 
 ROOT = Path(__file__).resolve().parents[1]
 DeckRunner = functools.partial(_DeckRunner, device="cpu")
@@ -44,13 +47,6 @@ def jax_exact(monkeypatch):
     """The reference's runner with the exact surface evaluation."""
     monkeypatch.setattr(jdeck, "Simulation",
                         functools.partial(JaxSimulation, exact_eval=True))
-
-
-def _by_tag(state, field):
-    """A state field's active rows in tag order, either package's state."""
-    act = to_numpy(state.active)
-    tag = to_numpy(state.tag)[act]
-    return to_numpy(getattr(state, field))[act][np.argsort(tag)]
 
 
 def _run_both(text, tmp_path):
@@ -74,26 +70,9 @@ def _run_both(text, tmp_path):
 
 
 def _compare(j, t, keys=("etot", "ke", "pe_pair")):
-    jrows, trows = j.thermo_log.rows, t.thermo_log.rows
-    assert len(trows) == len(jrows) >= 2
-    for jr, tr in zip(jrows, trows):
-        assert tr["step"] == jr["step"] and tr["n"] == jr["n"]
-        for k in keys:
-            np.testing.assert_allclose(tr[k], jr[k], rtol=2e-3, atol=1e-9,
-                                       err_msg=f"{k} at step {jr['step']}")
-    assert int(t.state.step) == int(j.state.step)
-    np.testing.assert_allclose(_by_tag(t.state, "x"), _by_tag(j.state, "x"),
-                               rtol=0, atol=1e-3)
+    err = compare_deck_runs(j, t, keys)
+    assert err["ok"], err
     assert int(t.neigh.overflow) == int(j.neigh.overflow) == 0
-    for (_, jpath, _, _), (_, tpath, _, _) in zip(j.dumps, t.dumps):
-        jf, tf = read_dump(jpath), read_dump(tpath)
-        assert len(tf) == len(jf) >= 2
-        for a, b in zip(jf, tf):
-            assert a["step"] == b["step"] and a["n"] == b["n"]
-            np.testing.assert_array_equal(b["data"]["id"], a["data"]["id"])
-        for c in ("x", "y", "z"):
-            np.testing.assert_allclose(tf[-1]["data"][c], jf[-1]["data"][c],
-                                       rtol=0, atol=1e-3)
 
 
 # -- parity with the reference's runner -----------------------------------
@@ -105,6 +84,47 @@ def test_runners_have_the_same_commands():
     cmds = lambda cls: {n for n in dir(cls) if n.startswith("cmd_")}
     assert cmds(_DeckRunner) == cmds(jdeck.DeckRunner)
     assert len(cmds(_DeckRunner)) >= 30
+
+
+# The runner's device layer, which the port rewrites; every other member
+# is the reference's copy.
+REWRITTEN = {"__init__", "_build_shapes", "_materialize", "_outputs",
+             "cmd_read_restart", "cmd_run", "cmd_write_restart"}
+COPIED = ["DeckError", "Region", "BlockRegion", "SphereRegion", "CylinderRegion",
+          "PrismRegion"] + sorted(
+    f"DeckRunner.{n}" for n, v in vars(jdeck.DeckRunner).items()
+    if inspect.isfunction(v) and n not in REWRITTEN)
+
+
+def _source(module, member):
+    """A member's source, less the two edits the copy makes: the computes
+    module is imported at the top of the port's file, and walls are built
+    on the runner's device."""
+    obj = module
+    for part in member.split("."):
+        obj = getattr(obj, part)
+    return inspect.getsource(obj).replace(
+        "        from spherharm_tpu.core import computes as computes_mod\n\n", "").replace(
+        "mat=mat, device=self.device,", "mat=mat,")
+
+
+@pytest.mark.parametrize("member", COPIED)
+def test_copied_parser_matches_reference(member):
+    """The parser, regions, substitution, expression evaluator and every
+    command handler outside the device layer are the reference's source,
+    line for line."""
+    assert _source(tdeck, member) == _source(jdeck, member)
+
+
+def test_copied_members_are_all_of_the_runner():
+    """The port's runner has no member of its own outside the device
+    layer, and its lattice table is the reference's."""
+    funcs = lambda cls: {n for n, v in vars(cls).items() if inspect.isfunction(v)}
+    assert funcs(_DeckRunner) - REWRITTEN == funcs(jdeck.DeckRunner) - REWRITTEN
+    assert REWRITTEN <= funcs(_DeckRunner)
+    assert tdeck._LATTICE_BASIS.keys() == jdeck._LATTICE_BASIS.keys()
+    for k, v in jdeck._LATTICE_BASIS.items():
+        np.testing.assert_array_equal(tdeck._LATTICE_BASIS[k], v, err_msg=k)
 
 
 @pytest.mark.parametrize("path", sorted(EXAMPLES.glob("*.in")),
@@ -479,7 +499,7 @@ fix 1 all nve/sh
 run 800
 """
     runner = DeckRunner().run_text(deck_text)
-    v = _by_tag(runner.state, "v")
+    v = by_tag(runner.state, "v")
     assert v[0, 0] == pytest.approx(-1.0, abs=5e-3)
     assert v[1, 0] == pytest.approx(1.0, abs=5e-3)
 
@@ -505,7 +525,7 @@ velocity newer set -0.25 0 0
 fix 1 all nve/sh
 run 1
 """
-    v = _by_tag(DeckRunner().run_text(deck_text).state, "v")
+    v = by_tag(DeckRunner().run_text(deck_text).state, "v")
     assert v[0, 0] == pytest.approx(0.5, abs=1e-6)
     assert v[1, 0] == pytest.approx(-0.25, abs=1e-6)
     assert v[2, 0] == pytest.approx(-0.25, abs=1e-6)
@@ -551,7 +571,7 @@ fix 2 base freeze
 run 1200
 """
     runner = DeckRunner().run_text(deck_text)
-    x, v = _by_tag(runner.state, "x"), _by_tag(runner.state, "v")
+    x, v = by_tag(runner.state, "x"), by_tag(runner.state, "v")
     np.testing.assert_allclose(x[0], [0.0, 0.0, 0.5], atol=1e-6)
     np.testing.assert_allclose(v[0], 0.0, atol=1e-8)
     assert 1.2 < x[1, 2] < 1.6, x[1]
@@ -577,7 +597,7 @@ fix 1 all nve/sh
 fix 2 one setforce NULL 0 0
 run 100
 """
-    v = _by_tag(DeckRunner().run_text(deck_text).state, "v")
+    v = by_tag(DeckRunner().run_text(deck_text).state, "v")
     assert v[0, 0] == pytest.approx(10.0 * 100 * 1e-3, rel=1e-3)
     np.testing.assert_allclose(v[0, 1:], 0.0, atol=1e-7)
 

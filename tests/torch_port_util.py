@@ -151,6 +151,58 @@ def cut_deck(text, out_dir, run, thermo, dump_every=None, subs=()):
                         str(EXAMPLES / "two_body.data"))
 
 
+# Two deck runs of one deck held together (tests/test_torch_drum.py's
+# multi-step tolerances): thermo within DECK_RTOL |ref| + DECK_ATOL,
+# positions within DECK_DX.
+DECK_RTOL, DECK_ATOL, DECK_DX = 2e-3, 1e-9, 1e-3
+
+
+def by_tag(state, field):
+    """A state field's active rows in tag order, either package's state."""
+    from spherharm_tpu_torch.core.state import to_numpy
+
+    act = to_numpy(state.active)
+    tag = to_numpy(state.tag)[act]
+    return to_numpy(getattr(state, field))[act][np.argsort(tag)]
+
+
+def compare_deck_runs(ref, run, keys=("etot", "ke", "pe_pair")):
+    """Hold deck runner ``run`` to ``ref`` after the same deck (either
+    package's runners): the same thermo steps and atom counts, the same
+    final step, the same ids and atom counts in every frame of every dump
+    (at least 2 frames each). Returns the worst errors: for each thermo
+    key, |run - ref| / (|ref| + DECK_ATOL / DECK_RTOL) over the rows (at
+    most DECK_RTOL exactly when every row is within DECK_RTOL |ref| +
+    DECK_ATOL); "x", max |dx| of the final positions by tag; "dump_x",
+    of the positions in each dump's last frame; "frames", the frames
+    read; "ok", every error within its tolerance."""
+    from spherharm_tpu_torch.io.dump import read_dump
+
+    rows_r, rows = ref.thermo_log.rows, run.thermo_log.rows
+    assert len(rows) == len(rows_r) >= 2, (len(rows), len(rows_r))
+    assert all(a["step"] == b["step"] and a["n"] == b["n"]
+               for a, b in zip(rows_r, rows)), "thermo steps or atom counts differ"
+    assert int(run.state.step) == int(ref.state.step)
+    err = {k: max(abs(b[k] - a[k]) / (abs(a[k]) + DECK_ATOL / DECK_RTOL)
+                  for a, b in zip(rows_r, rows)) for k in keys}
+    err["x"] = float(np.abs(by_tag(run.state, "x") - by_tag(ref.state, "x")).max())
+    err["dump_x"], err["frames"] = 0.0, 0
+    assert len(run.dumps) == len(ref.dumps)
+    for (_, path_r, _, _), (_, path, _, _) in zip(ref.dumps, run.dumps):
+        fr, f = read_dump(path_r), read_dump(path)
+        assert len(f) == len(fr) >= 2, (len(f), len(fr))
+        for a, b in zip(fr, f):
+            assert a["step"] == b["step"] and a["n"] == b["n"]
+            np.testing.assert_array_equal(b["data"]["id"], a["data"]["id"])
+        err["dump_x"] = max(err["dump_x"], *(
+            float(np.abs(f[-1]["data"][c] - fr[-1]["data"][c]).max())
+            for c in ("x", "y", "z")))
+        err["frames"] += len(f)
+    err["ok"] = (all(err[k] <= DECK_RTOL for k in keys)
+                 and err["x"] <= DECK_DX and err["dump_x"] <= DECK_DX)
+    return err
+
+
 @pytest.fixture
 def cuda_device():
     """The card for a ``cuda``-marked test; skips where there is none."""
