@@ -243,54 +243,62 @@ def cuda_ms(fn, reps):
     return start.elapsed_time(stop) / reps
 
 
-# Each kernel-line name's kernel symbol in csrc/ (device_ms counts the
-# profiler's device events whose name holds it).
-SYMBOLS = {"pair_contact_conservative": "pair_conservative_kernel",
-           "pair_contact_geometric": "pair_geometric_kernel",
-           "stage1_depth": "stage1_kernel", "wall": "wall_kernel"}
+# Each kernel-line name's C entry in csrc/ (device_ms times its launches).
+ENTRIES = {"pair_contact": "sh_pair_contact", "stage1_depth": "sh_stage1_depth",
+           "wall": "sh_wall_contact"}
+
+# Cycles the stream spins before the timed launches (about 5 ms at the
+# H100's clock; four times more at each retake): the host queues the start
+# event, the launches and the stop event while the stream is still busy.
+SPIN_CYCLES = 10_000_000
 
 
-def kernel_symbol(name):
-    return next(sym for key, sym in SYMBOLS.items() if name.startswith(key))
+def kernel_entry(name):
+    return next(entry for key, entry in ENTRIES.items() if name.startswith(key))
 
 
-def device_ms(fn, symbol, reps=20):
-    """Mean device time of the kernel ``symbol`` over reps calls of fn(),
-    after one warm-up call and a warm-up profiler step of reps calls:
-    torch.profiler's self device time of the device events whose name
-    holds the symbol, as ``profile_path`` reads device time, per launch
-    the profiler recorded. A window now and then loses some of its
-    kernels' records (7-15 of 20, at its start or its end; every launch in
-    the window), so one that sees fewer than reps launches is taken again,
-    up to 3 windows, and the last counts if it saw at least half.
-    Fails if a window saw more than reps launches (another kernel of the
-    name) or the last fewer than half."""
+def device_ms(fn, entry, reps=20):
+    """Device time a launch of the kernel that the C entry ``entry``
+    launches, at fn()'s inputs: after one warm-up call, one more call of
+    fn() whose call of the entry becomes reps calls with its arguments,
+    queued back to back between two CUDA events behind a spin kernel, so
+    the interval is the stream's time on the reps launches (each kernel's
+    run and the stream's start of the next), not the host's issue time.
+    Retaken with a longer spin if the stream reached the start event
+    before the host had queued the stop event; fails after three such
+    windows, or unless fn() called the entry once."""
     import torch
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile, schedule
+    from spherharm_tpu_torch.ops import cuda_build
 
+    lib = cuda_build.library()
+    raw = getattr(lib, entry)
     fn()
-    torch.cuda.synchronize()
-    for window in (1, 2, 3):
-        # A profiler step of the same launches before the recorded one: a
-        # window recorded from its start lost more of its first kernels.
-        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
-                     schedule=schedule(wait=0, warmup=1, active=1, repeat=1)) as prof:
-            for _ in range(2):
-                for _ in range(reps):
-                    fn()
-                torch.cuda.synchronize()
-                prof.step()
-        events = [e for e in prof.key_averages()
-                  if e.device_type == DeviceType.CUDA and symbol in e.key]
-        seen = sum(e.count for e in events)
-        require(seen <= reps, f"the profiler saw {seen} launches of {symbol}, at most "
-                f"{reps} expected")
-        if seen == reps:
-            break
-        print(f"  device_ms: window {window} of 3 saw {seen} of {reps} launches of {symbol}")
-    require(seen >= reps // 2, f"the profiler saw {seen} launches of {symbol}, expected {reps}")
-    return sum(e.self_device_time_total for e in events) / 1e3 / seen
+    for window in range(3):
+        marks = []
+
+        def timed(*args):
+            torch.cuda._sleep(SPIN_CYCLES * 4 ** window)
+            start, stop = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+            start.record()
+            errs = [raw(*args) for _ in range(reps)]
+            stop.record()
+            marks.append((start, stop, start.query()))
+            return next((e for e in errs if e), 0)
+
+        setattr(lib, entry, timed)
+        try:
+            fn()
+        finally:
+            setattr(lib, entry, raw)
+        torch.cuda.synchronize()
+        require(len(marks) == 1, f"{entry} was called {len(marks)} times in one call, "
+                "once expected")
+        start, stop, reached = marks[0]
+        if not reached:
+            return start.elapsed_time(stop) / reps
+        print(f"  device_ms: the stream reached {entry}'s start event before its "
+              f"launches were queued (window {window + 1} of 3)")
+    require(False, f"device_ms: no window of {entry} was queued behind its spin")
 
 
 def print_node_loop_sass(lib, nvcc):
@@ -442,13 +450,13 @@ def compare(out, ref, nf, f_tol, loose_rows=0):
 def case(results, name, tag, lmax, G, rows, err, time_kernel, time_plain, work,
          moved, degree=None, **extra):
     """Time one kernel case: ``ms``, a wrapper call (CUDA events over 20
-    calls); ``device_ms``, the kernel alone (``device_ms`` over 20 more
-    calls); ``plain_ms``, the plain twin (CUDA events over 3 calls). Its
+    calls); ``device_ms``, the kernel alone (``device_ms``: 20 launches
+    queued back to back); ``plain_ms``, the plain twin (CUDA events over 3 calls). Its
     bound at evaluation degree ``degree`` (default lmax). Appends it, with
     ``extra``, to ``results[name]``."""
     c = dict(path=tag, lmax=lmax, G=G, rows=rows, max_abs_err=err,
              ms=cuda_ms(time_kernel, 20),
-             device_ms=device_ms(time_kernel, kernel_symbol(name)),
+             device_ms=device_ms(time_kernel, kernel_entry(name)),
              plain_ms=cuda_ms(time_plain, 3),
              **bound(name, degree or lmax, G, work, moved), **extra)
     if degree is not None:
