@@ -38,11 +38,16 @@ Phases, each fatal on failure (exit code != 0, no result line):
    shapes (Lmax 4, 72 nodes: 3-node blocks, the last partial); K1 on the
    drum's and K2 on the triaxial cell's shapes with a two-material
    ``pair_tab`` (``with_pair_coeffs``: one explicit (0, 1) entry, the
-   rest from the scalars and geometric mixing). Forces, springs and pe
-   against the stated tolerances, contact-flag flips, CUDA-event times of
-   a wrapper call and of the plain PyTorch twin, the kernel's own device
-   time (torch.profiler over 20 launches, per launch it recorded) and its
-   bound, per case;
+   rest from the scalars and geometric mixing); and with R = 4 replicas
+   in one launch (``ensemble_kernel_cases``: each replica's rows with its
+   own dt, kn, gamma_n and mu, par [4, 16] / [4, 24]) K1 and K3
+   conservative on the drum's shapes, K2 and K3 geometric on the
+   deposition's, K6 and K7 on the deposition's walls, each held to the
+   batched twin and the batched twin to one twin call a replica. Forces,
+   springs and pe against the stated tolerances, contact-flag flips,
+   CUDA-event times of a wrapper call and of the plain PyTorch twin, the
+   kernel's own device time (``device_ms``: 20 launches back to back
+   between CUDA events) and its bound, per case;
 4. small contact-rich runs of 40 steps on the card and on the CPU (plain
    twins), thermo and positions compared: the drum (n = 128, Lmax 8), the
    deposition (n = 128, Lmax 8, 288 nodes) and the settling box (n = 64,
@@ -50,7 +55,11 @@ Phases, each fatal on failure (exit code != 0, no result line):
    fill 0.09 so its grid has 3 cells an axis, xy shear 0.05, the servo
    on), its xy tilt started 5e-5 Lx under Lx/2 so the shear flips it:
    flips (at least one), image counters, tilt, box, thermo, press and
-   the stress tensor compared;
+   the stress tensor compared; then two R = 3 replica ensembles through
+   ``ensemble.run_replicas`` (``ensemble_card_vs_cpu``): the n = 128
+   deposition with a mu sweep and the n = 128 conservative drum with
+   the prefilter and a gamma_n sweep (K1, K4, K6, K7), thermo and
+   positions per replica;
 5. the paths, each with every launch counter set to 0 just before it and
    read just after: 60 steps (3 cadence blocks) of the n = 100k drum; 100
    steps of the n = 10k deposition from a contact-rich start; 200 steps of
@@ -61,14 +70,24 @@ Phases, each fatal on failure (exit code != 0, no result line):
    fitted slope printed); 60 steps of the n = 100k sheared triaxial cell
    from its lattice compressed into contact (mean coordination printed
    at its start and end; finite stress; pe_pair > 0 at start and end; its
-   xy tilt held to the reference's recurrence replayed in float64). Guards:
+   xy tilt held to the reference's recurrence replayed in float64); and
+   right after the deposition the replica ensemble (``ensemble_path``):
+   that deposition replicated to 8 replicas with mu swept 0.1-0.8, 100
+   steps of ``ensemble.run_replicas`` (80,000 particles, 800,000 pair
+   slots), overflow 0, finite etot and pair contacts in every replica,
+   replicas 0 and 7 held to single card runs of the same start with
+   their own mu, which launch K2, K6 and K7 as often as the ensemble
+   did. Guards:
    overflow = 0, finite etot, every kernel
    of the path launched (and skin_violations = 0 for the drum's cadence,
    pair contacts by the end of the deposition and settling box, and at
    every sample of the gas); particle-steps/s of each;
 6. each law's kernels on its path's own stage-2 list after the path's
    run: K2 and K3 geometric on the deposition's (all 100,000 slots, pair
-   cap 10n, no prefilter), K2 on the triaxial cell's (1,200,000 slots),
+   cap 10n, no prefilter), K2 on the 8-replica ensemble's (800,000 slots,
+   one launch; each replica's rows with its own par row) and K6/K7 on
+   its wall batches (8 x wall_capacity rows), K2 on the triaxial cell's
+   (1,200,000 slots),
    K1 and K3 conservative on the drift gas's (30,000 slots); each list
    timed whole, up to 16,384 live rows held to
    the twin and every masked row to zero;
@@ -141,6 +160,11 @@ N_TRI, TRI_STEPS, TRI_SHEAR, TRI_DEFORM_MIN = 100_000, 60, (0.05, 0.0, 0.0), 0.8
 # k_roll, gamma_roll, mu_roll.
 TWO_MATERIAL = (3e5, 1e5, 30.0, 10.0, 0.2, 1e4, 5.0, 0.1)
 N_PAIRS = 16_384  # kernel-vs-plain batch (the autograd twin's memory bound)
+# The replica ensemble: config 3's deposition replicated N_ENS times with a
+# friction sweep, ENS_STEPS steps; the R = ENS_CASE_R kernel cases and the
+# R = ENS_CHECK_R card-vs-CPU ensembles.
+N_ENS, ENS_STEPS, ENS_MU = 8, 100, (0.1, 0.8)
+ENS_CASE_R, ENS_CHECK_R = 4, 3
 # NVIDIA H100 SXM data sheet: f32 (non-tensor) peak and HBM3 rate. A
 # kernel's operations are timed at the peak of their type: the bf16
 # Horner FLOPs of K3 and K5 at the bf16 non-tensor peak (133.8 TFLOP/s,
@@ -624,11 +648,12 @@ def kernel_phase(sim, dep, box, gas, tri, dev):
             ("plane", "settling box", box, box.walls[0])):
         wall_batch(results, kind, tag, path, wall, path.wall_capacity or N_SETTLE,
                    dev, rng)
+    ensemble_kernel_cases(results, sim, dep, dev, rng)
     return results
 
 
 def stage2_list_phase(tag, path, state, neigh, results, bf16s=(False, True),
-                      case_tag=None, min_live=1000, need_contact=True):
+                      case_tag=None, min_live=1000, need_contact=True, params=None):
     """The stage-2 kernels of ``path``'s law, in f32 and in bf16 (``bf16s``),
     on the path's own stage-2 list, packed from ``state`` after its run as
     ``contact.contact_force_pairs`` packs it, every slot: each kernel
@@ -639,26 +664,34 @@ def stage2_list_phase(tag, path, state, neigh, results, bf16s=(False, True),
     those rows; a list with no live row, its first row) at the synthetic
     batches' tolerances, and its masked rows to zero. Fails where the
     list has fewer than ``min_live`` live rows, or no contact with
-    ``need_contact``."""
+    ``need_contact``. A replica ensemble's lists (``state`` and ``neigh``
+    stacked, ``params`` its stacked params) run as the one launch its
+    step makes, [R * Pc] rows with a par row a replica; the twin's rows
+    take their replica's par row."""
     import torch
 
+    from spherharm_tpu_torch.core.state import take
     from spherharm_tpu_torch.ops import contact
     from spherharm_tpu_torch.ops import contact_kernels as ck
 
     shapes, lmax, cons = path.shapes, path.shapes.lmax, path.conservative
     pi, pj = neigh.pair_i, neigh.pair_j
+    at = lambda t, i: take(t, i, state.replicas)
     rows = contact.particle_rows(state, shapes)
-    live = (neigh.pair_valid & (rows[pi, contact._RACT] > 0.5)
-            & (rows[pj, contact._RACT] > 0.5))
-    dp = contact.minimum_image(rows[pj][:, contact._RX] - rows[pi][:, contact._RX],
+    rows_i, rows_j = at(rows, pi), at(rows, pj)
+    live = (neigh.pair_valid & (rows_i[..., contact._RACT] > 0.5)
+            & (rows_j[..., contact._RACT] > 0.5))
+    dp = contact.minimum_image(rows_j[..., contact._RX] - rows_i[..., contact._RX],
                                state.box_lo, state.box_hi, path.periodic,
                                path._tilt(state))
-    packed, tbl, cap, par = ck.pack_pairs(state, shapes, path.params, pi, pj, live,
-                                          neigh.pair_hist, dp, rows=rows)
+    packed, tbl, cap, par = ck.pack_pairs(state, shapes, params or path.params, pi, pj,
+                                          live, neigh.pair_hist, dp, rows=rows)
+    live = live.reshape(-1)
     idx = torch.nonzero(live).flatten()[:N_PAIRS]
     if idx.numel() == 0:
         idx = torch.zeros(1, dtype=torch.long, device=live.device)
     sub = packed[idx].contiguous()
+    sub_par = par if par.shape[0] == 1 else par[idx // pi.shape[-1]].contiguous()
     P, n_live, n_sub, G = packed.shape[0], int(live.sum()), sub.shape[0], cap.shape[1]
     case_tag = case_tag or f"{tag} stage-2 list"
     require(n_live >= min_live, f"{case_tag}: only {n_live} live rows")
@@ -667,7 +700,7 @@ def stage2_list_phase(tag, path, state, neigh, results, bf16s=(False, True),
             "_bf16" if bf16 else "")
         label = f"K{3 if bf16 else 1 if cons else 2} {name} on the {case_tag}"
         full = ck.pair_contact(packed, tbl, cap, par, lmax, cons, bf16)
-        ref = ck.pair_contact_plain(sub, tbl, cap, par, lmax, cons, bf16)
+        ref = ck.pair_contact_plain(sub, tbl, cap, sub_par, lmax, cons, bf16)
         torch.cuda.synchronize()
         n_contact = int((ref[:, 16] > 0.5).sum())
         loose = cons or bf16  # as in pair_batch
@@ -682,33 +715,38 @@ def stage2_list_phase(tag, path, state, neigh, results, bf16s=(False, True),
         require(flips <= n_sub // 1000, f"{label}: contact flags disagree")
         case(results, name, case_tag, lmax, G, P, err,
              lambda: ck.pair_contact(packed, tbl, cap, par, lmax, cons, bf16),
-             lambda: ck.pair_contact_plain(sub, tbl, cap, par, lmax, cons, bf16),
+             lambda: ck.pair_contact_plain(sub, tbl, cap, sub_par, lmax, cons, bf16),
              n_live, nbytes(packed, tbl, cap, par, full), live_rows=n_live,
              plain_rows=n_sub)
 
 
-def wall_list_phase(tag, path, state, neigh, results):
+def wall_list_phase(tag, path, state, neigh, results, params=None):
     """K6 and K7 on ``path``'s own wall batches, packed from ``state``
-    after its run as ``walls.wall_contact`` packs them (every particle: the
-    path has no wall_capacity), for the first wall of each kind: each
+    after its run as ``walls.wall_contact`` packs them (every particle,
+    or with a wall_capacity the near rows it compacts,
+    ``walls.near_wall_rows``), for the first wall of each kind: each
     kernel timed on the whole batch as the case "{tag} wall batch" (its
     bound from the near rows), the rows of that same call held to the
     twin on up to N_PAIRS rows, the near rows first (the plain time is
-    of those rows)."""
+    of those rows). A replica ensemble (``state`` and ``neigh`` stacked,
+    ``params`` its stacked params) packs its R batches into the one launch
+    its step makes; the twin's rows take their replica's par row."""
     import torch
 
     from spherharm_tpu_torch.ops import walls_kernels as wk
     from spherharm_tpu_torch.ops.rotation import omega_from_angmom
+    from spherharm_tpu_torch.ops.walls import near_wall_rows
 
-    require(path.wall_capacity == 0, f"{tag}: wall_list_phase packs every particle")
     shapes, lmax = path.shapes, path.shapes.lmax
-    om = omega_from_angmom(state.q, state.angmom,
-                           shapes.inertia_of(state.shtype, state.scale))
     done = set()
     for w_i, wall in enumerate(path.walls):
-        depth_c, n_c = wall.depth_and_normal(state.x)
+        st, hist = state, neigh.wall_hist[..., w_i, :]
+        if path.wall_capacity and path.wall_capacity < state.cap:
+            st, hist = near_wall_rows(state, shapes, wall, hist, path.wall_capacity)[:2]
+        om = omega_from_angmom(st.q, st.angmom, shapes.inertia_of(st.shtype, st.scale))
+        depth_c, n_c = wall.depth_and_normal(st.x)
         packed, tbl, cap, par, kind = wk.pack_wall(
-            state, shapes, path.params, wall, neigh.wall_hist[:, w_i], depth_c, n_c, om)
+            st, shapes, params or path.params, wall, hist, depth_c, n_c, om)
         if kind in done:
             continue
         done.add(kind)
@@ -716,8 +754,10 @@ def wall_list_phase(tag, path, state, neigh, results):
         near = packed[:, 16] > 0.5
         idx = torch.argsort((~near).to(torch.int8), stable=True)[:N_PAIRS]
         sub = packed[idx].contiguous()
+        rows_rep = packed.shape[0] // par.shape[0]
+        sub_par = par if par.shape[0] == 1 else par[idx // rows_rep].contiguous()
         full = wk.wall_contact_kernel(packed, tbl, cap, par, lmax, kind)
-        ref = wk.wall_contact_plain(sub, tbl, cap, par, lmax, kind)
+        ref = wk.wall_contact_plain(sub, tbl, cap, sub_par, lmax, kind)
         torch.cuda.synchronize()
         B, n_near, n_sub, G = packed.shape[0], int(near.sum()), sub.shape[0], cap.shape[1]
         ok, err, flips, text = compare(full[idx], ref, 6, 1e-4)
@@ -729,7 +769,7 @@ def wall_list_phase(tag, path, state, neigh, results):
         require(flips <= max(n_sub // 1000, 1), f"{label}: contact flags disagree")
         case(results, f"wall_{kind}", f"{tag} wall batch", lmax, G, B, err,
              lambda: wk.wall_contact_kernel(packed, tbl, cap, par, lmax, kind),
-             lambda: wk.wall_contact_plain(sub, tbl, cap, par, lmax, kind),
+             lambda: wk.wall_contact_plain(sub, tbl, cap, sub_par, lmax, kind),
              n_near, nbytes(packed, tbl, cap, par, full), near_rows=n_near,
              plain_rows=n_sub)
 
@@ -1070,6 +1110,293 @@ def triaxial_path(tri, st0, dev, smi):
     require(rel <= 1e-5, "triaxial: xy tilt off the replayed recurrence")
     torch.cuda.synchronize()
     return state, neigh, launches, step_s
+
+
+def ensemble_sweep(params, R):
+    """The kernel cases' per-replica parameters: dt from 0.5x to 2x,
+    kn from 1x to 3x, gamma_n from 0.5x to 4x, mu from 0.2 to 0.8."""
+    from spherharm_tpu_torch.parallel import ensemble as ens
+
+    f = lambda lo, hi: np.linspace(lo, hi, R)
+    return ens.with_param_sweep(
+        params, dt=float(params.dt) * f(0.5, 2.0), kn=float(params.kn) * f(1.0, 3.0),
+        gamma_n=float(params.gamma_n) * f(0.5, 4.0), mu=f(0.2, 0.8))
+
+
+def twin_per_replica(twin, packed, par, ref):
+    """Largest |batched twin - one twin call a replica| over the rows,
+    relative to the output's scale, and whether every row is bit-equal."""
+    import torch
+
+    R = par.shape[0]
+    P = packed.shape[0] // R
+    worst, same = 0.0, True
+    for r in range(R):
+        blk = slice(r * P, (r + 1) * P)
+        one = twin(packed[blk], par[r:r + 1])
+        worst = max(worst, float((ref[blk] - one).abs().max()))
+        same = same and bool(torch.equal(ref[blk], one))
+    return worst / max(float(ref.abs().max()), 1e-30), same
+
+
+def ensemble_kernel_cases(results, sim, dep, dev, rng):
+    """The kernels with R = ENS_CASE_R replicas in one launch, each
+    replica's rows with its own dt, materials (``ensemble_sweep``) and
+    contacts: K1 and K3 conservative on the drum's shapes, K2 and K3
+    geometric on the deposition's (N_PAIRS // R synthetic pairs a
+    replica, ``contact_pairs``), K6 and K7 on the deposition's walls
+    (its wall_capacity rows a replica, ``wall_particles``). Each held to
+    the batched twin at the single-list tolerances, the batched twin to
+    one twin call a replica (1e-6 of the output's scale; bit-equality
+    printed), and recorded as a case "<path> R=4"."""
+    import torch
+
+    from spherharm_tpu_torch.ops import contact_kernels as ck
+    from spherharm_tpu_torch.ops import walls_kernels as wk
+    from spherharm_tpu_torch.ops.rotation import omega_from_angmom
+    from spherharm_tpu_torch.parallel import ensemble as ens
+
+    R = ENS_CASE_R
+    P = N_PAIRS // R
+    blocks = lambda t: torch.stack([t[r * P:(r + 1) * P] for r in range(R)])
+    for conservative, bf16, path, tag in ((True, False, sim, "drum"),
+                                          (True, True, sim, "drum"),
+                                          (False, False, dep, "deposition"),
+                                          (False, True, dep, "deposition")):
+        name = f"pair_contact_{'conservative' if conservative else 'geometric'}" + (
+            "_bf16" if bf16 else "")
+        label = f"K{3 if bf16 else 1 if conservative else 2} {name} on {tag} R={R}"
+        lmax = path.shapes.lmax
+        st, pi, pj, mask, hist, d = contact_pairs(path, dev, rng)
+        packed, tbl, cap, par = ck.pack_pairs(
+            ens.replicate(st, R), path.shapes, ensemble_sweep(path.params, R),
+            blocks(pi), blocks(pj), blocks(mask), blocks(hist), blocks(d))
+        require(par.shape == (R, ck.N_PAR), f"{label}: par {tuple(par.shape)}")
+        out = ck.pair_contact(packed, tbl, cap, par, lmax, conservative, bf16)
+        ref = ck.pair_contact_plain(packed, tbl, cap, par, lmax, conservative, bf16)
+        dev_rel, same = twin_per_replica(
+            lambda pk, pr: ck.pair_contact_plain(pk, tbl, cap, pr, lmax, conservative,
+                                                 bf16), packed, par, ref)
+        torch.cuda.synchronize()
+        loose = conservative or bf16  # as in pair_batch
+        ok, err, flips, text = compare(out, ref, 9, 1e-4 if loose else 2e-3,
+                                       N_PAIRS // 1000 if loose else 0)
+        n_contact = [int((ref[r * P:(r + 1) * P, 16] > 0.5).sum()) for r in range(R)]
+        print(f"{label}: {P} rows a replica, lmax={lmax} G={cap.shape[1]} contacts "
+              f"{n_contact}; batched twin vs a twin call a replica: max rel "
+              f"{dev_rel:.2e} (bit-equal: {same}); kernel vs batched twin: {text}")
+        require(min(n_contact) > P // 4, f"{label}: a replica has too few contacts")
+        require(bool(torch.isfinite(out).all()), f"{label}: output not finite")
+        require(dev_rel <= 1e-6, f"{label}: batched twin differs from per-replica calls")
+        require(ok, f"{label}: disagrees with its plain twin")
+        require(flips <= N_PAIRS // 1000, f"{label}: contact flags disagree")
+        case(results, name, f"{tag} R={R}", lmax, cap.shape[1], N_PAIRS, err,
+             lambda: ck.pair_contact(packed, tbl, cap, par, lmax, conservative, bf16),
+             lambda: ck.pair_contact_plain(packed, tbl, cap, par, lmax, conservative,
+                                           bf16),
+             int((packed[:, ck.SLOTS["mask"][0]] > 0.5).sum()),
+             nbytes(packed, tbl, cap, par, out), replicas=R)
+
+    B, lmax = dep.wall_capacity, dep.shapes.lmax
+    for kind, wall in (("cylinder", dep.walls[0]), ("plane", dep.walls[1])):
+        label = f"K{6 if kind == 'cylinder' else 7} wall[{kind}] on deposition R={R}"
+        ws = ens.stack_replicas([wall_particles(dep, wall, kind, B, dev, rng)
+                                 for _ in range(R)])
+        depth_c, n_c = wall.depth_and_normal(ws.x)
+        om = omega_from_angmom(ws.q, ws.angmom, dep.shapes.inertia_of(ws.shtype, ws.scale))
+        whist = torch.as_tensor(rng.normal(size=(R, B, 6)) * 1e-4, dtype=torch.float32,
+                                device=dev)
+        args = wk.pack_wall(ws, dep.shapes, ensemble_sweep(dep.params, R), wall, whist,
+                            depth_c, n_c, om)
+        require(args[4] == kind and args[3].shape == (R, wk.N_PAR_WALL),
+                f"{label}: pack_wall gave {args[4]}, par {tuple(args[3].shape)}")
+        out = wk.wall_contact_kernel(*args[:4], lmax, kind)
+        ref = wk.wall_contact_plain(*args[:4], lmax, kind)
+        dev_rel, same = twin_per_replica(
+            lambda pk, pr: wk.wall_contact_plain(pk, args[1], args[2], pr, lmax, kind),
+            args[0], args[3], ref)
+        torch.cuda.synchronize()
+        ok, err, flips, text = compare(out, ref, 6, 1e-4)
+        n_contact = int((ref[:, 13] > 0.5).sum())
+        print(f"{label}: {B} rows a replica, lmax={lmax} G={args[2].shape[1]} "
+              f"contacts={n_contact}; batched twin vs a twin call a replica: max rel "
+              f"{dev_rel:.2e} (bit-equal: {same}); kernel vs batched twin: {text}")
+        require(n_contact > R * B // 4, f"{label}: batch has too few contacts")
+        require(bool(torch.isfinite(out).all()), f"{label}: output not finite")
+        require(dev_rel <= 1e-6, f"{label}: batched twin differs from per-replica calls")
+        require(ok, f"{label}: disagrees with its plain twin")
+        require(flips <= max(R * B // 1000, 1), f"{label}: contact flags disagree")
+        case(results, f"wall_{kind}", f"deposition R={R}", lmax, args[2].shape[1], R * B,
+             err, lambda: wk.wall_contact_kernel(*args[:4], lmax, kind),
+             lambda: wk.wall_contact_plain(*args[:4], lmax, kind),
+             int((args[0][:, 16] > 0.5).sum()), nbytes(*args[:4], out), replicas=R)
+
+
+class counting_rebuilds:
+    """Counts ``Simulation._rebuild`` calls (one a rebuild step, whichever
+    replicas it serves) while active."""
+
+    def __enter__(self):
+        from spherharm_tpu_torch.core.simulation import Simulation
+
+        self.n, self._orig = 0, Simulation._rebuild
+
+        def counted(sim, state, neigh):
+            self.n += 1
+            return self._orig(sim, state, neigh)
+
+        Simulation._rebuild = counted
+        return self
+
+    def __exit__(self, *exc):
+        from spherharm_tpu_torch.core.simulation import Simulation
+
+        Simulation._rebuild = self._orig
+
+
+def with_skin(built, skin):
+    """A builder's (sim, state, neigh) with the sim's skin set to
+    ``skin``."""
+    import torch
+
+    sim = built[0]
+    sim.params = sim.params.replace(skin=torch.full_like(sim.params.skin, skin))
+    return built
+
+
+def ensemble_card_vs_cpu(label, build, sweep, dev, kernels=(), steps=40):
+    """A small replica ensemble (``sweep``: with_param_sweep's fields, R
+    values each) from the contact-rich start, ``steps`` steps through
+    ``ensemble.run_replicas`` on the card and on the CPU: each replica's
+    thermo within 2e-3 relative and positions within 1e-3, pair and wall
+    contacts in every replica, overflow 0, and on the card each of
+    ``kernels`` launched, the pair kernel once a step and the stage-1
+    probe once a rebuild step, for all R (the rebuild steps of both
+    printed)."""
+    import torch
+
+    from spherharm_tpu_torch.parallel import ensemble as ens
+
+    runs = []
+    keys = ("ke", "erot", "pe_pair", "pe_wall", "pe_grav", "etot")
+    for device in (dev, torch.device("cpu")):
+        sim, st0, _ = build(device)
+        st, ng = sim.init_neighbors(drum_start(sim, st0, device))
+        params = ens.with_param_sweep(sim.params, **sweep)
+        R = params.dt.shape[0]
+        reset_counts()
+        with counting_rebuilds() as rb:
+            S, N = ens.run_replicas(sim, ens.replicate(st, R), ens.replicate(ng, R),
+                                    params, steps)
+        launches = launch_counts()
+        th = ens.thermo(sim, S, N, params)
+        require(N.overflow.tolist() == [0] * R, f"{label} on {device}: overflow "
+                f"{N.overflow.tolist()}")
+        runs.append(({k: th[k].cpu().numpy() for k in keys}, S.x.cpu().numpy(), rb.n,
+                     launches))
+    (tg, xg, rb_g, lg), (tc, xc, rb_c, _) = runs
+    law = f"pair_contact_{'conservative' if sim.conservative else 'geometric'}"
+    probes = lg["stage1_depth"]
+    rel = {k: float((np.abs(tg[k] - tc[k]) / np.maximum(np.abs(tc[k]), 1e-30)).max())
+           for k in keys}
+    dx = float(np.abs(xg - xc).max())
+    print(f"{label}, R={R}, {steps} steps, card vs CPU, worst replica: "
+          + " ".join(f"{k} rel {v:.2e}" for k, v in rel.items())
+          + f" max|dx|={dx:.3g}; rebuild steps card {rb_g} / CPU {rb_c}; card launches "
+          f"{law} {lg[law]}, stage1_depth {probes}; etot by replica (card) "
+          + " ".join(f"{e:.7g}" for e in tg["etot"]) + " (tol: rel 2e-3, dx 1e-3)")
+    require(all(lg[k] > 0 for k in kernels) and lg[law] == steps
+            and probes == (rb_g if sim.prefilter else 0),
+            f"{label}: launches {lg} for {steps} steps, rebuild steps card {rb_g}, "
+            f"CPU {rb_c}")
+    require(bool((tc["pe_pair"] > 0).all() and (tc["pe_wall"] > 0).all()),
+            f"{label}: a replica has no contacts")
+    require(max(rel.values()) <= 2e-3 and dx <= 1e-3,
+            f"{label}: card and CPU disagree")
+
+
+def ensemble_path(dep, st0, dev, smi, profiling, results, dep_rate):
+    """The full-width ensemble: config 3's deposition (n = N_DEP) from its
+    contact-rich start, ``ensemble.replicate``d to N_ENS replicas with
+    ``with_param_sweep(mu=linspace(*ENS_MU, N_ENS))``, ENS_STEPS steps of
+    ``run_replicas``, every launch counter at 0 just before. Guards:
+    overflow 0, finite etot and pe_pair > 0 in every replica; replicas 0
+    and N_ENS - 1 held to a single card run of the same start with their
+    own mu (positions within 1e-3, thermo within 2e-3 relative; the
+    largest differences and bit-equality printed), which launches K2, K6
+    and K7 as often as the ensemble did. Prints particle-steps/s (R N
+    steps / s) beside ``dep_rate`` (the deposition path's) and the
+    single runs', and the rebuild steps of each. Then K2 and K6/K7 on the
+    ensemble's own lists (``stage2_list_phase``, ``wall_list_phase``).
+    Returns (launches, seconds a step)."""
+    import copy
+
+    import torch
+
+    from spherharm_tpu_torch.parallel import ensemble as ens
+
+    tag = f"deposition R={N_ENS}"
+    st, ng = dep.init_neighbors(drum_start(dep, st0, dev))
+    params = ens.with_param_sweep(dep.params, mu=np.linspace(*ENS_MU, N_ENS))
+    states, neighs = ens.replicate(st, N_ENS), ens.replicate(ng, N_ENS)
+    n = int(st.n_active)
+    reset_counts()
+    torch.cuda.synchronize()
+    with counting_rebuilds() as rb:
+        t0 = time.perf_counter()
+        S, N = ens.run_replicas(dep, states, neighs, params, ENS_STEPS)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    launches = launch_counts()
+    th = ens.thermo(dep, S, N, params)
+    rate = N_ENS * n * ENS_STEPS / wall
+    print(f"{tag}, mu {ENS_MU[0]}-{ENS_MU[1]}: {ENS_STEPS} steps in {wall:.3f}s -> "
+          f"{rate:.1f} particle-steps/s ({N_ENS} x {n} particles; the deposition "
+          f"path {dep_rate:.1f}) [{smi}] rebuild steps {rb.n}; overflow "
+          f"{N.overflow.tolist()} launches={ {k: v for k, v in launches.items() if v} }")
+    print(f"{tag}: by replica etot " + " ".join(f"{float(e):.7g}" for e in th["etot"])
+          + "; pe_pair " + " ".join(f"{float(e):.5g}" for e in th["pe_pair"])
+          + "; ke " + " ".join(f"{float(e):.5g}" for e in th["ke"]))
+    require(N.overflow.tolist() == [0] * N_ENS, f"{tag}: capacity overflow")
+    require(bool(torch.isfinite(th["etot"]).all()), f"{tag}: non-finite energy")
+    require(bool((th["pe_pair"] > 0).all()), f"{tag}: a replica has no pair contact")
+    kernels = ("pair_contact_geometric", "wall_cylinder", "wall_plane")
+    require(all(launches[k] > 0 for k in kernels),
+            f"{tag}: a kernel of the path never launched: {launches}")
+    for r in (0, N_ENS - 1):
+        one = copy.copy(dep)
+        one.params = ens.replica(params, r)
+        reset_counts()
+        torch.cuda.synchronize()
+        with counting_rebuilds() as rb1:
+            t0 = time.perf_counter()
+            s1, n1 = one.run(st, ng, ENS_STEPS)
+            torch.cuda.synchronize()
+            solo = time.perf_counter() - t0
+        solo_l = launch_counts()
+        th1 = one.thermo(s1, n1)
+        dx = float((S.x[r] - s1.x).abs().max())
+        dv = float((S.v[r] - s1.v).abs().max())
+        rel = {k: abs(float(th[k][r]) - float(th1[k])) / max(abs(float(th1[k])), 1e-30)
+               for k in ("ke", "pe_pair", "pe_wall", "etot")}
+        same = all(bool(torch.equal(getattr(S, f)[r], getattr(s1, f)))
+                   for f in ("x", "v", "q", "angmom"))
+        print(f"{tag} replica {r} (mu {float(params.mu[r]):.3g}) vs its single card run "
+              f"({n * ENS_STEPS / solo:.1f} particle-steps/s, rebuild steps {rb1.n}): "
+              f"max|dx|={dx:.3g} max|dv|={dv:.3g} "
+              + " ".join(f"{k} rel {v:.2e}" for k, v in rel.items())
+              + f"; x, v, q, angmom bit-equal: {same} (tol: dx 1e-3, rel 2e-3)")
+        require(dx <= 1e-3 and max(rel.values()) <= 2e-3,
+                f"{tag}: replica {r} disagrees with its single run")
+        require(all(solo_l[k] == launches[k] for k in kernels),
+                f"{tag}: launches {launches} against a single run's {solo_l}")
+    step_s = wall / ENS_STEPS
+    if profiling:
+        profile_path(tag, dep, S, N, step_s, smi,
+                     runner=lambda k: ens.run_replicas(dep, S, N, params, k))
+    stage2_list_phase(tag, dep, S, N, results, bf16s=(False,), params=params)
+    wall_list_phase(tag, dep, S, N, results, params=params)
+    return launches, step_s
 
 
 def launch_counts():
@@ -1448,16 +1775,17 @@ def ranking(kern, counted):
     return out
 
 
-def profile_path(tag, sim, state, neigh, step_s, smi, steps=20):
-    """torch.profiler over ``steps`` more steps of a path: its table by
-    device time goes to build/chip_smoke_profile_<tag>.txt; the device's
-    busy share is its time a step over the path's unprofiled ``step_s``."""
+def profile_path(tag, sim, state, neigh, step_s, smi, steps=20, runner=None):
+    """torch.profiler over ``steps`` more steps of a path (``runner(steps)``
+    where given, else ``sim.run``): its table by device time goes to
+    build/chip_smoke_profile_<tag>.txt; the device's busy share is its
+    time a step over the path's unprofiled ``step_s``."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        sim.run(state, neigh, steps)
+        (runner or (lambda k: sim.run(state, neigh, k)))(steps)
         torch.cuda.synchronize()
     events = prof.key_averages()
     # Device rows only: an aten op's row repeats its kernels' time.
@@ -1467,7 +1795,7 @@ def profile_path(tag, sim, state, neigh, step_s, smi, steps=20):
     summary = (f"{tag}: device time {dev_ms:.4f} ms a step over {steps} profiled "
                f"steps, against {1e3 * step_s:.4f} ms a step unprofiled: device "
                f"busy {dev_ms / (1e3 * step_s):.1%} [{smi}]")
-    out = ROOT / "build" / f"chip_smoke_profile_{tag.replace(' ', '_')}.txt"
+    out = ROOT / "build" / ("chip_smoke_profile_" + re.sub(r"\W+", "_", tag) + ".txt")
     out.parent.mkdir(exist_ok=True)
     out.write_text(f"{summary}\n"
                    f"{events.table(sort_by='cuda_time_total', row_limit=40)}\n")
@@ -1554,6 +1882,23 @@ def main(argv):
     card_vs_cpu("small settling box n=64 Lmax=2 dense",
                 lambda d: scenarios.settling_box(n=64, device=d), box_start, dev)
     triaxial_card_vs_cpu(dev)
+    f = lambda lo, hi: np.linspace(lo, hi, ENS_CHECK_R)
+    ensemble_card_vs_cpu("small deposition ensemble n=128 Lmax=8 12x24, mu sweep",
+                         lambda d: scenarios.deposition(n=128, device=d),
+                         dict(mu=f(0.1, 0.8)), dev,
+                         ("pair_contact_geometric", "wall_cylinder", "wall_plane"))
+    # The drum built with a skin of 0.004 (small motion budgets) and dt
+    # and skin swept too: run_replicas checks the trigger every step, and
+    # each replica rebuilds at its own steps within the 40.
+    ensemble_card_vs_cpu("small drum ensemble n=128 Lmax=8 prefilter, gamma_n sweep",
+                         lambda d: with_skin(scenarios.rotating_drum(
+                             n=128, lmax=LMAX, k_max=24, pair_capacity=640,
+                             stage2_capacity=384, rebuild_every=R_EVERY, device=d),
+                             0.004),
+                         dict(gamma_n=f(10.0, 200.0), dt=f(1e-4, 2e-4),
+                              skin=f(0.004, 0.012)), dev,
+                         ("pair_contact_conservative", "stage1_depth", "wall_cylinder",
+                          "wall_plane"))
     torch.cuda.synchronize()
     print(f"card-vs-CPU phases: {time.perf_counter() - t0:.1f}s")
 
@@ -1579,6 +1924,12 @@ def main(argv):
     if profiling:
         profile_path("deposition", dep, dst, dng, step_s, smi)
     stage2_list_phase("deposition", dep, dst, dng, kern)
+    del dst, dng
+    t0 = time.perf_counter()
+    l_ens, _ = ensemble_path(dep, dep_st0, dev, smi, profiling, kern,
+                             N_DEP / step_s)
+    torch.cuda.empty_cache()
+    print(f"ensemble phase: {time.perf_counter() - t0:.1f}s")
 
     bst, bng = box.init_neighbors(box_start(box, bst0, dev))
     bst, bng, l_box, th, step_s, _ = run_path(
@@ -1587,7 +1938,7 @@ def main(argv):
     require(float(th["pe_pair"]) > 0, "settling box: no pair contact")
     if profiling:
         profile_path("settling box", box, bst, bng, step_s, smi)
-    del dep, dst, dng, box, bst, bng
+    del dep, box, bst, bng
 
     tst, tng, l_tri, step_s = triaxial_path(tri, tri_st0, dev, smi)
     if profiling:
@@ -1647,7 +1998,8 @@ def main(argv):
                              "spherharm_tpu/ops/walls_pallas.py:50"),
            "wall_plane": ("spherharm_tpu_torch/csrc/wall_contact.cu",
                           "spherharm_tpu/ops/walls_pallas.py:139")}
-    by_path = {"drum": l_drum, "deposition": l_dep, "settling box": l_box,
+    by_path = {"drum": l_drum, "deposition": l_dep, f"deposition R={N_ENS}": l_ens,
+               "settling box": l_box,
                "triaxial": l_tri, "drift gas": l_gas, "deck drum full": l_deck_drum,
                **{f"deck {label}": n for label, n in l_decks.items()}}
     counted = {k: [(p, n[k]) for p, n in by_path.items() if n[k]] for k in src}

@@ -8,7 +8,7 @@ pair-list or dense [N, K] force paths, rebuild-cadence prefilter,
 quaternion velocity-Verlet.
 
 Layout mirrors the reference (``core/``, ``ops/``, ``models/``, ``io/``,
-``utils/``). The hot
+``utils/``, ``parallel/`` with the replica ensemble). The hot
 kernels are hand-written CUDA C++ for sm_90a (``csrc/``), built with nvcc
 at first use and bound with ctypes (``ops/cuda_build.py``). Tensor device
 decides the route: CUDA tensors launch the kernels, CPU tensors take each

@@ -20,6 +20,11 @@ means physics was truncated), so every shape is static across steps.
 
 Kernels run where the tensors live: CUDA tensors launch the hand-written
 kernels, CPU tensors their plain twins.
+
+The step also takes replicas stacked along a leading axis, with
+``params`` stacked alike (``parallel/ensemble.py``, which drives it):
+every op runs once over all replicas, and in check mode each replica
+rebuilds exactly when its own trigger fires.
 """
 
 from __future__ import annotations
@@ -33,6 +38,8 @@ from spherharm_tpu_torch.core.state import (
     SimParams,
     State,
     empty_neighbors,
+    per_replica,
+    take,
 )
 from spherharm_tpu_torch.ops import contact, integrate, neighbor
 from spherharm_tpu_torch.ops import walls as walls_mod
@@ -133,9 +140,10 @@ class Simulation:
     # -- neighbour handling ----------------------------------------------
 
     def _stale(self, state: State, neigh: NeighborState):
-        """True (0-d bool tensor) when the lists may be incomplete:
-        prefiltered list — some particle's surface motion exceeded its
-        motion budget; plain candidate list — displacement beyond skin/2."""
+        """True (0-d bool tensor; [R] with replicas) when the lists may be
+        incomplete: prefiltered list — some particle's surface motion
+        exceeded its motion budget; plain candidate list — displacement
+        beyond skin/2."""
         if self.prefilter:
             gmax_s = self.shapes.gmax[state.shtype] * state.scale
             ratio = neighbor.approach_ratio(
@@ -154,14 +162,14 @@ class Simulation:
             idx, mask, count = neighbor.allpairs_neighbors(
                 state.x, state.active, state.box_lo, state.box_hi, cutoff,
                 self.k_max, self.periodic, self._tilt(state))
-            mx = count.max()
+            mx = count.amax(-1)
             return idx, mask, torch.where(mx > self.k_max, mx,
                                           torch.zeros_like(mx))
         idx, mask, count, cell_ovf = neighbor.cell_list_neighbors(
             state.x, state.active, state.box_lo, state.box_hi, cutoff,
             self.grid.dims, self.cell_cap, self.k_max, self.periodic,
             self._tilt(state), row_chunk=self.rebuild_chunk)
-        mx = count.max()
+        mx = count.amax(-1)
         zero = torch.zeros_like(mx)
         return idx, mask, torch.maximum(
             torch.where(mx > self.k_max, mx, zero),
@@ -177,7 +185,7 @@ class Simulation:
             # back into the tag-keyed [N, K] layout before remapping.
             neigh = neigh.replace(hist=contact.pair_hist_to_dense(neigh))
         idx, mask, overflow = self._build_list(state)
-        neigh_tag = torch.where(mask, state.tag[idx], 0)
+        neigh_tag = torch.where(mask, take(state.tag, idx, state.replicas), 0)
         row_ok = neigh.row_tag == state.tag  # single device: slots stable
         hist = neighbor.remap_history(
             neigh_tag, mask, neigh.neigh_tag, neigh.mask, neigh.hist, row_ok)
@@ -212,10 +220,12 @@ class Simulation:
     def init_neighbors(self, state: State) -> tuple[State, NeighborState]:
         """First build + setup force pass (the Verlet::setup analogue):
         forces are filled so the first half-kick integrates f(t0); the
-        setup pass does not advance spring history."""
+        setup pass does not advance spring history. Replicas (with
+        ``params`` stacked alike) each get their own lists."""
         neigh = empty_neighbors(
             state.cap, self.k_max, len(self.walls), dtype=state.x.dtype,
-            pair_cap=self.pair_list_cap, device=state.x.device)
+            pair_cap=self.pair_list_cap, device=state.x.device,
+            replicas=state.x.shape[0] if state.replicas else 0)
         state, neigh = self._rebuild(state, neigh)
         hists0 = (neigh.hist, neigh.pair_hist, neigh.wall_hist)
         state, neigh, _ = self.compute_forces(state, neigh)
@@ -246,29 +256,29 @@ class Simulation:
         for w_i, wall in enumerate(self.walls):
             wf, wt, whist, wpe, n_near = walls_mod.wall_contact(
                 state, self.shapes, self.params, wall,
-                neigh.wall_hist[:, w_i], wall_cap=self.wall_capacity)
+                neigh.wall_hist[..., w_i, :], wall_cap=self.wall_capacity)
             f = f + wf
             tau = tau + wt
-            pe_wall = pe_wall + wpe.sum()
+            pe_wall = pe_wall + wpe.sum(-1)
             wall_hists.append(whist)
             if self.wall_capacity:
                 overflow = torch.maximum(overflow, torch.where(
                     n_near > self.wall_capacity, n_near,
                     torch.zeros_like(n_near)))
         if wall_hists:
-            neigh = neigh.replace(wall_hist=torch.stack(wall_hists, dim=1))
+            neigh = neigh.replace(wall_hist=torch.stack(wall_hists, dim=-2))
         neigh = neigh.replace(overflow=overflow)
 
         m = self.shapes.mass_of(state.shtype, state.scale)
-        f = f + torch.where(state.active[:, None],
-                            m[:, None] * self.params.gravity[None, :], 0.0)
+        g = per_replica(self.params.gravity, 1, f.dim())
+        f = f + torch.where(state.active[..., None], m[..., None] * g, 0.0)
         # Group fixes act last, after pair, wall and gravity forces (the
         # reference's post_force order: setforce overrides what summed).
         if self.group_fixes:
             bits = self.group_tab[torch.clamp(
                 state.tag, 0, self.group_tab.shape[0] - 1)]
             for kind, bit, vals, keep in self.group_fixes:
-                mem3 = (state.active & ((bits & (1 << bit)) != 0))[:, None]
+                mem3 = (state.active & ((bits & (1 << bit)) != 0))[..., None]
                 if kind == "freeze":
                     f = torch.where(mem3, 0.0, f)
                     tau = torch.where(mem3, 0.0, tau)
@@ -276,7 +286,7 @@ class Simulation:
                     v = torch.as_tensor(vals, dtype=f.dtype, device=f.device)
                     kp = torch.as_tensor(keep, dtype=torch.bool,
                                          device=f.device)
-                    f = torch.where(mem3 & ~kp[None, :], v[None, :], f)
+                    f = torch.where(mem3 & ~kp, v, f)
         state = state.replace(f=f, tau=tau)
         return state, neigh, {"pe_pair": pe_pair, "pe_wall": pe_wall,
                               "virial": virial}
@@ -287,7 +297,11 @@ class Simulation:
         """One velocity-Verlet step. rebuild: 'always' (scheduled rebuild,
         first recording, not branching on, a stale list), 'check'
         (rebuild when the skin trigger fires; reads it on the host) or
-        'never'."""
+        'never'. With replicas, 'check' reads "any replica stale" once on
+        the host, rebuilds all and keeps the rebuild for the stale
+        replicas only: each rebuilds exactly when its own trigger fires,
+        as a per-replica select in place of the reference's lax.cond
+        under vmap."""
         state = integrate.initial_integrate(state, self.shapes, self.params)
         state, x_build, _ = integrate.apply_deformation(
             state, neigh.x_build, self.params, self.periodic)
@@ -297,8 +311,9 @@ class Simulation:
             # breaks minimum_image's sequential image removal: fail
             # loudly through the overflow channel (sentinel 1 << 21).
             L = state.box_hi - state.box_lo
-            bound = 0.5 * torch.stack([L[0], L[0], L[1]])
-            bad = (state.tilt.abs() > bound * (1 + 1e-6)).any()
+            bound = 0.5 * torch.stack([L[..., 0], L[..., 0], L[..., 1]],
+                                      dim=-1)
+            bad = (state.tilt.abs() > bound * (1 + 1e-6)).any(-1)
             neigh = neigh.replace(overflow=torch.maximum(
                 neigh.overflow, torch.where(
                     bad, 1 << 21, torch.zeros_like(neigh.overflow))))
@@ -307,8 +322,15 @@ class Simulation:
             state, neigh = self._rebuild(state, neigh)
             neigh = neigh.replace(
                 skin_violations=neigh.skin_violations + viol)
-        elif rebuild == "check" and bool(self._stale(state, neigh)):
-            state, neigh = self._rebuild(state, neigh)
+        elif rebuild == "check":
+            stale = self._stale(state, neigh)
+            if bool(stale.any()):
+                new_state, new_neigh = self._rebuild(state, neigh)
+                if stale.dim():
+                    state = _keep(stale, new_state, state)
+                    neigh = _keep(stale, new_neigh, neigh)
+                else:
+                    state, neigh = new_state, new_neigh
         state, neigh, aux = self.compute_forces(state, neigh)
         state = integrate.final_integrate(state, self.shapes, self.params)
         if self.press_control:
@@ -347,21 +369,24 @@ class Simulation:
     # -- observables --------------------------------------------------------
 
     def thermo(self, state: State, neigh: NeighborState) -> dict:
-        """LAMMPS-thermo-style scalars (0-d tensors; no host sync)."""
+        """LAMMPS-thermo-style scalars (0-d tensors; no host sync). With
+        replicas each is one a replica ([R]; the stress tensor [R, 3, 3]):
+        the counterpart of the reference's thermo under vmap."""
         shapes, params = self.shapes, self.params
         state, neigh, aux = self.compute_forces(state, neigh)
         ke_t, ke_r = integrate.kinetic_energy(state, shapes)
         m = shapes.mass_of(state.shtype, state.scale)
+        rep = state.replicas
         pe_grav = -torch.where(
             state.active,
-            m * (params.gravity[None, :]
-                 * (state.x - self.gravity_pe_origin[None, :])).sum(-1),
-            0.0).sum()
-        vol_box = torch.prod(state.box_hi - state.box_lo)
-        kin = torch.einsum("n,na,nb->ab",
+            m * (per_replica(params.gravity, 1, 3 if rep else 2)
+                 * (state.x - self.gravity_pe_origin)).sum(-1),
+            0.0).sum(-1)
+        vol_box = torch.prod(state.box_hi - state.box_lo, dim=-1)
+        kin = torch.einsum("rn,rna,rnb->rab" if rep else "n,na,nb->ab",
                            torch.where(state.active, m, 0.0), state.v,
                            state.v)
-        stress = (kin + aux["virial"]) / vol_box
+        stress = (kin + aux["virial"]) / vol_box[..., None, None]
         return {
             "step": state.step,
             "n": state.n_active,
@@ -371,7 +396,17 @@ class Simulation:
             "pe_wall": aux["pe_wall"],
             "pe_grav": pe_grav,
             "etot": ke_t + ke_r + aux["pe_pair"] + aux["pe_wall"] + pe_grav,
-            "press": torch.trace(stress) / 3.0,
+            "press": (torch.diagonal(stress, dim1=-2, dim2=-1).sum(-1) if rep
+                      else torch.trace(stress)) / 3.0,
             "stress": stress,
             "neigh_overflow": neigh.overflow,
         }
+
+
+def _keep(mask, new, old):
+    """Field by field, ``new`` for the replicas where ``mask`` [R] is set,
+    else ``old``."""
+    return old.replace(**{
+        f: torch.where(per_replica(mask, 0, getattr(old, f).dim()),
+                       getattr(new, f), getattr(old, f))
+        for f in old.__dataclass_fields__})

@@ -13,6 +13,13 @@ dtype torch indexing and scatter ops take; float fields are f32.
 (for example the leaves of the reference package's containers, converted
 with ``np.asarray``) and builds the torch container on ``device``. Every
 builder here defaults to ``device="cuda"``: the CPU is asked for by name.
+
+Replica ensembles (``parallel/ensemble.py``) stack the containers along a
+new leading replica axis: every State / NeighborState / SimParams tensor
+gains a leading ``[R]``, 0-d ones included, and the ops take either form
+(``per_replica`` and ``take`` are their two idioms). A stacked pytree of
+the reference package (numpy leaves with the replica axis) converts
+through ``from_numpy`` as a single one does.
 """
 
 from __future__ import annotations
@@ -82,11 +89,16 @@ class State(_Container):
 
     @property
     def cap(self) -> int:
-        return self.x.shape[0]
+        return self.x.shape[-2]
+
+    @property
+    def replicas(self) -> bool:
+        """True when the fields carry a leading replica axis."""
+        return self.x.dim() == 3
 
     @property
     def n_active(self):
-        return self.active.sum()
+        return self.active.sum(-1)
 
 
 @dataclass
@@ -267,13 +279,39 @@ class SimParams(_Container):
             tab, dtype=self.kn.dtype, device=self.kn.device))
 
 
+def per_replica(t, base: int, nd: int):
+    """A parameter or box value against per-particle or per-pair data:
+    ``t`` of its base rank ``base`` (0 a scalar, 1 a [3] vector) passes
+    unchanged; with a leading replica axis, [R, *s] becomes [R, 1, ..., 1,
+    *s] of ``nd`` dims, to broadcast against data of ``nd`` dims whose
+    first axis is the replica axis. A Python number passes unchanged."""
+    if not torch.is_tensor(t) or t.dim() == base:
+        return t
+    return t.reshape(t.shape[:1] + (1,) * (nd - t.dim()) + t.shape[1:])
+
+
+def take(t, idx, replicas: bool):
+    """``t[idx]``; with ``replicas``, t [R, N, ...] and idx [R, ...] index
+    each replica's own rows (the slots of a replica are its own)."""
+    if not replicas:
+        return t[idx]
+    r = torch.arange(idx.shape[0], device=idx.device)
+    return t[r.reshape((-1,) + (1,) * (idx.dim() - 1)), idx]
+
+
 def pair_material(params: SimParams, t_i, t_j):
     """Per-pair material rows [..., 8] from the [T, T, 8] table. Indices
-    clamp to the table size, so the [1, 1, 8] default serves any T."""
-    tp = params.pair_tab.shape[0]
+    clamp to the table size, so the [1, 1, 8] default serves any T. A
+    replica-stacked table [R, T, T, 8] (``ensemble.with_param_sweep``)
+    gives each replica's pairs t_i, t_j [R, ...] its own row."""
+    tab = params.pair_tab
+    tp = tab.shape[-2]
     ti = torch.clamp(t_i, max=tp - 1)
     tj = torch.clamp(t_j, max=tp - 1)
-    return params.pair_tab[ti, tj]
+    if tab.dim() == 4:
+        r = torch.arange(tab.shape[0], device=ti.device)
+        return tab[r.reshape((-1,) + (1,) * (ti.dim() - 1)), ti, tj]
+    return tab[ti, tj]
 
 
 def zeros_state(cap: int, box_lo, box_hi, dtype=torch.float32,
@@ -303,7 +341,15 @@ HIST_W = 6
 
 def empty_neighbors(cap: int, k_max: int, n_walls: int = 0,
                     dtype=torch.float32, pair_cap: int = 0,
-                    device="cuda") -> NeighborState:
+                    device="cuda", replicas: int = 0) -> NeighborState:
+    """Empty lists; ``replicas`` > 0 stacks that many along a leading
+    replica axis."""
+    if replicas:
+        one = empty_neighbors(cap, k_max, n_walls, dtype, pair_cap, device)
+        return NeighborState(**{
+            f.name: getattr(one, f.name).expand(
+                (replicas,) + getattr(one, f.name).shape).contiguous()
+            for f in fields(one)})
     fz = lambda *s: torch.zeros(s, dtype=dtype, device=device)
     iz = lambda *s: torch.zeros(s, dtype=torch.long, device=device)
     bz = lambda *s: torch.zeros(s, dtype=torch.bool, device=device)

@@ -160,7 +160,7 @@ template <int L, bool kBf16, int NB>
 __global__ void __launch_bounds__(WARPS * 32, MIN_BLOCKS)
     pair_geometric_kernel(const float* __restrict__ packed, const float* __restrict__ tbl,
                           int T, int W, const float* __restrict__ cap, int G,
-                          const float* __restrict__ par, int lmax, int P,
+                          const float* __restrict__ par, int lmax, int P, int rpr,
                           float* __restrict__ out) {
   extern __shared__ float smem[];
   float* s_tbl = smem;            // [T, W] power table
@@ -204,11 +204,12 @@ __global__ void __launch_bounds__(WARPS * 32, MIN_BLOCKS)
                                       dist, inv_dist, rbi, row[RMJ], rbj, s_cap, G, lmax, lane);
   }
   const Side none{};
-  pair_epilogue<false>(row, ma, mb, none, none, d, dist, inv_dist, rbi, rbj, par, lane, o);
+  pair_epilogue<false>(row, ma, mb, none, none, d, dist, inv_dist, rbi, rbj,
+                       replica_par(par, rpr), lane, o);
 }
 
 int launch_geometric(const float* packed, const float* tbl, int T, int W, const float* cap,
-                     int G, const float* par, int lmax, int P, bool bf16, float* out,
+                     int G, const float* par, int lmax, int P, int rpr, bool bf16, float* out,
                      cudaStream_t stream) {
   size_t smem = sizeof(float) * (size_t)(T * W + 4 * G);
   if (bf16) smem += sizeof(__nv_bfloat162) * (size_t)(WARPS * 2 * W);
@@ -220,17 +221,22 @@ int launch_geometric(const float* packed, const float* tbl, int T, int W, const 
     const PairKernel kernel = bf16  ? pair_geometric_kernel<L, true, 2>
                               : nb3 ? pair_geometric_kernel<L, false, 3>
                                     : pair_geometric_kernel<L, false, 2>;
-    return launch_pairs(kernel, smem, packed, tbl, T, W, cap, G, par, lmax, P, out, stream);
+    return launch_pairs(kernel, smem, packed, tbl, T, W, cap, G, par, lmax, P, rpr, out,
+                        stream);
   });
 }
 
 }  // namespace
 
+// par [P / rpr, 16]: the rows of P / rpr replicas, rpr rows each,
+// replica-major; a row reads its replica's par row (rpr = P: one list).
 extern "C" int sh_pair_contact(const float* packed, const float* tbl, int T, int W,
                                const float* cap, int G, const float* par, int lmax, int P,
-                               int conservative, int bf16, float* out, cudaStream_t stream) {
+                               int rpr, int conservative, int bf16, float* out,
+                               cudaStream_t stream) {
+  if (rpr < 1) return (int)cudaErrorInvalidValue;
   return (conservative ? launch_pair_conservative : launch_geometric)(
-      packed, tbl, T, W, cap, G, par, lmax, P, bf16 != 0, out, stream);
+      packed, tbl, T, W, cap, G, par, lmax, P, rpr, bf16 != 0, out, stream);
 }
 
 extern "C" const char* sh_error_string(int err) {

@@ -13,6 +13,7 @@ namespace shk {
 
 constexpr int F = 64;      // packed row width
 constexpr int NOUT = 24;   // output row width
+constexpr int NPAR = 16;   // par row width (dt first), one row a replica
 constexpr int WARPS = 4;   // pairs per block
 
 // Packed-row slots (spherharm_tpu_torch/ops/contact_kernels.py SLOTS).
@@ -51,7 +52,7 @@ struct Side : Moments {
 // side totals); lane 0 writes the 24-float row. ma/mb: the two sides'
 // moments; with kCons, a/b carry their gradients (the exact-gradient
 // elastic force), else the geometric law's force along the integral
-// normal at the centroid.
+// normal at the centroid. par: this pair's replica's row (replica_par).
 template <bool kCons>
 __device__ __forceinline__ void pair_epilogue(const float* row, const Moments& ma,
                                               const Moments& mb, const Side& a, const Side& b,
@@ -137,21 +138,31 @@ __device__ __forceinline__ void pair_epilogue(const float* row, const Moments& m
   }
 }
 
+// The par row of this warp's pair: the pairs of R replicas come
+// replica-major, rpr rows a replica, one par row each. Read from the
+// block and warp ids at the epilogue, so nothing of it is live in the
+// node loop.
+__device__ __forceinline__ const float* replica_par(const float* par, int rpr) {
+  const int p = blockIdx.x * WARPS + (threadIdx.x >> 5);
+  return par + (size_t)(p / rpr) * NPAR;
+}
+
 using PairKernel = void (*)(const float*, const float*, int, int, const float*, int,
-                            const float*, int, int, float*);
+                            const float*, int, int, int, float*);
 
 // Launch a stage-2 kernel, a warp a pair and WARPS pairs a block, with
 // smem bytes of dynamic shared memory; returns cudaGetLastError().
 inline int launch_pairs(PairKernel kernel, size_t smem, const float* packed, const float* tbl,
                         int T, int W, const float* cap, int G, const float* par, int lmax,
-                        int P, float* out, cudaStream_t stream) {
+                        int P, int rpr, float* out, cudaStream_t stream) {
   if (smem > 48 * 1024) {
     const cudaError_t e =
         cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (e != cudaSuccess) return (int)e;
   }
   const int blocks = (P + WARPS - 1) / WARPS;
-  kernel<<<blocks, WARPS * 32, smem, stream>>>(packed, tbl, T, W, cap, G, par, lmax, P, out);
+  kernel<<<blocks, WARPS * 32, smem, stream>>>(packed, tbl, T, W, cap, G, par, lmax, P, rpr,
+                                                out);
   return (int)cudaGetLastError();
 }
 
@@ -159,6 +170,6 @@ inline int launch_pairs(PairKernel kernel, size_t smem, const float* packed, con
 // in pair_contact.cu.
 int launch_pair_conservative(const float* packed, const float* tbl, int T, int W,
                              const float* cap, int G, const float* par, int lmax, int P,
-                             bool bf16, float* out, cudaStream_t stream);
+                             int rpr, bool bf16, float* out, cudaStream_t stream);
 
 }  // namespace shk

@@ -292,7 +292,7 @@ template <int L, bool kBf16>
 __global__ void __launch_bounds__(WARPS * 32, MIN_BLOCKS)
     pair_conservative_kernel(const float* __restrict__ packed, const float* __restrict__ tbl,
                              int T, int W, const float* __restrict__ cap, int G,
-                             const float* __restrict__ par, int lmax, int P,
+                             const float* __restrict__ par, int lmax, int P, int rpr,
                              float* __restrict__ out) {
   extern __shared__ float smem[];
   float* s_tbl = smem;               // [T, W] power table
@@ -339,20 +339,22 @@ __global__ void __launch_bounds__(WARPS * 32, MIN_BLOCKS)
     b = probe_side<L, false>(s_tbl + tj * W, sj, s_tbl + ti * W, si, qj, qi, -d, dist,
                              inv_dist, rbi, row[RMJ], rbj, s_cap, G, lmax, lane, red + NRED);
   }
-  pair_epilogue<true>(row, a, b, a, b, d, dist, inv_dist, rbi, rbj, par, lane, o);
+  pair_epilogue<true>(row, a, b, a, b, d, dist, inv_dist, rbi, rbj, replica_par(par, rpr), lane,
+                      o);
 }
 
 }  // namespace
 
 int shk::launch_pair_conservative(const float* packed, const float* tbl, int T, int W,
                                   const float* cap, int G, const float* par, int lmax, int P,
-                                  bool bf16, float* out, cudaStream_t stream) {
+                                  int rpr, bool bf16, float* out, cudaStream_t stream) {
   size_t smem = sizeof(float) * (size_t)(T * W + 4 * G + WARPS * 2 * NRED);
   if (bf16) smem += sizeof(__nv_bfloat162) * (size_t)(WARPS * 2 * W);
   return with_degree(lmax, [&](auto degree) {
     constexpr int L = decltype(degree)::value;
     const PairKernel kernel =
         bf16 ? pair_conservative_kernel<L, true> : pair_conservative_kernel<L, false>;
-    return launch_pairs(kernel, smem, packed, tbl, T, W, cap, G, par, lmax, P, out, stream);
+    return launch_pairs(kernel, smem, packed, tbl, T, W, cap, G, par, lmax, P, rpr, out,
+                        stream);
   });
 }

@@ -58,6 +58,7 @@ namespace {
 
 constexpr int FW = 32;     // packed row width
 constexpr int NOUTW = 16;  // output row width
+constexpr int NPARW = 24;  // par row width, one row a replica
 constexpr int WARPS = 4;   // particles per block
 // Blocks an SM must hold (__launch_bounds__): at most 65536 / (128 x 4)
 // = 128 registers a thread, the most blocks at which no instantiation
@@ -70,7 +71,7 @@ template <int KIND, int L, int NB>  // KIND 0: plane, 1: cylinder
 __global__ void __launch_bounds__(WARPS * 32, MIN_BLOCKS)
     wall_kernel(const float* __restrict__ packed, const float* __restrict__ tbl, int T, int W,
                 const float* __restrict__ cap, int G, const float* __restrict__ par, int lmax,
-                int B, float* __restrict__ out) {
+                int B, int rpr, float* __restrict__ out) {
   extern __shared__ float smem[];
   float* s_tbl = smem;           // [T, W] unit-scale power table
   float* s_cap = s_tbl + T * W;  // [4, G] cap grid
@@ -83,11 +84,26 @@ __global__ void __launch_bounds__(WARPS * 32, MIN_BLOCKS)
   if (p >= B) return;
   const float* row = packed + (size_t)p * FW;
 
-  const float dt = par[0];
-  const Material mt = {par[1], par[2], par[3], par[4], par[5], par[6], par[7], par[8]};
-  const V3 v0 = load3(par + 9), Wv = load3(par + 12), p0 = load3(par + 15),
-           u0 = load3(par + 18);
-  const float R = par[21];
+  // dt and the materials from this particle's replica's row (R replicas'
+  // rows come replica-major, rpr rows each); the wall's geometry is the
+  // same in every row. At a compiled degree all of it is read here, the
+  // geometry from row 0, as a single batch read it (the registers stay as
+  // they were); at the run-time degree the geometry is read here from the
+  // replica's row and the rest after the node loop (read here, the
+  // 3-node variants spill).
+  const float* pr = par + (size_t)(p / rpr) * NPARW;
+  float dt, R;
+  Material mt;
+  V3 v0, Wv, p0, u0;
+  if constexpr (L >= 0) {
+    dt = pr[0];
+    mt = {pr[1], pr[2], pr[3], pr[4], pr[5], pr[6], pr[7], pr[8]};
+    v0 = load3(par + 9), Wv = load3(par + 12), p0 = load3(par + 15), u0 = load3(par + 18);
+    R = par[21];
+  } else {
+    p0 = load3(pr + 15), u0 = load3(pr + 18);
+    R = pr[21];
+  }
 
   const V3 x = load3(row + X), v = load3(row + V), om = load3(row + OM);
   const Q4 q = load4(row + Q);
@@ -173,6 +189,12 @@ __global__ void __launch_bounds__(WARPS * 32, MIN_BLOCKS)
   }
 
   const bool in_contact = near && s1 > 0.0f;
+  if constexpr (L < 0) {
+    const float* pr2 = par + (size_t)(p / rpr) * NPARW;
+    dt = pr2[0];
+    mt = {pr2[1], pr2[2], pr2[3], pr2[4], pr2[5], pr2[6], pr2[7], pr2[8]};
+    v0 = load3(pr2 + 9), Wv = load3(pr2 + 12);
+  }
   const float denom = fmaxf(s1, 1e-30f);
   const float delta = in_contact ? 1.5f * s2 / denom : 0.0f;
   const V3 cen = in_contact ? cen_num / denom : z;
@@ -207,13 +229,13 @@ __global__ void __launch_bounds__(WARPS * 32, MIN_BLOCKS)
 }
 
 using WallKernel = void (*)(const float*, const float*, int, int, const float*, int,
-                            const float*, int, int, float*);
+                            const float*, int, int, int, float*);
 
 // A warp a particle and WARPS particles a block, the table and the cap
 // grid in dynamic shared memory; returns cudaGetLastError().
 template <int KIND>
 int launch(const float* packed, const float* tbl, int T, int W, const float* cap, int G,
-           const float* par, int lmax, int B, float* out, cudaStream_t stream) {
+           const float* par, int lmax, int B, int rpr, float* out, cudaStream_t stream) {
   const size_t smem = sizeof(float) * (size_t)(T * W + 4 * G);
   const bool nb3 = node_slots(G, 3) < node_slots(G, 2);
   return with_degree(lmax, [&](auto degree) {
@@ -225,17 +247,22 @@ int launch(const float* packed, const float* tbl, int T, int W, const float* cap
       if (e != cudaSuccess) return (int)e;
     }
     const int blocks = (B + WARPS - 1) / WARPS;
-    kernel<<<blocks, WARPS * 32, smem, stream>>>(packed, tbl, T, W, cap, G, par, lmax, B, out);
+    kernel<<<blocks, WARPS * 32, smem, stream>>>(packed, tbl, T, W, cap, G, par, lmax, B, rpr,
+                                                  out);
     return (int)cudaGetLastError();
   });
 }
 
 }  // namespace
 
+// par [B / rpr, 24]: the rows of B / rpr replicas, rpr rows each,
+// replica-major (rpr = B: one batch); the geometry slots (9-23) equal in
+// every row (pack_wall writes the wall's own in each).
 extern "C" int sh_wall_contact(const float* packed, const float* tbl, int T, int W,
                                const float* cap, int G, const float* par, int lmax, int B,
-                               int kind, float* out, cudaStream_t stream) {
-  if (kind == 0) return launch<0>(packed, tbl, T, W, cap, G, par, lmax, B, out, stream);
-  if (kind == 1) return launch<1>(packed, tbl, T, W, cap, G, par, lmax, B, out, stream);
+                               int rpr, int kind, float* out, cudaStream_t stream) {
+  if (rpr < 1) return (int)cudaErrorInvalidValue;
+  if (kind == 0) return launch<0>(packed, tbl, T, W, cap, G, par, lmax, B, rpr, out, stream);
+  if (kind == 1) return launch<1>(packed, tbl, T, W, cap, G, par, lmax, B, rpr, out, stream);
   return (int)cudaErrorInvalidValue;
 }

@@ -21,6 +21,12 @@ Radii come from the power-basis tables (``ops/sh_power.py``): per-pair
 rows of the per-type table, evaluated at unit scale then scaled (in f32),
 or scaled first and evaluated with bfloat16 Horner chains (K3's twin,
 ``eval_radius(bf16=True)``).
+
+The list builders and force sums take a single system or replicas stacked
+along a leading axis (``parallel/ensemble.py``): pair lists are then
+[R, Pc] of each replica's own slots, compacted per replica into its own
+capacity, and the kernels see the replica-major rows [R * Pc, 64] with
+one ``par`` row per replica.
 """
 
 from __future__ import annotations
@@ -28,6 +34,7 @@ from __future__ import annotations
 import torch
 
 from spherharm_tpu_torch.core import state as state_mod
+from spherharm_tpu_torch.core.state import per_replica, take
 from spherharm_tpu_torch.ops import rotation, sh_power
 from spherharm_tpu_torch.ops.rotation import quat_rotate, quat_rotate_inv
 
@@ -38,14 +45,17 @@ def minimum_image(d, box_lo, box_hi, periodic, tilt=None):
     ``tilt`` = (xy, xz, yz) triclinic tilt factors (box edge vectors
     a = (Lx, 0, 0), b = (xy, Ly, 0), c = (xz, yz, Lz)): images are removed
     in the order c, b, a, valid for |tilt| <= L/2 (the LAMMPS bound).
-    ``tilt=None`` is the orthogonal box."""
+    ``tilt=None`` is the orthogonal box. Boxes and tilts [3], or with a
+    leading axis [R, 3] against d [R, ..., 3] (one box a replica)."""
     if not any(periodic):
         return d
-    L = box_hi - box_lo
+    L = per_replica(box_hi - box_lo, 1, d.dim())
     pmask = torch.as_tensor(periodic, dtype=d.dtype, device=d.device)
     if tilt is None:
         return d - torch.round(d / L) * L * pmask
-    xy, xz, yz = tilt[0], tilt[1], tilt[2]
+    L = L[..., 0], L[..., 1], L[..., 2]
+    tilt = per_replica(tilt, 1, d.dim())
+    xy, xz, yz = tilt[..., 0], tilt[..., 1], tilt[..., 2]
     dx, dy, dz = d[..., 0], d[..., 1], d[..., 2]
     n3 = torch.round(dz / L[2]) * pmask[2]
     dx = dx - n3 * xz
@@ -64,12 +74,15 @@ def unshear_coords(x, box_lo, box_hi, tilt):
     frac(x), frac = H^-1 (x - lo) by back-substitution through the
     upper-triangular cell matrix H = [a|b|c]. Periodic images are
     orthogonal translations there, so cell binning stays complete under
-    tilt (with a tilt-inflated cell size)."""
-    L = box_hi - box_lo
-    f3 = (x[..., 2] - box_lo[2]) / L[2]
-    f2 = (x[..., 1] - box_lo[1] - tilt[2] * f3) / L[1]
-    xp = x[..., 0] - tilt[0] * f2 - tilt[1] * f3
-    yp = box_lo[1] + L[1] * f2
+    tilt (with a tilt-inflated cell size). Boxes and tilts as
+    ``minimum_image`` takes them."""
+    L = per_replica(box_hi - box_lo, 1, x.dim())
+    box_lo = per_replica(box_lo, 1, x.dim())
+    tilt = per_replica(tilt, 1, x.dim())
+    f3 = (x[..., 2] - box_lo[..., 2]) / L[..., 2]
+    f2 = (x[..., 1] - box_lo[..., 1] - tilt[..., 2] * f3) / L[..., 1]
+    xp = x[..., 0] - tilt[..., 0] * f2 - tilt[..., 1] * f3
+    yp = box_lo[..., 1] + L[..., 1] * f2
     return torch.stack([xp, yp, x[..., 2]], dim=-1)
 
 
@@ -306,24 +319,28 @@ def particle_rows(state, shapes, active=None):
     if active is None:
         active = state.active
     cols = [
-        state.x, state.v, state.q, om, m[:, None],
-        (shapes.rmax[state.shtype] * s)[:, None],
-        (shapes.rmin[state.shtype] * s)[:, None],
-        (shapes.rchar[state.shtype] * s)[:, None],
-        s[:, None], active[:, None],
+        state.x, state.v, state.q, om, m[..., None],
+        (shapes.rmax[state.shtype] * s)[..., None],
+        (shapes.rmin[state.shtype] * s)[..., None],
+        (shapes.rchar[state.shtype] * s)[..., None],
+        s[..., None], active[..., None],
     ]
-    rows = torch.cat([c.to(state.x.dtype) for c in cols], dim=1)
-    return torch.nn.functional.pad(rows, (0, ROW_W - rows.shape[1]))
+    rows = torch.cat([c.to(state.x.dtype) for c in cols], dim=-1)
+    return torch.nn.functional.pad(rows, (0, ROW_W - rows.shape[-1]))
 
 
 def _compact(keep, cap: int, n_src: int):
     """Slots of the first ``cap`` True entries of ``keep`` in order, then
-    ``n_src`` (= none). Cumsum + scatter: no host sync, static shape."""
-    pos = torch.cumsum(keep.long(), 0) - 1
+    ``n_src`` (= none). Cumsum + scatter: no host sync, static shape.
+    ``keep`` [R, n] compacts each replica's row into its own ``cap``
+    slots: one replica never fills another's slack."""
+    pos = torch.cumsum(keep.long(), -1) - 1
     tgt = torch.where(keep & (pos < cap), pos, cap)
-    sel = torch.full((cap + 1,), n_src, dtype=torch.long, device=keep.device)
-    sel.scatter_(0, tgt, torch.arange(keep.shape[0], device=keep.device))
-    return sel[:cap]
+    sel = torch.full(keep.shape[:-1] + (cap + 1,), n_src, dtype=torch.long,
+                     device=keep.device)
+    src = torch.arange(keep.shape[-1], device=keep.device)
+    sel.scatter_(-1, tgt, src.expand(keep.shape))
+    return sel[..., :cap]
 
 
 def build_pair_list(state, shapes, params, neigh_idx, neigh_mask, hist,
@@ -332,45 +349,53 @@ def build_pair_list(state, shapes, params, neigh_idx, neigh_mask, hist,
     """Compact the [N, K] Verlet tensor into a stable half pair list, once
     per rebuild. Keeps every pair whose bounding spheres can touch before
     the next rebuild (dist < rb_i + rb_j + skin). pair_i stays sorted; a
-    stable argsort of pair_j sorts the j-side reaction sum.
+    stable argsort of pair_j sorts the j-side reaction sum. With a replica
+    axis ([R, N, K] in, [R, pair_cap] out) each replica compacts into its
+    own capacity and counts its own pairs.
 
     Returns (fields: dict of NeighborState pair_* tensors, n_pairs);
     ``n_pairs > pair_cap`` means dropped pairs (overflow channel).
     """
-    N, K = neigh_idx.shape
+    rep = neigh_idx.dim() == 3
+    N, K = neigh_idx.shape[-2:]
     dev = neigh_idx.device
+    at = lambda t, i: take(t, i, rep)
     rb = shapes.rmax[state.shtype] * state.scale
-    d = minimum_image(state.x[neigh_idx] - state.x[:, None, :],
+    d = minimum_image(at(state.x, neigh_idx) - state.x[..., None, :],
                       state.box_lo, state.box_hi, periodic, tilt)
     dist2 = (d * d).sum(-1)
-    margin = rb[:, None] + rb[neigh_idx] + params.skin
-    owned_j = owned[neigh_idx]
-    keep = (neigh_mask & (dist2 < margin * margin) & owned[:, None]
-            & state.active[neigh_idx])
+    margin = (rb[..., None] + at(rb, neigh_idx)
+              + per_replica(params.skin, 0, neigh_idx.dim()))
+    owned_j = at(owned, neigh_idx)
+    keep = (neigh_mask & (dist2 < margin * margin) & owned[..., None]
+            & at(state.active, neigh_idx))
     if half:
         i_col = torch.arange(N, device=dev)[:, None]
         keep = keep & (~owned_j | (neigh_idx > i_col))
 
-    flat = keep.reshape(-1)
-    n_pairs = flat.sum()
+    lead = neigh_idx.shape[:-2]
+    flat = keep.reshape(lead + (N * K,))
+    n_pairs = flat.sum(-1)
     pair_sel = _compact(flat, pair_cap, N * K)
     valid = pair_sel < N * K
     sel_safe = torch.clamp(pair_sel, max=N * K - 1)
     pi = torch.where(valid, sel_safe // K, N - 1)
-    pj = torch.where(valid, neigh_idx.reshape(-1)[sel_safe], N - 1)
-    pair_both = valid & owned_j.reshape(-1)[sel_safe]
-    pair_hist = torch.where(valid[:, None],
-                            hist.reshape(-1, hist.shape[-1])[sel_safe], 0.0)
+    pj = torch.where(valid, at(neigh_idx.reshape(lead + (N * K,)), sel_safe),
+                     N - 1)
+    pair_both = valid & at(owned_j.reshape(lead + (N * K,)), sel_safe)
+    pair_hist = torch.where(
+        valid[..., None],
+        at(hist.reshape(lead + (N * K, hist.shape[-1])), sel_safe), 0.0)
     # Mirror slot k' with idx[pj, k'] == pi, for the rebuild-time
     # scatter-back of springs into both tag-keyed rows.
-    hit = (neigh_idx[pj] == pi[:, None]) & neigh_mask[pj]
-    kk = torch.argmax(hit.to(torch.uint8), dim=1)
-    found = hit.any(1) & valid & pair_both
+    hit = (at(neigh_idx, pj) == pi[..., None]) & at(neigh_mask, pj)
+    kk = torch.argmax(hit.to(torch.uint8), dim=-1)
+    found = hit.any(-1) & valid & pair_both
     pair_selj = torch.where(found, pj * K + kk, N * K)
     fields = dict(
         pair_i=pi, pair_j=pj, pair_valid=valid, pair_both=pair_both,
         pair_hist=pair_hist, pair_sel=pair_sel, pair_selj=pair_selj,
-        pair_jsort=torch.sort(pj, stable=True).indices,
+        pair_jsort=torch.sort(pj, dim=-1, stable=True).indices,
     )
     return fields, n_pairs
 
@@ -398,11 +423,14 @@ def prefilter_pair_list(state, shapes, params, fields, keep_cap: int,
     from spherharm_tpu_torch.ops import contact_kernels as ck
 
     pi, pj = fields["pair_i"], fields["pair_j"]
-    P = pi.shape[0]
+    rep = pi.dim() == 2
+    at = lambda t, i: take(t, i, rep)
+    P = pi.shape[-1]
     rows = particle_rows(state, shapes)
-    msk = (fields["pair_valid"] & (rows[pi, _RACT] > 0.5)
-           & (rows[pj, _RACT] > 0.5))
-    dp = minimum_image(rows[pj][:, _RX] - rows[pi][:, _RX],
+    rows_i, rows_j = at(rows, pi), at(rows, pj)
+    msk = (fields["pair_valid"] & (rows_i[..., _RACT] > 0.5)
+           & (rows_j[..., _RACT] > 0.5))
+    dp = minimum_image(rows_j[..., _RX] - rows_i[..., _RX],
                        state.box_lo, state.box_hi, periodic, tilt)
     tail_lo = ck.SLOTS["tail"][0]
     nc_ab = (shapes.lmax + 1) ** 2  # A/B prefix of the power layout
@@ -412,47 +440,53 @@ def prefilter_pair_list(state, shapes, params, fields, keep_cap: int,
     tbl_ab = ck.pad_type_table(shapes.power_tbl)[:, :nc_ab].contiguous()
 
     def probe(sl):
+        # Every replica's chunk of candidates in one launch.
         packed = ck.pack_pairs(
-            state, shapes, params, pi[sl], pj[sl], msk[sl],
-            dp.new_zeros((dp[sl].shape[0], hw)), dp[sl], rows=rows,
-            probe_only=True,
+            state, shapes, params, pi[..., sl], pj[..., sl], msk[..., sl],
+            dp.new_zeros(dp[..., sl, :].shape[:-1] + (hw,)), dp[..., sl, :],
+            rows=rows, probe_only=True,
         )[0]
         packed[:, tail_lo] = 0.0
-        return ck.stage1_depth(packed, tbl_ab, cap1, lmax=shapes.lmax,
-                               l1=shapes.lmax, bf16=False)
+        out = ck.stage1_depth(packed, tbl_ab, cap1, lmax=shapes.lmax,
+                              l1=shapes.lmax, bf16=False)
+        return out.reshape(msk[..., sl].shape)
 
     if probe_chunk and P > probe_chunk:
         depth = torch.cat([probe(slice(s, s + probe_chunk))
-                           for s in range(0, P, probe_chunk)])
+                           for s in range(0, P, probe_chunk)], dim=-1)
     else:
         depth = probe(slice(None))
 
     # Per-particle motion budgets (see docstring).
-    T = window_steps * params.dt
-    act = rows[:, _RACT] > 0.5
+    nd = rows.dim() - 1  # particle axis and any replica axis
+    dt = per_replica(params.dt, 0, nd)
+    skin = per_replica(params.skin, 0, nd)
+    T = window_steps * dt
+    act = rows[..., _RACT] > 0.5
     gmax_s = shapes.gmax[state.shtype] * state.scale
-    m = torch.clamp(rows[:, _RM_], min=1e-30)
-    speed = torch.linalg.norm(rows[:, _RV], dim=-1)
-    omag = torch.linalg.norm(rows[:, _ROM], dim=-1)
+    m = torch.clamp(rows[..., _RM_], min=1e-30)
+    speed = torch.linalg.norm(rows[..., _RV], dim=-1)
+    omag = torch.linalg.norm(rows[..., _ROM], dim=-1)
     zero = torch.zeros_like(m)
-    amax = torch.where(act, torch.linalg.norm(state.f, dim=-1) / m,
-                       zero).max() + torch.linalg.norm(params.gravity)
+    amax = (torch.where(act, torch.linalg.norm(state.f, dim=-1) / m,
+                        zero).amax(-1, keepdim=True)
+            + per_replica(torch.linalg.norm(params.gravity, dim=-1), 0, nd))
     inert = shapes.inertia_of(state.shtype, state.scale)
     alpmax = torch.where(
         act, torch.linalg.norm(state.tau, dim=-1)
-        / torch.clamp(inert.amin(-1), min=1e-30), zero).max()
+        / torch.clamp(inert.amin(-1), min=1e-30), zero).amax(-1, keepdim=True)
     budget = torch.minimum(
         torch.maximum(T * (speed + gmax_s * omag)
                       + T * T * (amax + gmax_s * alpmax),
-                      floor_frac * params.skin),
-        0.5 * params.skin)
+                      floor_frac * skin),
+        0.5 * skin)
     budget = torch.where(act, budget, zero)
 
-    rc_pair = torch.minimum(rows[pi, _RRC], rows[pj, _RRC])
-    margin = 0.08 * rc_pair + budget[pi] + budget[pj]
+    rc_pair = torch.minimum(rows_i[..., _RRC], rows_j[..., _RRC])
+    margin = 0.08 * rc_pair + at(budget, pi) + at(budget, pj)
     survive = msk & (depth > -margin)
 
-    n_surv = survive.sum()
+    n_surv = survive.sum(-1)
     sel = _compact(survive, keep_cap, P)
     ok = sel < P
     sels = torch.clamp(sel, max=P - 1)
@@ -460,16 +494,17 @@ def prefilter_pair_list(state, shapes, params, fields, keep_cap: int,
     none = N * k_max  # build_pair_list's "no dense slot"
     # sel is increasing and the invalid tail routes to N-1, so pair_i
     # stays sorted (the i-side segment-sum stays a sorted reduction).
-    pair_j = torch.where(ok, pj[sels], N - 1)
+    pair_j = torch.where(ok, at(pj, sels), N - 1)
     fields2 = dict(
-        pair_i=torch.where(ok, pi[sels], N - 1),
+        pair_i=torch.where(ok, at(pi, sels), N - 1),
         pair_j=pair_j,
-        pair_valid=fields["pair_valid"][sels] & ok,
-        pair_both=fields["pair_both"][sels] & ok,
-        pair_hist=torch.where(ok[:, None], fields["pair_hist"][sels], 0.0),
-        pair_sel=torch.where(ok, fields["pair_sel"][sels], none),
-        pair_selj=torch.where(ok, fields["pair_selj"][sels], none),
-        pair_jsort=torch.sort(pair_j, stable=True).indices,
+        pair_valid=at(fields["pair_valid"], sels) & ok,
+        pair_both=at(fields["pair_both"], sels) & ok,
+        pair_hist=torch.where(ok[..., None], at(fields["pair_hist"], sels),
+                              0.0),
+        pair_sel=torch.where(ok, at(fields["pair_sel"], sels), none),
+        pair_selj=torch.where(ok, at(fields["pair_selj"], sels), none),
+        pair_jsort=torch.sort(pair_j, dim=-1, stable=True).indices,
     )
     return fields2, n_surv, budget
 
@@ -479,13 +514,19 @@ def pair_hist_to_dense(neigh):
     both the (i->j) slot and the mirror (j->i) slot. The mirror's
     tangential part is negated; the rolling part is direction-symmetric.
     """
-    N, K, hw = neigh.hist.shape
-    val = torch.where(neigh.pair_valid[:, None], neigh.pair_hist, 0.0)
+    N, K, hw = neigh.hist.shape[-3:]
+    lead = neigh.hist.shape[:-3]
+    val = torch.where(neigh.pair_valid[..., None], neigh.pair_hist, 0.0)
     mirror_sign = neigh.hist.new_tensor([-1.0, -1.0, -1.0, 1.0, 1.0, 1.0][:hw])
-    flat = neigh.hist.new_zeros((N * K + 1, hw))
-    flat[neigh.pair_sel] = val
-    flat[neigh.pair_selj] = val * mirror_sign
-    return flat[:-1].reshape(N, K, hw)
+    flat = neigh.hist.new_zeros(lead + (N * K + 1, hw))
+    if lead:
+        r = torch.arange(lead[0], device=flat.device)[:, None]
+        flat[r, neigh.pair_sel] = val
+        flat[r, neigh.pair_selj] = val * mirror_sign
+    else:
+        flat[neigh.pair_sel] = val
+        flat[neigh.pair_selj] = val * mirror_sign
+    return flat[..., :-1, :].reshape(lead + (N, K, hw))
 
 
 def sorted_segment_sum(data, seg_ids, num_segments: int):
@@ -493,7 +534,26 @@ def sorted_segment_sum(data, seg_ids, num_segments: int):
     ascending ``seg_ids``: differences of a float64 prefix sum at the
     segment bounds (found by binary search). A fixed-order scan, with no
     atomics and no host sync, so results do not depend on the device's
-    scheduling, unlike an atomic ``index_add_``."""
+    scheduling, unlike an atomic ``index_add_``.
+
+    With a replica axis (data [R, P, C], seg_ids [R, P]) each replica
+    scans its own rows: a [R, P] cumsum along the inner dim, so no
+    replica's prefix carries another's. On the CPU the scan is the
+    single list's, element for element; on the card a batched scan
+    rounds its float64 prefix apart from the single list's (the f32
+    sums may differ in the last place)."""
+    if seg_ids.dim() == 2:
+        R = seg_ids.shape[0]
+        ids = torch.arange(num_segments, device=seg_ids.device).repeat(R, 1)
+        lo = torch.searchsorted(seg_ids, ids)
+        hi = torch.searchsorted(seg_ids, ids, right=True)
+        cols = data.double().movedim(-1, 0)  # [C, R, P]
+        csum = torch.stack([torch.cumsum(c, -1) for c in cols], dim=-1)
+        csum = torch.cat([csum.new_zeros((R, 1, csum.shape[-1])), csum],
+                         dim=1)
+        at = lambda i: torch.gather(
+            csum, 1, i[..., None].expand(-1, -1, csum.shape[-1]))
+        return (at(hi) - at(lo)).to(data.dtype)
     ids = torch.arange(num_segments, device=seg_ids.device)
     lo = torch.searchsorted(seg_ids, ids)
     hi = torch.searchsorted(seg_ids, ids, right=True)
@@ -513,40 +573,47 @@ def contact_force_pairs(state, shapes, params, neigh,
     two row-gathers, the pair kernel (``contact_kernels.pair_contact``,
     in the law ``conservative`` picks), two sorted segment-sums.
 
-    Returns (f [N,3], tau [N,3], pair_hist [Pc,HW], pe_total, virial).
+    Returns (f [N,3], tau [N,3], pair_hist [Pc,HW], pe_total, virial);
+    with a replica axis each gains a leading [R] (pe_total [R], virial
+    [R, 3, 3]) and the kernel runs once over all R lists.
     """
     from spherharm_tpu_torch.ops import contact_kernels as ck
 
     N = state.cap
     pi, pj = neigh.pair_i, neigh.pair_j
+    rep = pi.dim() == 2
+    at = lambda t, i: take(t, i, rep)
     rows = particle_rows(state, shapes)
-    rows_i, rows_j = rows[pi], rows[pj]
-    msk = (neigh.pair_valid & (rows_i[:, _RACT] > 0.5)
-           & (rows_j[:, _RACT] > 0.5))
-    dp = minimum_image(rows_j[:, _RX] - rows_i[:, _RX],
+    rows_i, rows_j = at(rows, pi), at(rows, pj)
+    msk = (neigh.pair_valid & (rows_i[..., _RACT] > 0.5)
+           & (rows_j[..., _RACT] > 0.5))
+    dp = minimum_image(rows_j[..., _RX] - rows_i[..., _RX],
                        state.box_lo, state.box_hi, periodic, tilt)
     packed, tbl, cap, par = ck.pack_pairs(
         state, shapes, params, pi, pj, msk, neigh.pair_hist, dp, rows=rows)
     out = ck.pair_contact(packed, tbl, cap, par, lmax=shapes.lmax,
                           conservative=conservative)
-    force = out[:, 0:3]
-    torque = out[:, 3:6]
-    torque_j = out[:, 6:9]
-    hist_new = out[:, 9:15]
-    pe = out[:, 15]
+    out = out.reshape(pi.shape + (ck.N_OUT,))
+    force = out[..., 0:3]
+    torque = out[..., 3:6]
+    torque_j = out[..., 6:9]
+    hist_new = out[..., 9:15]
+    pe = out[..., 15]
 
     # i side: pair_i is sorted by construction. j side (reaction, half-list
     # pairs only): permuted into pair_j order, so also a sorted sum.
-    acc_i = sorted_segment_sum(torch.cat([force, torque], dim=1), pi, N)
-    w_j = (msk & neigh.pair_both).to(force.dtype)[:, None]
+    acc_i = sorted_segment_sum(torch.cat([force, torque], dim=-1), pi, N)
+    w_j = (msk & neigh.pair_both).to(force.dtype)[..., None]
     perm = neigh.pair_jsort
     acc_j = sorted_segment_sum(
-        torch.cat([-force * w_j, torque_j * w_j], dim=1)[perm], pj[perm], N)
-    f = acc_i[:, 0:3] + acc_j[:, 0:3]
-    tau = acc_i[:, 3:6] + acc_j[:, 3:6]
+        at(torch.cat([-force * w_j, torque_j * w_j], dim=-1), perm),
+        at(pj, perm), N)
+    f = acc_i[..., 0:3] + acc_j[..., 0:3]
+    tau = acc_i[..., 3:6] + acc_j[..., 3:6]
     w_pe = torch.where(msk & neigh.pair_both, 1.0, 0.5).to(pe.dtype)
-    pe_total = (pe * w_pe).sum()
-    virial = -torch.einsum("p,pa,pb->ab", w_pe, dp, force)
+    pe_total = (pe * w_pe).sum(-1)
+    virial = -torch.einsum("rp,rpa,rpb->rab" if rep else "p,pa,pb->ab",
+                           w_pe, dp, force)
     return f, tau, hist_new, pe_total, virial
 
 
@@ -559,26 +626,33 @@ def contact_force_dense(state, shapes, params, neigh,
 
     Full-list semantics: each contact adds to its own row only (a fixed-
     order sum over K); pe and virial are halved to undo the double count.
-    Returns (f [N,3], tau [N,3], hist [N,K,HW], pe_total, virial [3,3]).
+    Returns (f [N,3], tau [N,3], hist [N,K,HW], pe_total, virial [3,3]);
+    with a replica axis each gains a leading [R].
     """
     from spherharm_tpu_torch.ops import contact_kernels as ck
 
-    N, K = neigh.idx.shape
+    N, K = neigh.idx.shape[-2:]
+    lead = neigh.idx.shape[:-2]
+    rep = bool(lead)
+    at = lambda t, i: take(t, i, rep)
     pi = torch.arange(N, device=neigh.idx.device).repeat_interleave(K)
-    pj = neigh.idx.reshape(-1)
+    pi = pi.expand(lead + (N * K,))
+    pj = neigh.idx.reshape(lead + (N * K,))
     rows = particle_rows(state, shapes)
-    msk = (neigh.mask.reshape(-1) & (rows[pi, _RACT] > 0.5)
-           & (rows[pj, _RACT] > 0.5))
-    dp = minimum_image(rows[pj, _RX] - rows[pi, _RX],
+    msk = (neigh.mask.reshape(lead + (N * K,)) & (at(rows, pi)[..., _RACT] > 0.5)
+           & (at(rows, pj)[..., _RACT] > 0.5))
+    dp = minimum_image(at(rows, pj)[..., _RX] - at(rows, pi)[..., _RX],
                        state.box_lo, state.box_hi, periodic, tilt)
     packed, tbl, cap, par = ck.pack_pairs(
         state, shapes, params, pi, pj, msk,
-        neigh.hist.reshape(N * K, -1), dp, rows=rows)
+        neigh.hist.reshape(lead + (N * K, -1)), dp, rows=rows)
     out = ck.pair_contact(packed, tbl, cap, par, lmax=shapes.lmax,
                           conservative=conservative)
-    force = out[:, 0:3]
-    f = force.reshape(N, K, 3).sum(1)
-    tau = out[:, 3:6].reshape(N, K, 3).sum(1)
-    pe_total = 0.5 * out[:, 15].sum()
-    virial = -0.5 * torch.einsum("pa,pb->ab", dp, force)
-    return f, tau, out[:, 9:15].reshape(N, K, -1), pe_total, virial
+    out = out.reshape(lead + (N * K, ck.N_OUT))
+    force = out[..., 0:3]
+    f = force.reshape(lead + (N, K, 3)).sum(-2)
+    tau = out[..., 3:6].reshape(lead + (N, K, 3)).sum(-2)
+    pe_total = 0.5 * out[..., 15].sum(-1)
+    virial = -0.5 * torch.einsum("rpa,rpb->rab" if rep else "pa,pb->ab",
+                                 dp, force)
+    return f, tau, out[..., 9:15].reshape(lead + (N, K, -1)), pe_total, virial

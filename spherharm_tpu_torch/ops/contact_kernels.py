@@ -18,6 +18,11 @@ its plain PyTorch twin on a CPU tensor; nothing else picks the route. A
 wrapper counts its kernel launches in ``<wrapper>.launches``, a dict
 keyed by variant.
 
+Replicas (``parallel/ensemble.py``): the rows of R replicas come
+replica-major, [R * P, 64], with ``par`` [R, 16], one row a replica; a
+row's parameters are ``par[row // P]``. One launch serves all R. The
+stage-1 probe reads no ``par`` and runs unchanged on such rows.
+
 Inputs keep the reference's packed layout (``_SLOTS`` of
 ``spherharm_tpu/ops/contact_pallas.py``), so tests compare like with like.
 """
@@ -68,26 +73,32 @@ def pack_pairs(state, shapes, params, pi, pj, mask, hist, d, rows=None,
 
     Returns (packed [P, 64], tbl [T8, W] per-type power table,
     cap [4, G] contact cap grid, par [1, 16] with dt first). The first
-    17 columns of ``contact.particle_rows`` match each side's slots."""
+    17 columns of ``contact.particle_rows`` match each side's slots.
+    With a replica axis (pi, pj, mask, hist, d [R, P, ...]; state and
+    params stacked) the rows come replica-major, [R * P, 64], and ``par``
+    is [R, 16] with each replica's dt and materials."""
     if rows is None:
         rows = contact.particle_rows(state, shapes)
-    ti_t, tj_t = state.shtype[pi], state.shtype[pj]
-    si, sj = state.scale[pi], state.scale[pj]
+    rep = pi.dim() == 2
+    at = lambda t, i: state_mod.take(t, i, rep)
+    ti_t, tj_t = at(state.shtype, pi), at(state.shtype, pj)
+    si, sj = at(state.scale, pi), at(state.scale, pj)
     f32 = torch.float32
-    ri = rows[pi][:, :17].to(f32)
-    rj = rows[pj][:, :17].to(f32)
+    ri = at(rows, pi)[..., :17].to(f32)
+    rj = at(rows, pj)[..., :17].to(f32)
     tail = shapes.tail1[ti_t] * si + shapes.tail1[tj_t] * sj
     if probe_only:
         # The r-only probe reads neither materials nor springs.
-        mat = ri.new_zeros((pi.shape[0], 8))
+        mat = ri.new_zeros(pi.shape + (8,))
     else:
         mat = state_mod.pair_material(params, ti_t, tj_t)
-    typ = torch.stack([ti_t, tj_t], dim=1).to(f32)
-    scl = torch.stack([si, sj], dim=1).to(f32)
+    typ = torch.stack([ti_t, tj_t], dim=-1).to(f32)
+    scl = torch.stack([si, sj], dim=-1).to(f32)
     packed = torch.cat(
-        [ri, rj, hist.to(f32), mask.to(f32)[:, None], d.to(f32),
-         tail.to(f32)[:, None], mat.to(f32), typ, scl], dim=1)
-    packed = torch.nn.functional.pad(packed, (0, F_PACK - packed.shape[1]))
+        [ri, rj, hist.to(f32), mask.to(f32)[..., None], d.to(f32),
+         tail.to(f32)[..., None], mat.to(f32), typ, scl], dim=-1)
+    packed = torch.nn.functional.pad(
+        packed, (0, F_PACK - packed.shape[-1])).reshape(-1, F_PACK)
     tbl = pad_type_table(shapes.power_tbl).contiguous()
     cap = torch.stack([shapes.cap_x, shapes.cap_glw, shapes.cap_cpsi,
                        shapes.cap_spsi])
@@ -96,7 +107,7 @@ def pack_pairs(state, shapes, params, pi, pj, mask, hist, d, rows=None,
         params.dt, params.kn, params.kt, params.gamma_n, params.gamma_t,
         params.mu, params.k_roll, params.gamma_roll, params.mu_roll,
         z, z, z, z, z, z, z,
-    ])[None, :].to(f32)
+    ], dim=-1).reshape(-1, N_PAR).to(f32)
     return packed, tbl, cap, par
 
 
@@ -136,32 +147,60 @@ LAWS = ("conservative", "geometric")
 VARIANTS = LAWS + tuple(f"{law}_bf16" for law in LAWS)
 
 
+def rows_per_replica(P: int, par, name: str) -> int:
+    """Rows a replica of a replica-major list [R * rows, ...] with ``par``
+    [R, n] holds; raises unless P splits evenly."""
+    R = par.shape[0] if par.dim() == 2 else 1
+    if R < 1 or P % R:
+        raise ValueError(f"{name}: {P} rows do not split into {R} replicas")
+    return P // R
+
+
 def pair_contact(packed, tbl, cap, par, lmax: int, conservative: bool = True,
                  bf16: bool | None = None):
     """Pair contact over packed rows in the conservative or the geometric
     law. packed [P, 64], tbl [T, W] per-type power table, cap [4, G],
-    par [1, 16]. Returns [P, 24]. ``bf16`` runs the Horner chains in
+    par [R, 16]: R replicas' lists, replica-major, P / R rows each (R = 1
+    a single list). Returns [P, 24]. ``bf16`` runs the Horner chains in
     bfloat16 (K3); None takes ``STAGE2_BF16``. CUDA tensors launch
-    ``csrc/pair_contact.cu`` (launches counted per variant in
-    ``pair_contact.launches``: law, ``_bf16`` appended for K3); CPU
+    ``csrc/pair_contact.cu`` once for all R (launches counted per variant
+    in ``pair_contact.launches``: law, ``_bf16`` appended for K3); CPU
     tensors run ``pair_contact_plain``."""
     if bf16 is None:
         bf16 = STAGE2_BF16
+    par = par.reshape(-1, N_PAR)
+    rpr = rows_per_replica(packed.shape[0], par, "pair_contact")
     if packed.device.type == "cpu":
         # Rows are independent and masked rows are zeros: the twin runs on
         # the live rows only (a fixed-capacity list is mostly dead slots).
-        live = torch.nonzero(_col(packed, "mask") > 0.5).squeeze(1)
-        if live.numel() == packed.shape[0]:
-            return pair_contact_plain(packed, tbl, cap, par, lmax,
-                                      conservative, bf16)
+        # Replicas of the conservative law run a replica at a time, so
+        # that each replica's rows form the very tensor its own run forms:
+        # its ``** 2.5`` (torch's CPU pow) rounds apart in a vector loop's
+        # body and its tail. The geometric law takes every live row at
+        # once, each with its replica's par row.
+        blocks = ([(r, slice(r * rpr, (r + 1) * rpr))
+                   for r in range(par.shape[0])] if conservative
+                  else [(None, slice(None))])
         out = packed.new_zeros((packed.shape[0], N_OUT))
-        out[live] = pair_contact_plain(packed[live], tbl, cap, par, lmax,
-                                       conservative, bf16)
+        for r, blk in blocks:
+            sub = packed[blk]
+            live = torch.nonzero(_col(sub, "mask") > 0.5).squeeze(1)
+            if not live.numel():
+                continue
+            par_r = par if r is None else par[r:r + 1]
+            if par_r.shape[0] > 1:
+                par_r = par_r[live // rpr]
+            if live.numel() == sub.shape[0]:
+                out[blk] = pair_contact_plain(sub, tbl, cap, par_r, lmax,
+                                              conservative, bf16)
+            else:
+                out[blk][live] = pair_contact_plain(
+                    sub[live], tbl, cap, par_r, lmax, conservative, bf16)
         return out
     _check_cuda("pair_contact", packed=packed, tbl=tbl, cap=cap, par=par)
     P, T, W, G = packed.shape[0], tbl.shape[0], tbl.shape[1], cap.shape[1]
-    if (packed.shape[1] != F_PACK or cap.shape[0] != 4
-            or par.numel() != N_PAR or W != sh_power.power_layout(lmax)["W"]):
+    if (packed.shape[1] != F_PACK or cap.shape[0] != 4 or par.dim() != 2
+            or par.shape[1] != N_PAR or W != sh_power.power_layout(lmax)["W"]):
         raise ValueError("pair_contact: bad input shapes "
                          f"{tuple(packed.shape)} {tuple(tbl.shape)} "
                          f"{tuple(cap.shape)} {tuple(par.shape)}")
@@ -171,7 +210,7 @@ def pair_contact(packed, tbl, cap, par, lmax: int, conservative: bool = True,
             "_bf16" if bf16 else "")
         err = cuda_build.library().sh_pair_contact(
             _ptr(packed), _ptr(tbl), T, W, _ptr(cap), G, _ptr(par), lmax,
-            P, int(conservative), int(bf16), _ptr(out),
+            P, rpr, int(conservative), int(bf16), _ptr(out),
             _stream(packed.device))
         cuda_build.check(err, f"pair_contact[{variant}]")
         pair_contact.launches[variant] += 1
@@ -190,7 +229,9 @@ def pair_contact_plain(packed, tbl, cap, par, lmax: int,
     (sin(gamma)^2 floored at 0, as the reference's Pallas kernel), Hertz +
     damping along the integral normal at the centroid, no autograd.
     ``bf16``: K3's surfaces (``contact.eval_radius``).
-    Masked rows (mask column <= 0.5) output zeros, as the kernel's do."""
+    Masked rows (mask column <= 0.5) output zeros, as the kernel's do.
+    ``par`` [R, 16]: row p reads dt from ``par[p // (P / R)]``, as the
+    kernel does."""
     c = lambda name: _col(packed, name)
     mask = c("mask") > 0.5
     d = c("d")
@@ -223,7 +264,12 @@ def pair_contact_plain(packed, tbl, cap, par, lmax: int,
     mi, mj = c("mi"), c("mj")
     m_eff = mi * mj / torch.clamp(mi + mj, min=1e-30)
     poly = torch.sqrt(torch.clamp(delta * r_eff, min=0.0))
-    dt = par.reshape(-1)[0]
+    R = par.shape[0] if par.dim() == 2 else 1
+    if R == 1:
+        dt = par.reshape(-1)[0]
+    else:  # each row its replica's dt, a column against [P, 3]
+        rpr = rows_per_replica(packed.shape[0], par, "pair_contact_plain")
+        dt = par[:, 0].repeat_interleave(rpr)[:, None]
     kn, kt, gn, gt, mu, k_roll, g_roll, mu_roll = c("mat").unbind(-1)
 
     vi, vj, omi, omj = c("vi"), c("vj"), c("omi"), c("omj")

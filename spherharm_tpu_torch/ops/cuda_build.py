@@ -34,13 +34,14 @@ NVCC_FLAGS = (*ARCH, "-std=c++17", "-O3", "-Xcompiler", "-fPIC")
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
 _SIGNATURES = {
-    # packed, tbl, T, W, cap, G, par, lmax, P, conservative, bf16, out,
-    # stream
-    "sh_pair_contact": (_P, _P, _I, _I, _P, _I, _P, _I, _I, _I, _I, _P, _P),
+    # packed, tbl, T, W, cap, G, par, lmax, P, rows_per_replica,
+    # conservative, bf16, out, stream
+    "sh_pair_contact": (_P, _P, _I, _I, _P, _I, _P, _I, _I, _I, _I, _I, _P, _P),
     # packed, tbl1, T, W, cap1, G, l1, bf16, P, out, stream
     "sh_stage1_depth": (_P, _P, _I, _I, _P, _I, _I, _I, _I, _P, _P),
-    # packed, tbl, T, W, cap, G, par, lmax, B, kind, out, stream
-    "sh_wall_contact": (_P, _P, _I, _I, _P, _I, _P, _I, _I, _I, _P, _P),
+    # packed, tbl, T, W, cap, G, par, lmax, B, rows_per_replica, kind,
+    # out, stream
+    "sh_wall_contact": (_P, _P, _I, _I, _P, _I, _P, _I, _I, _I, _I, _P, _P),
 }
 
 

@@ -7,11 +7,17 @@
 
 plus the box: ``apply_deformation`` (strain and shear rates, tilt flip)
 and the ``berendsen_box_control`` stress servo.
+
+Each takes a single system or replicas stacked along a leading axis
+(``core/state.py``): per-replica dt, rates, targets, boxes and tilts
+broadcast over the particle axis (``per_replica``).
 """
 
 from __future__ import annotations
 
 import torch
+
+from spherharm_tpu_torch.core.state import per_replica
 
 from spherharm_tpu_torch.ops.rotation import (
     omega_from_angmom,
@@ -35,10 +41,10 @@ def richardson_quat_update(q, angmom, inertia_body, dt):
 
 def initial_integrate(state, shapes, params):
     """Half-kick velocities/angmom, drift positions, rotate quaternions."""
-    m = shapes.mass_of(state.shtype, state.scale)[:, None]
+    m = shapes.mass_of(state.shtype, state.scale)[..., None]
     inertia = shapes.inertia_of(state.shtype, state.scale)
-    act = state.active[:, None]
-    dt = params.dt
+    act = state.active[..., None]
+    dt = per_replica(params.dt, 0, 3)
     v = torch.where(act, state.v + 0.5 * dt * state.f / m, state.v)
     x = torch.where(act, state.x + dt * v, state.x)
     angmom = torch.where(act, state.angmom + 0.5 * dt * state.tau,
@@ -52,9 +58,9 @@ def initial_integrate(state, shapes, params):
 
 def final_integrate(state, shapes, params):
     """Second half-kick from freshly computed forces/torques."""
-    m = shapes.mass_of(state.shtype, state.scale)[:, None]
-    act = state.active[:, None]
-    dt = params.dt
+    m = shapes.mass_of(state.shtype, state.scale)[..., None]
+    act = state.active[..., None]
+    dt = per_replica(params.dt, 0, 3)
     v = torch.where(act, state.v + 0.5 * dt * state.f / m, state.v)
     angmom = torch.where(act, state.angmom + 0.5 * dt * state.tau,
                          state.angmom)
@@ -79,20 +85,25 @@ def apply_deformation(state, x_build, params, periodic=(False, False, False)):
     Returns (state, x_build, flip): ``flip`` [3] is the whole-edge
     multiple removed from each tilt component (zeros when none).
     """
-    factor = 1.0 + params.deform_rate * params.dt
+    nd = state.x.dim()
+    factor = 1.0 + params.deform_rate * per_replica(params.dt, 0, 2)
     center = 0.5 * (state.box_lo + state.box_hi)
-    x = center + (state.x - center) * factor
-    xb = center + (x_build - center) * factor
+    c = per_replica(center, 1, nd)
+    f = per_replica(factor, 1, nd)
+    x = c + (state.x - c) * f
+    xb = c + (x_build - c) * f
     box_lo = center + (state.box_lo - center) * factor
     box_hi = center + (state.box_hi - center) * factor
 
-    g = params.shear_rate * params.dt  # (d_xy, d_xz, d_yz) increments
+    # (d_xy, d_xz, d_yz) increments
+    g = params.shear_rate * per_replica(params.dt, 0, 2)
     L = box_hi - box_lo
+    gp = per_replica(g, 1, nd)
 
     def shear(p):
-        sx = (p[..., 0] + g[0] * (p[..., 1] - center[1])
-              + g[1] * (p[..., 2] - center[2]))
-        sy = p[..., 1] + g[2] * (p[..., 2] - center[2])
+        sx = (p[..., 0] + gp[..., 0] * (p[..., 1] - c[..., 1])
+              + gp[..., 1] * (p[..., 2] - c[..., 2]))
+        sy = p[..., 1] + gp[..., 2] * (p[..., 2] - c[..., 2])
         return torch.stack([sx, sy, p[..., 2]], dim=-1)
 
     x = shear(x)
@@ -101,25 +112,26 @@ def apply_deformation(state, x_build, params, periodic=(False, False, False)):
     # the matching diagonal factor, then grow with the shear; shearing
     # the cell vectors b = (xy, Ly, 0), c = (xz, yz, Lz) as positions are
     # sheared gives xz the g_xy * yz cross-term.
-    t = state.tilt * torch.stack([factor[0], factor[0], factor[1]])
-    xy = t[0] + g[0] * L[1]
-    xz = t[1] + g[0] * t[2] + g[1] * L[2]
-    yz = t[2] + g[2] * L[2]
+    t = state.tilt * torch.stack(
+        [factor[..., 0], factor[..., 0], factor[..., 1]], dim=-1)
+    xy = t[..., 0] + g[..., 0] * L[..., 1]
+    xz = t[..., 1] + g[..., 0] * t[..., 2] + g[..., 1] * L[..., 2]
+    yz = t[..., 2] + g[..., 2] * L[..., 2]
     # The flip: yz by the b vector (periodic y), dragging xz by -xy a
     # flip (c' = c - b); then xy and xz by the a vector (periodic x).
     # Positions need no remap: the next wrap uses the current cell.
     can_x = float(periodic[0])
     can_y = float(periodic[1])
-    f_yz = torch.round(yz / L[1]) * can_y
-    yz = yz - f_yz * L[1]
+    f_yz = torch.round(yz / L[..., 1]) * can_y
+    yz = yz - f_yz * L[..., 1]
     xz = xz - f_yz * xy
-    f_xy = torch.round(xy / L[0]) * can_x
-    f_xz = torch.round(xz / L[0]) * can_x
-    xy = xy - f_xy * L[0]
-    xz = xz - f_xz * L[0]
+    f_xy = torch.round(xy / L[..., 0]) * can_x
+    f_xz = torch.round(xz / L[..., 0]) * can_x
+    xy = xy - f_xy * L[..., 0]
+    xz = xz - f_xz * L[..., 0]
     state = state.replace(x=x, box_lo=box_lo, box_hi=box_hi,
-                          tilt=torch.stack([xy, xz, yz]))
-    return state, xb, torch.stack([f_xy, f_xz, f_yz])
+                          tilt=torch.stack([xy, xz, yz], dim=-1))
+    return state, xb, torch.stack([f_xy, f_xz, f_yz], dim=-1)
 
 
 def berendsen_box_control(state, x_build, params, virial, shapes):
@@ -130,23 +142,29 @@ def berendsen_box_control(state, x_build, params, virial, shapes):
     ``virial`` is the step's own; press_tau = 0 gives mu = 1.
     Returns (state, x_build)."""
     m = shapes.mass_of(state.shtype, state.scale)
-    kin = torch.einsum("n,na,na->a", torch.where(state.active, m, 0.0),
-                       state.v, state.v)
-    vol = torch.prod(state.box_hi - state.box_lo)
-    p_diag = (kin + torch.diagonal(virial)) / vol
+    rep = state.replicas
+    kin = torch.einsum("rn,rna,rna->ra" if rep else "n,na,na->a",
+                       torch.where(state.active, m, 0.0), state.v, state.v)
+    vol = torch.prod(state.box_hi - state.box_lo, dim=-1)
+    p_diag = ((kin + torch.diagonal(virial, dim1=-2, dim2=-1))
+              / vol[..., None])
     inv_tau = torch.where(params.press_tau > 0,
                           1.0 / torch.clamp(params.press_tau, min=1e-30),
                           torch.zeros_like(params.press_tau))
-    mu = 1.0 - (params.dt * inv_tau / 3.0) * (params.press_target - p_diag)
+    mu = 1.0 - ((params.dt * inv_tau / 3.0)[..., None]
+                * (params.press_target - p_diag))
     mu = torch.clamp(mu, 0.99, 1.01)
     center = 0.5 * (state.box_lo + state.box_hi)
+    c = per_replica(center, 1, state.x.dim())
+    m3 = per_replica(mu, 1, state.x.dim())
     state = state.replace(
-        x=center + (state.x - center) * mu,
+        x=c + (state.x - c) * m3,
         box_lo=center + (state.box_lo - center) * mu,
         box_hi=center + (state.box_hi - center) * mu,
-        tilt=state.tilt * torch.stack([mu[0], mu[0], mu[1]]),
+        tilt=state.tilt * torch.stack([mu[..., 0], mu[..., 0], mu[..., 1]],
+                                      dim=-1),
     )
-    return state, center + (x_build - center) * mu
+    return state, c + (x_build - c) * m3
 
 
 def kinetic_energy(state, shapes):
@@ -155,8 +173,8 @@ def kinetic_energy(state, shapes):
     inertia = shapes.inertia_of(state.shtype, state.scale)
     zero = torch.zeros((), dtype=m.dtype, device=m.device)
     ke_t = 0.5 * torch.where(
-        state.active, m * (state.v**2).sum(-1), zero).sum()
+        state.active, m * (state.v**2).sum(-1), zero).sum(-1)
     omega = omega_from_angmom(state.q, state.angmom, inertia)
     ke_r = 0.5 * torch.where(
-        state.active, (omega * state.angmom).sum(-1), zero).sum()
+        state.active, (omega * state.angmom).sum(-1), zero).sum(-1)
     return ke_t, ke_r

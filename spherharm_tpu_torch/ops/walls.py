@@ -15,7 +15,7 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 
-from spherharm_tpu_torch.core.state import _Container
+from spherharm_tpu_torch.core.state import _Container, take
 from spherharm_tpu_torch.ops.rotation import omega_from_angmom
 from spherharm_tpu_torch.ops.neighbor import stable_topk_true
 
@@ -96,6 +96,27 @@ class CylinderWall(_Container):
         return rad - self.radius, n
 
 
+def near_wall_rows(state, shapes, wall, hist, wall_cap: int):
+    """The narrow phase's batch under ``wall_cap``: the (up to wall_cap)
+    particles whose bounding sphere reaches the wall, near-first in slot
+    order (a stable sort, the order ``lax.top_k`` gives), each replica's
+    own with a replica axis. Returns (sub-state of wall_cap rows, their
+    springs, sel: their slots, sel_ok: which are near, n_near)."""
+    rep = state.replicas
+    depth_c, _ = wall.depth_and_normal(state.x)
+    rmax_all = shapes.rmax[state.shtype] * state.scale
+    near_all = state.active & (depth_c > -rmax_all)
+    sel = stable_topk_true(near_all, wall_cap)
+    at = lambda t: take(t, sel, rep)
+    sel_ok = at(near_all)
+    sub = state.replace(
+        x=at(state.x), v=at(state.v), q=at(state.q),
+        angmom=at(state.angmom), scale=at(state.scale),
+        shtype=at(state.shtype), active=sel_ok,
+    )
+    return sub, at(hist), sel, sel_ok, near_all.sum(-1)
+
+
 def wall_contact(state, shapes, params, wall, hist, wall_cap: int = 0):
     """Hertz/friction/rolling contact of every particle against one wall.
 
@@ -103,30 +124,32 @@ def wall_contact(state, shapes, params, wall, hist, wall_cap: int = 0):
     torque [N,3], new_hist [N,6], pe [N], n_near).
 
     wall_cap > 0: only the (up to wall_cap) particles whose bounding
-    sphere reaches the wall enter the narrow phase, picked near-first in
-    slot order (a stable sort, the order ``lax.top_k`` gives); results
-    scatter back. ``n_near > wall_cap`` means truncation (overflow).
+    sphere reaches the wall enter the narrow phase (``near_wall_rows``);
+    results scatter back. ``n_near > wall_cap`` means truncation
+    (overflow).
+
+    With a replica axis every output gains a leading [R] (n_near [R]),
+    each replica compacts its own near rows into its own ``wall_cap``,
+    and one kernel launch serves all R.
     """
     from spherharm_tpu_torch.ops import walls_kernels
 
     if wall_cap and wall_cap < state.cap:
-        depth_c, _ = wall.depth_and_normal(state.x)
-        rmax_all = shapes.rmax[state.shtype] * state.scale
-        near_all = state.active & (depth_c > -rmax_all)
-        sel = stable_topk_true(near_all, wall_cap)
-        sel_ok = near_all[sel]
-        n_near = near_all.sum()
-        sub = state.replace(
-            x=state.x[sel], v=state.v[sel], q=state.q[sel],
-            angmom=state.angmom[sel], scale=state.scale[sel],
-            shtype=state.shtype[sel], active=sel_ok,
-        )
+        sub, sub_hist, sel, sel_ok, n_near = near_wall_rows(
+            state, shapes, wall, hist, wall_cap)
         fw, tw, hw, pew, _ = wall_contact(sub, shapes, params, wall,
-                                          hist[sel])
-        ok = sel_ok[:, None]
-        put = lambda v: torch.zeros((state.cap,) + v.shape[1:],
-                                    dtype=v.dtype, device=v.device
-                                    ).index_copy_(0, sel, v)
+                                          sub_hist)
+        ok = sel_ok[..., None]
+
+        def put(v):
+            z = torch.zeros(state.x.shape[:-1] + v.shape[sel.dim():],
+                            dtype=v.dtype, device=v.device)
+            if not state.replicas:
+                return z.index_copy_(0, sel, v)
+            r = torch.arange(sel.shape[0], device=sel.device)[:, None]
+            z[r, sel] = v
+            return z
+
         return (put(torch.where(ok, fw, 0.0)), put(torch.where(ok, tw, 0.0)),
                 put(torch.where(ok, hw, 0.0)),
                 put(torch.where(sel_ok, pew, 0.0)), n_near)
@@ -140,4 +163,6 @@ def wall_contact(state, shapes, params, wall, hist, wall_cap: int = 0):
         state, shapes, params, wall, hist, depth_c, n_c, om)
     out = walls_kernels.wall_contact_kernel(packed, tbl, cap, par,
                                             lmax=shapes.lmax, kind=kind)
-    return out[:, 0:3], out[:, 3:6], out[:, 6:12], out[:, 12], near.sum()
+    out = out.reshape(state.x.shape[:-1] + out.shape[-1:])
+    return (out[..., 0:3], out[..., 3:6], out[..., 6:12], out[..., 12],
+            near.sum(-1))

@@ -14,6 +14,11 @@ W, p0, u0, R). Unlike the reference's pre-scaled per-particle table rows
 [B, W], the table is the pair kernels' unit-scale per-type one [T8, W]
 (``contact_kernels.pad_type_table``), and each particle row carries its
 shape type (slot 27) and scale (slot 28), as the pair rows do.
+
+Replicas: R replicas' batches come replica-major, [R * B, 32], with
+``par`` [R, 24]; row b reads ``par[b // B]`` (its replica's dt and
+materials; the wall's geometry is the same in every row). One launch
+serves all R.
 """
 
 from __future__ import annotations
@@ -27,6 +32,7 @@ from spherharm_tpu_torch.ops.contact_kernels import (
     _stream,
     friction_rolling,
     pad_type_table,
+    rows_per_replica,
 )
 from spherharm_tpu_torch.ops.rotation import quat_rotate, quat_rotate_inv
 
@@ -47,7 +53,9 @@ def pack_wall(state, shapes, params, wall, hist, depth_c, n_c, om):
     particle centre; om: world-frame angular velocities. The wall's
     ``mat`` row (kn, kt, gamma_n, gamma_t, mu, k_roll, gamma_roll,
     mu_roll), where it has one, takes the place of the global materials
-    in ``par[1:9]``."""
+    in ``par[1:9]``. With a replica axis (state [R, B, ...], params
+    stacked) the rows come replica-major, [R * B, 32], and ``par`` is
+    [R, 24]: each replica's dt and materials, the same geometry."""
     from spherharm_tpu_torch.ops.walls import PlaneWall
 
     f32 = torch.float32
@@ -55,12 +63,14 @@ def pack_wall(state, shapes, params, wall, hist, depth_c, n_c, om):
     rmax = shapes.rmax[state.shtype] * state.scale
     rchar = shapes.rchar[state.shtype] * state.scale
     near = state.active & (depth_c > -rmax)
+    col = lambda t: t[..., None]
     packed = torch.cat([
-        state.x, state.v, state.q, om, m[:, None], rmax[:, None],
-        rchar[:, None], near[:, None].to(f32), depth_c[:, None], n_c, hist,
-        state.shtype[:, None].to(f32), state.scale[:, None],
-    ], dim=1).to(f32)
-    packed = torch.nn.functional.pad(packed, (0, F_WALL - packed.shape[1]))
+        state.x, state.v, state.q, om, col(m), col(rmax), col(rchar),
+        col(near).to(f32), col(depth_c), n_c, hist,
+        col(state.shtype).to(f32), col(state.scale),
+    ], dim=-1).to(f32)
+    packed = torch.nn.functional.pad(
+        packed, (0, F_WALL - packed.shape[-1])).reshape(-1, F_WALL)
     tbl = pad_type_table(shapes.power_tbl).contiguous()
     cap = torch.stack([shapes.cap_x, shapes.cap_glw, shapes.cap_cpsi,
                        shapes.cap_spsi])
@@ -80,29 +90,34 @@ def pack_wall(state, shapes, params, wall, hist, depth_c, n_c, om):
     else:
         mat8 = [params.kn, params.kt, params.gamma_n, params.gamma_t,
                 params.mu, params.k_roll, params.gamma_roll, params.mu_roll]
-    par = torch.stack([
-        params.dt, *mat8, *v0.unbind(0), *Wv.unbind(0), *p0.unbind(0),
-        *u0.unbind(0), R, z, z,
-    ])[None, :].to(f32)
+    cols = [params.dt, *mat8, *v0.unbind(0), *Wv.unbind(0), *p0.unbind(0),
+            *u0.unbind(0), R, z, z]
+    # Per-replica parameters ([R]) spread the wall's geometry over R rows.
+    par = torch.stack(torch.broadcast_tensors(*cols), dim=-1).reshape(
+        -1, N_PAR_WALL).to(f32)
     return packed, tbl, cap, par, kind
 
 
 def wall_contact_kernel(packed, tbl, cap, par, lmax: int, kind: str):
     """Wall contact over packed particle rows [B, 32] with the per-type
-    table tbl [T8, W]. Returns [B, 16]. CUDA tensors launch
-    ``csrc/wall_contact.cu`` (launches counted per kind in
-    ``wall_contact_kernel.launches``); CPU tensors run
+    table tbl [T8, W] and par [R, 24]: R replicas' batches, replica-major,
+    B / R rows each (R = 1 a single batch), the wall's geometry (par
+    slots 9-23) the same in every row, as ``pack_wall`` writes it.
+    Returns [B, 16]. CUDA tensors
+    launch ``csrc/wall_contact.cu`` once for all R (launches counted per
+    kind in ``wall_contact_kernel.launches``); CPU tensors run
     ``wall_contact_plain``."""
     if kind not in KINDS:
         raise ValueError(f"unknown wall kind {kind!r}")
+    par = par.reshape(-1, N_PAR_WALL)
+    rpr = rows_per_replica(packed.shape[0], par, "wall_contact")
     if packed.device.type == "cpu":
         return wall_contact_plain(packed, tbl, cap, par, lmax, kind)
     _check_cuda("wall_contact", packed=packed, tbl=tbl, cap=cap, par=par)
     B, T, G = packed.shape[0], tbl.shape[0], cap.shape[1]
     W = sh_power.power_layout(lmax)["W"]
     if (packed.shape[1] != F_WALL or tbl.dim() != 2 or T == 0 or T % 8
-            or tbl.shape[1] != W or cap.shape[0] != 4
-            or par.numel() != N_PAR_WALL):
+            or tbl.shape[1] != W or cap.shape[0] != 4):
         raise ValueError("wall_contact: bad input shapes "
                          f"{tuple(packed.shape)} {tuple(tbl.shape)} "
                          f"{tuple(cap.shape)} {tuple(par.shape)}")
@@ -114,7 +129,7 @@ def wall_contact_kernel(packed, tbl, cap, par, lmax: int, kind: str):
     if B:
         err = cuda_build.library().sh_wall_contact(
             _ptr(packed), _ptr(tbl), T, W, _ptr(cap), G, _ptr(par), lmax, B,
-            KINDS.index(kind), _ptr(out), _stream(packed.device))
+            rpr, KINDS.index(kind), _ptr(out), _stream(packed.device))
         cuda_build.check(err, f"wall_contact[{kind}]")
         wall_contact_kernel.launches[kind] += 1
     return out
@@ -127,14 +142,23 @@ def wall_contact_plain(packed, tbl, cap, par, lmax: int, kind: str):
     """Plain twin of the wall kernel (direct tensor version): each
     particle's surface at unit scale from its type's table row, then r and
     its derivatives times its scale (``contact.eval_radius``), as the
-    kernel evaluates it."""
+    kernel evaluates it. ``par`` [R, 24]: row b reads ``par[b // (B /
+    R)]``, as the kernel does."""
     col = lambda k: packed[:, k]
     vec = lambda lo: packed[:, lo:lo + 3]
     cap_x, cap_glw, cap_cpsi, cap_spsi = cap.unbind(0)
-    p = par.reshape(-1)
-    dt = p[0]
-    kn, kt, gn, gt, mu, k_roll, g_roll, mu_roll = p[1:9].unbind(0)
-    v0, Wv, p0, u0, R = p[9:12], p[12:15], p[15:18], p[18:21], p[21]
+    par = par.reshape(-1, N_PAR_WALL)
+    if par.shape[0] == 1:
+        p = par.reshape(-1)
+        node = lambda t: t
+    else:  # each row its replica's parameters, against [B, ...] and [B, G, ...]
+        rpr = rows_per_replica(packed.shape[0], par, "wall_contact_plain")
+        p = par.repeat_interleave(rpr, dim=0)
+        node = lambda t: t[:, None]
+    dt = node(p[..., 0])
+    kn, kt, gn, gt, mu, k_roll, g_roll, mu_roll = p[..., 1:9].unbind(-1)
+    v0, Wv = p[..., 9:12], p[..., 12:15]
+    p0, u0, R = node(p[..., 15:18]), node(p[..., 18:21]), node(p[..., 21])
 
     x, v, q, om = vec(0), vec(3), packed[:, 6:10], vec(10)
     m_eff, rmax, r_eff = col(13), col(14), col(15)

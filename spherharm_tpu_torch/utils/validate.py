@@ -4,6 +4,9 @@ NaN/Inf detection, capacity-overflow audits of the fixed-size tensors,
 and determinism checks (same inputs => bitwise-identical outputs). The
 force sums are sorted segment-sums, not atomics, so a run is meant to be
 bitwise repeatable on one device.
+
+Each audit also reads replica-stacked inputs (``parallel/ensemble.py``),
+and then reports per replica.
 """
 
 from __future__ import annotations
@@ -16,14 +19,14 @@ import torch
 
 def check_finite(state, where: str = "") -> None:
     """Raise FloatingPointError if a dynamic field of an active particle
-    holds NaN/Inf (host-side audit)."""
-    act = state.active
+    holds NaN/Inf (host-side audit). The message counts the bad values of
+    each field, a list of one count a replica for stacked states."""
+    act = state.active[..., None]
     bad = {}
     for f in ("x", "v", "q", "angmom", "f", "tau"):
-        vals = getattr(state, f)[act]
-        n_bad = int((~torch.isfinite(vals)).sum())
-        if n_bad:
-            bad[f] = n_bad
+        n_bad = (~torch.isfinite(getattr(state, f)) & act).sum((-2, -1))
+        if bool(n_bad.any()):
+            bad[f] = n_bad.tolist()
     if bad:
         raise FloatingPointError(f"non-finite state {where}: {bad}")
 
@@ -33,20 +36,29 @@ def audit_capacities(sim, neigh) -> dict:
 
     The channel is per-source gated: each count is folded in only when it
     exceeds its own capacity, so it is 0 in a healthy run and carries the
-    exceeding count when any capacity was breached."""
-    report = {"overflow_channel": (int(neigh.overflow), 0),
-              "k_max": sim.k_max}
+    exceeding count when any capacity was breached. Stacked lists give
+    one channel a replica: a list of (overflow, 0)."""
+    ovf = neigh.overflow
+    channel = ([(int(o), 0) for o in ovf] if ovf.dim() else (int(ovf), 0))
+    report = {"overflow_channel": channel, "k_max": sim.k_max}
     if sim.pair_capacity:
         report["pair_capacity"] = sim.pair_capacity
     return report
 
 
 def assert_no_overflow(sim, neigh) -> None:
-    """Raise if any fixed capacity was exceeded (gated channel != 0)."""
-    ovf = int(neigh.overflow)
-    if ovf != 0:
+    """Raise if any fixed capacity was exceeded (gated channel != 0); with
+    stacked lists, naming each replica that overflowed."""
+    ovf = neigh.overflow
+    if ovf.dim():
+        bad = {r: int(o) for r, o in enumerate(ovf.tolist()) if o}
+        where = f"replicas {bad} (replica: gated channel)"
+    else:
+        bad = int(ovf)
+        where = f"gated channel = {bad}"
+    if bad:
         raise RuntimeError(
-            f"capacity overflow (gated channel = {ovf}): physics was "
+            f"capacity overflow ({where}): physics was "
             "truncated — raise k_max / cell_cap / pair_capacity / "
             "stage2_capacity / wall_capacity")
 

@@ -516,3 +516,149 @@ def test_deck_two_body_cli_on_card(cuda_device, tmp_path):
     np.testing.assert_array_equal(last["id"], [1, 2])
     assert last["vx"][0] == pytest.approx(-1.0, abs=5e-3)
     assert last["vx"][1] == pytest.approx(1.0, abs=5e-3)
+
+
+def _replica_rows(packed, par, R, seed=2):
+    """R replicas of ``packed``'s rows, replica-major, each with its own
+    dt (par row r) and its own materials (kn, gamma_n, mu scaled in the
+    rows' mat slots)."""
+    rng = np.random.default_rng(seed)
+    lo = ck.SLOTS["mat"][0]
+    blocks, pars = [], []
+    for r in range(R):
+        b = packed.clone()
+        for k, s in ((0, 1.0 + r), (2, 0.5 + 0.5 * r), (4, 0.25 + 0.25 * r)):
+            b[:, lo + k] *= s
+        blocks.append(b)
+        p = par.clone()
+        p[0, 0] *= rng.uniform(0.5, 3.0)
+        pars.append(p)
+    return torch.cat(blocks).contiguous(), torch.cat(pars).contiguous()
+
+
+@pytest.mark.parametrize("conservative,bf16", [
+    (True, False), (False, False), (True, True), (False, True)],
+    ids=["K1", "K2", "K3-conservative", "K3-geometric"])
+def test_pair_contact_kernel_replicas(conservative, bf16, cuda_device):
+    """R = 4 replicas' rows in one launch, each reading its own par row
+    (dt) and materials: the kernel against the batched twin at the
+    single-list tolerances, and the batched twin against one twin call a
+    replica."""
+    R = 4
+    packed, tbl, cap, par, _ = _pairs(4, cuda_device)
+    packed, par = _replica_rows(packed, par, R)
+    variant = ("conservative" if conservative else "geometric") + (
+        "_bf16" if bf16 else "")
+    n0 = ck.pair_contact.launches[variant]
+    out = ck.pair_contact(packed, tbl, cap, par, 4, conservative, bf16)
+    torch.cuda.synchronize()
+    assert ck.pair_contact.launches[variant] == n0 + 1
+    ref = ck.pair_contact_plain(packed, tbl, cap, par, 4, conservative, bf16)
+    P = packed.shape[0] // R
+    for r in range(R):
+        blk = slice(r * P, (r + 1) * P)
+        one = ck.pair_contact_plain(packed[blk], tbl, cap, par[r:r + 1], 4,
+                                    conservative, bf16)
+        np.testing.assert_allclose(np32(ref[blk]), np32(one), rtol=0,
+                                   atol=1e-6 * float(one.abs().max()))
+    out, ref = np32(out), np32(ref)
+    assert (ref[:, 16] > 0.5).sum() > 4 * R
+    fmag = np.abs(ref[:, 0:9]).max()
+    tol = 2e-3 if not (conservative or bf16) else 1e-4
+    bad = np.abs(out[:, 0:9] - ref[:, 0:9]).max(1) > tol * fmag
+    assert bad.sum() <= max(1, out.shape[0] // 1000)
+    assert not np.array_equal(out[:P, 9:12], out[P:2 * P, 9:12])  # dt differs
+
+
+@pytest.mark.parametrize("kind", ["plane", "cylinder"])
+def test_wall_kernel_replicas(kind, cuda_device):
+    """R = 3 replicas' wall batches in one launch ([R * B, 32] rows, par
+    [R, 24] with each replica's dt and materials): the kernel against the
+    batched twin, and the batched twin against one call a replica."""
+    from spherharm_tpu_torch.parallel import ensemble as ens
+
+    R, n, lmax = 3, 64, 8
+    rng = np.random.default_rng(6)
+    shapes = shapes_library.build_shapes(blob_coeffs(lmax, 2), lmax,
+                                         device=cuda_device)
+    x = rng.uniform(0.8, 5.2, (n, 3))
+    x[:, 2] = rng.uniform(0.25, 1.6, n)
+    if kind == "plane":
+        wall = walls_mod.PlaneWall.create([0, 0, 0.5], [0, 0, 1],
+                                          velocity=[0.1, 0, 0],
+                                          device=cuda_device)
+    else:
+        rel = x[:, :2] - 3.0
+        x[:, :2] = 3.0 + rel / np.linalg.norm(rel, axis=1, keepdims=True) \
+            * rng.uniform(2.2, 2.85, n)[:, None]
+        wall = walls_mod.CylinderWall.create([3, 3, 0], [0, 0, 1], 2.8,
+                                             omega=0.7, device=cuda_device)
+    q = rng.normal(size=(n, 4))
+    q /= np.linalg.norm(q, axis=1, keepdims=True)
+    st = scenarios.make_state(
+        x, [0, 0, 0], [6, 6, 6], q=q, v=rng.normal(size=(n, 3)) * 0.3,
+        angmom=rng.normal(size=(n, 3)) * 0.05,
+        scale=rng.uniform(0.85, 1.15, n), shtype=rng.integers(0, 2, n),
+        device=cuda_device)
+    params = ens.with_param_sweep(_params(cuda_device), dt=[1e-4, 2e-4, 4e-4],
+                                  kn=[1e5, 3e5, 5e5], mu=[0.1, 0.4, 0.9],
+                                  gamma_n=[5.0, 20.0, 60.0])
+    om = omega_from_angmom(st.q, st.angmom, shapes.inertia_of(st.shtype,
+                                                              st.scale))
+    depth_c, n_c = wall.depth_and_normal(st.x)
+    hist = torch.tensor(rng.normal(size=(n, 6)).astype(np.float32) * 1e-4,
+                        device=cuda_device)
+    stacked = lambda t: t.expand((R,) + t.shape)
+    packed, tbl, cap, par, k = wk.pack_wall(
+        ens.replicate(st, R), shapes, params, wall, stacked(hist),
+        stacked(depth_c), stacked(n_c), stacked(om))
+    assert k == kind and par.shape == (R, wk.N_PAR_WALL)
+    n0 = wk.wall_contact_kernel.launches[kind]
+    out = wk.wall_contact_kernel(packed, tbl, cap, par, lmax, kind)
+    torch.cuda.synchronize()
+    assert wk.wall_contact_kernel.launches[kind] == n0 + 1
+    ref = wk.wall_contact_plain(packed, tbl, cap, par, lmax, kind)
+    for r in range(R):
+        args = wk.pack_wall(st, shapes, ens.replica(params, r), wall, hist,
+                            depth_c, n_c, om)
+        one = wk.wall_contact_plain(*args[:4], lmax, kind)
+        np.testing.assert_allclose(np32(ref[r * n:(r + 1) * n]), np32(one),
+                                   rtol=0, atol=1e-6 * float(one.abs().max()))
+    out, ref = np32(out), np32(ref)
+    assert (ref[:, 13] > 0.5).sum() > 3 * R
+    np.testing.assert_array_equal(out[:, 13], ref[:, 13])
+    fmag = np.abs(ref[:, 0:3]).max()
+    np.testing.assert_allclose(out[:, 0:6], ref[:, 0:6], rtol=0,
+                               atol=1e-4 * fmag)
+    np.testing.assert_allclose(out[:, 6:13], ref[:, 6:13], rtol=0,
+                               atol=1e-6 + 1e-4 * np.abs(ref[:, 6:13]).max())
+
+
+def test_two_body_sweep_on_card(cuda_device):
+    """tests/test_ensemble.py's restitution sweep (R = 4, gamma_n 0-400,
+    3000 steps) on the card: speeds monotone in gamma, replica 0 within
+    2e-3 of the single card run, every replica within 1e-3 of the CPU
+    ensemble's, and as many pair-kernel launches as the single run."""
+    from spherharm_tpu_torch.parallel import ensemble as ens
+
+    gammas, steps = [0.0, 50.0, 150.0, 400.0], 3000
+    out = {}
+    for device in (cuda_device, torch.device("cpu")):
+        sim, state, neigh = scenarios.two_body_collision(
+            gamma_n=0.0, dt=2e-4, conservative=False, device=device)
+        params = ens.with_param_sweep(sim.params, gamma_n=gammas)
+        n0 = ck.pair_contact.launches["geometric"]
+        states, _ = ens.run_replicas(sim, ens.replicate(state, 4),
+                                     ens.replicate(neigh, 4), params, steps)
+        n1 = ck.pair_contact.launches["geometric"]
+        out[device.type] = np32(states.v)
+        if device.type == "cuda":
+            s1, _ = sim.run(state, neigh, steps)
+            n2 = ck.pair_contact.launches["geometric"]
+            assert n1 - n0 == n2 - n1 == steps
+            v_solo = float(s1.v[0, 0])
+    speeds = -out["cuda"][:, 0, 0]
+    assert speeds[0] > 0.99
+    assert np.all(np.diff(speeds) < 0), speeds
+    assert abs(out["cuda"][0, 0, 0] - v_solo) <= 2e-3
+    np.testing.assert_allclose(out["cuda"], out["cpu"], rtol=0, atol=1e-3)

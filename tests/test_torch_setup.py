@@ -177,6 +177,7 @@ def test_import_without_jax():
         "from spherharm_tpu_torch.ops import sh_math\n"
         "from spherharm_tpu_torch.io import data, deck, dump\n"
         "from spherharm_tpu_torch import native\n"
+        "from spherharm_tpu_torch.parallel import ensemble\n"
         "assert not any(m == 'jax' or m.startswith(('jax.', 'spherharm_tpu.'))"
         " for m in sys.modules if sys.modules[m] is not None)\n"
         "print('ok')\n"

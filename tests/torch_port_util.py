@@ -80,6 +80,22 @@ def contact_rich_state(x, radius, R, L, c=0.84, press=0.04, seed=1):
     return x, rng.normal(size=x.shape) * 0.01
 
 
+def drum_state(sim, st0, device):
+    """The port's State of ``contact_rich_state`` for a drum or deposition
+    ``sim`` from its builder state ``st0``."""
+    from spherharm_tpu_torch.models import scenarios
+
+    sh = np32(st0.shtype)
+    sc = np32(st0.scale).astype(np.float64)
+    radius = np32(sim.shapes.rchar).astype(np.float64)[sh] * sc
+    R = float(sim.walls[0].radius)
+    L = float(sim.walls[2].point[1] - sim.walls[1].point[1])
+    x, angmom = contact_rich_state(np32(st0.x), radius, R, L)
+    return scenarios.make_state(x, np32(st0.box_lo), np32(st0.box_hi),
+                                q=np32(st0.q), angmom=angmom, scale=sc,
+                                shtype=sh, device=device)
+
+
 def pressed_box_state(x, rmax, c=0.88, floor=0.75, seed=1):
     """A contact-rich start for the settling box (floor at z = 0, box
     centred on the z axis) from its loose lattice x: shrink the lattice by
