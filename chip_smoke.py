@@ -1,9 +1,8 @@
 """Smoke run of the PyTorch + CUDA port (spherharm_tpu_torch) on one GPU.
 
     python3 chip_smoke.py            # one NVIDIA GPU, from the repo root
-    python3 chip_smoke.py --profile  # + a torch.profiler table of 20 more
-                                     #   steps of each path
-                                     #   (build/chip_smoke_profile_*.txt)
+    python3 chip_smoke.py --profile  # + each path's eager torch.profiler
+                                     #   table (build/chip_smoke_profile_*.txt)
 
 Phases, each fatal on failure (exit code != 0, no result line):
 
@@ -60,8 +59,27 @@ Phases, each fatal on failure (exit code != 0, no result line):
    deposition with a mu sweep and the n = 128 conservative drum with
    the prefilter and a gamma_n sweep (K1, K4, K6, K7), thermo and
    positions per replica;
-5. the paths, each with every launch counter set to 0 just before it and
-   read just after: 60 steps (3 cadence blocks) of the n = 100k drum; 100
+5. the paths, each through the entry point a user calls (``Simulation.
+   run``, ``ensemble.run_replicas``, the deck's ``run``), which replays
+   CUDA graphs of the step (``core/runner.py``). Each path first runs
+   ``graph_vs_eager`` from its start: a few steps (``*_EAGER``; the
+   drum's 25 at R = 20 are a cadence block and a remainder) eagerly
+   (``cuda_graphs=False``; host-clock rate, then its first 20 steps
+   again under torch.profiler for the device's ms a step) and as graph
+   replays
+   (capturing them), and once more from the cached graphs under
+   ``torch.cuda.set_sync_debug_mode("error")``: both graph runs equal the
+   eager run bit for bit in every State and NeighborState field (x, v,
+   q, angmom, image, tilt, box, springs, overflow, skin_violations, ...),
+   with equal kernel launch counts (the wrappers count a graph's launches
+   on each replay); then one eager plain step and one eager rebuild step
+   under the same sync debug mode (check mode's one read a step, an event
+   synchronisation, is not one it sees). Then its run, with every launch
+   counter set to 0 just before it and read just after, prints eager and
+   graph particle-steps/s, the graph run's device busy share (the eager
+   profile's device ms a step over the graph run's ms a step), capture
+   seconds and graph pool bytes: 60 steps (3 cadence blocks) of the
+   n = 100k drum; 100
    steps of the n = 10k deposition from a contact-rich start; 200 steps of
    the n = 500 settling box (5 plane walls, dense path) from its lattice
    pressed onto the floor; 2,000 steps of the n = 10k drift gas after
@@ -113,15 +131,17 @@ Phases, each fatal on failure (exit code != 0, no result line):
    ids in every dump frame, overflow 0 (``DECKS_THAT_OVERFLOW``: the CPU's
    count; they overflow in the reference too); then ``DRUM_DECK``, ``examples/drum.in`` at
    full size (Lmax 8, conservative, no prefilter, pair cap 4n, k_max 32,
-   cell_cap 12: the deck's own capacities), 60 steps, on the card only:
+   cell_cap 12: the deck's own capacities), its set-up, ``graph_vs_eager``
+   over 30 steps of its Simulation, then its 60 steps, on the card only:
    particle-steps/s, pe_pair at start and end, K1/K6/K7 launches, the
    dump's bytes, formatter and write time. Guards: overflow 0, finite
    etot, pe_pair > 0 at step 0, K1, K6 and K7 launched, the native
    formatter, the dump read back with the state's tags. Then K1 on that
    deck's own pair list after its run (all 357,120 slots, as in step 6).
 
-Prints the kernels ranked by launches x (device_ms - bound_ms) over this
-run (``ranking``; each path's launches at that path's own candidate list,
+Prints each path's eager and graph rates, busy share, capture seconds
+and pool bytes in one JSON line (``GRAPH_ROWS``), the kernels ranked by
+launches x (device_ms - bound_ms) over this run (``ranking``; each path's launches at that path's own candidate list,
 else its stage-2 list, else its batch), the card's name and power limit
 (nvidia-smi), one JSON line with the kernels' launches, errors, times and
 bounds (at the top level of each kernel the case the ranking prices for
@@ -135,6 +155,7 @@ device.
 from __future__ import annotations
 
 import collections
+import contextlib
 import json
 import math
 import os
@@ -164,6 +185,18 @@ N_PAIRS = 16_384  # kernel-vs-plain batch (the autograd twin's memory bound)
 # friction sweep, ENS_STEPS steps; the R = ENS_CASE_R kernel cases and the
 # R = ENS_CHECK_R card-vs-CPU ensembles.
 N_ENS, ENS_STEPS, ENS_MU = 8, 100, (0.1, 0.8)
+# Eager steps beside each path's graph run (graph_vs_eager: the bit-for-bit
+# reference, the eager rate, the eager profile's device time): the drum's
+# one cadence block and a remainder; fewer than the path's own steps where
+# the eager step is slow.
+DRUM_EAGER, DEP_EAGER, ENS_EAGER, SETTLE_EAGER = 25, 50, 30, 100
+TRI_EAGER, GAS_EAGER, DECK_EAGER = 30, 200, 30
+# Eager steps under torch.profiler for a path's device time a step (the
+# first steps of its eager run; one cadence block on the drum): the
+# profiler's processing of a window grows with its events.
+PROFILE_STEPS = 20
+# --profile: each path's eager profile table under build/.
+PROFILE_TABLES = False
 ENS_CASE_R, ENS_CHECK_R = 4, 3
 # NVIDIA H100 SXM data sheet: f32 (non-tensor) peak and HBM3 rate. A
 # kernel's operations are timed at the peak of their type: the bf16
@@ -1086,7 +1119,7 @@ def triaxial_path(tri, st0, dev, smi):
         if when == "end":
             state, neigh, launches, _, step_s, _ = run_path(
                 f"triaxial n={N_TRI}", tri, state, neigh, TRI_STEPS,
-                ("pair_contact_geometric",), smi)
+                ("pair_contact_geometric",), smi, TRI_EAGER)
         th = tri.thermo(state, neigh)
         coord = float(computes.coordination(tri, state, neigh)[state.active].double().mean())
         stress = th["stress"].cpu().numpy()
@@ -1233,16 +1266,29 @@ def ensemble_kernel_cases(results, sim, dep, dev, rng):
 
 
 class counting_rebuilds:
-    """Counts ``Simulation._rebuild`` calls (one a rebuild step, whichever
-    replicas it serves) while active."""
+    """Counts the rebuild steps of ``sim`` (one a step, whichever replicas
+    it serves) while active: its eager ``Simulation._rebuild`` calls, and
+    the replays of its CUDA graphs that rebuild (``always``,
+    ``rebuild_post``); the calls a warm-up or a capture makes do not
+    count."""
+
+    REBUILDING = ("always", "rebuild_post")
+
+    def __init__(self, sim):
+        self.sim = sim
+
+    def _replays(self):
+        replays = self.sim.graph_stats()["replays"]
+        return sum(replays.get(k, 0) for k in self.REBUILDING)
 
     def __enter__(self):
         from spherharm_tpu_torch.core.simulation import Simulation
 
-        self.n, self._orig = 0, Simulation._rebuild
+        self.n, self._orig, self._r0 = 0, Simulation._rebuild, self._replays()
 
         def counted(sim, state, neigh):
-            self.n += 1
+            if not sim._graphed(state, 1):
+                self.n += 1
             return self._orig(sim, state, neigh)
 
         Simulation._rebuild = counted
@@ -1252,6 +1298,7 @@ class counting_rebuilds:
         from spherharm_tpu_torch.core.simulation import Simulation
 
         Simulation._rebuild = self._orig
+        self.n += self._replays() - self._r0
 
 
 def with_skin(built, skin):
@@ -1285,7 +1332,7 @@ def ensemble_card_vs_cpu(label, build, sweep, dev, kernels=(), steps=40):
         params = ens.with_param_sweep(sim.params, **sweep)
         R = params.dt.shape[0]
         reset_counts()
-        with counting_rebuilds() as rb:
+        with counting_rebuilds(sim) as rb:
             S, N = ens.run_replicas(sim, ens.replicate(st, R), ens.replicate(ng, R),
                                     params, steps)
         launches = launch_counts()
@@ -1315,10 +1362,11 @@ def ensemble_card_vs_cpu(label, build, sweep, dev, kernels=(), steps=40):
             f"{label}: card and CPU disagree")
 
 
-def ensemble_path(dep, st0, dev, smi, profiling, results, dep_rate):
+def ensemble_path(dep, st0, dev, smi, results, dep_rate):
     """The full-width ensemble: config 3's deposition (n = N_DEP) from its
     contact-rich start, ``ensemble.replicate``d to N_ENS replicas with
-    ``with_param_sweep(mu=linspace(*ENS_MU, N_ENS))``, ENS_STEPS steps of
+    ``with_param_sweep(mu=linspace(*ENS_MU, N_ENS))``; ENS_EAGER steps
+    eager and as CUDA graphs (``graph_vs_eager``), then ENS_STEPS steps of
     ``run_replicas``, every launch counter at 0 just before. Guards:
     overflow 0, finite etot and pe_pair > 0 in every replica; replicas 0
     and N_ENS - 1 held to a single card run of the same start with their
@@ -1340,9 +1388,12 @@ def ensemble_path(dep, st0, dev, smi, profiling, results, dep_rate):
     params = ens.with_param_sweep(dep.params, mu=np.linspace(*ENS_MU, N_ENS))
     states, neighs = ens.replicate(st, N_ENS), ens.replicate(ng, N_ENS)
     n = int(st.n_active)
+    ref = graph_vs_eager(tag, dep, lambda k: ens.run_replicas(dep, states, neighs,
+                                                              params, k),
+                         ENS_EAGER, ens._rebind(dep, params), states, neighs)
     reset_counts()
     torch.cuda.synchronize()
-    with counting_rebuilds() as rb:
+    with counting_rebuilds(dep) as rb:
         t0 = time.perf_counter()
         S, N = ens.run_replicas(dep, states, neighs, params, ENS_STEPS)
         torch.cuda.synchronize()
@@ -1350,6 +1401,7 @@ def ensemble_path(dep, st0, dev, smi, profiling, results, dep_rate):
     launches = launch_counts()
     th = ens.thermo(dep, S, N, params)
     rate = N_ENS * n * ENS_STEPS / wall
+    graph_row(tag, N_ENS * n, ref, wall / ENS_STEPS, smi)
     print(f"{tag}, mu {ENS_MU[0]}-{ENS_MU[1]}: {ENS_STEPS} steps in {wall:.3f}s -> "
           f"{rate:.1f} particle-steps/s ({N_ENS} x {n} particles; the deposition "
           f"path {dep_rate:.1f}) [{smi}] rebuild steps {rb.n}; overflow "
@@ -1368,7 +1420,7 @@ def ensemble_path(dep, st0, dev, smi, profiling, results, dep_rate):
         one.params = ens.replica(params, r)
         reset_counts()
         torch.cuda.synchronize()
-        with counting_rebuilds() as rb1:
+        with counting_rebuilds(one) as rb1:
             t0 = time.perf_counter()
             s1, n1 = one.run(st, ng, ENS_STEPS)
             torch.cuda.synchronize()
@@ -1390,13 +1442,92 @@ def ensemble_path(dep, st0, dev, smi, profiling, results, dep_rate):
                 f"{tag}: replica {r} disagrees with its single run")
         require(all(solo_l[k] == launches[k] for k in kernels),
                 f"{tag}: launches {launches} against a single run's {solo_l}")
-    step_s = wall / ENS_STEPS
-    if profiling:
-        profile_path(tag, dep, S, N, step_s, smi,
-                     runner=lambda k: ens.run_replicas(dep, S, N, params, k))
     stage2_list_phase(tag, dep, S, N, results, bf16s=(False,), params=params)
     wall_list_phase(tag, dep, S, N, results, params=params)
-    return launches, step_s
+    return launches, wall / ENS_STEPS
+
+
+def block_graph_phase(sim, state, neigh, smi, pairs=2):
+    """The cadence runs' design choice, measured on the drum: STEPS steps
+    from (state, neigh) as ``Simulation.run``'s per-step graph replays (a
+    rebuild step, then plain steps) against one CUDA graph of a whole
+    R_EVERY-step block (a ``GraphRunner`` unit of R_EVERY ``_step_core``
+    calls) replayed STEPS / R_EVERY times: bit-equal (fatal otherwise),
+    each one's capture seconds and pool bytes, and ms a step in ``pairs``
+    pairs of turns (per-step, block, block, per-step, ...)."""
+    import copy
+
+    import torch
+
+    from spherharm_tpu_torch.core.runner import GraphRunner
+    from spherharm_tpu_torch.utils import validate
+
+    per_step = lambda: sim.run(state, neigh, STEPS)
+    blk = GraphRunner(dict(state=state, neigh=neigh, params=sim.params))
+
+    def block(b):
+        view = copy.copy(sim)
+        view.params = b["params"]
+        s, n = b["state"], b["neigh"]
+        for k in range(R_EVERY):
+            s, n = view._step_core(s, n, "always" if k == 0 else "never")
+        return {"state": s, "neigh": n}
+
+    blk.capture("block", block)
+
+    def by_block():
+        blk.load(state=state, neigh=neigh, params=sim.params)
+        for _ in range(STEPS // R_EVERY):
+            blk.replay("block")
+        return blk.result("state", "neigh")
+
+    diff = validate.bitwise_differences(per_step(), by_block())
+    times = {"per-step": [], "block": []}
+    for turn in range(2 * pairs):
+        order = ("per-step", "block") if turn % 2 == 0 else ("block", "per-step")
+        for name in order:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            (per_step if name == "per-step" else by_block)()
+            torch.cuda.synchronize()
+            times[name].append(1e3 * (time.perf_counter() - t0) / STEPS)
+    stats = sim.graph_stats()
+    print(f"drum {STEPS} steps, per-step graphs vs one graph of a {R_EVERY}-step block: "
+          + ("bit-equal" if not diff else f"DIFFERENT {diff}") + "; ms a step in turns "
+          + "; ".join(f"{k} " + " ".join(f"{t:.4f}" for t in v) for k, v in times.items())
+          + f"; capture {stats['capture_s']:.3f}s / {blk.capture_s:.3f}s, pool "
+          f"{stats['pool_bytes']} / {blk.pool_bytes()} bytes [{smi}]")
+    require(not diff, "drum: the block graph's run is not the per-step graphs' bit for bit")
+
+
+def scan_phase(dev):
+    """Repeatability of the float64 prefix sums under the segment sums on a
+    1.2M-row list (the triaxial cell's pair list): 20 repeats each of a
+    1-D ``torch.cumsum`` (on the card CUB's look-back scan) and of
+    ``contact.prefix_sum`` over 6 columns, each against its first result,
+    and of ``sorted_segment_sum`` over 100,000 segments; times by CUDA
+    events. Fatal if ``prefix_sum`` or the segment sum varies."""
+    import torch
+
+    from spherharm_tpu_torch.ops import contact
+
+    gen = torch.Generator(device=dev).manual_seed(5)
+    P, N = 1_200_000, 100_000
+    data = torch.randn(P, 6, device=dev, generator=gen) * 1e3
+    cols = data.double().t().contiguous()
+    seg = torch.sort(torch.randint(0, N, (P,), device=dev, generator=gen)).values
+    cases = {"1-D torch.cumsum, one column": lambda: torch.cumsum(cols[0], 0),
+             "contact.prefix_sum, 6 columns": lambda: contact.prefix_sum(cols),
+             "contact.sorted_segment_sum": lambda: contact.sorted_segment_sum(data, seg, N)}
+    varied = {}
+    for name, fn in cases.items():
+        first = fn()
+        varied[name] = sum(not torch.equal(fn(), first) for _ in range(20))
+        print(f"{name} on {P} rows: {varied[name]} of 20 repeats differ from the first; "
+              f"{cuda_ms(fn, 20):.4f} ms a call")
+    require(varied["contact.prefix_sum, 6 columns"] == 0
+            and varied["contact.sorted_segment_sum"] == 0,
+            "the segment sums' prefix sums are not repeatable")
 
 
 def launch_counts():
@@ -1420,13 +1551,146 @@ def reset_counts():
             c[k] = 0
 
 
-def run_path(label, sim, state, neigh, steps, kernels, smi, every=0):
-    """Drive one path with every launch counter at 0, sampling etot every
-    ``every`` steps (0: none) as the drift harness does; returns (state,
-    neigh, launches of this run, thermo, seconds a step, [(step, etot,
-    pe_pair)])."""
+@contextlib.contextmanager
+def sync_errors():
+    """Inside, a host synchronisation that torch's sync debug mode sees
+    raises (the check mode's event synchronisation is not one it sees)."""
     import torch
 
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        yield
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+
+
+@contextlib.contextmanager
+def eager(sim):
+    """``sim`` (and the views made of it inside) stepping eagerly."""
+    sim.cuda_graphs = False
+    try:
+        yield
+    finally:
+        sim.cuda_graphs = True
+
+
+def eager_profile(tag, run, steps):
+    """torch.profiler over run() (``steps`` eager steps): the device's time
+    a step in ms, from the device rows (an aten op's row repeats its
+    kernels' time). With --profile its table goes to
+    build/chip_smoke_profile_<tag>.txt."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        run()
+        torch.cuda.synchronize()
+    events = prof.key_averages()
+    dev_ms = sum(e.self_device_time_total for e in events
+                 if e.device_type == DeviceType.CUDA
+                 and not e.is_user_annotation) / 1e3 / steps
+    require(dev_ms > 0, f"{tag}: the profile holds no device time")
+    if PROFILE_TABLES:
+        out = ROOT / "build" / ("chip_smoke_profile_" + re.sub(r"\W+", "_", tag) + ".txt")
+        out.parent.mkdir(exist_ok=True)
+        out.write_text(f"{tag}: {steps} eager steps, device time {dev_ms:.4f} ms a step\n"
+                       f"{events.table(sort_by='cuda_time_total', row_limit=40)}\n")
+        print(f"profile {tag} -> {out.relative_to(ROOT)}")
+    return dev_ms
+
+
+def graph_vs_eager(label, sim, run, steps, view, state, neigh):
+    """``run(steps)`` from one start with ``sim`` stepping eagerly
+    (``cuda_graphs=False``), then as CUDA graph replays (capturing them
+    where not yet cached), then once more from the cached graphs under
+    ``sync_errors``: the graph runs equal the eager run bit for bit in
+    every State and NeighborState field (``validate.bitwise_differences``:
+    each differing field and its largest difference printed, fatal), with
+    equal kernel launches. Then one eager plain step and one eager rebuild
+    step of ``view`` (``sim`` or its replica view) from (state, neigh)
+    under ``sync_errors``. Returns the eager ms a step (host clock), the
+    device ms a step (``eager_profile`` of the first PROFILE_STEPS of
+    them, eager again), and the
+    capture seconds and pool bytes of ``sim``'s graphs."""
+    import torch
+
+    from spherharm_tpu_torch.utils import validate
+
+    t_phase = time.perf_counter()
+    with eager(sim):
+        reset_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        ref = run(steps)
+        torch.cuda.synchronize()
+        eager_ms = 1e3 * (time.perf_counter() - t0) / steps
+        l_eager = launch_counts()
+        k = min(steps, PROFILE_STEPS)
+        dev_ms = eager_profile(label, lambda: run(k), k)
+    reset_counts()
+    got = run(steps)
+    torch.cuda.synchronize()
+    l_graph = launch_counts()
+    with sync_errors():
+        again = run(steps)
+        torch.cuda.synchronize()
+    diff = validate.bitwise_differences(got, ref)
+    diff_again = validate.bitwise_differences(again, ref)
+    stats = sim.graph_stats()
+    print(f"{label}: {steps} steps eager vs CUDA graphs: "
+          + ("bit-equal in every field" if not diff else
+             "DIFFERENT: " + ", ".join(f"{k} max|d|={v:.3g}" for k, v in diff.items()))
+          + "; from cached graphs under sync-debug error: "
+          + ("bit-equal" if not diff_again else f"DIFFERENT {diff_again}")
+          + f"; launches eager {'equal' if l_eager == l_graph else l_eager}, graph "
+          f"{ {k: v for k, v in l_graph.items() if v} }; graph replays "
+          f"{stats['replays']}")
+    require(not diff and not diff_again, f"{label}: the CUDA graph run is not the "
+            "eager run bit for bit")
+    require(l_eager == l_graph, f"{label}: launches eager {l_eager}, graph {l_graph}")
+    for kind in ("never", "always"):
+        with sync_errors():
+            view._step_core(state, neigh, kind)
+    torch.cuda.synchronize()
+    print(f"{label}: one eager plain step and one eager rebuild step under "
+          "set_sync_debug_mode('error'): no host synchronisation; eager vs graph "
+          f"checks {time.perf_counter() - t_phase:.1f}s")
+    return dict(eager_ms=eager_ms, device_ms=dev_ms, capture_s=stats["capture_s"],
+                pool_bytes=stats["pool_bytes"])
+
+
+# Each path's eager against graph comparison and rates ({label: row}).
+GRAPH_ROWS = {}
+
+
+def graph_row(label, n, ref, step_s, smi):
+    """Print and keep a path's eager and graph particle-steps/s (``n``
+    particles; ``ref`` from ``graph_vs_eager``; ``step_s`` the graph run's
+    seconds a step) and the graph run's device busy share: the eager
+    profile's device ms a step over the graph run's ms a step."""
+    row = dict(eager_rate=1e3 * n / ref["eager_ms"], graph_rate=n / step_s,
+               busy=ref["device_ms"] / (1e3 * step_s), device_ms=ref["device_ms"],
+               graph_ms=1e3 * step_s, eager_ms=ref["eager_ms"],
+               capture_s=ref["capture_s"], pool_bytes=ref["pool_bytes"])
+    GRAPH_ROWS[label] = row
+    print(f"{label}: eager {row['eager_rate']:.1f}, CUDA graphs {row['graph_rate']:.1f} "
+          f"particle-steps/s ({row['eager_ms']:.4f} vs {row['graph_ms']:.4f} ms a step); "
+          f"device {row['device_ms']:.4f} ms a step (eager profile): graph run busy "
+          f"{row['busy']:.1%}; capture {row['capture_s']:.3f}s, graph pool "
+          f"{row['pool_bytes']} bytes [{smi}]")
+
+
+def run_path(label, sim, state, neigh, steps, kernels, smi, eager_steps, every=0):
+    """Drive one path: ``graph_vs_eager`` over its first ``eager_steps``,
+    then its run of ``steps`` with every launch counter at 0, sampling
+    etot every ``every`` steps (0: none) as the drift harness does;
+    returns (state, neigh, launches of this run, thermo, seconds a step,
+    [(step, etot, pe_pair)])."""
+    import torch
+
+    ref = graph_vs_eager(label, sim, lambda k: sim.run(state, neigh, k),
+                         eager_steps, sim, state, neigh)
     reset_counts()
     samples = []
     torch.cuda.synchronize()
@@ -1450,6 +1714,7 @@ def run_path(label, sim, state, neigh, steps, kernels, smi, every=0):
           f"[{smi}] overflow={overflow} skin_violations={skin} etot={etot:.6g} "
           f"pe_pair={float(th['pe_pair']):.6g} pe_wall={float(th['pe_wall']):.6g} "
           f"launches={ {k: v for k, v in launches.items() if v} }")
+    graph_row(label, n, ref, wall / steps, smi)
     require(overflow == 0, f"{label}: capacity overflow (channel={overflow})")
     require(math.isfinite(etot) and all(math.isfinite(s[1]) for s in samples),
             f"{label}: non-finite energy")
@@ -1470,7 +1735,7 @@ def drift_path(label, gas, state, neigh, kernels, smi):
     pe0 = float(gas.thermo(state, neigh)["pe_pair"])
     require(pe0 > 0, f"{label}: no pair contact after {GAS_WARM} steps")
     state, neigh, launches, th, step_s, samples = run_path(
-        label, gas, state, neigh, GAS_STEPS, kernels, smi, every=GAS_EVERY)
+        label, gas, state, neigh, GAS_STEPS, kernels, smi, GAS_EAGER, every=GAS_EVERY)
     slope = drift.drift_slope(samples)
     print(f"{label}: from step {GAS_WARM} (pe_pair {pe0:.6g}), every {GAS_EVERY} "
           "steps: etot " + " ".join(f"{s[1]:.8g}" for s in samples)
@@ -1614,17 +1879,22 @@ run             0
 DRUM_DECK_STEPS = 60
 
 
-def deck_drum_phase(dev, smi, profiling):
-    """DRUM_DECK on the card through ``DeckRunner`` (counters set to 0 just
-    before the deck, read just after): particle-steps/s from the host
-    clock (synchronized) between the thermo rows of steps 0 and 60 (the
-    set-up before step 0 timed apart); pe_pair at the start and the end;
+def deck_drum_phase(dev, smi):
+    """DRUM_DECK on the card through ``DeckRunner``: its set-up (the lines
+    before its first ``run``, and the materialised Simulation), then
+    ``graph_vs_eager`` over DECK_EAGER steps of its Simulation from the
+    set-up state, then its ``run`` commands (counters set to 0 just
+    before, read just after): particle-steps/s from the host clock
+    (synchronized) between the thermo rows of steps 0 and 60; pe_pair at
+    the start and the end;
     the dump's bytes, its formatter and the seconds of one more
     ``write_dump`` of the final state (the same bytes). Guards: overflow 0,
     finite etot, pe_pair > 0 at step 0, K1, K6 and K7 launched, the native
     formatter, ``read_dump`` giving n rows whose ids are the tags. Returns
     (launches, runner, seconds a step)."""
     import torch
+
+    from torch_port_util import deck_setup_and_rest
 
     from spherharm_tpu_torch.io import dump
     from spherharm_tpu_torch.io.deck import DeckRunner
@@ -1641,10 +1911,18 @@ def deck_drum_phase(dev, smi, profiling):
         log(row)
 
     r.thermo_log.log = stamped
+    setup, rest = deck_setup_and_rest(DRUM_DECK.format(dump=path))
+    t0 = time.perf_counter()
+    r.run_text(setup)
+    r._materialize()
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - t0
+    ref = graph_vs_eager("deck drum full", r.sim,
+                         lambda k: r.sim.run(r.state, r.neigh, k), DECK_EAGER, r.sim,
+                         r.state, r.neigh)
     torch.cuda.synchronize()
     reset_counts()
-    t0 = time.perf_counter()
-    r.run_text(DRUM_DECK.format(dump=path))
+    r.run_text(rest)
     torch.cuda.synchronize()
     launches = launch_counts()
     rows = r.thermo_log.rows
@@ -1661,7 +1939,7 @@ def deck_drum_phase(dev, smi, profiling):
     overflow = int(r.neigh.overflow)
     print(f"deck drum full: n={n} lmax={r.sim.shapes.lmax} grid={r.sim.grid.dims} "
           f"pair_cap={r.sim.pair_capacity} k_max={r.sim.k_max} "
-          f"cell_cap={r.sim.cell_cap}; set-up {stamps[0] - t0:.2f}s; "
+          f"cell_cap={r.sim.cell_cap}; set-up {setup_s:.2f}s; "
           f"{DRUM_DECK_STEPS} steps (thermo every 20 included) in "
           f"{DRUM_DECK_STEPS * step_s:.3f}s -> {n / step_s:.1f} particle-steps/s "
           f"[{smi}] overflow={overflow} pe_pair {rows[0]['pe_pair']:.6g} -> "
@@ -1685,8 +1963,7 @@ def deck_drum_phase(dev, smi, profiling):
             "deck drum full: the dump does not read back as the state's tags")
     require((DECK_DIR / "drum_full_again.dump").read_bytes() == path.read_bytes(),
             "deck drum full: write_dump of the same state wrote other bytes")
-    if profiling:
-        profile_path("deck drum full", r.sim, r.state, r.neigh, step_s, smi)
+    graph_row("deck drum full", n, ref, step_s, smi)
     return launches, r, step_s
 
 
@@ -1714,7 +1991,7 @@ def bf16_child(smi):
     dst, dng = dep.init_neighbors(drum_start(dep, dep_st0, dev))
     _, _, l_dep, th, dep_s, _ = run_path(
         f"deposition n={N_DEP} bf16", dep, dst, dng, DEP_STEPS,
-        ("pair_contact_geometric_bf16", "wall_cylinder", "wall_plane"), smi)
+        ("pair_contact_geometric_bf16", "wall_cylinder", "wall_plane"), smi, DEP_EAGER)
     require(float(th["pe_pair"]) > 0, "bf16 deposition: no pair contact")
     for label, launches in (("drift gas", l_gas), ("deposition", l_dep)):
         f32 = launches["pair_contact_conservative"] + launches["pair_contact_geometric"]
@@ -1773,33 +2050,6 @@ def ranking(kern, counted):
             loss[1] += n * (c["ms"] - c["bound_ms"])
         out[name] = tuple(loss)
     return out
-
-
-def profile_path(tag, sim, state, neigh, step_s, smi, steps=20, runner=None):
-    """torch.profiler over ``steps`` more steps of a path (``runner(steps)``
-    where given, else ``sim.run``): its table by device time goes to
-    build/chip_smoke_profile_<tag>.txt; the device's busy share is its
-    time a step over the path's unprofiled ``step_s``."""
-    import torch
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        (runner or (lambda k: sim.run(state, neigh, k)))(steps)
-        torch.cuda.synchronize()
-    events = prof.key_averages()
-    # Device rows only: an aten op's row repeats its kernels' time.
-    dev_ms = sum(e.self_device_time_total for e in events
-                 if e.device_type == DeviceType.CUDA
-                 and not e.is_user_annotation) / 1e3 / steps
-    summary = (f"{tag}: device time {dev_ms:.4f} ms a step over {steps} profiled "
-               f"steps, against {1e3 * step_s:.4f} ms a step unprofiled: device "
-               f"busy {dev_ms / (1e3 * step_s):.1%} [{smi}]")
-    out = ROOT / "build" / ("chip_smoke_profile_" + re.sub(r"\W+", "_", tag) + ".txt")
-    out.parent.mkdir(exist_ok=True)
-    out.write_text(f"{summary}\n"
-                   f"{events.table(sort_by='cuda_time_total', row_limit=40)}\n")
-    print(f"profile {summary} -> {out.relative_to(ROOT)}")
 
 
 def main(argv):
@@ -1902,47 +2152,44 @@ def main(argv):
     torch.cuda.synchronize()
     print(f"card-vs-CPU phases: {time.perf_counter() - t0:.1f}s")
 
-    # The paths: counters from each path's own run only; with --profile,
-    # 20 more steps of each under torch.profiler after its counted run.
-    profiling = "--profile" in argv
+    # The paths: counters from each path's own run only, each run beside
+    # its eager steps (graph_vs_eager); with --profile their eager profile
+    # tables go to build/.
+    global PROFILE_TABLES
+    PROFILE_TABLES = "--profile" in argv
+    scan_phase(dev)
+    drum0 = (state, neigh)
     state, neigh, l_drum, _, step_s, _ = run_path(
         f"drum n={N_MAIN}", sim, state, neigh, STEPS,
         ("pair_contact_conservative", "stage1_depth", "wall_cylinder", "wall_plane"),
-        smi)
+        smi, DRUM_EAGER)
+    block_graph_phase(sim, *drum0, smi)
+    del drum0
     skin = int(neigh.skin_violations)
     require(skin == 0, f"drum: {skin} skin violations at cadence {R_EVERY}")
-    if profiling:
-        profile_path("drum", sim, state, neigh, step_s, smi)
     stage1_list_phase("drum", sim, state, neigh, kern)
     del sim, state, neigh
 
     dst, dng = dep.init_neighbors(drum_start(dep, dep_st0, dev))
     dst, dng, l_dep, th, step_s, _ = run_path(
         f"deposition n={N_DEP}", dep, dst, dng, DEP_STEPS,
-        ("pair_contact_geometric", "wall_cylinder", "wall_plane"), smi)
+        ("pair_contact_geometric", "wall_cylinder", "wall_plane"), smi, DEP_EAGER)
     require(float(th["pe_pair"]) > 0, "deposition: no pair contact")
-    if profiling:
-        profile_path("deposition", dep, dst, dng, step_s, smi)
     stage2_list_phase("deposition", dep, dst, dng, kern)
     del dst, dng
     t0 = time.perf_counter()
-    l_ens, _ = ensemble_path(dep, dep_st0, dev, smi, profiling, kern,
-                             N_DEP / step_s)
+    l_ens, _ = ensemble_path(dep, dep_st0, dev, smi, kern, N_DEP / step_s)
     torch.cuda.empty_cache()
     print(f"ensemble phase: {time.perf_counter() - t0:.1f}s")
 
     bst, bng = box.init_neighbors(box_start(box, bst0, dev))
     bst, bng, l_box, th, step_s, _ = run_path(
         f"settling box n={N_SETTLE}", box, bst, bng, SETTLE_STEPS,
-        ("pair_contact_geometric", "wall_plane"), smi)
+        ("pair_contact_geometric", "wall_plane"), smi, SETTLE_EAGER)
     require(float(th["pe_pair"]) > 0, "settling box: no pair contact")
-    if profiling:
-        profile_path("settling box", box, bst, bng, step_s, smi)
     del dep, box, bst, bng
 
     tst, tng, l_tri, step_s = triaxial_path(tri, tri_st0, dev, smi)
-    if profiling:
-        profile_path("triaxial", tri, tst, tng, step_s, smi)
     stage2_list_phase("triaxial", tri, tst, tng, kern, bf16s=(False,),
                       case_tag="triaxial pair list")
     del tri, tri_st0, tst, tng
@@ -1953,7 +2200,7 @@ def main(argv):
     t0 = time.perf_counter()
     l_decks = deck_examples_phase(dev, kern)
     print(f"deck examples phase: {time.perf_counter() - t0:.1f}s")
-    l_deck_drum, runner, _ = deck_drum_phase(dev, smi, profiling)
+    l_deck_drum, runner, _ = deck_drum_phase(dev, smi)
     deck_kernel_cases("deck drum full", runner, kern, dev, np.random.default_rng(13),
                       example=False)
     del runner
@@ -1964,8 +2211,6 @@ def main(argv):
     gst, gng, l_gas, samples, slope, step_s = drift_path(
         f"drift gas n={N_GAS} f32", gas, gst, gng,
         ("pair_contact_conservative", "stage1_depth"), smi)
-    if profiling:
-        profile_path("drift gas", gas, gst, gng, step_s, smi)
     stage2_list_phase("drift gas", gas, gst, gng, kern)
     l_k5 = stage1_l1_phase(gas, gst, gng, kern)
     del gas, gst, gng
@@ -2021,6 +2266,7 @@ def main(argv):
     # launched it (path_case), as the ranking prices it.
     top = {k: path_case(kern[k], counted[k][0][0]) if counted[k] else kern[k][0]
            for k in src}
+    print(f"paths, eager vs CUDA graphs [{smi}]: " + json.dumps(GRAPH_ROWS))
     print(f"total wall time: {time.perf_counter() - t_start:.1f}s")
     print(json.dumps({"kernels": [
         {"name": name, "route": "cuda", "source": src[name][0],

@@ -1,0 +1,177 @@
+"""CUDA graphs of the step: the counterpart of the reference's compiled run
+loops (``_run_jit``, ``_run_cadence_jit`` and ``run_inline`` of
+``spherharm_tpu/core/simulation.py``).
+
+The reference compiles a whole run into one XLA program. PyTorch issues
+each op from Python, so a step of a few hundred small kernels leaves the
+card idle while the host launches them. A ``GraphRunner`` captures units
+of the step once each as a CUDA graph and replays them:
+
+* the units are functions of named static buffers (``State``,
+  ``NeighborState``, ``SimParams`` containers or plain tensors) that
+  return the new values of some of them; each captured unit ends by
+  copying its outputs back into the buffers, so replays chain;
+* ``load`` copies the caller's containers into the buffers before a run,
+  ``result`` hands back clones: nothing a caller holds aliases a buffer
+  that a later run overwrites;
+* a unit may also return a 0-d ``"flag"`` tensor, copied inside the
+  graph to pinned host memory; ``read_flag`` waits on an event after the
+  replay and reads it: the one host read of a skin-triggered step;
+* every graph of a runner shares one memory pool;
+* each unit runs once eagerly on a side stream before its capture
+  (the kernels' build and load, cuBLAS's handle, each kernel's first
+  attribute call, the cached constant tensors of ``ops/neighbor.py``);
+* the kernel wrappers count launches in Python, so a capture counts
+  each launch once: the runner records each graph's counts at capture,
+  takes them (and the warm-up's) back out, and adds them on every replay.
+
+Nothing here falls back: a capture or a replay that fails raises. The
+units do not know they are captured, so a step written in them (a
+single device's, or later one with a halo exchange) is captured by the
+same code. ``Simulation`` (``core/simulation.py``) builds its runners.
+"""
+
+from __future__ import annotations
+
+import collections
+import dataclasses
+import time
+
+import torch
+
+
+def kernel_counters():
+    """The launch counters of every kernel wrapper (dicts keyed by
+    variant)."""
+    from spherharm_tpu_torch.ops import contact_kernels as ck
+    from spherharm_tpu_torch.ops import walls_kernels as wk
+
+    return (ck.pair_contact.launches, ck.stage1_depth.launches,
+            wk.wall_contact_kernel.launches)
+
+
+def _tensors(value):
+    """The tensors of a buffer value: a container's fields in order, or
+    the tensor itself."""
+    if dataclasses.is_dataclass(value):
+        return [getattr(value, f.name) for f in dataclasses.fields(value)
+                if not f.metadata.get("static")]
+    return [value]
+
+
+def _map(fn, value):
+    if dataclasses.is_dataclass(value):
+        return value.replace(**{
+            f.name: fn(getattr(value, f.name))
+            for f in dataclasses.fields(value)
+            if not f.metadata.get("static")})
+    return fn(value)
+
+
+def signature(value):
+    """Shapes, dtypes and devices of a buffer value's tensors: what a
+    captured graph is specialised to."""
+    return tuple((tuple(t.shape), t.dtype, t.device) for t in _tensors(value))
+
+
+def _snapshot(counters):
+    return [dict(c) for c in counters]
+
+
+class GraphRunner:
+    """CUDA graphs of step units over static buffers (see the module
+    docstring). ``buffers``: name -> container or tensor, cloned into the
+    runner's own buffers."""
+
+    def __init__(self, buffers: dict):
+        self.buffers = {k: _map(torch.clone, v) for k, v in buffers.items()}
+        self.counters = kernel_counters()
+        self.pool = torch.cuda.graph_pool_handle()
+        self.graphs = {}      # unit name -> (CUDAGraph, launch deltas)
+        self.replays = collections.Counter()
+        self.capture_s = 0.0  # warm-up and capture, all units
+        self._flag = torch.zeros((), dtype=torch.bool, pin_memory=True)
+        self._event = torch.cuda.Event()
+        self._buffer_storage = {t.untyped_storage().data_ptr()
+                                for v in self.buffers.values()
+                                for t in _tensors(v)}
+
+    def load(self, **values):
+        """Copy the caller's values into the buffers of those names."""
+        for name, value in values.items():
+            for dst, src in zip(_tensors(self.buffers[name]),
+                                _tensors(value)):
+                dst.copy_(src)
+
+    def result(self, *names):
+        """Clones of the named buffers."""
+        return tuple(_map(torch.clone, self.buffers[n]) for n in names)
+
+    def _store(self, out: dict):
+        """Copy a unit's outputs into the buffers (and its flag into the
+        pinned host flag). An output that shares memory with a buffer (an
+        unchanged field handed on under another name) is cloned first, so
+        that no copy reads a buffer another copy already overwrote."""
+        pairs = []
+        for name, value in out.items():
+            if name == "flag":
+                pairs.append((self._flag, value))
+                continue
+            for dst, src in zip(_tensors(self.buffers[name]),
+                                _tensors(value)):
+                if src is dst:
+                    continue
+                if src.shape != dst.shape or src.dtype != dst.dtype:
+                    raise ValueError(
+                        f"a unit returned {tuple(src.shape)} {src.dtype} "
+                        f"for a buffer of {name} of {tuple(dst.shape)} "
+                        f"{dst.dtype}")
+                pairs.append((dst, src))
+        pairs = [(d, s.clone() if s.untyped_storage().data_ptr()
+                  in self._buffer_storage else s) for d, s in pairs]
+        for dst, src in pairs:
+            dst.copy_(src, non_blocking=dst is self._flag)
+
+    def capture(self, name: str, unit):
+        """Capture ``unit(buffers) -> {buffer name: new value[, "flag":
+        0-d bool]}`` as the graph ``name``, after one eager run of it on a
+        side stream whose outputs are dropped. Launch counters are left as
+        they were before the warm-up."""
+        t0 = time.perf_counter()
+        before = _snapshot(self.counters)
+        side = torch.cuda.Stream()
+        side.wait_stream(torch.cuda.current_stream())
+        with torch.cuda.stream(side):
+            unit(self.buffers)
+        torch.cuda.current_stream().wait_stream(side)
+        warm = _snapshot(self.counters)
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph, pool=self.pool):
+            self._store(unit(self.buffers))
+        delta = [{k: c[k] - w[k] for k in c} for c, w in
+                 zip(self.counters, warm)]
+        for c, b in zip(self.counters, before):
+            c.update(b)
+        self.graphs[name] = (graph, delta)
+        self.capture_s += time.perf_counter() - t0
+
+    def replay(self, name: str):
+        graph, delta = self.graphs[name]
+        graph.replay()
+        for c, d in zip(self.counters, delta):
+            for k, n in d.items():
+                c[k] += n
+        self.replays[name] += 1
+
+    def read_flag(self) -> bool:
+        """The flag of the last replayed unit that set one: one event
+        synchronisation, then a read of pinned host memory."""
+        self._event.record()
+        self._event.synchronize()
+        return bool(self._flag)
+
+    def pool_bytes(self) -> int:
+        """Bytes the caching allocator holds in this runner's pool."""
+        pool = tuple(self.pool)
+        return sum(s["total_size"] for s in torch.cuda.memory_snapshot()
+                   if tuple(s["segment_pool_id"]) == pool)

@@ -13,10 +13,17 @@ Per step:
   final_integrate     (second half kick; then the Berendsen box servo
                        when ``press_control``)
 
-PyTorch runs eagerly, so ``run`` is a Python loop; on the static cadence
-no step reads a value back to the host. Capacities are fixed and overflow
-is recorded in ``neigh.overflow`` (per-source gated: any nonzero value
-means physics was truncated), so every shape is static across steps.
+The step is written as units that never read the device from the host:
+``_pre`` (initial integrate, deformation, the tilt sentinel and, in check
+mode, the stale flag), ``_rebuild_always`` / ``_rebuild_stale`` and
+``_post`` (forces, final integrate, the servo). ``_step_core`` calls them
+eagerly; on CUDA tensors ``run``, ``run_inline`` and
+``parallel/ensemble.run_replicas`` replay them as CUDA graphs
+(``core/runner.py``; ``cuda_graphs=False`` asks for the eager loop), the
+counterpart of the reference's jitted ``_run_cadence_jit`` / ``_run_jit``
+scans. Capacities are fixed and overflow is recorded in ``neigh.overflow``
+(per-source gated: any nonzero value means physics was truncated), so
+every shape is static across steps.
 
 Kernels run where the tensors live: CUDA tensors launch the hand-written
 kernels, CPU tensors their plain twins.
@@ -29,9 +36,12 @@ rebuilds exactly when its own trigger fires.
 
 from __future__ import annotations
 
+import copy
+
 import numpy as np
 import torch
 
+from spherharm_tpu_torch.core import runner as runner_mod
 from spherharm_tpu_torch.core.state import (
     NeighborState,
     Shapes,
@@ -64,7 +74,13 @@ class Simulation:
     components) act last in ``compute_forces``; each entry is
     ("freeze", bit, (0, 0, 0), (0, 0, 0)) or ("setforce", bit, values3,
     keep3), keep marking NULL components, and a particle is a member when
-    bit ``bit`` of ``group_tab[tag]`` is set."""
+    bit ``bit`` of ``group_tab[tag]`` is set.
+
+    ``cuda_graphs`` (default on): on CUDA tensors, ``run`` and
+    ``run_inline`` replay CUDA graphs of the step's units, captured at a
+    Simulation's first run at a given state shape and kept; off, they run
+    the step eagerly (a profile, a timing breakdown, the graph's own
+    bit-equality check). CPU tensors always run eagerly."""
 
     def __init__(
         self,
@@ -89,6 +105,7 @@ class Simulation:
         group_fixes: tuple = (),
         group_tab=None,
         device="cuda",
+        cuda_graphs: bool = True,
     ):
         if neighbor_mode not in ("cell", "allpairs", "static"):
             raise ValueError(f"unknown neighbor_mode {neighbor_mode!r}")
@@ -129,6 +146,18 @@ class Simulation:
         self.group_fixes = tuple(group_fixes)
         self.group_tab = None if group_tab is None else torch.as_tensor(
             np.array(group_tab, dtype=np.int64), device=self.device)
+        # setforce's values and keep mask on the device once: a copy from
+        # host memory on each step would synchronise.
+        self._setforce = {
+            i: (torch.as_tensor(vals, dtype=params.dt.dtype,
+                                device=self.device),
+                torch.as_tensor(keep, dtype=torch.bool, device=self.device))
+            for i, (kind, _, vals, keep) in enumerate(self.group_fixes)
+            if kind == "setforce"}
+        self.cuda_graphs = bool(cuda_graphs)
+        # GraphRunners by state signature, shared with shallow copies
+        # (ensemble._rebind): see _runner.
+        self._graphs = {}
 
     @property
     def pair_list_cap(self) -> int:
@@ -277,15 +306,13 @@ class Simulation:
         if self.group_fixes:
             bits = self.group_tab[torch.clamp(
                 state.tag, 0, self.group_tab.shape[0] - 1)]
-            for kind, bit, vals, keep in self.group_fixes:
+            for i, (kind, bit, _, _) in enumerate(self.group_fixes):
                 mem3 = (state.active & ((bits & (1 << bit)) != 0))[..., None]
                 if kind == "freeze":
                     f = torch.where(mem3, 0.0, f)
                     tau = torch.where(mem3, 0.0, tau)
                 else:  # setforce
-                    v = torch.as_tensor(vals, dtype=f.dtype, device=f.device)
-                    kp = torch.as_tensor(keep, dtype=torch.bool,
-                                         device=f.device)
+                    v, kp = self._setforce[i]
                     f = torch.where(mem3 & ~kp, v, f)
         state = state.replace(f=f, tau=tau)
         return state, neigh, {"pe_pair": pe_pair, "pe_wall": pe_wall,
@@ -293,15 +320,10 @@ class Simulation:
 
     # -- stepping ---------------------------------------------------------
 
-    def _step_core(self, state: State, neigh: NeighborState, rebuild: str):
-        """One velocity-Verlet step. rebuild: 'always' (scheduled rebuild,
-        first recording, not branching on, a stale list), 'check'
-        (rebuild when the skin trigger fires; reads it on the host) or
-        'never'. With replicas, 'check' reads "any replica stale" once on
-        the host, rebuilds all and keeps the rebuild for the stale
-        replicas only: each rebuilds exactly when its own trigger fires,
-        as a per-replica select in place of the reference's lax.cond
-        under vmap."""
+    def _pre(self, state: State, neigh: NeighborState, check: bool):
+        """The step's first unit: initial integrate, deformation and the
+        tilt sentinel. Returns (state, neigh, stale): with ``check`` the
+        skin trigger (``_stale``: 0-d, or [R] with replicas), else None."""
         state = integrate.initial_integrate(state, self.shapes, self.params)
         state, x_build, _ = integrate.apply_deformation(
             state, neigh.x_build, self.params, self.periodic)
@@ -317,20 +339,29 @@ class Simulation:
             neigh = neigh.replace(overflow=torch.maximum(
                 neigh.overflow, torch.where(
                     bad, 1 << 21, torch.zeros_like(neigh.overflow))))
-        if rebuild == "always":
-            viol = self._stale(state, neigh).long()
-            state, neigh = self._rebuild(state, neigh)
-            neigh = neigh.replace(
-                skin_violations=neigh.skin_violations + viol)
-        elif rebuild == "check":
-            stale = self._stale(state, neigh)
-            if bool(stale.any()):
-                new_state, new_neigh = self._rebuild(state, neigh)
-                if stale.dim():
-                    state = _keep(stale, new_state, state)
-                    neigh = _keep(stale, new_neigh, neigh)
-                else:
-                    state, neigh = new_state, new_neigh
+        return state, neigh, self._stale(state, neigh) if check else None
+
+    def _rebuild_always(self, state: State, neigh: NeighborState):
+        """A scheduled rebuild, recording (not branching on) a stale list
+        in ``skin_violations``."""
+        viol = self._stale(state, neigh).long()
+        state, neigh = self._rebuild(state, neigh)
+        return state, neigh.replace(
+            skin_violations=neigh.skin_violations + viol)
+
+    def _rebuild_stale(self, state: State, neigh: NeighborState, stale):
+        """The skin trigger's rebuild, run when ``stale`` is set somewhere.
+        With replicas it rebuilds all and keeps the rebuild for the stale
+        replicas only (``stale`` [R]), so each rebuilds exactly when its
+        own trigger fires: a per-replica select in place of the
+        reference's lax.cond under vmap."""
+        new_state, new_neigh = self._rebuild(state, neigh)
+        if not stale.dim():
+            return new_state, new_neigh
+        return _keep(stale, new_state, state), _keep(stale, new_neigh, neigh)
+
+    def _post(self, state: State, neigh: NeighborState):
+        """The step's last unit: forces, final integrate, the servo."""
         state, neigh, aux = self.compute_forces(state, neigh)
         state = integrate.final_integrate(state, self.shapes, self.params)
         if self.press_control:
@@ -340,9 +371,21 @@ class Simulation:
             neigh = neigh.replace(x_build=x_build)
         return state, neigh
 
+    def _step_core(self, state: State, neigh: NeighborState, rebuild: str):
+        """One velocity-Verlet step, eagerly. rebuild: 'always' (scheduled
+        rebuild, first recording, not branching on, a stale list), 'check'
+        (rebuild when the skin trigger fires; reads "any stale" on the
+        host) or 'never'."""
+        state, neigh, stale = self._pre(state, neigh, rebuild == "check")
+        if rebuild == "always":
+            state, neigh = self._rebuild_always(state, neigh)
+        elif rebuild == "check" and bool(stale.any()):
+            state, neigh = self._rebuild_stale(state, neigh, stale)
+        return self._post(state, neigh)
+
     def step(self, state: State, neigh: NeighborState):
         """One step with the skin-triggered rebuild (none in static
-        mode)."""
+        mode), eagerly."""
         return self._step_core(
             state, neigh, "never" if self.neighbor_mode == "static"
             else "check")
@@ -352,19 +395,140 @@ class Simulation:
         cadence (LAMMPS ``neigh_modify every R check no``): blocks of one
         rebuild step + R-1 plain steps, a remainder being a short block
         (one rebuild + rem-1 plain steps); skin violations are counted in
-        ``neigh.skin_violations``. With R = 0, or in static mode, ``step``
-        n_steps times."""
+        ``neigh.skin_violations``. With R = 0, or in static mode,
+        ``run_inline``: ``step`` n_steps times.
+
+        On CUDA tensors (unless ``cuda_graphs`` is off) each step is a
+        replay of a captured rebuild step or plain step, in that order;
+        the returned containers are new tensors."""
         R = 0 if self.neighbor_mode == "static" else self.rebuild_every
         if R <= 0:
+            return self.run_inline(state, neigh, n_steps)
+        n_blocks, rem = divmod(n_steps, R)
+        kinds = [("always" if k == 0 else "never")
+                 for length in [R] * n_blocks + ([rem] if rem else [])
+                 for k in range(length)]
+        if not self._graphed(state, n_steps):
+            for kind in kinds:
+                state, neigh = self._step_core(state, neigh, kind)
+            return state, neigh
+        runner = self._runner(state, neigh, ("always", "never"))
+        for kind in kinds:
+            runner.replay(kind)
+        return runner.result("state", "neigh")
+
+    def run_inline(self, state: State, neigh: NeighborState, n_steps: int):
+        """``step`` n_steps times, whatever ``rebuild_every`` is: the
+        reference's ``run_inline`` (what ``ensemble.run_replicas`` runs).
+
+        On CUDA tensors (unless ``cuda_graphs`` is off) a step is two
+        graph replays and one host read: ``_pre`` with the stale flag
+        (reduced over replicas) copied to pinned memory; an event
+        synchronisation and the read; then ``_post``, or ``_rebuild_stale``
+        and ``_post`` as one graph when the flag is set. Static mode
+        replays the plain step."""
+        if not self._graphed(state, n_steps):
             for _ in range(n_steps):
                 state, neigh = self.step(state, neigh)
             return state, neigh
-        n_blocks, rem = divmod(n_steps, R)
-        for length in [R] * n_blocks + ([rem] if rem else []):
-            for k in range(length):
-                state, neigh = self._step_core(
-                    state, neigh, "always" if k == 0 else "never")
-        return state, neigh
+        if self.neighbor_mode == "static":
+            runner = self._runner(state, neigh, ("never",))
+            for _ in range(n_steps):
+                runner.replay("never")
+        else:
+            runner = self._runner(state, neigh,
+                                  ("pre", "post", "rebuild_post"))
+            for _ in range(n_steps):
+                runner.replay("pre")
+                runner.replay("rebuild_post" if runner.read_flag()
+                              else "post")
+        return runner.result("state", "neigh")
+
+    # -- CUDA graphs --------------------------------------------------------
+
+    def _graphed(self, state: State, n_steps: int) -> bool:
+        return self.cuda_graphs and state.x.is_cuda and n_steps > 0
+
+    def _units(self):
+        """The graph units, as functions of the runner's buffers (state,
+        neigh, params, stale), run by a view of this Simulation that reads
+        its params from the buffer."""
+
+        def view(b):
+            sim = copy.copy(self)
+            sim.params = b["params"]
+            return sim
+
+        def step(kind):
+            def unit(b):
+                s, n = view(b)._step_core(b["state"], b["neigh"], kind)
+                return {"state": s, "neigh": n}
+            return unit
+
+        def pre(b):
+            s, n, stale = view(b)._pre(b["state"], b["neigh"], check=True)
+            return {"state": s, "neigh": n, "stale": stale,
+                    "flag": stale.any()}
+
+        def post(b):
+            s, n = view(b)._post(b["state"], b["neigh"])
+            return {"state": s, "neigh": n}
+
+        def rebuild_post(b):
+            sim = view(b)
+            s, n = sim._rebuild_stale(b["state"], b["neigh"], b["stale"])
+            s, n = sim._post(s, n)
+            return {"state": s, "neigh": n}
+
+        return {"always": step("always"), "never": step("never"),
+                "pre": pre, "post": post, "rebuild_post": rebuild_post}
+
+    def _config(self) -> dict:
+        """What a captured graph holds fixed besides the buffers: every
+        attribute but ``params`` (loaded into a buffer each run)."""
+        return {k: v for k, v in vars(self).items()
+                if k not in ("params", "_graphs", "cuda_graphs")}
+
+    def _runner(self, state: State, neigh: NeighborState, names: tuple):
+        """The GraphRunner for this state's signature with the units
+        ``names`` captured, loaded with (state, neigh, params). Runners are
+        cached on the Simulation (its shallow copies share the cache); the
+        cache is dropped when an attribute the graphs hold fixed changed
+        (walls, group fixes, shapes, ...): params are data, so a new
+        params object of the same shapes reuses the graphs."""
+        config = self._config()
+        if any(not _same_config(r.config, config)
+               for r in self._graphs.values()):
+            self._graphs.clear()
+        key = (runner_mod.signature(state), runner_mod.signature(neigh),
+               runner_mod.signature(self.params))
+        runner = self._graphs.get(key)
+        if runner is None:
+            stale = torch.zeros(state.x.shape[:-2], dtype=torch.bool,
+                                device=state.x.device)
+            runner = runner_mod.GraphRunner(dict(
+                state=state, neigh=neigh, params=self.params, stale=stale))
+            runner.config = config
+        runner.load(state=state, neigh=neigh, params=self.params)
+        units = self._units()
+        for name in names:
+            if name not in runner.graphs:
+                runner.capture(name, units[name])
+        self._graphs[key] = runner
+        return runner
+
+    def graph_stats(self) -> dict:
+        """The cached runners' totals: capture seconds (warm-up
+        included), pool bytes, replays by unit."""
+        runners = list(self._graphs.values())
+        replays = {}
+        for r in runners:
+            for k, n in r.replays.items():
+                replays[k] = replays.get(k, 0) + n
+        return {"runners": len(runners),
+                "capture_s": sum(r.capture_s for r in runners),
+                "pool_bytes": sum(r.pool_bytes() for r in runners),
+                "replays": replays}
 
     # -- observables --------------------------------------------------------
 
@@ -410,3 +574,17 @@ def _keep(mask, new, old):
         f: torch.where(per_replica(mask, 0, getattr(old, f).dim()),
                        getattr(new, f), getattr(old, f))
         for f in old.__dataclass_fields__})
+
+
+def _same_config(a: dict, b: dict) -> bool:
+    """Two ``Simulation._config`` snapshots hold the same objects: the
+    same object, or equal plain values (numbers, strings, tuples of
+    them)."""
+
+    def plain(v):
+        return (v is None or isinstance(v, (bool, int, float, str))
+                or (isinstance(v, tuple) and all(plain(e) for e in v)))
+
+    return a.keys() == b.keys() and all(
+        a[k] is b[k] or (plain(a[k]) and plain(b[k]) and a[k] == b[k])
+        for k in a)

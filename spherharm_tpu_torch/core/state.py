@@ -144,6 +144,10 @@ class Shapes(_Container):
     def n_types(self) -> int:
         return self.coeffs.shape[0]
 
+    @property
+    def n_nodes(self) -> int:
+        return self.quad_theta.shape[0]
+
     def mass_of(self, shtype, scale):
         return self.density[shtype] * self.vol[shtype] * scale**3
 
@@ -183,6 +187,14 @@ class NeighborState(_Container):
     pair_sel: torch.Tensor   # [Pc] flat cap*K slot of (i->j); cap*K = none
     pair_selj: torch.Tensor  # [Pc] flat slot of the mirror (j->i) entry
     pair_jsort: torch.Tensor  # [Pc] permutation sorting pair_j
+
+    @property
+    def k_max(self) -> int:
+        return self.idx.shape[-1]
+
+    @property
+    def pair_cap(self) -> int:
+        return self.pair_i.shape[-1]
 
 
 @dataclass

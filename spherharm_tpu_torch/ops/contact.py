@@ -39,6 +39,17 @@ from spherharm_tpu_torch.ops import rotation, sh_power
 from spherharm_tpu_torch.ops.rotation import quat_rotate, quat_rotate_inv
 
 
+def periodic_mask(t, periodic):
+    """``t`` [..., 3] with the columns of non-periodic axes multiplied by
+    0, the periodic ones kept: a mask applied in Python, so that no mask
+    tensor is copied to the device on each call (a copy from host memory
+    synchronises, and a CUDA graph cannot capture it)."""
+    if all(periodic):
+        return t
+    return torch.stack([t[..., k] if p else t[..., k] * 0.0
+                        for k, p in enumerate(periodic)], dim=-1)
+
+
 def minimum_image(d, box_lo, box_hi, periodic, tilt=None):
     """Minimum-image displacement for periodic dims.
 
@@ -50,21 +61,21 @@ def minimum_image(d, box_lo, box_hi, periodic, tilt=None):
     if not any(periodic):
         return d
     L = per_replica(box_hi - box_lo, 1, d.dim())
-    pmask = torch.as_tensor(periodic, dtype=d.dtype, device=d.device)
     if tilt is None:
-        return d - torch.round(d / L) * L * pmask
+        return d - periodic_mask(torch.round(d / L) * L, periodic)
+    pm = [float(p) for p in periodic]
     L = L[..., 0], L[..., 1], L[..., 2]
     tilt = per_replica(tilt, 1, d.dim())
     xy, xz, yz = tilt[..., 0], tilt[..., 1], tilt[..., 2]
     dx, dy, dz = d[..., 0], d[..., 1], d[..., 2]
-    n3 = torch.round(dz / L[2]) * pmask[2]
+    n3 = torch.round(dz / L[2]) * pm[2]
     dx = dx - n3 * xz
     dy = dy - n3 * yz
     dz = dz - n3 * L[2]
-    n2 = torch.round(dy / L[1]) * pmask[1]
+    n2 = torch.round(dy / L[1]) * pm[1]
     dx = dx - n2 * xy
     dy = dy - n2 * L[1]
-    n1 = torch.round(dx / L[0]) * pmask[0]
+    n1 = torch.round(dx / L[0]) * pm[0]
     dx = dx - n1 * L[0]
     return torch.stack([dx, dy, dz], dim=-1)
 
@@ -517,53 +528,70 @@ def pair_hist_to_dense(neigh):
     N, K, hw = neigh.hist.shape[-3:]
     lead = neigh.hist.shape[:-3]
     val = torch.where(neigh.pair_valid[..., None], neigh.pair_hist, 0.0)
-    mirror_sign = neigh.hist.new_tensor([-1.0, -1.0, -1.0, 1.0, 1.0, 1.0][:hw])
+    # The mirror's tangential part (columns 0-2) is negated.
+    mirror = torch.cat([-val[..., :3], val[..., 3:]], dim=-1)
     flat = neigh.hist.new_zeros(lead + (N * K + 1, hw))
     if lead:
         r = torch.arange(lead[0], device=flat.device)[:, None]
         flat[r, neigh.pair_sel] = val
-        flat[r, neigh.pair_selj] = val * mirror_sign
+        flat[r, neigh.pair_selj] = mirror
     else:
         flat[neigh.pair_sel] = val
-        flat[neigh.pair_selj] = val * mirror_sign
+        flat[neigh.pair_selj] = mirror
     return flat[..., :-1, :].reshape(lead + (N, K, hw))
+
+
+# Entries a block of ``prefix_sum``'s first-level scan.
+SCAN_BLOCK = 1024
+
+
+def _row_cumsum(t):
+    """cumsum along the last dim by the row-scan kernel. A lone row gets
+    a copy beside it: a tensor whose only dim is the scanned one takes the
+    1-D path (on the card CUB's decoupled look-back scan, whose float
+    result depends on the device's scheduling)."""
+    if t.numel() == t.shape[-1]:
+        return torch.stack([t, t]).cumsum(-1)[0]
+    return t.cumsum(-1)
+
+
+def prefix_sum(cols):
+    """Inclusive prefix sums along the last dim of ``cols`` [..., P], in an
+    order the shape alone fixes: blocks of SCAN_BLOCK entries scanned along
+    the innermost dim, then the exclusive scan of the block totals added.
+    Every row is scanned alike whatever the leading dims, on the CPU and
+    on the card, so a run is bitwise repeatable and a replica's row gives
+    its single list's bits."""
+    lead, P = cols.shape[:-1], cols.shape[-1]
+    nb = -(-P // SCAN_BLOCK)
+    x = torch.nn.functional.pad(cols, (0, nb * SCAN_BLOCK - P))
+    x = _row_cumsum(x.reshape(lead + (nb, SCAN_BLOCK)))
+    tot = _row_cumsum(x[..., -1])
+    off = torch.cat([torch.zeros_like(tot[..., :1]), tot[..., :-1]], dim=-1)
+    return (x + off[..., None]).reshape(lead + (nb * SCAN_BLOCK,))[..., :P]
 
 
 def sorted_segment_sum(data, seg_ids, num_segments: int):
     """Sum rows of ``data`` [P, C] into ``num_segments`` segments given
-    ascending ``seg_ids``: differences of a float64 prefix sum at the
-    segment bounds (found by binary search). A fixed-order scan, with no
-    atomics and no host sync, so results do not depend on the device's
-    scheduling, unlike an atomic ``index_add_``.
+    ascending ``seg_ids``: differences of float64 prefix sums
+    (``prefix_sum``, one row a column) at the segment bounds (found by
+    binary search). A fixed-order scan, with no atomics and no host sync,
+    so results do not depend on the device's scheduling, unlike an atomic
+    ``index_add_`` or a 1-D ``torch.cumsum`` on the card.
 
     With a replica axis (data [R, P, C], seg_ids [R, P]) each replica
-    scans its own rows: a [R, P] cumsum along the inner dim, so no
-    replica's prefix carries another's. On the CPU the scan is the
-    single list's, element for element; on the card a batched scan
-    rounds its float64 prefix apart from the single list's (the f32
-    sums may differ in the last place)."""
-    if seg_ids.dim() == 2:
-        R = seg_ids.shape[0]
-        ids = torch.arange(num_segments, device=seg_ids.device).repeat(R, 1)
-        lo = torch.searchsorted(seg_ids, ids)
-        hi = torch.searchsorted(seg_ids, ids, right=True)
-        cols = data.double().movedim(-1, 0)  # [C, R, P]
-        csum = torch.stack([torch.cumsum(c, -1) for c in cols], dim=-1)
-        csum = torch.cat([csum.new_zeros((R, 1, csum.shape[-1])), csum],
-                         dim=1)
-        at = lambda i: torch.gather(
-            csum, 1, i[..., None].expand(-1, -1, csum.shape[-1]))
-        return (at(hi) - at(lo)).to(data.dtype)
+    scans its own rows, each as the single list's are scanned: every
+    replica's sums are its single run's, bit for bit."""
     ids = torch.arange(num_segments, device=seg_ids.device)
+    if seg_ids.dim() == 2:
+        ids = ids.repeat(seg_ids.shape[0], 1)
     lo = torch.searchsorted(seg_ids, ids)
     hi = torch.searchsorted(seg_ids, ids, right=True)
-    # One 1-D scan per column: a scan over the outer dim of a [P, 6]
-    # tensor runs 6 threads down the rows (52 ms at P = 300k, measured on
-    # an NVIDIA H100 80GB HBM3 at its 700 W limit; PERF.md).
-    cols = data.double().t()
-    csum = torch.stack([torch.cumsum(c, 0) for c in cols], dim=1)
-    csum = torch.cat([csum.new_zeros((1, csum.shape[1])), csum])
-    return (csum[hi] - csum[lo]).to(data.dtype)
+    csum = torch.nn.functional.pad(
+        prefix_sum(data.double().movedim(-1, -2)), (1, 0))  # [..., C, P+1]
+    at = lambda i: torch.gather(
+        csum, -1, i[..., None, :].expand(csum.shape[:-1] + i.shape[-1:]))
+    return (at(hi) - at(lo)).movedim(-2, -1).to(data.dtype)
 
 
 def contact_force_pairs(state, shapes, params, neigh,

@@ -17,11 +17,14 @@ pairs particles of two replicas, and indices stay each replica's own.
 
 from __future__ import annotations
 
+import functools
+
 import numpy as np
 import torch
 
 from spherharm_tpu_torch.core.state import per_replica
-from spherharm_tpu_torch.ops.contact import minimum_image, unshear_coords
+from spherharm_tpu_torch.ops.contact import (minimum_image, periodic_mask,
+                                             unshear_coords)
 
 
 class CellGrid:
@@ -39,6 +42,21 @@ class CellGrid:
 
     def __repr__(self):
         return f"CellGrid(dims={self.dims}, periodic={self.periodic})"
+
+
+@functools.cache
+def grid_constants(grid_dims: tuple, periodic: tuple, device):
+    """The cell list's constant tensors on ``device``: the grid dims D [3]
+    (long), the 27 stencil offsets [27, 3] and the periodic mask [3]
+    (bool). Built once for each grid and kept: a tensor made from host
+    values on each call is a copy from host memory, which synchronises
+    and which a CUDA graph cannot capture."""
+    D = torch.as_tensor(grid_dims, dtype=torch.long, device=device)
+    off = torch.as_tensor(
+        [[i, j, k] for i in (-1, 0, 1) for j in (-1, 0, 1) for k in (-1, 0, 1)],
+        dtype=torch.long, device=device,
+    )
+    return D, off, torch.as_tensor(periodic, device=device)
 
 
 def stable_topk_true(valid, k: int):
@@ -94,10 +112,10 @@ def cell_list_neighbors(x, active, box_lo, box_hi, cutoff,
         return tuple(t[0] for t in out)
     R, N = x.shape[:2]
     dev = x.device
-    D = torch.as_tensor(grid_dims, dtype=torch.long, device=dev)
+    D, off, pmask = grid_constants(tuple(grid_dims),
+                                   tuple(bool(p) for p in periodic), dev)
     n_cells = int(grid_dims[0] * grid_dims[1] * grid_dims[2])
-    cell_sz = (box_hi - box_lo) / torch.as_tensor(grid_dims, dtype=x.dtype,
-                                                 device=dev)  # [R, 3]
+    cell_sz = (box_hi - box_lo) / D.to(x.dtype)  # [R, 3]
     x_bin = x if tilt is None else unshear_coords(x, box_lo, box_hi, tilt)
     cc = torch.floor((x_bin - box_lo[:, None, :]) / cell_sz[:, None, :]).long()
     cc = torch.minimum(torch.clamp(cc, min=0), D - 1)
@@ -130,11 +148,6 @@ def cell_list_neighbors(x, active, box_lo, box_hi, cutoff,
                                 torch.full_like(cell_overflow, 1 << 20),
                                 cell_overflow)
 
-    off = torch.as_tensor(
-        [[i, j, k] for i in (-1, 0, 1) for j in (-1, 0, 1) for k in (-1, 0, 1)],
-        dtype=torch.long, device=dev,
-    )
-    pmask = torch.as_tensor(periodic, device=dev)
     # Rows of all replicas, flattened replica-major: global slot r*N + i.
     cc_f, x_f, act_f = cc.reshape(-1, 3), x.reshape(-1, 3), active.reshape(-1)
     rep_f = torch.arange(R * N, device=dev) // N
@@ -218,10 +231,10 @@ def wrap_positions(x, image, box_lo, box_hi, periodic, tilt=None):
     the wrapped fractional coordinate lies in [0, 1)."""
     L = per_replica(box_hi - box_lo, 1, x.dim())
     box_lo = per_replica(box_lo, 1, x.dim())
-    pmask = torch.as_tensor(periodic, dtype=x.dtype, device=x.device)
     if tilt is None:
-        shifts = torch.floor((x - box_lo) / L) * pmask
+        shifts = periodic_mask(torch.floor((x - box_lo) / L), periodic)
         return x - shifts * L, image + shifts.long()
+    pm = [float(p) for p in periodic]
     L = L[..., 0], L[..., 1], L[..., 2]
     box_lo = box_lo[..., 0], box_lo[..., 1], box_lo[..., 2]
     tilt = per_replica(tilt, 1, x.dim())
@@ -232,9 +245,9 @@ def wrap_positions(x, image, box_lo, box_hi, periodic, tilt=None):
     f3 = (pz - box_lo[2]) / L[2]
     f2 = (py - box_lo[1] - yz * f3) / L[1]
     f1 = (px - box_lo[0] - xy * f2 - xz * f3) / L[0]
-    n3 = torch.floor(f3) * pmask[2]
-    n2 = torch.floor(f2) * pmask[1]
-    n1 = torch.floor(f1) * pmask[0]
+    n3 = torch.floor(f3) * pm[2]
+    n2 = torch.floor(f2) * pm[1]
+    n1 = torch.floor(f1) * pm[0]
     px = px - n1 * L[0] - n2 * xy - n3 * xz
     py = py - n2 * L[1] - n3 * yz
     pz = pz - n3 * L[2]
@@ -261,6 +274,15 @@ def surface_motion(x, x_build, q, q_build, gmax_s, active,
     alpha = 2.0 * torch.arccos(torch.clamp(qdot, 0.0, 1.0))
     appr = disp + gmax_s * alpha
     return torch.where(active, appr, torch.zeros_like(appr))
+
+
+def max_approach(x, x_build, q, q_build, gmax_s, active,
+                 box_lo, box_hi, periodic, tilt=None):
+    """Max per-particle surface motion since the last build (the
+    rotation-aware analogue of the max displacement; ``surface_motion``);
+    one a replica ([R]) with a replica axis."""
+    return surface_motion(x, x_build, q, q_build, gmax_s, active,
+                          box_lo, box_hi, periodic, tilt).amax(-1)
 
 
 def approach_ratio(x, x_build, q, q_build, gmax_s, budget, active,

@@ -30,6 +30,40 @@ def quat_multiply(a, b):
     )
 
 
+def quat_conjugate(q):
+    """Conjugate (the inverse of a unit quaternion)."""
+    return torch.cat([q[..., :1], -q[..., 1:]], dim=-1)
+
+
+def quat_to_matrix(q):
+    """Rotation matrix [..., 3, 3] whose columns are the body axes in the
+    world frame."""
+    w, x, y, z = q.unbind(-1)
+    return torch.stack([
+        torch.stack([1 - 2 * (y * y + z * z), 2 * (x * y - w * z),
+                     2 * (x * z + w * y)], -1),
+        torch.stack([2 * (x * y + w * z), 1 - 2 * (x * x + z * z),
+                     2 * (y * z - w * x)], -1),
+        torch.stack([2 * (x * z - w * y), 2 * (y * z + w * x),
+                     1 - 2 * (x * x + y * y)], -1),
+    ], dim=-2)
+
+
+def quat_from_axis_angle(axis, angle):
+    """Unit quaternion of a rotation by ``angle`` about unit ``axis``."""
+    half = 0.5 * torch.as_tensor(angle, dtype=axis.dtype, device=axis.device)
+    return torch.cat([torch.cos(half)[..., None],
+                      torch.sin(half)[..., None] * axis], dim=-1)
+
+
+def angles_from_unit(u):
+    """(theta, phi) spherical angles of unit vectors u [..., 3]: theta in
+    [0, pi] from +z, phi in [0, 2 pi)."""
+    theta = torch.arccos(torch.clamp(u[..., 2], -1.0, 1.0))
+    phi = torch.arctan2(u[..., 1], u[..., 0])
+    return theta, torch.where(phi < 0, phi + 2.0 * torch.pi, phi)
+
+
 def _cross(a, b):
     return torch.linalg.cross(*torch.broadcast_tensors(a, b), dim=-1)
 

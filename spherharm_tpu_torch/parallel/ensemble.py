@@ -108,7 +108,7 @@ def with_param_sweep(params: SimParams, **overrides) -> SimParams:
 
 def _rebind(sim, params):
     """A Simulation view with replica-stacked params (same static
-    config)."""
+    config, the same graph cache)."""
     s = copy.copy(sim)
     s.params = params
     return s
@@ -132,20 +132,20 @@ def run_replicas(sim, states, neighs, params_stack, n_steps: int):
     or ``stack_replicas``); params_stack: per-replica SimParams
     (``with_param_sweep``). Returns (states, neighs) with the replica axis.
 
-    Runs what the reference runs under vmap, ``run_inline``: ``sim.step``
-    n_steps times, that is the skin-trigger check on every step, even
-    where ``sim.rebuild_every > 0`` (the static cadence is ``run``'s, not
-    the step's); static neighbour mode never rebuilds. A replica rebuilds
-    exactly when its own trigger fires: each step reads "any replica
-    stale" once on the host, rebuilds, and keeps the rebuild only for the
-    stale replicas. Every kernel launches once a step for all R, and a
-    rebuild step counts once whichever replicas triggered it.
+    Runs what the reference runs under vmap, ``sim.run_inline``:
+    ``sim.step`` n_steps times, that is the skin-trigger check on every
+    step, even where ``sim.rebuild_every > 0`` (the static cadence is
+    ``run``'s, not the step's); static neighbour mode never rebuilds. A
+    replica rebuilds exactly when its own trigger fires: each step reads
+    "any replica stale" once on the host, rebuilds, and keeps the rebuild
+    only for the stale replicas. Every kernel launches once a step for all
+    R, and a rebuild step counts once whichever replicas triggered it. On
+    the card the steps are CUDA graph replays; the graphs are cached on
+    ``sim`` (the rebound view shares its cache) and the params are loaded
+    into them on each call, so a new sweep of the same shapes reuses them.
     """
     _check(states, neighs, params_stack)
-    s = _rebind(sim, params_stack)
-    for _ in range(n_steps):
-        states, neighs = s.step(states, neighs)
-    return states, neighs
+    return _rebind(sim, params_stack).run_inline(states, neighs, n_steps)
 
 
 def thermo(sim, states, neighs, params_stack) -> dict:

@@ -2,8 +2,9 @@
 ``spherharm_tpu/utils/timing.py``): the reference Timer's 5-bucket table.
 
 LAMMPS accumulates wall time per section (Pair, Neigh, Comm, Modify,
-Output). PyTorch runs eagerly, so this harness times dedicated calls of
-each stage on the live state: CUDA events around the calls on the card
+Output). This harness times dedicated eager calls of each stage on the
+live state (``Simulation.run`` replays CUDA graphs of whole steps on the
+card; these calls run the stages' ops one by one): CUDA events around the calls on the card
 (the device's time, launches queued back to back), ``time.perf_counter``
 on the CPU. These are measurement tools, not a benchmark.
 

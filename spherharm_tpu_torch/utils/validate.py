@@ -63,31 +63,54 @@ def assert_no_overflow(sim, neigh) -> None:
             "stage2_capacity / wall_capacity")
 
 
-def _leaves(obj):
-    """The arrays of a nested result (tensors, arrays, scalars inside
-    tuples, lists, dicts and the port's dataclass containers), in a fixed
-    order, as numpy."""
+def _named_leaves(obj, name: str = ""):
+    """(name, array) of each array of a nested result (tensors, arrays,
+    scalars inside tuples, lists, dicts and the port's dataclass
+    containers), in a fixed order, as numpy; a field's name is its path
+    (``x``, ``0.pair_hist``)."""
+    sub = lambda key: f"{name}.{key}" if name else str(key)
     if dataclasses.is_dataclass(obj):
         return [a for f in dataclasses.fields(obj)
-                for a in _leaves(getattr(obj, f.name))]
+                for a in _named_leaves(getattr(obj, f.name), sub(f.name))]
     if isinstance(obj, dict):
-        return [a for k in sorted(obj) for a in _leaves(obj[k])]
+        return [a for k in sorted(obj) for a in _named_leaves(obj[k], sub(k))]
     if isinstance(obj, (tuple, list)):
-        return [a for v in obj for a in _leaves(v)]
+        return [a for i, v in enumerate(obj)
+                for a in _named_leaves(v, sub(i))]
     if isinstance(obj, torch.Tensor):
-        return [obj.detach().cpu().numpy()]
-    return [np.asarray(obj)]
+        return [(name, obj.detach().cpu().numpy())]
+    return [(name, np.asarray(obj))]
+
+
+def _leaves(obj):
+    return [a for _, a in _named_leaves(obj)]
+
+
+def bitwise_differences(a, b) -> dict:
+    """The arrays of two results (nested as ``_named_leaves`` reads them)
+    that are not bit for bit equal: {name: largest absolute difference}
+    (inf where shapes or dtypes differ; ``"<fields>"`` where the two
+    hold different fields). Empty when the two are identical byte for
+    byte."""
+    la, lb = _named_leaves(a), _named_leaves(b)
+    if [n for n, _ in la] != [n for n, _ in lb]:
+        return {"<fields>": float("inf")}
+    out = {}
+    for (name, x), (_, y) in zip(la, lb):
+        if x.shape == y.shape and x.dtype == y.dtype:
+            if x.tobytes() == y.tobytes():
+                continue
+            d = np.abs(x.astype(np.float64) - y.astype(np.float64))
+            out[name] = float(np.nan_to_num(d, nan=np.inf).max())
+        else:
+            out[name] = float("inf")
+    return out
 
 
 def determinism_check(run_fn, make_inputs, n: int = 2) -> bool:
     """Same inputs => bitwise-identical outputs: ``run_fn(*make_inputs())``
     ``n`` times, every output array compared bit for bit with the first
     run's."""
-    ref = _leaves(run_fn(*make_inputs()))
-    for _ in range(n - 1):
-        other = _leaves(run_fn(*make_inputs()))
-        if len(other) != len(ref) or not all(
-                a.shape == b.shape and a.dtype == b.dtype
-                and a.tobytes() == b.tobytes() for a, b in zip(ref, other)):
-            return False
-    return True
+    ref = run_fn(*make_inputs())
+    return all(not bitwise_differences(ref, run_fn(*make_inputs()))
+               for _ in range(n - 1))

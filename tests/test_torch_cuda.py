@@ -1,4 +1,5 @@
-"""The port's CUDA kernels vs their plain PyTorch twins, on the card.
+"""The port's CUDA kernels vs their plain PyTorch twins, and its CUDA
+graph runs vs its eager runs, on the card.
 
 Every test here is ``cuda``-marked and skips without an NVIDIA GPU; the
 plain twins themselves are held against the JAX reference by the other
@@ -662,3 +663,181 @@ def test_two_body_sweep_on_card(cuda_device):
     assert np.all(np.diff(speeds) < 0), speeds
     assert abs(out["cuda"][0, 0, 0] - v_solo) <= 2e-3
     np.testing.assert_allclose(out["cuda"], out["cpu"], rtol=0, atol=1e-3)
+
+
+def test_segment_sum_is_repeatable_on_the_card(cuda_device):
+    """The segment sums on a 1.2M-row list (the triaxial cell's size): ten
+    calls give the same bits, and an [R, P] replica stack gives each
+    replica its single list's bits (``contact.prefix_sum``: no 1-D CUB
+    scan, whose float result depends on the device's scheduling)."""
+    from spherharm_tpu_torch.ops import contact
+
+    rng = np.random.default_rng(3)
+    P, N = 1_200_000, 100_000
+    seg = torch.tensor(np.sort(rng.integers(0, N, P)), device=cuda_device)
+    data = torch.tensor(rng.normal(size=(P, 6)).astype(np.float32) * 1e3,
+                        device=cuda_device)
+    first = contact.sorted_segment_sum(data, seg, N)
+    for _ in range(9):
+        assert torch.equal(contact.sorted_segment_sum(data, seg, N), first)
+    stacked = contact.sorted_segment_sum(torch.stack([data, data.flip(0)]),
+                                         torch.stack([seg, seg]), N)
+    assert torch.equal(stacked[0], first)
+
+
+# -- CUDA graphs of the step (core/runner.py) ------------------------------
+
+def _graph_drum(device, rebuild_every=20, skin=None):
+    """The n = 128 Lmax 4 conservative drum with the prefilter, from its
+    contact-rich start; ``skin`` cuts the skin (small motion budgets: the
+    skin trigger fires within a few steps)."""
+    from torch_port_util import drum_state
+
+    sim, st0, _ = scenarios.rotating_drum(
+        n=128, lmax=4, k_max=24, pair_capacity=640, stage2_capacity=384,
+        rebuild_every=rebuild_every, device=device)
+    if skin is not None:
+        sim.params = sim.params.replace(skin=torch.full_like(sim.params.skin,
+                                                              skin))
+    return (sim,) + sim.init_neighbors(drum_state(sim, st0, device))
+
+
+def _counts():
+    return {**{f"pair_{k}": n for k, n in ck.pair_contact.launches.items()},
+            **ck.stage1_depth.launches,
+            **{f"wall_{k}": n for k, n in wk.wall_contact_kernel.launches.items()}}
+
+
+def _launched(run):
+    """``run()``'s result and the kernel launches it counted."""
+    before = _counts()
+    out = run()
+    torch.cuda.synchronize()
+    return out, {k: n - before[k] for k, n in _counts().items()}
+
+
+def _eager_and_graph(sim, run):
+    """``run()`` with the step eager and as CUDA graph replays: (eager
+    result, its launches, graph result, its launches)."""
+    sim.cuda_graphs = False
+    eager, n_eager = _launched(run)
+    sim.cuda_graphs = True
+    graph, n_graph = _launched(run)
+    return eager, n_eager, graph, n_graph
+
+
+GRAPH_CASES = [("cadence", 25), ("check", 25), ("ensemble", 20)]
+
+
+@pytest.mark.parametrize("case,steps", GRAPH_CASES,
+                         ids=[c for c, _ in GRAPH_CASES])
+def test_graph_run_equals_eager(case, steps, cuda_device):
+    """The graph run equals the eager run of the same steps bit for bit in
+    every State and NeighborState field, with equal kernel launch counts:
+    the drum's static cadence (25 steps at R = 20: a block and a
+    remainder), its skin trigger (skin 0.004) and an R = 3 ensemble of it
+    with gamma_n, dt and skin swept (``run_replicas``)."""
+    from spherharm_tpu_torch.parallel import ensemble as ens
+    from spherharm_tpu_torch.utils import validate
+
+    if case == "ensemble":
+        sim, st, ng = _graph_drum(cuda_device, 0, skin=0.004)
+        params = ens.with_param_sweep(sim.params, gamma_n=[10.0, 50.0, 200.0],
+                                      dt=[1e-4, 2e-4, 3e-4],
+                                      skin=[0.004, 0.008, 0.016])
+        st, ng = ens.replicate(st, 3), ens.replicate(ng, 3)
+        run = lambda: ens.run_replicas(sim, st, ng, params, steps)
+    else:
+        sim, st, ng = _graph_drum(cuda_device, 20 if case == "cadence" else 0,
+                                  skin=None if case == "cadence" else 0.004)
+        run = lambda: sim.run(st, ng, steps)
+    eager, n_eager, graph, n_graph = _eager_and_graph(sim, run)
+    assert validate.bitwise_differences(graph, eager) == {}
+    assert n_graph == n_eager
+    stats = sim.graph_stats()
+    rebuilds = stats["replays"].get("always", 0) + stats["replays"].get(
+        "rebuild_post", 0)
+    assert rebuilds >= 1 and stats["pool_bytes"] > 0
+    assert n_graph["pair_conservative"] == steps
+    assert n_graph["stage1_depth"] == rebuilds
+
+
+def test_graph_launch_counts_count_replays(cuda_device):
+    """The launch counters count a graph's kernels on every replay, not
+    once at capture: the n = 64 settling box (dense path, five plane
+    walls, skin trigger) launches the pair kernel once and the plane
+    kernel five times a step, whether the graphs were just captured or
+    are replayed from the cache."""
+    sim, st0, _ = scenarios.settling_box(n=64, device=cuda_device)
+    x, angmom = pressed_box_state(np32(st0.x), float(sim.shapes.rmax[0]))
+    st, ng = sim.init_neighbors(scenarios.make_state(
+        x, np32(st0.box_lo), np32(st0.box_hi), q=np32(st0.q), angmom=angmom,
+        device=cuda_device))
+    for steps in (7, 11):  # a capture, then cached graphs
+        _, n = _launched(lambda: sim.run(st, ng, steps))
+        assert n["pair_geometric"] == steps and n["wall_plane"] == 5 * steps
+    assert sim.graph_stats()["runners"] == 1
+
+
+def test_graph_run_returns_no_alias(cuda_device):
+    """A graph run returns new tensors: a later run (from the same start
+    or from its result) leaves the first result as it was, and no
+    returned tensor shares memory with the runner's buffers."""
+    sim, st, ng = _graph_drum(cuda_device)
+    a_st, a_ng = sim.run(st, ng, 5)
+    keep = (a_st.x.clone(), a_ng.pair_hist.clone())
+    b_st, b_ng = sim.run(a_st, a_ng, 5)
+    sim.run(st, ng, 5)
+    assert torch.equal(a_st.x, keep[0]) and torch.equal(a_ng.pair_hist, keep[1])
+    assert not torch.equal(b_st.x, a_st.x)
+    buffers = {t.untyped_storage().data_ptr()
+               for r in sim._graphs.values() for v in r.buffers.values()
+               for t in ([v] if torch.is_tensor(v) else
+                         [getattr(v, f) for f in v.__dataclass_fields__])}
+    for obj in (a_st, a_ng, b_st, b_ng):
+        for f in obj.__dataclass_fields__:
+            assert getattr(obj, f).untyped_storage().data_ptr() not in buffers, f
+
+
+def test_graph_cache_follows_params_and_walls(cuda_device):
+    """Params are data loaded on each run: a new params object of the same
+    shapes (a friction change) reuses the graphs and gives the eager run's
+    bits; new walls (the drum spun twice as fast) drop the cache and
+    capture anew."""
+    from spherharm_tpu_torch.utils import validate
+
+    sim, st, ng = _graph_drum(cuda_device)
+    sim.run(st, ng, 3)
+    sim.params = sim.params.replace(mu=torch.full_like(sim.params.mu, 0.1))
+    eager, _, graph, _ = _eager_and_graph(sim, lambda: sim.run(st, ng, 21))
+    assert validate.bitwise_differences(graph, eager) == {}
+    assert sim.graph_stats()["runners"] == 1
+    first = next(iter(sim._graphs.values()))
+    drum = sim.walls[0]
+    sim.walls = (drum.replace(omega=2.0 * drum.omega),) + sim.walls[1:]
+    eager, _, graph, _ = _eager_and_graph(sim, lambda: sim.run(st, ng, 21))
+    assert validate.bitwise_differences(graph, eager) == {}
+    assert next(iter(sim._graphs.values())) is not first
+
+
+def test_failed_capture_raises(cuda_device, monkeypatch):
+    """A unit that reads the device from the host cannot be captured: the
+    graph run raises and caches nothing, where the eager run (asked for by
+    name) runs."""
+    from spherharm_tpu_torch.core.simulation import Simulation
+
+    sim, st, ng = _graph_drum(cuda_device, 0)
+    post = Simulation._post
+
+    def syncing_post(self, state, neigh):
+        if float(state.x.sum()) != float(state.x.sum()):  # a host read
+            raise AssertionError("non-finite positions")
+        return post(self, state, neigh)
+
+    monkeypatch.setattr(Simulation, "_post", syncing_post)
+    sim.cuda_graphs = False
+    sim.run(st, ng, 2)
+    sim.cuda_graphs = True
+    with pytest.raises(RuntimeError):
+        sim.run(st, ng, 2)
+    assert not sim._graphs

@@ -191,3 +191,18 @@ def test_sorted_segment_sum_matches_index_add():
     got = tcontact.sorted_segment_sum(data, seg, 33)
     ref = torch.zeros(33, 6).index_add_(0, seg, data)
     np.testing.assert_allclose(np32(got), np32(ref), rtol=1e-6, atol=1e-6)
+
+
+@pytest.mark.parametrize("P", [1, 1000, 1024, 1025, 5000])
+def test_prefix_sum_is_a_per_row_float64_scan(P):
+    """``prefix_sum`` (the blocked fixed-order scan under the segment
+    sums) is a float64 prefix sum of each row within rounding, and a row
+    gives the same bits alone, in a batch of rows and in a batch of
+    replicas."""
+    rng = np.random.default_rng(P)
+    cols = torch.tensor(rng.normal(size=(3, 6, P)))
+    got = tcontact.prefix_sum(cols)
+    np.testing.assert_allclose(got.numpy(), np.cumsum(cols.numpy(), -1),
+                               rtol=1e-12, atol=1e-12 * P)
+    assert torch.equal(tcontact.prefix_sum(cols[1]), got[1])
+    assert torch.equal(tcontact.prefix_sum(cols[1, 4]), got[1, 4])
