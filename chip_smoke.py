@@ -58,7 +58,13 @@ Phases, each fatal on failure (exit code != 0, no result line):
    ``ensemble.run_replicas`` (``ensemble_card_vs_cpu``): the n = 128
    deposition with a mu sweep and the n = 128 conservative drum with
    the prefilter and a gamma_n sweep (K1, K4, K6, K7), thermo and
-   positions per replica;
+   positions per replica; then the slabs (``sharded_card_vs_cpu``):
+   ``dryrun_sharded(4)``, the sheared triaxial cell at n = 1,000 on 4
+   slabs (xy shear 0.05, ``deform_min`` 0.8, compressed into contact;
+   n = 128 is too small a box for 4 slabs under the 0.12-box tilt pad)
+   and 2 slabs with x not periodic and a plane floor (K7, wall springs
+   migrating), 40 steps each on the card and on the CPU: thermo, stress,
+   tilt, box, images and positions by tag;
 5. the paths, each through the entry point a user calls (``Simulation.
    run``, ``ensemble.run_replicas``, the deck's ``run``), which replays
    CUDA graphs of the step (``core/runner.py``). Each path first runs
@@ -100,6 +106,31 @@ Phases, each fatal on failure (exit code != 0, no result line):
    of the path launched (and skin_violations = 0 for the drum's cadence,
    pair contacts by the end of the deposition and settling box, and at
    every sample of the gas); particle-steps/s of each;
+5b. the slab decomposition's paths (``ShardedSimulation.run`` on
+   N_SHARDS = 4 slabs, CUDA graphs of its units ``pre`` / ``pre_check``,
+   ``always`` / ``rebuild`` / ``comm``, ``post``; ``sharded_path``), each
+   run counted from its first step, fatal unless it replayed a rebuild
+   graph, with ``graph_vs_eager`` over the first run of steps that
+   rebuilt, its rates, the rebuilds, the tags that changed slab, the
+   ghosts of each slab and the largest halo send against ``halo_cap``:
+   right after the triaxial cell, the n = 100k sheared cell on 4 slabs
+   (``triaxial_cell(sharded=True)``, the reference's capacities, a
+   rebuild every SHARD_TRI_EVERY steps) from the same start, its forces
+   after ``init`` within 2e-3 |F|max of the single cell's, 60 steps held
+   to the single run's end with the reference's sharded-vs-single bounds
+   (tests/test_sharded.py:90-103: x 2e-3, v 5e-3, ke and etot rel 1e-3,
+   stress rtol 2e-2 / atol 1e-3), then K2 on its 4 x 300,000-slot pair
+   lists; right after the drift gas, the n = 10k gas on 4 slabs from the
+   gas's step 5,000 (forces after ``init`` within 1e-4 |F|max on all but
+   0.1 % of the rows away from the periodic x seam, none past 2e-2, and
+   none past 2e-3 within the halo depth of the seam; ``seam_witness``:
+   the seam rows' gap in float32 and float64 on the CPU twins, the
+   float64 one under 1e-9), on its skin trigger until a run of
+   SHARD_GAS_BLOCK steps has rebuilt, its first 200 steps held to 200
+   single card steps with the same bounds, its forces at the end of the
+   run held to a fresh single build at the same positions, then K1 on
+   its stage-2 lists and K4 on the candidate lists a rebuild of the slabs
+   builds;
 6. each law's kernels on its path's own stage-2 list after the path's
    run: K2 and K3 geometric on the deposition's (all 100,000 slots, pair
    cap 10n, no prefilter), K2 on the 8-replica ensemble's (800,000 slots,
@@ -177,6 +208,20 @@ N_GAS, GAS_WARM, GAS_STEPS, GAS_EVERY = 10_000, 3000, 2000, 100
 # default 0.6: at 0.6 the tilt-inflated grid has 18 cells an axis for the 47
 # lattice sites, 17.8 particles a cell against cell_cap 16 (overflow).
 N_TRI, TRI_STEPS, TRI_SHEAR, TRI_DEFORM_MIN = 100_000, 60, (0.05, 0.0, 0.0), 0.8
+# The slab decomposition (parallel/halo.py): N_SHARDS slabs on the shard
+# axis of the card's tensors. The sheared cell's tilt pad (0.12 box) caps
+# S at 4: the narrowest slab must reach 2.4 rmax + 0.12 box. Its small
+# card-vs-CPU case runs n = SHARD_TRI_SMALL at the builder's fill: at
+# n = 128 (fill 0.09) a quarter of the box (2.27) is under that depth
+# (2.35). Each sharded path's run rebuilds inside it: the n = 100k sheared
+# cell on a cadence of SHARD_TRI_EVERY steps (its TRI_STEPS steps hold
+# three rebuilds), the n = 10k gas on its skin trigger (about one rebuild
+# in 700 steps on the single gas) in blocks of SHARD_GAS_BLOCK steps until
+# a block has rebuilt, at most SHARD_GAS_BLOCKS blocks; the gas's
+# trajectory is held to the single card run's over its first
+# SHARD_GAS_STEPS steps.
+N_SHARDS, SHARD_TRI_SMALL, SHARD_TRI_EVERY, SHARD_GAS_STEPS = 4, 1000, 20, 200
+SHARD_GAS_BLOCK, SHARD_GAS_BLOCKS = 100, 30
 # The two-material (0, 1) pair_coeff row: kn, kt, gamma_n, gamma_t, mu,
 # k_roll, gamma_roll, mu_roll.
 TWO_MATERIAL = (3e5, 1e5, 30.0, 10.0, 0.2, 1e4, 5.0, 0.1)
@@ -865,7 +910,7 @@ def candidate_list(path, state, neigh):
     return packed, live, int(n_cand)
 
 
-def stage1_list_phase(tag, path, state, neigh, results):
+def stage1_list_phase(tag, path, state, neigh, results, cand=None):
     """K4 (full basis, tail zeroed, as the prefilter runs it) on the whole
     candidate list a rebuild of ``path`` builds at ``state``, timed as the
     case ``"{tag} candidate list"`` (its bound from the list's probed rows
@@ -875,13 +920,15 @@ def stage1_list_phase(tag, path, state, neigh, results):
     every dead row; rsum - dist within 1e-6 on every sphere-separated row.
     Rows within 1e-6 rsum of touching spheres may be sorted either way by
     the kernel's rounding of dist and are held to neither. Returns
-    (packed with its tail, alive rows, rsum, probed rows, K4's output)."""
+    (packed with its tail, alive rows, rsum, probed rows, K4's output).
+    ``cand``: (packed, live, candidates) of a list built elsewhere (the
+    slabs', ``sharded_candidate_list``)."""
     import torch
 
     from spherharm_tpu_torch.ops import contact_kernels as ck
 
     shapes, lmax = path.shapes, path.shapes.lmax
-    packed, live, n_cand = candidate_list(path, state, neigh)
+    packed, live, n_cand = cand or candidate_list(path, state, neigh)
     zeroed = packed.clone()
     zeroed[:, ck.SLOTS["tail"][0]] = 0.0
     cap1 = torch.stack([shapes.cap1_x, shapes.cap1_glw, shapes.cap1_cpsi,
@@ -1600,7 +1647,7 @@ def eager_profile(tag, run, steps):
     return dev_ms
 
 
-def graph_vs_eager(label, sim, run, steps, view, state, neigh):
+def graph_vs_eager(label, sim, run, steps, view, state, neigh, one_step=None):
     """``run(steps)`` from one start with ``sim`` stepping eagerly
     (``cuda_graphs=False``), then as CUDA graph replays (capturing them
     where not yet cached), then once more from the cached graphs under
@@ -1609,7 +1656,8 @@ def graph_vs_eager(label, sim, run, steps, view, state, neigh):
     each differing field and its largest difference printed, fatal), with
     equal kernel launches. Then one eager plain step and one eager rebuild
     step of ``view`` (``sim`` or its replica view) from (state, neigh)
-    under ``sync_errors``. Returns the eager ms a step (host clock), the
+    under ``sync_errors`` (``one_step(kind)`` in place of ``view._step_core``
+    where given: the slabs' step). Returns the eager ms a step (host clock), the
     device ms a step (``eager_profile`` of the first PROFILE_STEPS of
     them, eager again), and the
     capture seconds and pool bytes of ``sim``'s graphs."""
@@ -1649,9 +1697,10 @@ def graph_vs_eager(label, sim, run, steps, view, state, neigh):
     require(not diff and not diff_again, f"{label}: the CUDA graph run is not the "
             "eager run bit for bit")
     require(l_eager == l_graph, f"{label}: launches eager {l_eager}, graph {l_graph}")
+    one_step = one_step or (lambda kind: view._step_core(state, neigh, kind))
     for kind in ("never", "always"):
         with sync_errors():
-            view._step_core(state, neigh, kind)
+            one_step(kind)
     torch.cuda.synchronize()
     print(f"{label}: one eager plain step and one eager rebuild step under "
           "set_sync_debug_mode('error'): no host synchronisation; eager vs graph "
@@ -2022,6 +2071,484 @@ def bf16_phase():
     return json.loads(tagged[0][len(CHILD_TAG):])
 
 
+def shard_owners(state):
+    """{tag: slab} of a sharded state's active slots."""
+    tag, act = state.tag.cpu().numpy(), state.active.cpu().numpy()
+    return {int(t): p for p in range(tag.shape[0]) for t in tag[p][act[p]]}
+
+
+def list_view(sim):
+    """What ``stage2_list_phase`` reads of a path, for the slabs' lists:
+    they pair rows of the extended (owned + ghost) state, imaged on y
+    and z only."""
+    import types
+
+    return types.SimpleNamespace(shapes=sim.shapes, conservative=sim.conservative,
+                                 periodic=sim.periodic_eff, _tilt=sim._tilt,
+                                 params=sim.params)
+
+
+def sharded_candidate_list(sim, state, neigh, ghosts):
+    """The candidate lists a rebuild of the slabs builds at (state, neigh,
+    ghosts) (``ShardedSimulation._rebuild`` without the prefilter: every
+    slot of each slab's pair capacity), packed for the stage-1 probe as
+    ``contact.prefilter_pair_list`` packs them, [S * pair_capacity, 64],
+    the tail column kept. Returns (packed, live rows, candidates)."""
+    import copy
+
+    from spherharm_tpu_torch.core.state import take
+    from spherharm_tpu_torch.ops import contact
+    from spherharm_tpu_torch.ops import contact_kernels as ck
+
+    view = copy.copy(sim)
+    view.prefilter = False
+    st, ng, gh = view._rebuild(state, neigh, ghosts)
+    ext = sim._extend(st, gh)
+    pi, pj = ng.pair_i, ng.pair_j
+    rows = contact.particle_rows(ext, sim.shapes)
+    ri, rj = take(rows, pi, True), take(rows, pj, True)
+    live = (ng.pair_valid & (ri[..., contact._RACT] > 0.5)
+            & (rj[..., contact._RACT] > 0.5))
+    dp = contact.minimum_image(rj[..., contact._RX] - ri[..., contact._RX], ext.box_lo,
+                               ext.box_hi, sim.periodic_eff, sim._tilt(ext))
+    packed = ck.pack_pairs(ext, sim.shapes, sim.params, pi, pj, live,
+                           dp.new_zeros(pi.shape + (6,)), dp, rows=rows,
+                           probe_only=True)[0]
+    return packed, live.reshape(-1), int(ng.pair_valid.sum())
+
+
+def by_tag_gap(a, b, periodic):
+    """Per tag, the largest |position difference| (minimum image in b's
+    box and tilt) and |velocity difference| between two runs' states,
+    either layout; fatal unless both hold the same tags."""
+    import torch
+
+    from torch_port_util import by_tag
+
+    from spherharm_tpu_torch.ops import contact
+
+    ta, tb = by_tag(a, "tag"), by_tag(b, "tag")
+    require(np.array_equal(ta, tb), "the two runs hold different tags")
+    dev = b.x.device
+    d = contact.minimum_image(torch.as_tensor(by_tag(a, "x") - by_tag(b, "x"),
+                                              device=dev),
+                              b.box_lo, b.box_hi, periodic, b.tilt)
+    return (float(d.abs().max()),
+            float(np.abs(by_tag(a, "v") - by_tag(b, "v")).max()))
+
+
+def force_gap(a, b, rows=None):
+    """Per tag, |f_a - f_b| over |f_b|max, on the rows ``rows`` (a mask in
+    tag order; default all): (largest, share of those rows past 1e-4)."""
+    from torch_port_util import by_tag
+
+    fa, fb = by_tag(a, "f"), by_tag(b, "f")
+    err = np.abs(fa - fb).max(1) / max(float(np.abs(fb).max()), 1e-30)
+    err = err if rows is None else err[rows]
+    return (float(err.max()), float((err > 1e-4).mean())) if err.size else (0.0, 0.0)
+
+
+def sharded_card_vs_cpu(dev, steps=40):
+    """The slabs on the card and on the CPU (plain twins): the dry run
+    (``dryrun_sharded(N_SHARDS)``: one step of 16 S Lmax-4 ellipsoids);
+    the sheared triaxial cell at n = SHARD_TRI_SMALL on N_SHARDS slabs
+    (xy shear 0.05, ``deform_min`` 0.8, its lattice compressed into
+    contact, ``triaxial_state``) for ``steps`` steps: thermo and press
+    within 2e-3 relative, the stress tensor within 2e-3 of its scale, the
+    xy tilt within 1e-5 relative, the box within 1e-6, image counters and
+    tags equal per tag, positions within 1e-3; and 2 slabs with x not
+    periodic and a plane floor (``slab_drift_system(2, wall=True)``, K7,
+    wall springs migrating) for ``steps`` steps: thermo within 2e-3,
+    positions within 1e-3, wall contacts, migrations, K7 launched."""
+    import torch
+
+    from torch_port_util import by_tag, slab_drift_system, triaxial_state
+
+    from spherharm_tpu_torch.core.state import SimParams
+    from spherharm_tpu_torch.models import scenarios, shapes_library
+    from spherharm_tpu_torch.ops.walls import PlaneWall
+    from spherharm_tpu_torch.parallel.dryrun import dryrun_sharded
+    from spherharm_tpu_torch.parallel.halo import ShardedSimulation
+
+    t0 = time.perf_counter()
+    cpu = torch.device("cpu")
+    th = [dryrun_sharded(N_SHARDS, device=d) for d in (dev, cpu)]
+    rel = {k: abs(float(th[0][k]) - float(th[1][k])) / max(abs(float(th[1][k])), 1e-30)
+           for k in ("ke", "erot", "pe_pair", "etot")}
+    print(f"dryrun_sharded({N_SHARDS}), card vs CPU: n={int(th[0]['n'])} "
+          + " ".join(f"{k}={float(th[0][k]):.7g}(rel {v:.2e})" for k, v in rel.items())
+          + " (tol 2e-3)")
+    require(int(th[0]["n"]) == 16 * N_SHARDS and max(rel.values()) <= 2e-3,
+            "dryrun_sharded: card and CPU disagree")
+
+    runs = []
+    for device in (dev, cpu):
+        _, st0, _ = scenarios.triaxial_cell(n=SHARD_TRI_SMALL, shear_rate=TRI_SHEAR,
+                                            deform_min=TRI_DEFORM_MIN, device=device)
+        sim = scenarios.triaxial_cell(n=SHARD_TRI_SMALL, shear_rate=TRI_SHEAR,
+                                      deform_min=TRI_DEFORM_MIN, sharded=True,
+                                      n_shards=N_SHARDS, device=device)[0]
+        st, ng, gh = sim.init(triaxial_state(st0, device)[0])
+        owners = shard_owners(st)
+        st, ng, gh = sim.run(st, ng, gh, steps)
+        t = sim.thermo(st, ng, gh)
+        require(int(t["neigh_overflow"]) == 0,
+                f"small sharded triaxial on {device}: overflow {int(t['neigh_overflow'])}")
+        moved = sum(owners[k] != v for k, v in shard_owners(st).items())
+        runs.append((sim, st, {k: float(v) for k, v in t.items() if v.ndim == 0},
+                     t["stress"].cpu().numpy(), moved))
+    (sim, sg, tg, stress_g, mg), (_, sc, tc, stress_c, mc) = runs
+    rel = {k: abs(tg[k] - tc[k]) / max(abs(tc[k]), 1e-30)
+           for k in ("ke", "erot", "pe_pair", "etot", "press")}
+    tilt_g, tilt_c = sg.tilt.cpu().numpy(), sc.tilt.cpu().numpy()
+    d_tilt = float(np.abs(tilt_g - tilt_c).max() / np.abs(tilt_c).max())
+    d_box = float(max(np.abs(getattr(sg, k).cpu().numpy() - getattr(sc, k).numpy()).max()
+                      for k in ("box_lo", "box_hi")))
+    d_stress = float(np.abs(stress_g - stress_c).max() / np.abs(stress_c).max())
+    same_image = bool(np.array_equal(by_tag(sg, "image"), by_tag(sc, "image")))
+    dx, _ = by_tag_gap(sg, sc.replace(**{f: getattr(sc, f).to(dev) for f in
+                                         ("x", "v", "box_lo", "box_hi", "tilt")}),
+                       (True,) * 3)
+    print(f"small sheared triaxial n={SHARD_TRI_SMALL} on {N_SHARDS} slabs (grid "
+          f"{sim.grid_dims}, halo depth {sim.halo_depth:.4g}), {steps} steps, card vs "
+          f"CPU: tilt {tilt_g} (rel {d_tilt:.2e}), max|d box|={d_box:.3g}, images equal: "
+          f"{same_image}, tags that changed slab {mg} / {mc} "
+          + " ".join(f"{k}={tg[k]:.6g}(rel {v:.2e})" for k, v in rel.items())
+          + f" stress rel {d_stress:.2e} max|dx|={dx:.3g} (tol: tilt 1e-5, box 1e-6 rel, "
+          "thermo and stress 2e-3, dx 1e-3)")
+    require(tc["pe_pair"] > 0, "small sharded triaxial has no contacts")
+    require(same_image and d_tilt <= 1e-5
+            and d_box <= 1e-6 * float(np.abs(sc.box_hi.numpy()).max())
+            and max(rel.values()) <= 2e-3 and d_stress <= 2e-3 and dx <= 1e-3,
+            "small sharded triaxial: card and CPU disagree")
+
+    runs = []
+    for device in (dev, cpu):
+        x, v, box, periodic = slab_drift_system(2, wall=True)
+        shapes = shapes_library.build_shapes(
+            [shapes_library.ellipsoid_coeffs(0.55, 0.45, 0.4, 4)], 4,
+            contact_quad=(6, 12), device=device)
+        params = SimParams.create(dt=1e-3, kn=1e4, gamma_n=5.0, mu=0.3, cutoff=1.2,
+                                  skin=0.3, gravity=(0.0, 0.0, -10.0), device=device)
+        sim = ShardedSimulation(
+            shapes, params, n_shards=2, box_lo=(0, 0, 0), box_hi=tuple(box),
+            cap_local=64, halo_cap=32, migrate_cap=16, periodic=periodic, k_max=16,
+            cell_cap=8, pair_capacity=256, rebuild_every=10, conservative=False,
+            walls=(PlaneWall.create((0, 0, 0), (0, 0, 1), device=device),),
+            device=device)
+        st, ng, gh = sim.init(scenarios.make_state(x, [0, 0, 0], box, v=v, device=device))
+        owners = shard_owners(st)
+        reset_counts()
+        st, ng, gh = sim.run(st, ng, gh, steps)
+        launches = launch_counts()
+        t = sim.thermo(st, ng, gh)
+        require(int(t["neigh_overflow"]) == 0, f"slab floor on {device}: overflow")
+        moved = sum(owners[k] != v for k, v in shard_owners(st).items())
+        runs.append((st, {k: float(v) for k, v in t.items() if v.ndim == 0}, moved,
+                     float(ng.wall_hist.abs().max()), launches))
+    (sg, tg, mg, wg, lg), (sc, tc, mc, wc, _) = runs
+    rel = {k: abs(tg[k] - tc[k]) / max(abs(tc[k]), 1e-30)
+           for k in ("ke", "pe_pair", "pe_wall", "etot")}
+    dx = float(np.abs(by_tag(sg, "x") - by_tag(sc, "x")).max())
+    print(f"2 slabs, x not periodic, plane floor, n=32, {steps} steps, card vs CPU: tags "
+          f"that changed slab {mg} / {mc}, largest wall spring {wg:.3g} / {wc:.3g}, "
+          + " ".join(f"{k}={tg[k]:.6g}(rel {v:.2e})" for k, v in rel.items())
+          + f" max|dx|={dx:.3g} (tol: thermo 2e-3, dx 1e-3); card launches "
+          f"{ {k: v for k, v in lg.items() if v} }")
+    require(tc["pe_wall"] > 0 and mc > 0 and wc > 0, "slab floor: no wall contact "
+            "or no migration")
+    require(lg["wall_plane"] > 0, "slab floor: K7 never launched on the card")
+    require(max(rel.values()) <= 2e-3 and dx <= 1e-3, "slab floor: card and CPU disagree")
+    print(f"sharded card-vs-CPU phases: {time.perf_counter() - t0:.1f}s")
+
+
+def rebuild_replays(sim):
+    """The replays of ``sim``'s rebuilding graphs (``always``, ``rebuild``)."""
+    return sum(r.replays.get(k, 0) for r in sim._graphs.values()
+               for k in ("always", "rebuild"))
+
+
+def sharded_path(label, sim, state, neigh, ghosts, kernels, smi, block, n_blocks,
+                 max_blocks=0):
+    """Drive the slabs through ``ShardedSimulation.run``: one step to
+    capture the graphs (dropped), then, with every launch counter at 0,
+    ``n_blocks`` runs of ``block`` steps (more, up to ``max_blocks``, until
+    one has replayed a rebuilding graph). Fatal unless the run rebuilt,
+    overflow and skin violations read 0, etot is finite and every kernel
+    of ``kernels`` launched. Then ``graph_vs_eager`` over the first block
+    that rebuilt, from its start (the eager plain and rebuild steps being
+    ``_local_step``'s 'comm' and 'always'): fatal unless its two graph runs
+    replayed a rebuild too. Prints the rates, the rebuilds, the tags that
+    changed slab over the run, the ghosts of each slab and the largest
+    one-side halo send of the last rebuild against ``halo_cap``. Returns
+    (each block's end [(state, neigh, ghosts)], launches, thermo, seconds
+    a step)."""
+    import torch
+
+    sim.run(state, neigh, ghosts, 1)
+    owners = shard_owners(state)
+    ends, rebuilt = [], None
+    reset_counts()
+    r0 = rebuild_replays(sim)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    while len(ends) < n_blocks or (rebuilt is None and len(ends) < max_blocks):
+        r = rebuild_replays(sim)
+        start = ends[-1] if ends else (state, neigh, ghosts)
+        ends.append(sim.run(*start, block))
+        if rebuilt is None and rebuild_replays(sim) > r:
+            rebuilt = (len(ends) - 1, start)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = launch_counts()
+    rebuilds = rebuild_replays(sim) - r0
+    steps = block * len(ends)
+    state, neigh, ghosts = ends[-1]
+    th = sim.thermo(state, neigh, ghosts)
+    n = int(th["n"])
+    overflow = int(neigh.overflow.max())
+    skin = int(neigh.skin_violations.max())
+    moved = sum(owners[k] != v for k, v in shard_owners(state).items())
+    H = sim.halo_cap
+    sends = torch.stack([ghosts.send_mask[:, :H].sum(-1), ghosts.send_mask[:, H:].sum(-1)])
+    print(f"{label}: {steps} steps in {wall:.3f}s -> {n * steps / wall:.1f} particle-steps/s "
+          f"[{smi}] in {len(ends)} runs of {block}; rebuilds {rebuilds} (first in steps "
+          f"{'none' if rebuilt is None else f'{rebuilt[0] * block + 1}-{(rebuilt[0] + 1) * block}'}"
+          f") overflow={overflow} skin_violations={skin} etot={float(th['etot']):.6g} "
+          f"pe_pair={float(th['pe_pair']):.6g}; tags that changed slab {moved}; ghosts "
+          f"by slab {ghosts.active.sum(-1).tolist()}; largest one-side halo send "
+          f"{int(sends.max())} of halo_cap {H}; launches="
+          f"{ {k: v for k, v in launches.items() if v} }")
+    require(rebuilt is not None and rebuilds > 0,
+            f"{label}: the run never replayed a rebuild in {steps} steps")
+    require(overflow == 0, f"{label}: capacity overflow (channel={overflow})")
+    require(skin == 0, f"{label}: {skin} skin violations")
+    require(math.isfinite(float(th["etot"])), f"{label}: non-finite energy")
+    require(all(launches[k] > 0 for k in kernels),
+            f"{label}: a kernel of the path never launched: {launches}")
+    ws, wn, wg = rebuilt[1]
+    one = lambda kind: sim._local_step(ws, wn, wg, "comm" if kind == "never" else "always")
+    r = rebuild_replays(sim)
+    ref = graph_vs_eager(f"{label}, steps {rebuilt[0] * block + 1}-"
+                         f"{(rebuilt[0] + 1) * block}", sim,
+                         lambda k: sim.run(ws, wn, wg, k), block, sim, ws, wn,
+                         one_step=one)
+    require(rebuild_replays(sim) - r >= 2,
+            f"{label}: the eager-vs-graph window replayed no rebuild")
+    graph_row(label, n, ref, wall / steps, smi)
+    return ends, launches, th, wall / steps
+
+
+def sharded_vs_single(label, sharded, single, periodic):
+    """Hold a sharded run's end to the single card run's of the same start
+    and steps, with the reference's sharded-vs-single bounds
+    (tests/test_sharded.py:90-103): per tag x within 2e-3 (minimum image)
+    and v within 5e-3, ke and etot within rel 1e-3, stress within rtol
+    2e-2 / atol 1e-3."""
+    (st, th), (s1, th1) = sharded, single
+    dx, dv = by_tag_gap(st, s1, periodic)
+    rel = {k: abs(float(th[k]) - float(th1[k])) / abs(float(th1[k])) for k in ("ke", "etot")}
+    a, b = th["stress"].cpu().numpy(), th1["stress"].cpu().numpy()
+    stress_ok = bool(np.all(np.abs(a - b) <= 1e-3 + 2e-2 * np.abs(b)))
+    print(f"{label} vs the single card run: max|dx|={dx:.3g} max|dv|={dv:.3g} "
+          + " ".join(f"{k} rel {v:.2e}" for k, v in rel.items())
+          + f" stress max|d|={float(np.abs(a - b).max()):.3g} (scale "
+          f"{float(np.abs(b).max()):.3g}) (tol: dx 2e-3, dv 5e-3, ke/etot 1e-3, stress "
+          "rtol 2e-2 atol 1e-3)")
+    require(dx <= 2e-3 and dv <= 5e-3 and max(rel.values()) <= 1e-3 and stress_ok,
+            f"{label}: disagrees with the single card run")
+
+
+def sharded_triaxial_phase(tri, st0, single_end, dev, smi, results):
+    """The n = N_TRI sheared triaxial cell on N_SHARDS slabs
+    (``triaxial_cell(sharded=True)``: the reference's capacities, cap_local
+    4n/S, halo_cap 2n/S, pair cap 12n/S, cell_cap 12, tilt pad 0.12 box),
+    rebuilt on a cadence of SHARD_TRI_EVERY steps, from ``triaxial_path``'s
+    start (``triaxial_state``): its forces after ``init`` held per tag to
+    the single cell's ``init_neighbors`` within 2e-3 |F|max;
+    ``sharded_path`` over TRI_STEPS steps in runs of SHARD_TRI_EVERY, each
+    starting with a rebuild (wrap, migration, re-halo, the slabs' cell
+    list and pair lists); the end held to ``single_end`` (the single card
+    run's end and thermo, the same start and steps: ``sharded_vs_single``);
+    then K2 on its own pair lists (S x 12n/S slots, one launch). Returns
+    the run's launches."""
+    import torch
+
+    from torch_port_util import triaxial_state
+
+    from spherharm_tpu_torch.models import scenarios
+
+    t0 = time.perf_counter()
+    tag = f"triaxial S={N_SHARDS}"
+    start = triaxial_state(st0, dev)[0]
+    sim = scenarios.triaxial_cell(n=N_TRI, shear_rate=TRI_SHEAR, deform_min=TRI_DEFORM_MIN,
+                                  sharded=True, n_shards=N_SHARDS, device=dev)[0]
+    sim.rebuild_every = SHARD_TRI_EVERY
+    torch.cuda.empty_cache()
+    st, ng, gh = sim.init(start)
+    s1, _ = tri.init_neighbors(start)
+    top, share = force_gap(st, s1)
+    print(f"{tag}: n={N_TRI}, cap_local {sim.cap_local}, halo_cap {sim.halo_cap}, "
+          f"grid {sim.grid_dims}, halo depth {sim.halo_depth:.4g}, narrowest slab "
+          f"{sim.slab_w:.4g}, pair cap {sim.pair_capacity} a slab, a rebuild every "
+          f"{sim.rebuild_every} steps; forces after init vs the single cell's: max "
+          f"{top:.3g} |F|max, {share:.2%} of rows past 1e-4 (tol 2e-3); set-up "
+          f"{time.perf_counter() - t0:.1f}s")
+    require(top <= 2e-3, f"{tag}: forces after init disagree with the single cell's")
+    del s1
+    ends, launches, th, _ = sharded_path(
+        tag, sim, st, ng, gh, ("pair_contact_geometric",), smi, SHARD_TRI_EVERY,
+        TRI_STEPS // SHARD_TRI_EVERY)
+    st, ng, gh = ends[-1]
+    sharded_vs_single(tag, (st, th), single_end, (True,) * 3)
+    stage2_list_phase(tag, list_view(sim), sim._extend(st, gh), ng, results,
+                      bf16s=(False,), case_tag=f"{tag} pair list")
+    print(f"{tag} phase: {time.perf_counter() - t0:.1f}s")
+    return launches
+
+
+def held_forces(label, sharded, single, sim):
+    """A sharded state's forces held per tag to a single box's at the
+    same positions: on the rows farther than the halo depth from the
+    periodic x seam within 1e-4 |F|max on all but 0.1 % of them, none past
+    2e-2; within it, none past 2e-3 (there the slabs image x by shifting
+    the sent ghost by +/- Lx and the single box by rounding d / Lx, so d
+    rounds apart by ~ulp(Lx): ``seam_witness``)."""
+    from torch_port_util import by_tag
+
+    x = by_tag(single, "x")[:, 0]
+    lo, hi = float(single.box_lo[0]), float(single.box_hi[0])
+    seam = np.minimum(x - lo, hi - x) < sim.halo_depth
+    top, share = force_gap(sharded, single, ~seam)
+    top_s, share_s = force_gap(sharded, single, seam)
+    n_f = int((single.f.abs().amax(-1) > 0).sum())
+    print(f"{label} ({n_f} of {x.size} rows carry a force): away from the periodic seam "
+          f"max {top:.3g} |F|max, {share:.3%} of {int((~seam).sum())} rows past 1e-4 "
+          f"(tol: 0.1% past 1e-4, none past 2e-2); within the halo depth of the seam max "
+          f"{top_s:.3g}, {share_s:.3%} of {int(seam.sum())} rows past 1e-4 (tol: none "
+          "past 2e-3)")
+    require(top <= 2e-2 and share <= 1e-3 and top_s <= 2e-3,
+            f"{label}: the slabs' forces disagree with the single box's")
+
+
+def seam_witness(gas, gst, sim):
+    """Why the seam rows part: the slabs' forces after ``init`` against the
+    single box's, on the CPU twins in float32 and in float64, for the
+    particles within two halo depths of the periodic x seam (every contact
+    of a row within one halo depth of it is kept). A gap that comes from
+    rounding d (~ulp(Lx)) all but vanishes in float64; a fault of the
+    seam's ghost shift would not. Fatal unless the float64 gap is under
+    1e-9 |F|max. Returns {dtype name: largest gap on the seam rows}."""
+    import torch
+
+    from torch_port_util import on_cpu
+
+    from spherharm_tpu_torch.core.simulation import Simulation
+    from spherharm_tpu_torch.parallel.halo import ShardedSimulation
+
+    t0 = time.perf_counter()
+    x = gst.x[:, 0].cpu().numpy()
+    lo, hi = float(gst.box_lo[0]), float(gst.box_hi[0])
+    d = np.minimum(x - lo, hi - x)
+    near = torch.as_tensor((d < 2 * sim.halo_depth) & gst.active.cpu().numpy())
+    gaps = {}
+    for dtype in (torch.float32, torch.float64):
+        start = on_cpu(gst, dtype)
+        start = start.replace(**{f: getattr(start, f)[near] for f in
+                                 ("x", "v", "q", "angmom", "f", "tau", "scale", "shtype",
+                                  "tag", "active", "image")})
+        shapes, params = on_cpu(gas.shapes, dtype), on_cpu(gas.params, dtype)
+        single = Simulation(shapes, params, periodic=(True,) * 3, neighbor_mode="cell",
+                            grid=gas.grid, k_max=gas.k_max, cell_cap=gas.cell_cap,
+                            pair_capacity=gas.pair_capacity,
+                            stage2_capacity=gas.stage2_capacity,
+                            conservative=gas.conservative, device="cpu")
+        slabs = ShardedSimulation(
+            shapes, params, n_shards=sim.n_shards, box_lo=sim.box_lo_np,
+            box_hi=sim.box_hi_np, cap_local=sim.cap_local, halo_cap=sim.halo_cap,
+            periodic=sim.periodic, k_max=sim.k_max, cell_cap=sim.cell_cap,
+            pair_capacity=sim.pair_capacity, stage2_capacity=sim.stage2_capacity,
+            conservative=sim.conservative, device="cpu")
+        s1, _ = single.init_neighbors(start)
+        st = slabs.init(start)[0]
+        seam = d[near.numpy()] < sim.halo_depth
+        order = np.argsort(start.tag.numpy())
+        gaps[str(dtype).split(".")[-1]] = force_gap(st, s1, seam[order])[0]
+    print(f"seam witness, {int(near.sum())} particles within {2 * sim.halo_depth:.4g} of "
+          f"the x seam, forces after init, slabs vs single box on the CPU twins, on the "
+          f"rows within the halo depth of it: largest gap "
+          + ", ".join(f"{k} {v:.3g} |F|max" for k, v in gaps.items())
+          + f" (tol: float64 1e-9); {time.perf_counter() - t0:.1f}s")
+    require(gaps["float64"] <= 1e-9, "seam witness: the slabs' seam rows part from the "
+            "single box's in float64 too")
+    return gaps
+
+
+def sharded_gas_phase(gas, gst, gng, smi, results):
+    """The n = N_GAS drift gas on N_SHARDS slabs (cap_local 4n/S and
+    halo_cap 2n/S, as the reference sizes the sharded triaxial cell; its
+    pair cap 6n and stage-2 cap 3n split over the slabs with a third more
+    for the owned-ghost pairs each slab holds: 8n/S and 4n/S; k_max 24,
+    cell_cap 16, the skin trigger) from the drift path's end (step
+    GAS_WARM + GAS_STEPS): forces after ``init`` held per tag to the single
+    gas's ``init_neighbors`` of that state (``held_forces``) and the seam's
+    ``seam_witness``; ``sharded_path`` in runs of SHARD_GAS_BLOCK steps
+    until one has rebuilt (the prefilter's K4 with the slack maxima global
+    over the slabs, migration, re-halo); its state after SHARD_GAS_STEPS
+    steps held to SHARD_GAS_STEPS single card steps from the same start
+    (``sharded_vs_single``); its forces at the end of the run, on the
+    lists of the run's last rebuild, held to a fresh single build at the
+    same positions (``held_forces``: the gas has no friction or damping,
+    so its forces are those of the positions alone); then K1 on its own
+    stage-2 lists and K4 on the candidate lists a rebuild of the slabs
+    builds (``sharded_candidate_list``). Returns the run's launches."""
+    from spherharm_tpu_torch.parallel.halo import ShardedSimulation
+
+    t0 = time.perf_counter()
+    tag = f"drift gas S={N_SHARDS}"
+    n, S = N_GAS, N_SHARDS
+    sim = ShardedSimulation(
+        gas.shapes, gas.params, n_shards=S, box_lo=gst.box_lo.cpu().numpy(),
+        box_hi=gst.box_hi.cpu().numpy(), cap_local=4 * n // S, halo_cap=2 * n // S,
+        periodic=(True,) * 3, k_max=gas.k_max, cell_cap=gas.cell_cap,
+        pair_capacity=8 * n // S, stage2_capacity=4 * n // S,
+        conservative=gas.conservative, device=gst.x.device)
+    st, ng, gh = sim.init(gst)
+    s1, _ = gas.init_neighbors(gst)
+    print(f"{tag}: grid {sim.grid_dims}, halo depth {sim.halo_depth:.4g}, narrowest "
+          f"slab {sim.slab_w:.4g}")
+    held_forces(f"{tag}: forces after init vs the single gas's init", st, s1, sim)
+    del s1
+    seam_witness(gas, gst, sim)
+    k = SHARD_GAS_STEPS // SHARD_GAS_BLOCK
+    ends, launches, th, _ = sharded_path(
+        tag, sim, st, ng, gh, ("pair_contact_conservative", "stage1_depth"), smi,
+        SHARD_GAS_BLOCK, k, SHARD_GAS_BLOCKS)
+    s1, n1 = gas.run(gst, gng, SHARD_GAS_STEPS)
+    se, ne, ge = ends[k - 1]
+    sharded_vs_single(f"{tag} after {SHARD_GAS_STEPS} steps",
+                      (se, sim.thermo(se, ne, ge)), (s1, gas.thermo(s1, n1)), (True,) * 3)
+    st, ng, gh = ends[-1]
+    steps = SHARD_GAS_BLOCK * len(ends)
+    s1, n1 = gas.run(s1, n1, steps - SHARD_GAS_STEPS)
+    dx, dv = by_tag_gap(st, s1, (True,) * 3)
+    t1 = gas.thermo(s1, n1)
+    print(f"{tag} after {steps} steps vs the single card run (not held: the two "
+          f"trajectories part as rounding grows): max|dx|={dx:.3g} max|dv|={dv:.3g} "
+          + " ".join(f"{q} rel {abs(float(th[q]) - float(t1[q])) / abs(float(t1[q])):.2e}"
+                     for q in ("ke", "etot")))
+    fresh, _ = gas.init_neighbors(sim.gather_restart(st, ng)[0])
+    held_forces(f"{tag}: forces after {steps} steps (lists of the run's last rebuild) vs "
+                "a fresh single build at the same positions", st, fresh, sim)
+    del s1, n1, fresh
+    view = list_view(sim)
+    stage2_list_phase(tag, view, sim._extend(st, gh), ng, results, bf16s=(False,))
+    stage1_list_phase(tag, view, st, ng, results,
+                      cand=sharded_candidate_list(sim, st, ng, gh))
+    print(f"{tag} phase: {time.perf_counter() - t0:.1f}s")
+    return launches
+
+
 def path_case(cases, path):
     """A kernel's case for ``path``: the path's own candidate list (the
     stage-1 probe), else its own stage-2 or pair list or wall batch, else
@@ -2132,6 +2659,7 @@ def main(argv):
     card_vs_cpu("small settling box n=64 Lmax=2 dense",
                 lambda d: scenarios.settling_box(n=64, device=d), box_start, dev)
     triaxial_card_vs_cpu(dev)
+    sharded_card_vs_cpu(dev)
     f = lambda lo, hi: np.linspace(lo, hi, ENS_CHECK_R)
     ensemble_card_vs_cpu("small deposition ensemble n=128 Lmax=8 12x24, mu sweep",
                          lambda d: scenarios.deposition(n=128, device=d),
@@ -2192,6 +2720,8 @@ def main(argv):
     tst, tng, l_tri, step_s = triaxial_path(tri, tri_st0, dev, smi)
     stage2_list_phase("triaxial", tri, tst, tng, kern, bf16s=(False,),
                       case_tag="triaxial pair list")
+    l_tri_s = sharded_triaxial_phase(tri, tri_st0, (tst, tri.thermo(tst, tng)), dev, smi,
+                                     kern)
     del tri, tri_st0, tst, tng
     torch.cuda.empty_cache()
 
@@ -2213,6 +2743,7 @@ def main(argv):
         ("pair_contact_conservative", "stage1_depth"), smi)
     stage2_list_phase("drift gas", gas, gst, gng, kern)
     l_k5 = stage1_l1_phase(gas, gst, gng, kern)
+    l_gas_s = sharded_gas_phase(gas, gst, gng, smi, kern)
     del gas, gst, gng
     torch.cuda.empty_cache()
     t0 = time.perf_counter()
@@ -2246,6 +2777,7 @@ def main(argv):
     by_path = {"drum": l_drum, "deposition": l_dep, f"deposition R={N_ENS}": l_ens,
                "settling box": l_box,
                "triaxial": l_tri, "drift gas": l_gas, "deck drum full": l_deck_drum,
+               f"triaxial S={N_SHARDS}": l_tri_s, f"drift gas S={N_SHARDS}": l_gas_s,
                **{f"deck {label}": n for label, n in l_decks.items()}}
     counted = {k: [(p, n[k]) for p, n in by_path.items() if n[k]] for k in src}
     counted.update({k: [(p, child[c][k]) for p, c in (("drift gas", "gas"),

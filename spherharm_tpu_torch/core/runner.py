@@ -28,12 +28,15 @@ of the step once each as a CUDA graph and replays them:
 Nothing here falls back: a capture or a replay that fails raises. The
 units do not know they are captured, so a step written in them (a
 single device's, or later one with a halo exchange) is captured by the
-same code. ``Simulation`` (``core/simulation.py``) builds its runners.
+same code. ``cached_runner`` keeps a simulation's runners, keyed by the
+signature of their buffers: ``Simulation`` (``core/simulation.py``) and
+``ShardedSimulation`` (``parallel/halo.py``) build theirs through it.
 """
 
 from __future__ import annotations
 
 import collections
+import copy
 import dataclasses
 import time
 
@@ -175,3 +178,73 @@ class GraphRunner:
         pool = tuple(self.pool)
         return sum(s["total_size"] for s in torch.cuda.memory_snapshot()
                    if tuple(s["segment_pool_id"]) == pool)
+
+
+def same_config(a: dict, b: dict) -> bool:
+    """Two ``config_of`` snapshots hold the same objects: the same object,
+    or equal plain values (numbers, strings, tuples of them)."""
+
+    def plain(v):
+        return (v is None or isinstance(v, (bool, int, float, str))
+                or (isinstance(v, tuple) and all(plain(e) for e in v)))
+
+    return a.keys() == b.keys() and all(
+        a[k] is b[k] or (plain(a[k]) and plain(b[k]) and a[k] == b[k])
+        for k in a)
+
+
+def config_of(sim) -> dict:
+    """What a captured graph of ``sim`` holds fixed besides the buffers:
+    every attribute but ``params`` (loaded into a buffer each run) and
+    the graph cache."""
+    return {k: v for k, v in vars(sim).items()
+            if k not in ("params", "_graphs", "cuda_graphs")}
+
+
+def params_view(sim, buffers: dict):
+    """A shallow copy of ``sim`` that reads its params from the runner's
+    ``params`` buffer: what a unit steps with."""
+    view = copy.copy(sim)
+    view.params = buffers["params"]
+    return view
+
+
+def cached_runner(sim, buffers: dict, names: tuple,
+                  scratch: dict | None = None) -> GraphRunner:
+    """The GraphRunner of ``sim`` for the signature of ``buffers`` (name ->
+    container or tensor, ``params`` among them), loaded with them, with
+    the units ``names`` of ``sim._units()`` captured. ``scratch``: buffers
+    a new runner adds that no caller loads. Runners are cached in
+    ``sim._graphs`` (its shallow copies share the cache); the cache is
+    dropped when an attribute the graphs hold fixed changed (walls, group
+    fixes, shapes, ...): params are data, so a new params object of the
+    same shapes reuses the graphs."""
+    config = config_of(sim)
+    if any(not same_config(r.config, config) for r in sim._graphs.values()):
+        sim._graphs.clear()
+    key = tuple(signature(v) for v in buffers.values())
+    runner = sim._graphs.get(key)
+    if runner is None:
+        runner = GraphRunner({**buffers, **(scratch or {})})
+        runner.config = config
+    runner.load(**buffers)
+    units = sim._units()
+    for name in names:
+        if name not in runner.graphs:
+            runner.capture(name, units[name])
+    sim._graphs[key] = runner
+    return runner
+
+
+def graph_stats(sim) -> dict:
+    """The totals of ``sim``'s cached runners: capture seconds (warm-up
+    included), pool bytes, graphs captured, replays by unit."""
+    runners = list(sim._graphs.values())
+    replays = collections.Counter()
+    for r in runners:
+        replays.update(r.replays)
+    return {"runners": len(runners),
+            "capture_s": sum(r.capture_s for r in runners),
+            "pool_bytes": sum(r.pool_bytes() for r in runners),
+            "graphs": sum(len(r.graphs) for r in runners),
+            "replays": dict(replays)}

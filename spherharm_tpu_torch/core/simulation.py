@@ -36,8 +36,6 @@ rebuilds exactly when its own trigger fires.
 
 from __future__ import annotations
 
-import copy
-
 import numpy as np
 import torch
 
@@ -453,29 +451,26 @@ class Simulation:
         """The graph units, as functions of the runner's buffers (state,
         neigh, params, stale), run by a view of this Simulation that reads
         its params from the buffer."""
-
-        def view(b):
-            sim = copy.copy(self)
-            sim.params = b["params"]
-            return sim
+        view = runner_mod.params_view
 
         def step(kind):
             def unit(b):
-                s, n = view(b)._step_core(b["state"], b["neigh"], kind)
+                s, n = view(self, b)._step_core(b["state"], b["neigh"], kind)
                 return {"state": s, "neigh": n}
             return unit
 
         def pre(b):
-            s, n, stale = view(b)._pre(b["state"], b["neigh"], check=True)
+            s, n, stale = view(self, b)._pre(b["state"], b["neigh"],
+                                             check=True)
             return {"state": s, "neigh": n, "stale": stale,
                     "flag": stale.any()}
 
         def post(b):
-            s, n = view(b)._post(b["state"], b["neigh"])
+            s, n = view(self, b)._post(b["state"], b["neigh"])
             return {"state": s, "neigh": n}
 
         def rebuild_post(b):
-            sim = view(b)
+            sim = view(self, b)
             s, n = sim._rebuild_stale(b["state"], b["neigh"], b["stale"])
             s, n = sim._post(s, n)
             return {"state": s, "neigh": n}
@@ -483,52 +478,19 @@ class Simulation:
         return {"always": step("always"), "never": step("never"),
                 "pre": pre, "post": post, "rebuild_post": rebuild_post}
 
-    def _config(self) -> dict:
-        """What a captured graph holds fixed besides the buffers: every
-        attribute but ``params`` (loaded into a buffer each run)."""
-        return {k: v for k, v in vars(self).items()
-                if k not in ("params", "_graphs", "cuda_graphs")}
-
     def _runner(self, state: State, neigh: NeighborState, names: tuple):
         """The GraphRunner for this state's signature with the units
-        ``names`` captured, loaded with (state, neigh, params). Runners are
-        cached on the Simulation (its shallow copies share the cache); the
-        cache is dropped when an attribute the graphs hold fixed changed
-        (walls, group fixes, shapes, ...): params are data, so a new
-        params object of the same shapes reuses the graphs."""
-        config = self._config()
-        if any(not _same_config(r.config, config)
-               for r in self._graphs.values()):
-            self._graphs.clear()
-        key = (runner_mod.signature(state), runner_mod.signature(neigh),
-               runner_mod.signature(self.params))
-        runner = self._graphs.get(key)
-        if runner is None:
-            stale = torch.zeros(state.x.shape[:-2], dtype=torch.bool,
-                                device=state.x.device)
-            runner = runner_mod.GraphRunner(dict(
-                state=state, neigh=neigh, params=self.params, stale=stale))
-            runner.config = config
-        runner.load(state=state, neigh=neigh, params=self.params)
-        units = self._units()
-        for name in names:
-            if name not in runner.graphs:
-                runner.capture(name, units[name])
-        self._graphs[key] = runner
-        return runner
+        ``names`` captured, loaded with (state, neigh, params)
+        (``runner.cached_runner``; the stale flags a scratch buffer)."""
+        stale = torch.zeros(state.x.shape[:-2], dtype=torch.bool,
+                            device=state.x.device)
+        return runner_mod.cached_runner(
+            self, dict(state=state, neigh=neigh, params=self.params), names,
+            scratch=dict(stale=stale))
 
     def graph_stats(self) -> dict:
-        """The cached runners' totals: capture seconds (warm-up
-        included), pool bytes, replays by unit."""
-        runners = list(self._graphs.values())
-        replays = {}
-        for r in runners:
-            for k, n in r.replays.items():
-                replays[k] = replays.get(k, 0) + n
-        return {"runners": len(runners),
-                "capture_s": sum(r.capture_s for r in runners),
-                "pool_bytes": sum(r.pool_bytes() for r in runners),
-                "replays": replays}
+        """The cached runners' totals (``runner.graph_stats``)."""
+        return runner_mod.graph_stats(self)
 
     # -- observables --------------------------------------------------------
 
@@ -574,17 +536,3 @@ def _keep(mask, new, old):
         f: torch.where(per_replica(mask, 0, getattr(old, f).dim()),
                        getattr(new, f), getattr(old, f))
         for f in old.__dataclass_fields__})
-
-
-def _same_config(a: dict, b: dict) -> bool:
-    """Two ``Simulation._config`` snapshots hold the same objects: the
-    same object, or equal plain values (numbers, strings, tuples of
-    them)."""
-
-    def plain(v):
-        return (v is None or isinstance(v, (bool, int, float, str))
-                or (isinstance(v, tuple) and all(plain(e) for e in v)))
-
-    return a.keys() == b.keys() and all(
-        a[k] is b[k] or (plain(a[k]) and plain(b[k]) and a[k] == b[k])
-        for k in a)

@@ -15,6 +15,7 @@ from spherharm_tpu_torch.core.state import SimParams, State, zeros_state
 from spherharm_tpu_torch.models import shapes_library
 from spherharm_tpu_torch.ops.neighbor import CellGrid
 from spherharm_tpu_torch.ops.walls import CylinderWall, PlaneWall
+from spherharm_tpu_torch.parallel.halo import ShardedSimulation
 
 # Builders take the reference's arguments less its ``use_pallas`` /
 # ``exact_eval`` / ``pair_chunk`` switches (the port always evaluates
@@ -285,6 +286,9 @@ def triaxial_cell(
     deform_min: float = 0.6,
     dtype=torch.float32,
     sharded: bool = False,
+    n_shards: int = 4,
+    cap_local: int = 0,
+    halo_cap: int = 0,
     conservative: bool = False,
     device="cuda",
 ):
@@ -294,10 +298,14 @@ def triaxial_cell(
     the tilt flip); ``press_tau > 0`` turns on the Berendsen servo toward
     ``press_target``. The grid's cells are sized for the box at
     ``deform_min`` of its start (1.4x wider when triclinic: binning runs
-    in the unsheared frame). Geometric law by default."""
-    if sharded:
-        raise ValueError("triaxial_cell(sharded=True): the slab decomposition "
-                         "is not ported yet (ROADMAP Queue 1 item 16)")
+    in the unsheared frame). Geometric law by default.
+
+    ``sharded=True`` builds the slab-decomposed variant instead
+    (``parallel/halo.ShardedSimulation``, ``n_shards`` slabs along x on
+    the leading axis; no servo, as in the reference) with the reference's
+    capacities: cap_local 4n/S, halo_cap 2n/S (each at least 64, or as
+    given), pair cap 12n/S, cell_cap 12 and a tilt pad of 0.12 box when
+    sheared. Returns (sim, state, neigh, ghosts) then."""
     rng = np.random.default_rng(seed)
     coeffs = np.stack([
         shapes_library.blob_coeffs(lmax, seed=seed + 100 + t,
@@ -334,6 +342,19 @@ def triaxial_cell(
                        shtype=shtype, dtype=dtype, device=device)
     periodic = (True, True, True)
     triclinic = any(abs(r) > 0 for r in shear_rate)
+    if sharded:
+        sim = ShardedSimulation(
+            shapes, params, n_shards=n_shards, box_lo=(0, 0, 0),
+            box_hi=(box, box, box),
+            cap_local=cap_local or max(4 * n // n_shards, 64),
+            halo_cap=halo_cap or max(2 * n // n_shards, 64),
+            periodic=periodic, k_max=k_max, cell_cap=12,
+            pair_capacity=max(12 * n // n_shards, 256),
+            deform_min=deform_min, triclinic=triclinic,
+            conservative=conservative,
+            # covers |xy| up to 12% of the box
+            tilt_pad=0.12 * box if triclinic else 0.0, device=device)
+        return (sim,) + sim.init(state)
     grid = CellGrid([0, 0, 0], [box * deform_min] * 3,
                     2.4 * rmax * (1.4 if triclinic else 1.0), periodic)
     sim = Simulation(

@@ -415,7 +415,7 @@ def prefilter_pair_list(state, shapes, params, fields, keep_cap: int,
                         k_max: int, window_steps: int = 16,
                         floor_frac: float = 0.25,
                         periodic=(False, False, False), tilt=None,
-                        probe_chunk: int = 0):
+                        probe_chunk: int = 0, reduce_max=None):
     """Rebuild-time narrow-phase prefilter: keep candidate pairs that can
     touch before the next rebuild.
 
@@ -430,6 +430,12 @@ def prefilter_pair_list(state, shapes, params, fields, keep_cap: int,
     The rebuild trigger (neighbor.approach_ratio) fires when any
     particle's surface motion exceeds its budget. Returns (fields sized
     keep_cap, n_survivors, budget [N]).
+
+    ``reduce_max`` (slabs on the leading axis, ``parallel/halo.py``) maps
+    the per-slab maxima amax and alpmax [S, 1] to their maximum over the
+    slabs: a slab-local amax would give a ghost row a smaller budget than
+    its owner recorded, and the owner's trigger would not protect that
+    pair. None keeps each (replica's) own.
     """
     from spherharm_tpu_torch.ops import contact_kernels as ck
 
@@ -486,6 +492,8 @@ def prefilter_pair_list(state, shapes, params, fields, keep_cap: int,
     alpmax = torch.where(
         act, torch.linalg.norm(state.tau, dim=-1)
         / torch.clamp(inert.amin(-1), min=1e-30), zero).amax(-1, keepdim=True)
+    if reduce_max is not None:
+        amax, alpmax = reduce_max(amax), reduce_max(alpmax)
     budget = torch.minimum(
         torch.maximum(T * (speed + gmax_s * omag)
                       + T * T * (amax + gmax_s * alpmax),

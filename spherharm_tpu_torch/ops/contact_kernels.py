@@ -83,7 +83,9 @@ def pack_pairs(state, shapes, params, pi, pj, mask, hist, d, rows=None,
     at = lambda t, i: state_mod.take(t, i, rep)
     ti_t, tj_t = at(state.shtype, pi), at(state.shtype, pj)
     si, sj = at(state.scale, pi), at(state.scale, pj)
-    f32 = torch.float32
+    # float32, as the kernels read it; a float64 state packs in float64
+    # for the CPU twins (a CUDA wrapper refuses it).
+    f32 = rows.dtype
     ri = at(rows, pi)[..., :17].to(f32)
     rj = at(rows, pj)[..., :17].to(f32)
     tail = shapes.tail1[ti_t] * si + shapes.tail1[tj_t] * sj

@@ -85,7 +85,8 @@ def allpairs_neighbors(x, active, box_lo, box_hi, cutoff, k_max: int,
 def cell_list_neighbors(x, active, box_lo, box_hi, cutoff,
                         grid_dims: tuple, cell_cap: int, k_max: int,
                         periodic=(False, False, False), tilt=None,
-                        row_chunk: int = 0):
+                        row_chunk: int = 0, bin_lo=None, bin_hi=None,
+                        owned=None):
     """Cell-binned neighbour build. Returns (idx, mask, count,
     cell_overflow).
 
@@ -103,21 +104,35 @@ def cell_list_neighbors(x, active, box_lo, box_hi, cutoff,
     each replica's order within its cells identical to its own sort, and
     its rows and stencils [R * N, ...] reach only its own particles.
     A single system runs as one replica.
+
+    Slabs of a decomposition (``parallel/halo.py``, slabs on the leading
+    axis) pass their owned + ghost rows with ``bin_lo`` / ``bin_hi`` [R, 3]
+    covering each slab and its halo (the periodic box stays ``box_lo`` /
+    ``box_hi``), ``owned`` [R, N] marking the rows that get a list (ghosts
+    appear only as partners), and the slab axis not periodic (its images
+    are explicit ghosts). Left as None they are the box and ``active``.
     """
     if x.dim() == 2:
         one = lambda t: t[None] if torch.is_tensor(t) else t
         out = cell_list_neighbors(
             x[None], active[None], box_lo[None], box_hi[None], one(cutoff),
-            grid_dims, cell_cap, k_max, periodic, one(tilt), row_chunk)
+            grid_dims, cell_cap, k_max, periodic, one(tilt), row_chunk,
+            one(bin_lo), one(bin_hi), one(owned))
         return tuple(t[0] for t in out)
+    if bin_lo is None:
+        bin_lo = box_lo
+    if bin_hi is None:
+        bin_hi = box_hi
+    if owned is None:
+        owned = active
     R, N = x.shape[:2]
     dev = x.device
     D, off, pmask = grid_constants(tuple(grid_dims),
                                    tuple(bool(p) for p in periodic), dev)
     n_cells = int(grid_dims[0] * grid_dims[1] * grid_dims[2])
-    cell_sz = (box_hi - box_lo) / D.to(x.dtype)  # [R, 3]
+    cell_sz = (bin_hi - bin_lo) / D.to(x.dtype)  # [R, 3]
     x_bin = x if tilt is None else unshear_coords(x, box_lo, box_hi, tilt)
-    cc = torch.floor((x_bin - box_lo[:, None, :]) / cell_sz[:, None, :]).long()
+    cc = torch.floor((x_bin - bin_lo[:, None, :]) / cell_sz[:, None, :]).long()
     cc = torch.minimum(torch.clamp(cc, min=0), D - 1)
     cid = (cc[..., 0] * D[1] + cc[..., 1]) * D[2] + cc[..., 2]
     cid = torch.where(active, cid, n_cells)  # inactive -> overflow bin
@@ -150,6 +165,7 @@ def cell_list_neighbors(x, active, box_lo, box_hi, cutoff,
 
     # Rows of all replicas, flattened replica-major: global slot r*N + i.
     cc_f, x_f, act_f = cc.reshape(-1, 3), x.reshape(-1, 3), active.reshape(-1)
+    own_f = owned.reshape(-1)
     rep_f = torch.arange(R * N, device=dev) // N
     cut2 = per_replica(cutoff, 0, 2) ** 2  # [R, 1] (or a float)
 
@@ -175,7 +191,7 @@ def cell_list_neighbors(x, active, box_lo, box_hi, cutoff,
         valid = ((cand >= 0) & (cand != self_b[:, None])
                  & (dist2 < (cut2[r_b] if torch.is_tensor(cut2) else cut2))
                  & act_f[safe]
-                 & act_f[self_b][:, None])
+                 & own_f[self_b][:, None])
         count = valid.sum(1)
         sel = stable_topk_true(valid, k_max)
         # Each replica's own slot numbers.

@@ -1,1 +1,2 @@
-"""Parallel drivers: the replica ensemble (``ensemble.py``)."""
+"""Parallel drivers: the replica ensemble (``ensemble.py``) and the slab
+decomposition (``halo.py``, with its dry run in ``dryrun.py``)."""

@@ -841,3 +841,85 @@ def test_failed_capture_raises(cuda_device, monkeypatch):
     with pytest.raises(RuntimeError):
         sim.run(st, ng, 2)
     assert not sim._graphs
+
+
+def _slab_sim(device, S, wall, rebuild_every, conservative=False):
+    """A ``slab_drift_system`` on S slabs (its migrations come at the
+    first rebuilds), initialised on ``device``: (sim, state, neigh,
+    ghosts)."""
+    from spherharm_tpu_torch.ops.walls import PlaneWall
+    from spherharm_tpu_torch.parallel.halo import ShardedSimulation
+
+    from torch_port_util import slab_drift_system
+
+    x, v, box, periodic = slab_drift_system(S, wall)
+    shapes = shapes_library.build_shapes(
+        [shapes_library.ellipsoid_coeffs(0.55, 0.45, 0.4, 4)], 4,
+        contact_quad=(6, 12), device=device)
+    params = SimParams.create(dt=1e-3, kn=1e4, gamma_n=5.0, mu=0.3,
+                              cutoff=1.2, skin=0.3,
+                              gravity=(0.0, 0.0, -10.0 if wall else 0.0),
+                              device=device)
+    walls = ((PlaneWall.create((0, 0, 0), (0, 0, 1), device=device),)
+             if wall else ())
+    sim = ShardedSimulation(
+        shapes, params, n_shards=S, box_lo=(0, 0, 0), box_hi=tuple(box),
+        cap_local=64, halo_cap=32, migrate_cap=16, periodic=periodic,
+        k_max=16, cell_cap=8, pair_capacity=256, walls=walls,
+        rebuild_every=rebuild_every, conservative=conservative, device=device)
+    return (sim,) + sim.init(scenarios.make_state(x, [0, 0, 0], box, v=v,
+                                                  device=device))
+
+
+SHARD_CASES = [("s4-cadence-cons", 4, False, 10, True),
+               ("s2-wall-check", 2, True, 0, False)]
+
+
+@pytest.mark.parametrize("case,S,wall,every,cons", SHARD_CASES,
+                         ids=[c[0] for c in SHARD_CASES])
+def test_sharded_graph_run_equals_eager(case, S, wall, every, cons,
+                                        cuda_device):
+    """The slab decomposition's graph run (``pre`` / ``pre_check``, a
+    rebuild or ``comm``, ``post`` replays) equals its eager run of the
+    same 25 steps bit for bit in every State, NeighborState and GhostPack
+    field, with equal kernel launches: 4 slabs on the static cadence in
+    the conservative law, and 2 slabs with a plane floor on the skin
+    trigger. Then ``rebalance`` and a run after it capture no new graph."""
+    from spherharm_tpu_torch.utils import validate
+
+    sim, st, ng, gh = _slab_sim(cuda_device, S, wall, every, cons)
+    run = lambda: sim.run(st, ng, gh, 25)
+    eager, n_eager, graph, n_graph = _eager_and_graph(sim, run)
+    assert validate.bitwise_differences(graph, eager) == {}
+    assert n_graph == n_eager
+    law = "pair_conservative" if cons else "pair_geometric"
+    assert n_graph[law] == 25
+    assert n_graph["wall_plane"] == (25 if wall else 0)
+    stats = sim.graph_stats()
+    graphs = stats["graphs"]
+    assert stats["replays"]["post"] == 25 and stats["pool_bytes"] > 0
+    s, n, g = sim.rebalance(*graph)
+    sim.run(s, n, g, 10)
+    assert sim.graph_stats()["graphs"] == graphs
+
+
+def test_sharded_on_card_matches_cpu(cuda_device):
+    """2 slabs with x not periodic and a plane floor (K7, wall springs
+    migrating) for 40 steps on the card and on the CPU: the same tags,
+    positions within 1e-3, thermo within 2e-3 relative, wall contacts."""
+    out = {}
+    for device in (cuda_device, torch.device("cpu")):
+        sim, st, ng, gh = _slab_sim(device, 2, True, 10)
+        st, ng, gh = sim.run(st, ng, gh, 40)
+        th = sim.thermo(st, ng, gh)
+        assert int(th["neigh_overflow"]) == 0
+        order = np.argsort(np32(st.tag).reshape(-1))
+        act = np32(st.active).reshape(-1)[order]
+        out[device.type] = (np32(st.x).reshape(-1, 3)[order][act],
+                            {k: float(th[k]) for k in
+                             ("ke", "pe_pair", "pe_wall", "etot")})
+    (xg, tg), (xc, tc) = out["cuda"], out["cpu"]
+    assert tc["pe_wall"] > 0
+    np.testing.assert_allclose(xg, xc, rtol=0, atol=1e-3)
+    for k in tc:
+        assert tg[k] == pytest.approx(tc[k], rel=2e-3), k

@@ -140,6 +140,51 @@ def triaxial_state(st0, device, overlap=0.02, xy_frac=0.0):
         tilt=[xy_frac * (hi[0] - lo[0]), 0.0, 0.0], device=device), c
 
 
+def on_cpu(container, dtype):
+    """A copy of a tensor container on the CPU, its floating-point
+    tensors in ``dtype``."""
+    kw = {}
+    for f in dataclasses.fields(container):
+        v = getattr(container, f.name)
+        if isinstance(v, torch.Tensor):
+            kw[f.name] = v.to("cpu", dtype) if v.is_floating_point() else v.cpu()
+    return container.replace(**kw)
+
+
+def slab_drift_system(S, wall=False):
+    """A slab system whose first rebuilds migrate particles: the tiny
+    system of ``__graft_entry__.dryrun_multichip`` (16 S particles in a
+    4S x 4 x 4 box; S slabs of width 4) with a +x drift of 2 and one
+    particle per slab boundary moved 0.01 left of it; with ``wall`` a
+    layer on a floor at z = 0 (centres 0.35-0.5 up, no vz), x and z not
+    periodic. Returns (x, v, box, periodic) as numpy."""
+    rng = np.random.default_rng(0)
+    n = 16 * S
+    box = np.array([4.0 * S, 4.0, 4.0])
+    x = rng.uniform(0.6, box[0] - 0.6, (n, 3))
+    x[:, 1] %= 4.0
+    x[:, 2] %= 4.0
+    v = rng.normal(size=(n, 3)) * 0.3
+    v[:, 0] += 2.0
+    if wall:
+        x[:, 2] = rng.uniform(0.35, 0.5, n)
+        v[:, 2] = 0.0
+        bounds = [4.0 * k for k in range(1, S)]
+        periodic = (False, True, False)
+    else:
+        bounds = [4.0 * k for k in range(S)]
+        periodic = (True, True, True)
+    taken = set()
+    for b in bounds:
+        gap = (b - x[:, 0]) % box[0]
+        for i in np.argsort(gap):
+            if i not in taken:
+                taken.add(i)
+                x[i, 0] = (b - 0.01) % box[0]
+                break
+    return x, v, box, periodic
+
+
 EXAMPLES = Path(__file__).resolve().parents[1] / "examples"
 
 
