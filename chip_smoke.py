@@ -64,7 +64,11 @@ Phases, each fatal on failure (exit code != 0, no result line):
    n = 128 is too small a box for 4 slabs under the 0.12-box tilt pad)
    and 2 slabs with x not periodic and a plane floor (K7, wall springs
    migrating), 40 steps each on the card and on the CPU: thermo, stress,
-   tilt, box, images and positions by tag;
+   tilt, box, images and positions by tag; then the bricks the same way
+   (``sharded_card_vs_cpu(brick=True)``): ``dryrun_brick`` on (2, 2) and
+   on (2, 2, 2), the n = 1,000 sheared cell on a (2, 2, 2) brick
+   (``brick_triaxial_sim``) and a (2, 2) brick with x and z not periodic
+   and a plane floor (K7, wall springs migrating along both axes);
 5. the paths, each through the entry point a user calls (``Simulation.
    run``, ``ensemble.run_replicas``, the deck's ``run``), which replays
    CUDA graphs of the step (``core/runner.py``). Each path first runs
@@ -131,6 +135,23 @@ Phases, each fatal on failure (exit code != 0, no result line):
    run held to a fresh single build at the same positions, then K1 on
    its stage-2 lists and K4 on the candidate lists a rebuild of the slabs
    builds;
+5c. the brick decomposition's paths (``BrickSimulation.run`` on a
+   BRICK = (2, 2, 2) brick, the same graph units, ``sharded_path``: the
+   ghosts of each phase and the largest send of each axis, the tags that
+   changed brick along each axis and along two or more), each right
+   after its slab path and driven as it: the n = 100k sheared cell
+   (``brick_triaxial_sim``: cap_local 4n/S, halo_cap n/S a side for each
+   axis, pair cap 12n/S, cell_cap 12, the tilt pad 0.12 box along x
+   only) from the same start, a rebuild every SHARD_TRI_EVERY steps, its
+   forces after ``init`` within 2e-3 |F|max of the single cell's, 60
+   steps held to the single run's end with the same bounds, then K2 on
+   its 8 x 150,000-slot pair lists; the n = 10k gas from step 5,000 on
+   (2, 2, 2) (cap_local 4n/S, halo_cap 2n/S, pair cap 8n/S, stage-2 cap
+   4n/S), its forces after ``init`` within 1e-4 |F|max away from the
+   periodic seams of all three axes and within 2e-3 near them, on its
+   skin trigger until a run has rebuilt, its first 200 steps held to the
+   single card run, its forces at the end held to a fresh single build,
+   then K1 on its stage-2 lists and K4 on its candidate lists;
 6. each law's kernels on its path's own stage-2 list after the path's
    run: K2 and K3 geometric on the deposition's (all 100,000 slots, pair
    cap 10n, no prefilter), K2 on the 8-replica ensemble's (800,000 slots,
@@ -222,6 +243,11 @@ N_TRI, TRI_STEPS, TRI_SHEAR, TRI_DEFORM_MIN = 100_000, 60, (0.05, 0.0, 0.0), 0.8
 # SHARD_GAS_STEPS steps.
 N_SHARDS, SHARD_TRI_SMALL, SHARD_TRI_EVERY, SHARD_GAS_STEPS = 4, 1000, 20, 200
 SHARD_GAS_BLOCK, SHARD_GAS_BLOCKS = 100, 30
+# The brick decomposition (parallel/brick.py): the same two cells, the same
+# cadence, trigger and horizons, on a BRICK brick on the shard axis.
+BRICK = (2, 2, 2)
+BRICK_TRI = "triaxial brick 2x2x2"
+BRICK_GAS = "drift gas brick 2x2x2"
 # The two-material (0, 1) pair_coeff row: kn, kt, gamma_n, gamma_t, mu,
 # k_roll, gamma_roll, mu_roll.
 TWO_MATERIAL = (3e5, 1e5, 30.0, 10.0, 0.2, 1e4, 5.0, 0.1)
@@ -2148,55 +2174,110 @@ def force_gap(a, b, rows=None):
     return (float(err.max()), float((err > 1e-4).mean())) if err.size else (0.0, 0.0)
 
 
-def sharded_card_vs_cpu(dev, steps=40):
-    """The slabs on the card and on the CPU (plain twins): the dry run
-    (``dryrun_sharded(N_SHARDS)``: one step of 16 S Lmax-4 ellipsoids);
-    the sheared triaxial cell at n = SHARD_TRI_SMALL on N_SHARDS slabs
-    (xy shear 0.05, ``deform_min`` 0.8, its lattice compressed into
-    contact, ``triaxial_state``) for ``steps`` steps: thermo and press
-    within 2e-3 relative, the stress tensor within 2e-3 of its scale, the
-    xy tilt within 1e-5 relative, the box within 1e-6, image counters and
-    tags equal per tag, positions within 1e-3; and 2 slabs with x not
-    periodic and a plane floor (``slab_drift_system(2, wall=True)``, K7,
-    wall springs migrating) for ``steps`` steps: thermo within 2e-3,
-    positions within 1e-3, wall contacts, migrations, K7 launched."""
+def halo_depths(sim):
+    """{mesh axis: halo depth} of a sharded simulation (the slabs': x)."""
+    if hasattr(sim, "halo_depth_ax"):
+        return {ax: sim.halo_depth_ax[ax] for ax in sim.axis.names}
+    return {"x": sim.halo_depth}
+
+
+def moved_by_axis(sim, before, after):
+    """The tags whose shard changed between two ``shard_owners``: (count
+    along each mesh axis (the slabs': x), count along two axes or more)."""
+    shape = getattr(sim.axis, "shape", (sim.n_shards,))
+    tags = sorted(before)
+    a = np.stack(np.unravel_index([before[t] for t in tags], shape), axis=1)
+    b = np.stack(np.unravel_index([after[t] for t in tags], shape), axis=1)
+    moved = a != b
+    return moved.sum(0).tolist(), int((moved.sum(1) >= 2).sum())
+
+
+def brick_triaxial_sim(single, box, n, device):
+    """The sheared triaxial cell ``single`` (``triaxial_cell``'s, built
+    with its box of side ``box``) on a BRICK brick, with the reference's
+    sharded capacities and the slab cell's tilt pad along x only (only
+    xy is sheared: a y image shifts x, nothing shifts y): cap_local 4n/S,
+    halo_cap n/S a side for each axis (at least 64), pair cap 12n/S,
+    cell_cap 12, tilt pad {x: 0.12 box, y: 0}."""
+    from spherharm_tpu_torch.parallel.brick import BrickSimulation
+
+    S = int(np.prod(BRICK))
+    return BrickSimulation(
+        single.shapes, single.params, mesh_shape=BRICK, box_lo=(0, 0, 0),
+        box_hi=(box,) * 3, cap_local=max(4 * n // S, 64), halo_cap=max(n // S, 64),
+        periodic=(True,) * 3, k_max=single.k_max, cell_cap=12,
+        pair_capacity=max(12 * n // S, 256), deform_min=TRI_DEFORM_MIN, triclinic=True,
+        tilt_pad={"x": 0.12 * box, "y": 0.0}, conservative=single.conservative,
+        device=device)
+
+
+def sharded_card_vs_cpu(dev, results, brick=False, steps=40):
+    """The slabs (``brick``: the bricks) on the card and on the CPU (plain
+    twins): the dry run (``dryrun_sharded(N_SHARDS)``; with ``brick``
+    ``dryrun_brick`` on (2, 2) and on (2, 2, 2): one step of 16 S Lmax-4
+    ellipsoids); the sheared triaxial cell at n = SHARD_TRI_SMALL on
+    N_SHARDS slabs (on a BRICK brick, ``brick_triaxial_sim``) (xy shear
+    0.05, ``deform_min`` 0.8, its lattice compressed into contact,
+    ``triaxial_state``) for ``steps`` steps: thermo and press within 2e-3
+    relative, the stress tensor within 2e-3 of its scale, the xy tilt
+    within 1e-5 relative, the box within 1e-6, image counters and tags
+    equal per tag, positions within 1e-3; and 2 slabs with x not periodic
+    and a plane floor (``slab_drift_system(2, wall=True)``; with ``brick``
+    a (2, 2) brick with x and z not periodic, ``brick_drift_system``) for
+    ``steps`` steps, K7 and wall springs migrating (along both axes of
+    the brick): thermo within 2e-3, positions within 1e-3, wall contacts,
+    migrations, K7 launched, and K7 on the card run's own wall batch
+    (``wall_list_phase``: every owned slot of every shard) held to its
+    twin."""
     import torch
 
-    from torch_port_util import by_tag, slab_drift_system, triaxial_state
+    from torch_port_util import (brick_drift_system, by_tag, slab_drift_system,
+                                 triaxial_state)
 
     from spherharm_tpu_torch.core.state import SimParams
     from spherharm_tpu_torch.models import scenarios, shapes_library
     from spherharm_tpu_torch.ops.walls import PlaneWall
-    from spherharm_tpu_torch.parallel.dryrun import dryrun_sharded
+    from spherharm_tpu_torch.parallel.brick import BrickSimulation
+    from spherharm_tpu_torch.parallel.dryrun import dryrun_brick, dryrun_sharded
     from spherharm_tpu_torch.parallel.halo import ShardedSimulation
 
     t0 = time.perf_counter()
     cpu = torch.device("cpu")
-    th = [dryrun_sharded(N_SHARDS, device=d) for d in (dev, cpu)]
-    rel = {k: abs(float(th[0][k]) - float(th[1][k])) / max(abs(float(th[1][k])), 1e-30)
-           for k in ("ke", "erot", "pe_pair", "etot")}
-    print(f"dryrun_sharded({N_SHARDS}), card vs CPU: n={int(th[0]['n'])} "
-          + " ".join(f"{k}={float(th[0][k]):.7g}(rel {v:.2e})" for k, v in rel.items())
-          + " (tol 2e-3)")
-    require(int(th[0]["n"]) == 16 * N_SHARDS and max(rel.values()) <= 2e-3,
-            "dryrun_sharded: card and CPU disagree")
+    word = "brick" if brick else "slab"
+    dryruns = ([(f"dryrun_brick({m})", lambda d, m=m: dryrun_brick(m, device=d),
+                 16 * int(np.prod(m))) for m in ((2, 2), (2, 2, 2))] if brick else
+               [(f"dryrun_sharded({N_SHARDS})",
+                 lambda d: dryrun_sharded(N_SHARDS, device=d), 16 * N_SHARDS)])
+    for label, dryrun, n in dryruns:
+        th = [dryrun(d) for d in (dev, cpu)]
+        rel = {k: abs(float(th[0][k]) - float(th[1][k])) / max(abs(float(th[1][k])), 1e-30)
+               for k in ("ke", "erot", "pe_pair", "etot")}
+        print(f"{label}, card vs CPU: n={int(th[0]['n'])} "
+              + " ".join(f"{k}={float(th[0][k]):.7g}(rel {v:.2e})" for k, v in rel.items())
+              + f" overflow {int(th[0]['neigh_overflow'])} / {int(th[1]['neigh_overflow'])}"
+              " (tol 2e-3)")
+        require(int(th[0]["n"]) == n and max(rel.values()) <= 2e-3
+                and int(th[0]["neigh_overflow"]) == int(th[1]["neigh_overflow"]),
+                f"{label}: card and CPU disagree")
 
     runs = []
     for device in (dev, cpu):
-        _, st0, _ = scenarios.triaxial_cell(n=SHARD_TRI_SMALL, shear_rate=TRI_SHEAR,
-                                            deform_min=TRI_DEFORM_MIN, device=device)
-        sim = scenarios.triaxial_cell(n=SHARD_TRI_SMALL, shear_rate=TRI_SHEAR,
-                                      deform_min=TRI_DEFORM_MIN, sharded=True,
-                                      n_shards=N_SHARDS, device=device)[0]
+        single, st0, _ = scenarios.triaxial_cell(n=SHARD_TRI_SMALL, shear_rate=TRI_SHEAR,
+                                                 deform_min=TRI_DEFORM_MIN, device=device)
+        if brick:
+            sim = brick_triaxial_sim(single, float(st0.box_hi[0]), SHARD_TRI_SMALL, device)
+        else:
+            sim = scenarios.triaxial_cell(n=SHARD_TRI_SMALL, shear_rate=TRI_SHEAR,
+                                          deform_min=TRI_DEFORM_MIN, sharded=True,
+                                          n_shards=N_SHARDS, device=device)[0]
         st, ng, gh = sim.init(triaxial_state(st0, device)[0])
         owners = shard_owners(st)
         st, ng, gh = sim.run(st, ng, gh, steps)
         t = sim.thermo(st, ng, gh)
-        require(int(t["neigh_overflow"]) == 0,
-                f"small sharded triaxial on {device}: overflow {int(t['neigh_overflow'])}")
-        moved = sum(owners[k] != v for k, v in shard_owners(st).items())
+        require(int(t["neigh_overflow"]) == 0, f"small sheared {word}s on {device}: "
+                f"overflow {int(t['neigh_overflow'])}")
         runs.append((sim, st, {k: float(v) for k, v in t.items() if v.ndim == 0},
-                     t["stress"].cpu().numpy(), moved))
+                     t["stress"].cpu().numpy(), moved_by_axis(sim, owners, shard_owners(st))))
     (sim, sg, tg, stress_g, mg), (_, sc, tc, stress_c, mc) = runs
     rel = {k: abs(tg[k] - tc[k]) / max(abs(tc[k]), 1e-30)
            for k in ("ke", "erot", "pe_pair", "etot", "press")}
@@ -2209,57 +2290,71 @@ def sharded_card_vs_cpu(dev, steps=40):
     dx, _ = by_tag_gap(sg, sc.replace(**{f: getattr(sc, f).to(dev) for f in
                                          ("x", "v", "box_lo", "box_hi", "tilt")}),
                        (True,) * 3)
-    print(f"small sheared triaxial n={SHARD_TRI_SMALL} on {N_SHARDS} slabs (grid "
-          f"{sim.grid_dims}, halo depth {sim.halo_depth:.4g}), {steps} steps, card vs "
-          f"CPU: tilt {tilt_g} (rel {d_tilt:.2e}), max|d box|={d_box:.3g}, images equal: "
-          f"{same_image}, tags that changed slab {mg} / {mc} "
+    shape = BRICK if brick else N_SHARDS
+    print(f"small sheared triaxial n={SHARD_TRI_SMALL} on {shape} {word}s (grid "
+          f"{sim.grid_dims}, halo depth {halo_depths(sim)}), "
+          f"{steps} steps, card vs CPU: tilt {tilt_g} (rel {d_tilt:.2e}), max|d box|="
+          f"{d_box:.3g}, images equal: {same_image}, tags that changed {word} by axis "
+          f"(along two or more) {mg} / {mc} "
           + " ".join(f"{k}={tg[k]:.6g}(rel {v:.2e})" for k, v in rel.items())
           + f" stress rel {d_stress:.2e} max|dx|={dx:.3g} (tol: tilt 1e-5, box 1e-6 rel, "
           "thermo and stress 2e-3, dx 1e-3)")
-    require(tc["pe_pair"] > 0, "small sharded triaxial has no contacts")
+    require(tc["pe_pair"] > 0, f"small sheared {word}s: no contacts")
     require(same_image and d_tilt <= 1e-5
             and d_box <= 1e-6 * float(np.abs(sc.box_hi.numpy()).max())
             and max(rel.values()) <= 2e-3 and d_stress <= 2e-3 and dx <= 1e-3,
-            "small sharded triaxial: card and CPU disagree")
+            f"small sheared {word}s: card and CPU disagree")
 
     runs = []
     for device in (dev, cpu):
-        x, v, box, periodic = slab_drift_system(2, wall=True)
+        if brick:
+            x, v, box, periodic = brick_drift_system((2, 2), wall=True)
+        else:
+            x, v, box, periodic = slab_drift_system(2, wall=True)
         shapes = shapes_library.build_shapes(
             [shapes_library.ellipsoid_coeffs(0.55, 0.45, 0.4, 4)], 4,
             contact_quad=(6, 12), device=device)
         params = SimParams.create(dt=1e-3, kn=1e4, gamma_n=5.0, mu=0.3, cutoff=1.2,
                                   skin=0.3, gravity=(0.0, 0.0, -10.0), device=device)
-        sim = ShardedSimulation(
-            shapes, params, n_shards=2, box_lo=(0, 0, 0), box_hi=tuple(box),
-            cap_local=64, halo_cap=32, migrate_cap=16, periodic=periodic, k_max=16,
-            cell_cap=8, pair_capacity=256, rebuild_every=10, conservative=False,
-            walls=(PlaneWall.create((0, 0, 0), (0, 0, 1), device=device),),
-            device=device)
+        kw = dict(box_lo=(0, 0, 0), box_hi=tuple(box), migrate_cap=16, periodic=periodic,
+                  rebuild_every=10, conservative=False, device=device,
+                  walls=(PlaneWall.create((0, 0, 0), (0, 0, 1), device=device),))
+        if brick:
+            sim = BrickSimulation(shapes, params, mesh_shape=(2, 2), cap_local=64,
+                                  halo_cap=48, k_max=24, cell_cap=16, pair_capacity=384,
+                                  **kw)
+        else:
+            sim = ShardedSimulation(shapes, params, n_shards=2, cap_local=64, halo_cap=32,
+                                    k_max=16, cell_cap=8, pair_capacity=256, **kw)
         st, ng, gh = sim.init(scenarios.make_state(x, [0, 0, 0], box, v=v, device=device))
         owners = shard_owners(st)
         reset_counts()
         st, ng, gh = sim.run(st, ng, gh, steps)
         launches = launch_counts()
         t = sim.thermo(st, ng, gh)
-        require(int(t["neigh_overflow"]) == 0, f"slab floor on {device}: overflow")
-        moved = sum(owners[k] != v for k, v in shard_owners(st).items())
-        runs.append((st, {k: float(v) for k, v in t.items() if v.ndim == 0}, moved,
+        require(int(t["neigh_overflow"]) == 0, f"{word} floor on {device}: overflow")
+        runs.append((st, {k: float(v) for k, v in t.items() if v.ndim == 0},
+                     moved_by_axis(sim, owners, shard_owners(st)),
                      float(ng.wall_hist.abs().max()), launches))
+        if device == dev:
+            wall_list_phase(f"{word} floor", sim, st,
+                            ng.replace(wall_hist=ng.wall_hist[:, :sim.cap_local]), results)
     (sg, tg, mg, wg, lg), (sc, tc, mc, wc, _) = runs
     rel = {k: abs(tg[k] - tc[k]) / max(abs(tc[k]), 1e-30)
            for k in ("ke", "pe_pair", "pe_wall", "etot")}
     dx = float(np.abs(by_tag(sg, "x") - by_tag(sc, "x")).max())
-    print(f"2 slabs, x not periodic, plane floor, n=32, {steps} steps, card vs CPU: tags "
-          f"that changed slab {mg} / {mc}, largest wall spring {wg:.3g} / {wc:.3g}, "
+    print(f"{'a (2, 2) brick' if brick else '2 slabs'}, x not periodic, plane floor, "
+          f"n={x.shape[0]}, {steps} steps, card vs CPU: tags that changed {word} by axis "
+          f"(along two or more) {mg} / {mc}, largest wall spring {wg:.3g} / {wc:.3g}, "
           + " ".join(f"{k}={tg[k]:.6g}(rel {v:.2e})" for k, v in rel.items())
           + f" max|dx|={dx:.3g} (tol: thermo 2e-3, dx 1e-3); card launches "
           f"{ {k: v for k, v in lg.items() if v} }")
-    require(tc["pe_wall"] > 0 and mc > 0 and wc > 0, "slab floor: no wall contact "
-            "or no migration")
-    require(lg["wall_plane"] > 0, "slab floor: K7 never launched on the card")
-    require(max(rel.values()) <= 2e-3 and dx <= 1e-3, "slab floor: card and CPU disagree")
-    print(f"sharded card-vs-CPU phases: {time.perf_counter() - t0:.1f}s")
+    require(tc["pe_wall"] > 0 and all(mc[0]) and wc > 0, f"{word} floor: no wall "
+            "contact, or no migration along an axis")
+    require(lg["wall_plane"] > 0, f"{word} floor: K7 never launched on the card")
+    require(max(rel.values()) <= 2e-3 and dx <= 1e-3,
+            f"{word} floor: card and CPU disagree")
+    print(f"{word} card-vs-CPU phases: {time.perf_counter() - t0:.1f}s")
 
 
 def rebuild_replays(sim):
@@ -2279,10 +2374,11 @@ def sharded_path(label, sim, state, neigh, ghosts, kernels, smi, block, n_blocks
     that rebuilt, from its start (the eager plain and rebuild steps being
     ``_local_step``'s 'comm' and 'always'): fatal unless its two graph runs
     replayed a rebuild too. Prints the rates, the rebuilds, the tags that
-    changed slab over the run, the ghosts of each slab and the largest
-    one-side halo send of the last rebuild against ``halo_cap``. Returns
-    (each block's end [(state, neigh, ghosts)], launches, thermo, seconds
-    a step)."""
+    changed shard over the run along each mesh axis (and along two or
+    more), and for each mesh axis (a slab's: x) the ghosts of each shard
+    and the largest one-side halo send of the last rebuild against
+    ``halo_cap``. Returns (each block's end [(state, neigh, ghosts)],
+    launches, thermo, seconds a step)."""
     import torch
 
     sim.run(state, neigh, ghosts, 1)
@@ -2308,17 +2404,21 @@ def sharded_path(label, sim, state, neigh, ghosts, kernels, smi, block, n_blocks
     n = int(th["n"])
     overflow = int(neigh.overflow.max())
     skin = int(neigh.skin_violations.max())
-    moved = sum(owners[k] != v for k, v in shard_owners(state).items())
+    moved, diagonal = moved_by_axis(sim, owners, shard_owners(state))
     H = sim.halo_cap
-    sends = torch.stack([ghosts.send_mask[:, :H].sum(-1), ghosts.send_mask[:, H:].sum(-1)])
+    packs = ghosts if isinstance(ghosts, tuple) else (ghosts,)
+    names = getattr(sim.axis, "names", "x")
+    halo = "; ".join(
+        f"{ax}: ghosts by shard {g.active.sum(-1).tolist()}, largest one-side send "
+        f"{int(torch.stack([g.send_mask[:, :H].sum(-1), g.send_mask[:, H:].sum(-1)]).max())}"
+        f" of halo_cap {H}" for ax, g in zip(names, packs))
     print(f"{label}: {steps} steps in {wall:.3f}s -> {n * steps / wall:.1f} particle-steps/s "
           f"[{smi}] in {len(ends)} runs of {block}; rebuilds {rebuilds} (first in steps "
           f"{'none' if rebuilt is None else f'{rebuilt[0] * block + 1}-{(rebuilt[0] + 1) * block}'}"
           f") overflow={overflow} skin_violations={skin} etot={float(th['etot']):.6g} "
-          f"pe_pair={float(th['pe_pair']):.6g}; tags that changed slab {moved}; ghosts "
-          f"by slab {ghosts.active.sum(-1).tolist()}; largest one-side halo send "
-          f"{int(sends.max())} of halo_cap {H}; launches="
-          f"{ {k: v for k, v in launches.items() if v} }")
+          f"pe_pair={float(th['pe_pair']):.6g}; tags that changed shard by axis {moved} "
+          f"(along two or more: {diagonal}); halo by axis (the last rebuild's) {halo}; "
+          f"launches={ {k: v for k, v in launches.items() if v} }")
     require(rebuilt is not None and rebuilds > 0,
             f"{label}: the run never replayed a rebuild in {steps} steps")
     require(overflow == 0, f"{label}: capacity overflow (channel={overflow})")
@@ -2359,10 +2459,12 @@ def sharded_vs_single(label, sharded, single, periodic):
             f"{label}: disagrees with the single card run")
 
 
-def sharded_triaxial_phase(tri, st0, single_end, dev, smi, results):
+def sharded_triaxial_phase(tri, st0, single_end, dev, smi, results, brick=False):
     """The n = N_TRI sheared triaxial cell on N_SHARDS slabs
     (``triaxial_cell(sharded=True)``: the reference's capacities, cap_local
-    4n/S, halo_cap 2n/S, pair cap 12n/S, cell_cap 12, tilt pad 0.12 box),
+    4n/S, halo_cap 2n/S, pair cap 12n/S, cell_cap 12, tilt pad 0.12 box;
+    with ``brick`` on a BRICK brick, ``brick_triaxial_sim``: halo_cap n/S
+    a side for each axis, the tilt pad along x only),
     rebuilt on a cadence of SHARD_TRI_EVERY steps, from ``triaxial_path``'s
     start (``triaxial_state``): its forces after ``init`` held per tag to
     the single cell's ``init_neighbors`` within 2e-3 |F|max;
@@ -2379,18 +2481,23 @@ def sharded_triaxial_phase(tri, st0, single_end, dev, smi, results):
     from spherharm_tpu_torch.models import scenarios
 
     t0 = time.perf_counter()
-    tag = f"triaxial S={N_SHARDS}"
+    tag = BRICK_TRI if brick else f"triaxial S={N_SHARDS}"
     start = triaxial_state(st0, dev)[0]
-    sim = scenarios.triaxial_cell(n=N_TRI, shear_rate=TRI_SHEAR, deform_min=TRI_DEFORM_MIN,
-                                  sharded=True, n_shards=N_SHARDS, device=dev)[0]
+    if brick:
+        sim = brick_triaxial_sim(tri, float(st0.box_hi[0]), N_TRI, dev)
+    else:
+        sim = scenarios.triaxial_cell(n=N_TRI, shear_rate=TRI_SHEAR,
+                                      deform_min=TRI_DEFORM_MIN, sharded=True,
+                                      n_shards=N_SHARDS, device=dev)[0]
     sim.rebuild_every = SHARD_TRI_EVERY
     torch.cuda.empty_cache()
     st, ng, gh = sim.init(start)
     s1, _ = tri.init_neighbors(start)
     top, share = force_gap(st, s1)
     print(f"{tag}: n={N_TRI}, cap_local {sim.cap_local}, halo_cap {sim.halo_cap}, "
-          f"grid {sim.grid_dims}, halo depth {sim.halo_depth:.4g}, narrowest slab "
-          f"{sim.slab_w:.4g}, pair cap {sim.pair_capacity} a slab, a rebuild every "
+          f"{sim.n_shards} x {sim.cap_ext} extended rows, grid {sim.grid_dims}, halo depth "
+          f"{halo_depths(sim)}, narrowest shard "
+          f"{sim.slab_w}, pair cap {sim.pair_capacity} a shard, a rebuild every "
           f"{sim.rebuild_every} steps; forces after init vs the single cell's: max "
           f"{top:.3g} |F|max, {share:.2%} of rows past 1e-4 (tol 2e-3); set-up "
           f"{time.perf_counter() - t0:.1f}s")
@@ -2410,19 +2517,23 @@ def sharded_triaxial_phase(tri, st0, single_end, dev, smi, results):
 def held_forces(label, sharded, single, sim):
     """A sharded state's forces held per tag to a single box's at the
     same positions: on the rows farther than the halo depth from the
-    periodic x seam within 1e-4 |F|max on all but 0.1 % of them, none past
-    2e-2; within it, none past 2e-3 (there the slabs image x by shifting
-    the sent ghost by +/- Lx and the single box by rounding d / Lx, so d
-    rounds apart by ~ulp(Lx): ``seam_witness``)."""
+    periodic seam of every sharded axis within 1e-4 |F|max on all but
+    0.1 % of them, none past 2e-2; within it, none past 2e-3 (there the
+    slabs and bricks image by shifting the sent ghost by the cell vector
+    and the single box by rounding d / L, so d rounds apart by ~ulp(L):
+    ``seam_witness``)."""
     from torch_port_util import by_tag
 
-    x = by_tag(single, "x")[:, 0]
-    lo, hi = float(single.box_lo[0]), float(single.box_hi[0])
-    seam = np.minimum(x - lo, hi - x) < sim.halo_depth
+    x = by_tag(single, "x")
+    seam = np.zeros(x.shape[0], bool)
+    for ax, depth in halo_depths(sim).items():
+        d = "xyz".index(ax)
+        lo, hi = float(single.box_lo[d]), float(single.box_hi[d])
+        seam |= np.minimum(x[:, d] - lo, hi - x[:, d]) < depth
     top, share = force_gap(sharded, single, ~seam)
     top_s, share_s = force_gap(sharded, single, seam)
     n_f = int((single.f.abs().amax(-1) > 0).sum())
-    print(f"{label} ({n_f} of {x.size} rows carry a force): away from the periodic seam "
+    print(f"{label} ({n_f} of {x.shape[0]} rows carry a force): away from the periodic seams "
           f"max {top:.3g} |F|max, {share:.3%} of {int((~seam).sum())} rows past 1e-4 "
           f"(tol: 0.1% past 1e-4, none past 2e-2); within the halo depth of the seam max "
           f"{top_s:.3g}, {share_s:.3%} of {int(seam.sum())} rows past 1e-4 (tol: none "
@@ -2484,8 +2595,10 @@ def seam_witness(gas, gst, sim):
     return gaps
 
 
-def sharded_gas_phase(gas, gst, gng, smi, results):
-    """The n = N_GAS drift gas on N_SHARDS slabs (cap_local 4n/S and
+def sharded_gas_phase(gas, gst, gng, smi, results, brick=False):
+    """The n = N_GAS drift gas on N_SHARDS slabs (with ``brick`` on a
+    BRICK brick, halo_cap 2n/S a side for each axis, no ``seam_witness``)
+    (cap_local 4n/S and
     halo_cap 2n/S, as the reference sizes the sharded triaxial cell; its
     pair cap 6n and stage-2 cap 3n split over the slabs with a third more
     for the owned-ghost pairs each slab holds: 8n/S and 4n/S; k_max 24,
@@ -2502,24 +2615,30 @@ def sharded_gas_phase(gas, gst, gng, smi, results):
     so its forces are those of the positions alone); then K1 on its own
     stage-2 lists and K4 on the candidate lists a rebuild of the slabs
     builds (``sharded_candidate_list``). Returns the run's launches."""
+    from spherharm_tpu_torch.parallel.brick import BrickSimulation
     from spherharm_tpu_torch.parallel.halo import ShardedSimulation
 
     t0 = time.perf_counter()
-    tag = f"drift gas S={N_SHARDS}"
-    n, S = N_GAS, N_SHARDS
-    sim = ShardedSimulation(
-        gas.shapes, gas.params, n_shards=S, box_lo=gst.box_lo.cpu().numpy(),
-        box_hi=gst.box_hi.cpu().numpy(), cap_local=4 * n // S, halo_cap=2 * n // S,
-        periodic=(True,) * 3, k_max=gas.k_max, cell_cap=gas.cell_cap,
-        pair_capacity=8 * n // S, stage2_capacity=4 * n // S,
-        conservative=gas.conservative, device=gst.x.device)
+    tag = BRICK_GAS if brick else f"drift gas S={N_SHARDS}"
+    n = N_GAS
+    S = int(np.prod(BRICK)) if brick else N_SHARDS
+    kw = dict(box_lo=gst.box_lo.cpu().numpy(), box_hi=gst.box_hi.cpu().numpy(),
+              cap_local=4 * n // S, halo_cap=2 * n // S, periodic=(True,) * 3,
+              k_max=gas.k_max, cell_cap=gas.cell_cap, pair_capacity=8 * n // S,
+              stage2_capacity=4 * n // S, conservative=gas.conservative,
+              device=gst.x.device)
+    if brick:
+        sim = BrickSimulation(gas.shapes, gas.params, mesh_shape=BRICK, **kw)
+    else:
+        sim = ShardedSimulation(gas.shapes, gas.params, n_shards=S, **kw)
     st, ng, gh = sim.init(gst)
     s1, _ = gas.init_neighbors(gst)
-    print(f"{tag}: grid {sim.grid_dims}, halo depth {sim.halo_depth:.4g}, narrowest "
-          f"slab {sim.slab_w:.4g}")
+    print(f"{tag}: {S} x {sim.cap_ext} extended rows, grid {sim.grid_dims}, halo depth "
+          f"{halo_depths(sim)}, narrowest shard {sim.slab_w}")
     held_forces(f"{tag}: forces after init vs the single gas's init", st, s1, sim)
     del s1
-    seam_witness(gas, gst, sim)
+    if not brick:
+        seam_witness(gas, gst, sim)
     k = SHARD_GAS_STEPS // SHARD_GAS_BLOCK
     ends, launches, th, _ = sharded_path(
         tag, sim, st, ng, gh, ("pair_contact_conservative", "stage1_depth"), smi,
@@ -2659,7 +2778,8 @@ def main(argv):
     card_vs_cpu("small settling box n=64 Lmax=2 dense",
                 lambda d: scenarios.settling_box(n=64, device=d), box_start, dev)
     triaxial_card_vs_cpu(dev)
-    sharded_card_vs_cpu(dev)
+    sharded_card_vs_cpu(dev, kern)
+    sharded_card_vs_cpu(dev, kern, brick=True)
     f = lambda lo, hi: np.linspace(lo, hi, ENS_CHECK_R)
     ensemble_card_vs_cpu("small deposition ensemble n=128 Lmax=8 12x24, mu sweep",
                          lambda d: scenarios.deposition(n=128, device=d),
@@ -2720,9 +2840,11 @@ def main(argv):
     tst, tng, l_tri, step_s = triaxial_path(tri, tri_st0, dev, smi)
     stage2_list_phase("triaxial", tri, tst, tng, kern, bf16s=(False,),
                       case_tag="triaxial pair list")
-    l_tri_s = sharded_triaxial_phase(tri, tri_st0, (tst, tri.thermo(tst, tng)), dev, smi,
-                                     kern)
-    del tri, tri_st0, tst, tng
+    single_end = (tst, tri.thermo(tst, tng))
+    l_tri_s = sharded_triaxial_phase(tri, tri_st0, single_end, dev, smi, kern)
+    torch.cuda.empty_cache()
+    l_tri_b = sharded_triaxial_phase(tri, tri_st0, single_end, dev, smi, kern, brick=True)
+    del tri, tri_st0, tst, tng, single_end
     torch.cuda.empty_cache()
 
     # The deck runner: every example deck on the card and on the CPU, then
@@ -2744,6 +2866,8 @@ def main(argv):
     stage2_list_phase("drift gas", gas, gst, gng, kern)
     l_k5 = stage1_l1_phase(gas, gst, gng, kern)
     l_gas_s = sharded_gas_phase(gas, gst, gng, smi, kern)
+    torch.cuda.empty_cache()
+    l_gas_b = sharded_gas_phase(gas, gst, gng, smi, kern, brick=True)
     del gas, gst, gng
     torch.cuda.empty_cache()
     t0 = time.perf_counter()
@@ -2778,6 +2902,7 @@ def main(argv):
                "settling box": l_box,
                "triaxial": l_tri, "drift gas": l_gas, "deck drum full": l_deck_drum,
                f"triaxial S={N_SHARDS}": l_tri_s, f"drift gas S={N_SHARDS}": l_gas_s,
+               BRICK_TRI: l_tri_b, BRICK_GAS: l_gas_b,
                **{f"deck {label}": n for label, n in l_decks.items()}}
     counted = {k: [(p, n[k]) for p, n in by_path.items() if n[k]] for k in src}
     counted.update({k: [(p, child[c][k]) for p, c in (("drift gas", "gas"),

@@ -8,7 +8,8 @@ card idle while the host launches them. A ``GraphRunner`` captures units
 of the step once each as a CUDA graph and replays them:
 
 * the units are functions of named static buffers (``State``,
-  ``NeighborState``, ``SimParams`` containers or plain tensors) that
+  ``NeighborState``, ``SimParams`` containers, tuples of containers, or
+  plain tensors) that
   return the new values of some of them; each captured unit ends by
   copying its outputs back into the buffers, so replays chain;
 * ``load`` copies the caller's containers into the buffers before a run,
@@ -29,8 +30,10 @@ Nothing here falls back: a capture or a replay that fails raises. The
 units do not know they are captured, so a step written in them (a
 single device's, or later one with a halo exchange) is captured by the
 same code. ``cached_runner`` keeps a simulation's runners, keyed by the
-signature of their buffers: ``Simulation`` (``core/simulation.py``) and
-``ShardedSimulation`` (``parallel/halo.py``) build theirs through it.
+signature of their buffers: ``Simulation`` (``core/simulation.py``),
+``ShardedSimulation`` (``parallel/halo.py``) and ``BrickSimulation``
+(``parallel/brick.py``, whose ghosts are a tuple of packs) build theirs
+through it.
 """
 
 from __future__ import annotations
@@ -54,8 +57,10 @@ def kernel_counters():
 
 
 def _tensors(value):
-    """The tensors of a buffer value: a container's fields in order, or
-    the tensor itself."""
+    """The tensors of a buffer value: a container's fields in order, a
+    tuple's values' tensors in order, or the tensor itself."""
+    if isinstance(value, tuple):
+        return [t for v in value for t in _tensors(v)]
     if dataclasses.is_dataclass(value):
         return [getattr(value, f.name) for f in dataclasses.fields(value)
                 if not f.metadata.get("static")]
@@ -63,6 +68,8 @@ def _tensors(value):
 
 
 def _map(fn, value):
+    if isinstance(value, tuple):
+        return tuple(_map(fn, v) for v in value)
     if dataclasses.is_dataclass(value):
         return value.replace(**{
             f.name: fn(getattr(value, f.name))

@@ -62,6 +62,14 @@ class PlaneWall(_Container):
         depth = -((p - self.point) * self.normal).sum(-1)
         return depth, self.normal.expand(p.shape)
 
+    def surface_velocity(self, c):
+        """The wall's velocity at contact points ``c`` [..., 3]."""
+        return self.velocity.expand(c.shape)
+
+    def angular_velocity(self):
+        return torch.zeros((3,), dtype=self.point.dtype,
+                           device=self.point.device)
+
 
 @dataclass
 class CylinderWall(_Container):
@@ -94,6 +102,16 @@ class CylinderWall(_Container):
         rad = torch.linalg.norm(rad_vec, dim=-1)
         n = -rad_vec / torch.clamp(rad, min=1e-12)[..., None]  # inward
         return rad - self.radius, n
+
+    def surface_velocity(self, c):
+        """The shell's velocity at contact points ``c`` [..., 3]: omega
+        axis x (c - axis_point)."""
+        rel = c - self.axis_point
+        return self.omega * torch.linalg.cross(
+            self.axis_dir.expand(rel.shape), rel, dim=-1)
+
+    def angular_velocity(self):
+        return self.omega * self.axis_dir
 
 
 def near_wall_rows(state, shapes, wall, hist, wall_cap: int):

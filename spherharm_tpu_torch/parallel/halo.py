@@ -197,6 +197,8 @@ class ShardedSimulation:
     for eager steps); ``init``, ``rebalance`` and ``thermo`` run eagerly.
     """
 
+    shard_name = "slab"
+
     def __init__(
         self,
         shapes,
@@ -332,19 +334,15 @@ class ShardedSimulation:
         layout so the first rebuild's remap recovers every spring.
         """
         S, cl, dev = self.n_shards, self.cap_local, self.device
-        x = to_numpy(state_global.x)
         active = to_numpy(state_global.active)
-        Lx_np = self.box_hi_np[0] - self.box_lo_np[0]
-        xf = (x[:, 0] - self.box_lo_np[0]) / Lx_np
-        slab = np.clip(
-            np.searchsorted(self.bounds_frac[1:-1], xf, side="right"),
-            0, S - 1)
+        owner = self._owner_np(to_numpy(state_global.x))
         locals_, sels = [], []
         for p in range(S):
-            sel = np.flatnonzero(active & (slab == p))
+            sel = np.flatnonzero(active & (owner == p))
             if sel.size > cl:
                 raise ValueError(
-                    f"slab {p} holds {sel.size} > cap_local={cl}")
+                    f"{self.shard_name} {p} holds {sel.size} > "
+                    f"cap_local={cl}")
             sels.append(sel)
             pad = cl - sel.size
             rows = {}
@@ -405,12 +403,25 @@ class ShardedSimulation:
                 row_tag=_to_tensor(rt, dev),
                 mask=_to_tensor(nt > 0, dev),
             )
-        # The slab bounds ride the GhostPack as a tensor: rebalance()
-        # swaps its values and the step graphs stay valid.
-        ghosts = empty_ghosts(
-            self.halo_cap, dtype, device=dev, n_shards=S,
-            fracs=torch.as_tensor(self.bounds_frac, dtype=dtype, device=dev))
-        return st, neigh, ghosts
+        return st, neigh, self._fresh_ghosts(dtype)
+
+    def _owner_np(self, x):
+        """The slab of each row of the host positions ``x`` [n, 3] under
+        the initial bounds."""
+        Lx = self.box_hi_np[0] - self.box_lo_np[0]
+        xf = (x[:, 0] - self.box_lo_np[0]) / Lx
+        return np.clip(
+            np.searchsorted(self.bounds_frac[1:-1], xf, side="right"),
+            0, self.n_shards - 1)
+
+    def _fresh_ghosts(self, dtype):
+        """Empty ghost buffers. The slab bounds ride the GhostPack as a
+        tensor: rebalance() swaps its values and the step graphs stay
+        valid."""
+        return empty_ghosts(
+            self.halo_cap, dtype, device=self.device, n_shards=self.n_shards,
+            fracs=torch.as_tensor(self.bounds_frac, dtype=dtype,
+                                  device=self.device))
 
     # -- per-slab building blocks (all slabs at once) ----------------------
 
@@ -502,15 +513,25 @@ class ShardedSimulation:
         tag, so the next remap_history carries the springs into the new
         build (FixNeighHistory riding pack_exchange in LAMMPS).
         """
-        ax = self.axis
-        S, M, cl = self.n_shards, self.migrate_cap, self.cap_local
-        idx = self._index(state)[:, None]
+        idx = self._index(state)
         tgt = self._slab_of(state, state.x[..., 0], fracs)
+        return self._move(state, neigh, idx, self.n_shards, tgt,
+                          self._has_left(idx), self._has_right(idx),
+                          self.axis.ring_shift)
+
+    def _move(self, state, neigh, idx, n, tgt, has_lo, has_hi, shift):
+        """One migration phase round a ring of ``n`` shards: each shard's
+        ring index ``idx`` [S], its rows' target index ``tgt`` [S, cap_local],
+        whether it has a lower / upper neighbour ``has_lo`` / ``has_hi``
+        [S], and the ring's ``shift(val, direction)``. Returns (state,
+        neigh, migration overflow [S])."""
+        S, M, cl = self.n_shards, self.migrate_cap, self.cap_local
+        idx = idx[:, None]
         moving = state.active & (tgt != idx)
-        go_left = moving & (tgt == (idx - 1) % S) & self._has_left(idx)
+        go_left = moving & (tgt == (idx - 1) % n) & has_lo[:, None]
         # On a 2-shard ring left and right neighbour coincide: ~go_left
         # keeps each migrant in exactly one buffer (no duplication).
-        go_right = (moving & (tgt == (idx + 1) % S) & self._has_right(idx)
+        go_right = (moving & (tgt == (idx + 1) % n) & has_hi[:, None]
                     & ~go_left)
         # A particle more than one slab from home cannot be routed in one
         # hop: flag it through the overflow channel (sentinel 1 << 20).
@@ -527,12 +548,11 @@ class ShardedSimulation:
         arrays.update(hist_fields)
         # I receive from the LEFT neighbour's right buffer, then from the
         # RIGHT neighbour's left buffer.
-        recv = {f: torch.cat([ax.ring_shift(take(a, ir, True), "right"),
-                              ax.ring_shift(take(a, il, True), "left")],
-                             dim=1)
+        recv = {f: torch.cat([shift(take(a, ir, True), "right"),
+                              shift(take(a, il, True), "left")], dim=1)
                 for f, a in arrays.items()}
-        recv_valid = torch.cat([ax.ring_shift(vr, "right"),
-                                ax.ring_shift(vl, "left")], dim=1)
+        recv_valid = torch.cat([shift(vr, "right"), shift(vl, "left")],
+                               dim=1)
 
         # Deactivate leavers, then place arrivals into free slots: the
         # k-th valid arrival takes the k-th free slot (the two halves are
@@ -607,27 +627,13 @@ class ShardedSimulation:
             state.box_hi, self.periodic, self._tilt(state))
         return self.axis.pmax(disp2) > (0.5 * self.params.skin) ** 2
 
-    def _rebuild(self, state: State, neigh: NeighborState, ghosts: GhostPack,
-                 fold: bool = True):
-        """exchange() + borders() + neighbour build + history remap.
-
-        ``fold=False`` (init/restore only): the durable [N, K] hist is
-        already authoritative (zeros on a fresh start, seeded springs on
-        a restart) and the pair list is empty, so folding would wipe it.
-        """
-        ax, S, H = self.axis, self.n_shards, self.halo_cap
-        tilt = self._tilt(state)
-        x, image = neighbor.wrap_positions(
-            state.x, state.image, state.box_lo, state.box_hi, self.periodic,
-            tilt)
-        state = state.replace(x=x, image=image)
-        # Fold live pair-space springs back into the tag-keyed [N, K]
-        # layout FIRST: migration ships [N, K] rows, and remap reads them.
-        if fold:
-            neigh = neigh.replace(hist=contact.pair_hist_to_dense(neigh))
+    def _exchange(self, state, neigh, ghosts):
+        """exchange() then borders(): migration under the bounds riding
+        the ghosts, and new ghosts. Returns (state, neigh, ghosts,
+        migration overflow [S], halo overflow [S])."""
+        ax, H = self.axis, self.halo_cap
         fracs = ghosts.fracs
         state, neigh, mig_ovf = self._migrate(state, neigh, fracs)
-
         send_idx, send_mask, halo_ovf = self._halo_membership(state, fracs)
         g = self._gather_send(state, send_idx, send_mask)
         for f in ("scale", "shtype", "tag"):
@@ -639,14 +645,43 @@ class ShardedSimulation:
                               ax.ring_shift(send_mask[:, :H], "left")], dim=1)
         ghosts = GhostPack(active=g_active, send_idx=send_idx,
                            send_mask=send_mask, fracs=fracs, **g)
+        return state, neigh, ghosts, mig_ovf, halo_ovf
 
-        ext = self._extend(state, ghosts)
-        slab_lo, slab_hi = self._slab_edges(state, fracs)
+    def _bin_window(self, state, ghosts):
+        """Each shard's binning window (bin_lo, bin_hi) [S, 3]: its slab
+        and the halo depth each side along x, the box along y and z."""
+        S = self.n_shards
+        slab_lo, slab_hi = self._slab_edges(state, ghosts.fracs)
         lo, hi = state.box_lo, state.box_hi
         bin_lo = torch.stack([slab_lo - self.halo_depth, lo[1].expand(S),
                               lo[2].expand(S)], dim=-1)
         bin_hi = torch.stack([slab_hi + self.halo_depth, hi[1].expand(S),
                               hi[2].expand(S)], dim=-1)
+        return bin_lo, bin_hi
+
+    def _rebuild(self, state: State, neigh: NeighborState, ghosts: GhostPack,
+                 fold: bool = True):
+        """exchange() + borders() + neighbour build + history remap.
+
+        ``fold=False`` (init/restore only): the durable [N, K] hist is
+        already authoritative (zeros on a fresh start, seeded springs on
+        a restart) and the pair list is empty, so folding would wipe it.
+        """
+        ax, S = self.axis, self.n_shards
+        tilt = self._tilt(state)
+        x, image = neighbor.wrap_positions(
+            state.x, state.image, state.box_lo, state.box_hi, self.periodic,
+            tilt)
+        state = state.replace(x=x, image=image)
+        # Fold live pair-space springs back into the tag-keyed [N, K]
+        # layout FIRST: migration ships [N, K] rows, and remap reads them.
+        if fold:
+            neigh = neigh.replace(hist=contact.pair_hist_to_dense(neigh))
+        state, neigh, ghosts, mig_ovf, halo_ovf = self._exchange(
+            state, neigh, ghosts)
+        ext = self._extend(state, ghosts)
+        bin_lo, bin_hi = self._bin_window(state, ghosts)
+        lo, hi = state.box_lo, state.box_hi
         cutoff = self.params.cutoff + self.params.skin
         owned = self._owned_mask(x.device) & ext.active
         nidx, nmask, count, cell_ovf = neighbor.cell_list_neighbors(

@@ -923,3 +923,87 @@ def test_sharded_on_card_matches_cpu(cuda_device):
     np.testing.assert_allclose(xg, xc, rtol=0, atol=1e-3)
     for k in tc:
         assert tg[k] == pytest.approx(tc[k], rel=2e-3), k
+
+
+def _brick_sim(device, mesh_shape, wall, rebuild_every, conservative=False):
+    """A ``brick_drift_system`` on a brick of ``mesh_shape`` (its
+    migrations along every mesh axis come at the first rebuilds),
+    initialised on ``device``: (sim, state, neigh, ghosts)."""
+    from spherharm_tpu_torch.ops.walls import PlaneWall
+    from spherharm_tpu_torch.parallel.brick import BrickSimulation
+
+    from torch_port_util import brick_drift_system
+
+    x, v, box, periodic = brick_drift_system(mesh_shape, wall)
+    shapes = shapes_library.build_shapes(
+        [shapes_library.ellipsoid_coeffs(0.55, 0.45, 0.4, 4)], 4,
+        contact_quad=(6, 12), device=device)
+    params = SimParams.create(dt=1e-3, kn=1e4, gamma_n=5.0, mu=0.3,
+                              cutoff=1.2, skin=0.3,
+                              gravity=(0.0, 0.0, -10.0 if wall else 0.0),
+                              device=device)
+    walls = ((PlaneWall.create((0, 0, 0), (0, 0, 1), device=device),)
+             if wall else ())
+    sim = BrickSimulation(
+        shapes, params, mesh_shape=mesh_shape, box_lo=(0, 0, 0),
+        box_hi=tuple(box), cap_local=64, halo_cap=48, migrate_cap=16,
+        periodic=periodic, k_max=24, cell_cap=16, pair_capacity=384,
+        walls=walls, rebuild_every=rebuild_every, conservative=conservative,
+        device=device)
+    return (sim,) + sim.init(scenarios.make_state(x, [0, 0, 0], box, v=v,
+                                                  device=device))
+
+
+BRICK_CASES = [("b222-cadence-cons", (2, 2, 2), False, 10, True),
+               ("b22-wall-check", (2, 2), True, 0, False)]
+
+
+@pytest.mark.parametrize("case,mesh_shape,wall,every,cons", BRICK_CASES,
+                         ids=[c[0] for c in BRICK_CASES])
+def test_brick_graph_run_equals_eager(case, mesh_shape, wall, every, cons,
+                                      cuda_device):
+    """The brick's graph run (its ghosts a tuple of packs in the runner's
+    buffers) equals its eager run of the same 25 steps bit for bit in
+    every State, NeighborState and GhostPack field, with equal kernel
+    launches: a 2x2x2 brick on the static cadence in the conservative
+    law, and a 2x2 brick with a plane floor on the skin trigger. Then
+    ``rebalance`` and a run after it capture no new graph."""
+    from spherharm_tpu_torch.utils import validate
+
+    sim, st, ng, gh = _brick_sim(cuda_device, mesh_shape, wall, every, cons)
+    run = lambda: sim.run(st, ng, gh, 25)
+    eager, n_eager, graph, n_graph = _eager_and_graph(sim, run)
+    assert validate.bitwise_differences(graph, eager) == {}
+    assert n_graph == n_eager
+    law = "pair_conservative" if cons else "pair_geometric"
+    assert n_graph[law] == 25
+    assert n_graph["wall_plane"] == (25 if wall else 0)
+    stats = sim.graph_stats()
+    graphs = stats["graphs"]
+    assert stats["replays"]["post"] == 25 and stats["pool_bytes"] > 0
+    s, n, g = sim.rebalance(*graph)
+    sim.run(s, n, g, 10)
+    assert sim.graph_stats()["graphs"] == graphs
+
+
+def test_brick_on_card_matches_cpu(cuda_device):
+    """A 2x2 brick with x and z not periodic and a plane floor (K7, wall
+    springs migrating along both axes) for 40 steps on the card and on
+    the CPU: the same tags, positions within 1e-3, thermo within 2e-3
+    relative, wall contacts."""
+    out = {}
+    for device in (cuda_device, torch.device("cpu")):
+        sim, st, ng, gh = _brick_sim(device, (2, 2), True, 10)
+        st, ng, gh = sim.run(st, ng, gh, 40)
+        th = sim.thermo(st, ng, gh)
+        assert int(th["neigh_overflow"]) == 0
+        order = np.argsort(np32(st.tag).reshape(-1))
+        act = np32(st.active).reshape(-1)[order]
+        out[device.type] = (np32(st.x).reshape(-1, 3)[order][act],
+                            {k: float(th[k]) for k in
+                             ("ke", "pe_pair", "pe_wall", "etot")})
+    (xg, tg), (xc, tc) = out["cuda"], out["cpu"]
+    assert tc["pe_wall"] > 0
+    np.testing.assert_allclose(xg, xc, rtol=0, atol=1e-3)
+    for k in tc:
+        assert tg[k] == pytest.approx(tc[k], rel=2e-3), k

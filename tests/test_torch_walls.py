@@ -139,3 +139,22 @@ def test_wall_mat_row_takes_eight_values():
     with pytest.raises(ValueError, match="8 values"):
         twalls.CylinderWall.create([0, 0, 0], [0, 1, 0], 3.0, mat=[1.0] * 5,
                                    device="cpu")
+
+
+@pytest.mark.parametrize("kind", ["plane", "cylinder"])
+def test_wall_velocities_match_reference(kind):
+    """``surface_velocity`` at contact points and ``angular_velocity`` of
+    each wall kind against the reference's methods on the same inputs."""
+    rng = np.random.default_rng(3)
+    c = rng.uniform(-2.0, 6.0, (2, 17, 3)).astype(np.float32)
+    _, _, state, _ = _system()
+    jw, tw, _ = _walls(kind, state)
+    got = np32(tw.surface_velocity(torch.tensor(c)))
+    ref = np.asarray(jw.surface_velocity(jnp.asarray(c)))
+    assert got.shape == ref.shape == c.shape
+    np.testing.assert_allclose(got, ref, rtol=1e-6, atol=1e-6)
+    np.testing.assert_allclose(np32(tw.angular_velocity()),
+                               np.asarray(jw.angular_velocity()), rtol=1e-6,
+                               atol=0)
+    assert (np.abs(ref).max() > 0) and (kind == "plane"
+                                        or np.abs(np32(tw.angular_velocity())).max() > 0)

@@ -270,3 +270,65 @@ def cuda_device():
     if not torch.cuda.is_available():
         pytest.skip("needs an NVIDIA GPU (CUDA kernels have no CPU mode)")
     return torch.device("cuda")
+
+
+def brick_drift_system(mesh_shape, wall=False, bounds=None, box_z=6.0):
+    """A brick system whose first rebuilds migrate particles along every
+    mesh axis, diagonally too: 16 S particles in a box of 4 (Sx, Sy, Sz)
+    (z ``box_z`` on a 2D brick) drifting (2, 1.5, 1) (no z drift on a 2D
+    brick), with one particle 0.01 below each brick boundary of each
+    axis (the periodic seam's included) moving 2.5 across it, and one
+    0.01 below each crossing of an x and a y boundary, moving (2.5, 2.5,
+    0), so it changes brick along both; each of those placed along its
+    free axis where it is farthest from the others, so that no collision
+    turns it back. ``bounds``: {axis: box fractions}, uniform where not
+    given; with ``wall`` a layer on a floor at z = 0 (centres 0.35-0.5
+    up, no vz), x and z not periodic. Returns (x, v, box, periodic) as
+    numpy."""
+    rng = np.random.default_rng(0)
+    shape = tuple(mesh_shape)
+    grid = shape + (1,) * (3 - len(shape))
+    n = 16 * int(np.prod(shape))
+    box = np.array([4.0 * grid[0], 4.0 * grid[1],
+                    4.0 * grid[2] if len(shape) == 3 else box_z])
+    x = rng.uniform(0.6, box - 0.6, (n, 3))
+    v = rng.normal(size=(n, 3)) * 0.3
+    v += [2.0, 1.5, 1.0 if len(shape) == 3 else 0.0]
+    periodic = (not wall, True, not wall)
+    if wall:
+        x[:, 2] = rng.uniform(0.35, 0.5, n)
+        v[:, 2] = 0.0
+    fracs = {ax: np.asarray((bounds or {}).get(
+        ax, np.linspace(0.0, 1.0, p + 1))) for ax, p in zip("xyz", shape)}
+    # The boundaries a drifting particle crosses: interior ones, and the
+    # seam (0) where the axis is periodic.
+    cuts = {ax: [f * box[d] for f in fracs[ax][1:-1]]
+            + ([0.0] if periodic[d] else [])
+            for d, ax in enumerate("xyz") if ax in fracs}
+    taken = []
+
+    def place(axes, b, vel):
+        gap = sum(((bb - x[:, d]) % box[d]) for d, bb in zip(axes, b))
+        i = next(i for i in np.argsort(gap) if i not in taken)
+        taken.append(i)
+        x[i, list(axes)] = [(bb - 0.01) % box[d] for d, bb in zip(axes, b)]
+        v[i, list(axes)] = vel
+        free = next(d for d in (2, 0, 1) if d not in axes)
+        if wall and free == 2:
+            return
+        others = np.delete(x, i, axis=0)
+        cand = np.linspace(0.6, box[free] - 0.6, 41)
+        trial = np.repeat(x[i][None], cand.size, 0)
+        trial[:, free] = cand
+        d = trial[:, None] - others[None]
+        d -= box * np.round(d / box)
+        x[i, free] = cand[np.argmax(np.linalg.norm(d, axis=-1).min(1))]
+
+    for d, ax in enumerate("xyz"):
+        for b in cuts.get(ax, []):
+            place((d,), (b,), 2.5)
+    for bx in cuts["x"]:
+        for by in cuts["y"]:
+            place((0, 1), (bx, by), 2.5)
+            v[taken[-1], 2] = 0.0
+    return x, v, box, periodic
