@@ -3,6 +3,8 @@
     python3 chip_smoke.py            # one NVIDIA GPU, from the repo root
     python3 chip_smoke.py --profile  # + each path's eager torch.profiler
                                      #   table (build/chip_smoke_profile_*.txt)
+    python3 chip_smoke.py --ranks 4  # four GPUs: the sharded paths one shard
+                                     #   a card over NCCL (``ranks_main``)
 
 Phases, each fatal on failure (exit code != 0, no result line):
 
@@ -152,6 +154,19 @@ Phases, each fatal on failure (exit code != 0, no result line):
    skin trigger until a run has rebuilt, its first 200 steps held to the
    single card run, its forces at the end held to a fresh single build,
    then K1 on its stage-2 lists and K4 on its candidate lists;
+5d. right after the bricks' triaxial path, one shard a process
+   (``rank_phase``): one ``parallel/ranks.spawn_ranks`` call starts RANKS
+   gloo processes on this card (eager by name: gloo stages CUDA tensors
+   through host memory), which run ``dryrun_sharded(RANKS)`` and
+   ``dryrun_brick(RANK_BRICK)`` (held to the one-process card runs), the
+   sheared cell at n = SHARD_TRI_SMALL on RANKS rank slabs for 40 steps
+   (held to the one-process RANKS-slab card run: per tag 1e-3, thermo
+   2e-3; bit-equality printed) and the n = N_TRI sheared cell on RANKS
+   rank slabs (``triaxial_cell(sharded=True, axis=RankAxis(...))``),
+   TRI_STEPS steps a rebuild every SHARD_TRI_EVERY, held to the single
+   card run with the reference's sharded bounds; each rank's ms a step,
+   p2p bytes, rebuilds, ghosts and launches printed; fatal if a rank
+   fails or K2 did not launch in every rank;
 6. each law's kernels on its path's own stage-2 list after the path's
    run: K2 and K3 geometric on the deposition's (all 100,000 slots, pair
    cap 10n, no prefilter), K2 on the 8-replica ensemble's (800,000 slots,
@@ -202,6 +217,17 @@ launches are the child's, K5's those of step 6; ``ms`` is a wrapper call
 timed by CUDA events, ``device_ms`` the kernel alone), and as the last
 line ``{"ok": true, "device": {...}}``. Exits non-zero without a CUDA
 device.
+
+With ``--ranks RANKS`` (RANKS cards; fewer is a failure): the n = N_TRI
+sheared cell on RANKS slabs and on a RANK_BRICK brick and the n = N_GAS
+gas on RANKS slabs, one shard a card over NCCL with CUDA graphs
+(``ranks_main``: the single and one-card shard-axis runs of the same call
+first, ``rank_references``; each rank's graph and eager ms a step, rate,
+p2p bytes a step, NCCL kernels' share of the device time, busy share,
+ghosts, migrants; each rank's graph run bit-equal to its eager run, each
+path held to its single card run and to the one-card shard-axis run with
+the reference's sharded bounds), and the contract line with ``count``
+RANKS.
 """
 
 from __future__ import annotations
@@ -248,6 +274,11 @@ SHARD_GAS_BLOCK, SHARD_GAS_BLOCKS = 100, 30
 BRICK = (2, 2, 2)
 BRICK_TRI = "triaxial brick 2x2x2"
 BRICK_GAS = "drift gas brick 2x2x2"
+# One shard a process (parallel/ranks.py): RANKS ranks, as slabs or a
+# RANK_BRICK brick; the default run spawns them as gloo processes on its one
+# card, ``--ranks RANKS`` as NCCL ranks one a card. A rank phase that has
+# not returned in RANK_TIMEOUT seconds fails.
+RANKS, RANK_BRICK, RANK_TIMEOUT = 4, (2, 2), 900.0
 # The two-material (0, 1) pair_coeff row: kn, kt, gamma_n, gamma_t, mu,
 # k_roll, gamma_roll, mu_roll.
 TWO_MATERIAL = (3e5, 1e5, 30.0, 10.0, 0.2, 1e4, 5.0, 0.1)
@@ -1605,13 +1636,9 @@ def scan_phase(dev):
 
 def launch_counts():
     """Every kernel wrapper's launch counter, by kernel-line name."""
-    from spherharm_tpu_torch.ops import contact_kernels as ck
-    from spherharm_tpu_torch.ops import walls_kernels as wk
+    from spherharm_tpu_torch.core import runner
 
-    out = {f"pair_contact_{k}": n for k, n in ck.pair_contact.launches.items()}
-    out.update(ck.stage1_depth.launches)
-    out.update({f"wall_{k}": n for k, n in wk.wall_contact_kernel.launches.items()})
-    return out
+    return runner.launch_counts()
 
 
 def reset_counts():
@@ -2192,18 +2219,18 @@ def moved_by_axis(sim, before, after):
     return moved.sum(0).tolist(), int((moved.sum(1) >= 2).sum())
 
 
-def brick_triaxial_sim(single, box, n, device):
+def brick_triaxial_sim(single, box, n, device, mesh=BRICK):
     """The sheared triaxial cell ``single`` (``triaxial_cell``'s, built
-    with its box of side ``box``) on a BRICK brick, with the reference's
+    with its box of side ``box``) on a ``mesh`` brick, with the reference's
     sharded capacities and the slab cell's tilt pad along x only (only
     xy is sheared: a y image shifts x, nothing shifts y): cap_local 4n/S,
     halo_cap n/S a side for each axis (at least 64), pair cap 12n/S,
     cell_cap 12, tilt pad {x: 0.12 box, y: 0}."""
     from spherharm_tpu_torch.parallel.brick import BrickSimulation
 
-    S = int(np.prod(BRICK))
+    S = int(np.prod(mesh))
     return BrickSimulation(
-        single.shapes, single.params, mesh_shape=BRICK, box_lo=(0, 0, 0),
+        single.shapes, single.params, mesh_shape=mesh, box_lo=(0, 0, 0),
         box_hi=(box,) * 3, cap_local=max(4 * n // S, 64), halo_cap=max(n // S, 64),
         periodic=(True,) * 3, k_max=single.k_max, cell_cap=12,
         pair_capacity=max(12 * n // S, 256), deform_min=TRI_DEFORM_MIN, triclinic=True,
@@ -2439,7 +2466,7 @@ def sharded_path(label, sim, state, neigh, ghosts, kernels, smi, block, n_blocks
     return ends, launches, th, wall / steps
 
 
-def sharded_vs_single(label, sharded, single, periodic):
+def sharded_vs_single(label, sharded, single, periodic, what="the single card run"):
     """Hold a sharded run's end to the single card run's of the same start
     and steps, with the reference's sharded-vs-single bounds
     (tests/test_sharded.py:90-103): per tag x within 2e-3 (minimum image)
@@ -2450,20 +2477,21 @@ def sharded_vs_single(label, sharded, single, periodic):
     rel = {k: abs(float(th[k]) - float(th1[k])) / abs(float(th1[k])) for k in ("ke", "etot")}
     a, b = th["stress"].cpu().numpy(), th1["stress"].cpu().numpy()
     stress_ok = bool(np.all(np.abs(a - b) <= 1e-3 + 2e-2 * np.abs(b)))
-    print(f"{label} vs the single card run: max|dx|={dx:.3g} max|dv|={dv:.3g} "
+    print(f"{label} vs {what}: max|dx|={dx:.3g} max|dv|={dv:.3g} "
           + " ".join(f"{k} rel {v:.2e}" for k, v in rel.items())
           + f" stress max|d|={float(np.abs(a - b).max()):.3g} (scale "
           f"{float(np.abs(b).max()):.3g}) (tol: dx 2e-3, dv 5e-3, ke/etot 1e-3, stress "
           "rtol 2e-2 atol 1e-3)")
     require(dx <= 2e-3 and dv <= 5e-3 and max(rel.values()) <= 1e-3 and stress_ok,
-            f"{label}: disagrees with the single card run")
+            f"{label}: disagrees with {what}")
 
 
-def sharded_triaxial_phase(tri, st0, single_end, dev, smi, results, brick=False):
+def sharded_triaxial_phase(tri, st0, single_end, dev, smi, results, brick=False,
+                           mesh=BRICK):
     """The n = N_TRI sheared triaxial cell on N_SHARDS slabs
     (``triaxial_cell(sharded=True)``: the reference's capacities, cap_local
     4n/S, halo_cap 2n/S, pair cap 12n/S, cell_cap 12, tilt pad 0.12 box;
-    with ``brick`` on a BRICK brick, ``brick_triaxial_sim``: halo_cap n/S
+    with ``brick`` on a ``mesh`` brick, ``brick_triaxial_sim``: halo_cap n/S
     a side for each axis, the tilt pad along x only),
     rebuilt on a cadence of SHARD_TRI_EVERY steps, from ``triaxial_path``'s
     start (``triaxial_state``): its forces after ``init`` held per tag to
@@ -2473,7 +2501,7 @@ def sharded_triaxial_phase(tri, st0, single_end, dev, smi, results, brick=False)
     list and pair lists); the end held to ``single_end`` (the single card
     run's end and thermo, the same start and steps: ``sharded_vs_single``);
     then K2 on its own pair lists (S x 12n/S slots, one launch). Returns
-    the run's launches."""
+    the run's launches and its end (state, thermo)."""
     import torch
 
     from torch_port_util import triaxial_state
@@ -2481,10 +2509,11 @@ def sharded_triaxial_phase(tri, st0, single_end, dev, smi, results, brick=False)
     from spherharm_tpu_torch.models import scenarios
 
     t0 = time.perf_counter()
-    tag = BRICK_TRI if brick else f"triaxial S={N_SHARDS}"
+    tag = (f"triaxial brick {'x'.join(map(str, mesh))}" if brick
+           else f"triaxial S={N_SHARDS}")
     start = triaxial_state(st0, dev)[0]
     if brick:
-        sim = brick_triaxial_sim(tri, float(st0.box_hi[0]), N_TRI, dev)
+        sim = brick_triaxial_sim(tri, float(st0.box_hi[0]), N_TRI, dev, mesh)
     else:
         sim = scenarios.triaxial_cell(n=N_TRI, shear_rate=TRI_SHEAR,
                                       deform_min=TRI_DEFORM_MIN, sharded=True,
@@ -2511,7 +2540,7 @@ def sharded_triaxial_phase(tri, st0, single_end, dev, smi, results, brick=False)
     stage2_list_phase(tag, list_view(sim), sim._extend(st, gh), ng, results,
                       bf16s=(False,), case_tag=f"{tag} pair list")
     print(f"{tag} phase: {time.perf_counter() - t0:.1f}s")
-    return launches
+    return launches, (st, th)
 
 
 def held_forces(label, sharded, single, sim):
@@ -2595,6 +2624,25 @@ def seam_witness(gas, gst, sim):
     return gaps
 
 
+def gas_shard_sim(gas, gst, shape):
+    """The n = N_GAS drift gas ``gas`` (at its state ``gst``) on ``shape``
+    slabs (an int) or a ``shape`` brick: cap_local 4n/S, halo_cap 2n/S,
+    pair cap 8n/S, stage-2 cap 4n/S, the single gas's k_max, cell_cap and
+    law, its skin trigger."""
+    from spherharm_tpu_torch.parallel.brick import BrickSimulation
+    from spherharm_tpu_torch.parallel.halo import ShardedSimulation
+
+    n, S = N_GAS, int(np.prod(shape))
+    kw = dict(box_lo=gst.box_lo.cpu().numpy(), box_hi=gst.box_hi.cpu().numpy(),
+              cap_local=4 * n // S, halo_cap=2 * n // S, periodic=(True,) * 3,
+              k_max=gas.k_max, cell_cap=gas.cell_cap, pair_capacity=8 * n // S,
+              stage2_capacity=4 * n // S, conservative=gas.conservative,
+              device=gst.x.device)
+    if isinstance(shape, tuple):
+        return BrickSimulation(gas.shapes, gas.params, mesh_shape=shape, **kw)
+    return ShardedSimulation(gas.shapes, gas.params, n_shards=S, **kw)
+
+
 def sharded_gas_phase(gas, gst, gng, smi, results, brick=False):
     """The n = N_GAS drift gas on N_SHARDS slabs (with ``brick`` on a
     BRICK brick, halo_cap 2n/S a side for each axis, no ``seam_witness``)
@@ -2614,23 +2662,12 @@ def sharded_gas_phase(gas, gst, gng, smi, results, brick=False):
     same positions (``held_forces``: the gas has no friction or damping,
     so its forces are those of the positions alone); then K1 on its own
     stage-2 lists and K4 on the candidate lists a rebuild of the slabs
-    builds (``sharded_candidate_list``). Returns the run's launches."""
-    from spherharm_tpu_torch.parallel.brick import BrickSimulation
-    from spherharm_tpu_torch.parallel.halo import ShardedSimulation
-
+    builds (``sharded_candidate_list``). Returns the run's launches and
+    (state, thermo) after SHARD_GAS_STEPS steps."""
     t0 = time.perf_counter()
     tag = BRICK_GAS if brick else f"drift gas S={N_SHARDS}"
-    n = N_GAS
-    S = int(np.prod(BRICK)) if brick else N_SHARDS
-    kw = dict(box_lo=gst.box_lo.cpu().numpy(), box_hi=gst.box_hi.cpu().numpy(),
-              cap_local=4 * n // S, halo_cap=2 * n // S, periodic=(True,) * 3,
-              k_max=gas.k_max, cell_cap=gas.cell_cap, pair_capacity=8 * n // S,
-              stage2_capacity=4 * n // S, conservative=gas.conservative,
-              device=gst.x.device)
-    if brick:
-        sim = BrickSimulation(gas.shapes, gas.params, mesh_shape=BRICK, **kw)
-    else:
-        sim = ShardedSimulation(gas.shapes, gas.params, n_shards=S, **kw)
+    sim = gas_shard_sim(gas, gst, BRICK if brick else N_SHARDS)
+    S = sim.n_shards
     st, ng, gh = sim.init(gst)
     s1, _ = gas.init_neighbors(gst)
     print(f"{tag}: {S} x {sim.cap_ext} extended rows, grid {sim.grid_dims}, halo depth "
@@ -2645,8 +2682,9 @@ def sharded_gas_phase(gas, gst, gng, smi, results, brick=False):
         SHARD_GAS_BLOCK, k, SHARD_GAS_BLOCKS)
     s1, n1 = gas.run(gst, gng, SHARD_GAS_STEPS)
     se, ne, ge = ends[k - 1]
-    sharded_vs_single(f"{tag} after {SHARD_GAS_STEPS} steps",
-                      (se, sim.thermo(se, ne, ge)), (s1, gas.thermo(s1, n1)), (True,) * 3)
+    held = (se, sim.thermo(se, ne, ge))
+    sharded_vs_single(f"{tag} after {SHARD_GAS_STEPS} steps", held,
+                      (s1, gas.thermo(s1, n1)), (True,) * 3)
     st, ng, gh = ends[-1]
     steps = SHARD_GAS_BLOCK * len(ends)
     s1, n1 = gas.run(s1, n1, steps - SHARD_GAS_STEPS)
@@ -2665,7 +2703,330 @@ def sharded_gas_phase(gas, gst, gng, smi, results, brick=False):
     stage1_list_phase(tag, view, st, ng, results,
                       cand=sharded_candidate_list(sim, st, ng, gh))
     print(f"{tag} phase: {time.perf_counter() - t0:.1f}s")
-    return launches
+    return launches, held
+
+
+# -- one shard a process (parallel/ranks.py) ----------------------------------
+
+
+def rank_owned(st):
+    """A rank's owned tags, as a list (its one shard's active rows)."""
+    return st.tag[st.active].tolist()
+
+
+def rank_profile(run, steps, sync=None):
+    """torch.profiler over ``run()`` (``steps`` steps) on this rank:
+    (device ms a step, the NCCL kernels' ms a step). An NCCL kernel's time
+    includes its wait for the peers. ``sync()``: run in a discarded
+    window before the profiled one (a barrier of the ranks, the card
+    idle), so that the profiled window holds this run's kernels only and
+    opens with the ranks in step."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile, schedule
+
+    plan = schedule(wait=0, warmup=1, active=1, repeat=1) if sync else None
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                 schedule=plan) as prof:
+        if sync:
+            sync()
+            prof.step()
+        run()
+        torch.cuda.synchronize()
+        if sync:
+            prof.step()
+    dev = [e for e in prof.key_averages()
+           if e.device_type == DeviceType.CUDA and not e.is_user_annotation]
+    total = sum(e.self_device_time_total for e in dev) / 1e3 / steps
+    nccl = sum(e.self_device_time_total for e in dev
+               if "nccl" in e.key.lower()) / 1e3 / steps
+    return total, nccl
+
+
+def rank_path(axis, label, block, n_blocks, max_blocks=0, graphs=True, spec=None,
+              cell_n=0, every=0, held_at=0, must_rebuild=True):
+    """One rank's share of a sharded path: the simulation built on this
+    rank (``cell_n``: ``triaxial_cell(n=cell_n, sharded=True, axis=axis)``
+    rebuilt every ``every`` steps, 0: its skin trigger; else
+    ``ranks.build(spec)``), ``init`` from ``spec["state"]``, then runs of
+    ``block`` steps with every launch counter at 0 (``n_blocks``, more up
+    to ``max_blocks`` until one has rebuilt), as CUDA graph replays
+    (``graphs``; the graphs captured by a run of ``block`` steps before,
+    dropped) or eagerly. With graphs, the first run that rebuilt (else the first) again
+    eagerly from its start (bit for bit the graph run's; its host-clock ms
+    a step and the bytes ``ring_shift`` sent a step), and its first
+    PROFILE_STEPS steps under torch.profiler, eagerly and as graph replays
+    (device ms a step, the NCCL kernels' share; an eager NCCL kernel also
+    waits for the peers' host launches; the graph replays' window opens
+    right after a barrier of the ranks, ``rank_profile(sync=...)``). Returns
+    this rank's figures, its owned rows at ``init``, after ``held_at``
+    steps and at the end, and the global thermo at those. Fatal unless a
+    run rebuilt (``must_rebuild``)."""
+    import torch
+    import torch.distributed as dist
+
+    from spherharm_tpu_torch.models import scenarios
+    from spherharm_tpu_torch.parallel import ranks
+    from spherharm_tpu_torch.utils import validate
+
+    t_set = time.perf_counter()
+    dev = axis.device
+    start = ranks.land(spec["state"], dev)
+    if cell_n:
+        sim = scenarios.triaxial_cell(n=cell_n, shear_rate=TRI_SHEAR,
+                                      deform_min=TRI_DEFORM_MIN, sharded=True, axis=axis,
+                                      device=dev, cuda_graphs=graphs)[0]
+        sim.rebuild_every = every
+    else:
+        sim, _ = ranks.build(dict(spec, sim=dict(spec["sim"], cuda_graphs=graphs)), dev,
+                             axis)
+    st, ng, gh = sim.init(start)
+    rows = lambda s: {f: getattr(s, f) for f in ("x", "v", "f", "tag", "active")}
+    out = {"rank": axis.rank, "device": torch.cuda.get_device_name(dev), "init": rows(st),
+           "owned0": rank_owned(st)}
+    fired = [0]
+    if graphs:
+        # Capture, and warm the card (clocks) with one run of ``block``
+        # steps from the start, dropped.
+        sim.run(st, ng, gh, block)
+        count = lambda: rebuild_replays(sim)
+    else:
+        rebuild = sim._rebuild
+        sim._rebuild = lambda *a, **k: (fired.__setitem__(0, fired[0] + 1),
+                                        rebuild(*a, **k))[1]
+        count = lambda: fired[0]
+    ends, rebuilt = [], None
+    reset_counts()
+    sent0 = sim.axis.sent_bytes
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    r0 = count()
+    while len(ends) < n_blocks or (rebuilt is None and len(ends) < max_blocks):
+        r = count()
+        first = ends[-1] if ends else (st, ng, gh)
+        ends.append(sim.run(*first, block))
+        if rebuilt is None and count() > r:
+            rebuilt = (len(ends) - 1, first)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    steps = block * len(ends)
+    out.update(launches=launch_counts(), rebuilds=count() - r0, steps=steps,
+               ms=1e3 * wall / steps,
+               first_rebuild=None if rebuilt is None else rebuilt[0] * block + 1)
+    require(rebuilt is not None or not must_rebuild,
+            f"{label} rank {axis.rank}: no rebuild in {steps} steps")
+    if graphs:
+        k, (ws, wn, wg) = rebuilt if rebuilt is not None else (0, (st, ng, gh))
+        with eager(sim):
+            sent0 = sim.axis.sent_bytes
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            ref = sim.run(ws, wn, wg, block)
+            torch.cuda.synchronize()
+            out["eager_ms"] = 1e3 * (time.perf_counter() - t0) / block
+            out["sent_per_step"] = (sim.axis.sent_bytes - sent0) / block
+            n_prof = min(block, PROFILE_STEPS)
+            out["device_ms"], out["nccl_ms"] = rank_profile(
+                lambda: sim.run(ws, wn, wg, n_prof), n_prof)
+        out["graph_device_ms"], out["graph_nccl_ms"] = rank_profile(
+            lambda: sim.run(ws, wn, wg, n_prof), n_prof, sync=lambda: (
+                torch.cuda.synchronize(),
+                dist.barrier(group=sim.axis.group, device_ids=[dev.index]),
+                torch.cuda.synchronize()))
+        diff = validate.bitwise_differences(ends[k], ref)
+        out["graph_vs_eager"] = {k2: v for k2, v in diff.items()}
+        stats = sim.graph_stats()
+        out.update(capture_s=stats["capture_s"], pool_bytes=stats["pool_bytes"],
+                   replays=stats["replays"])
+    else:
+        out["sent_per_step"] = (sim.axis.sent_bytes - sent0) / steps
+    st, ng, gh = ends[-1]
+    th = lambda e: {k: v for k, v in sim.thermo(*e).items()}
+    out.update(end=rows(st), end_th=th(ends[-1]), owned=rank_owned(st),
+               overflow=int(ng.overflow.max()), skin=int(ng.skin_violations.max()))
+    if held_at:
+        e = ends[held_at // block - 1]
+        out.update(held=rows(e[0]), held_th=th(e))
+    packs = gh if isinstance(gh, tuple) else (gh,)
+    H = sim.halo_cap
+    out["ghosts"] = [int(g.active.sum()) for g in packs]
+    out["largest_send"] = [int(max(g.send_mask[:, :H].sum(), g.send_mask[:, H:].sum()))
+                           for g in packs]
+    out["setup_s"] = time.perf_counter() - t_set - wall
+    return out
+
+
+def rank_jobs(axis, jobs):
+    """The spawned ranks' work: each job (kind, keyword arguments) in
+    order, "dryrun" (``ranks.dryrun``) or "path" (``rank_path``)."""
+    from spherharm_tpu_torch.parallel import ranks
+
+    return [ranks.dryrun(axis, **kw) if kind == "dryrun" else rank_path(axis, **kw)
+            for kind, kw in jobs]
+
+
+def rank_state(per_rank, key):
+    """The ranks' owned rows of ``key`` as one state-like namespace (by
+    tag: ``torch_port_util.by_tag``)."""
+    import types
+
+    return types.SimpleNamespace(**{f: np.concatenate([r[key][f] for r in per_rank])
+                                    for f in per_rank[0][key]})
+
+
+def rank_thermo(per_rank, key):
+    """Rank 0's global thermo ``key`` as tensors; fatal unless every rank
+    returned the same bits."""
+    import torch
+
+    th = per_rank[0][key]
+    require(all(all(np.array_equal(r[key][k], v) for k, v in th.items())
+                for r in per_rank), f"the ranks' thermo {key} differ")
+    return {k: torch.as_tensor(v) for k, v in th.items()}
+
+
+def rank_moved(per_rank):
+    """Tags that changed rank over a run."""
+    before = {t: r["rank"] for r in per_rank for t in r["owned0"]}
+    after = {t: r["rank"] for r in per_rank for t in r["owned"]}
+    require(sorted(before) == sorted(after), "the ranks lost or duplicated a particle")
+    return sum(before[t] != after[t] for t in before)
+
+
+def rank_rows(label, per_rank, n, smi, one_card=None):
+    """Print each rank's figures of a path (and the one-card shard-axis
+    row of the same call beside them); fatal on overflow, skin
+    violations, a graph run that is not its eager run, or a rank whose
+    pair kernel never launched."""
+    moved = rank_moved(per_rank)
+    for r in per_rank:
+        graph = "graph_vs_eager" in r
+        rate = 1e3 * n / r["ms"]
+        line = (f"{label} rank {r['rank']} ({r['device']}): {r['steps']} steps, "
+                f"{'graph' if graph else 'eager'} {r['ms']:.4f} ms a step "
+                f"({rate:.1f} particle-steps/s)")
+        if graph:
+            gdev, gnccl = r["graph_device_ms"], r["graph_nccl_ms"]
+            line += (f", eager {r['eager_ms']:.4f} ms a step; graph replays' profile: device "
+                     f"{gdev:.4f} ms a step, NCCL kernels {gnccl:.4f} "
+                     f"({gnccl / max(gdev, 1e-9):.1%} of it), the rest {gdev - gnccl:.4f}; "
+                     f"graph run busy {gdev / r['ms']:.1%}; eager profile: device "
+                     f"{r['device_ms']:.4f}, NCCL {r['nccl_ms']:.4f} (waiting on the peers' host "
+                     f"launches included); graph vs eager "
+                     + ("bit-equal" if not r["graph_vs_eager"] else
+                        f"DIFFERENT {r['graph_vs_eager']}")
+                     + f"; capture {r['capture_s']:.3f}s, pool {r['pool_bytes']} bytes")
+        line += (f"; p2p bytes sent a step {r['sent_per_step']:.0f}; rebuilds {r['rebuilds']} "
+                 f"(first in the run from step {r['first_rebuild']}); ghosts by axis "
+                 f"{r['ghosts']}, largest send {r['largest_send']}; set-up "
+                 f"{r['setup_s']:.1f}s; launches "
+                 f"{ {k: v for k, v in r['launches'].items() if v} } [{smi}]")
+        print(line)
+        require(r["overflow"] == 0 and r["skin"] == 0,
+                f"{label} rank {r['rank']}: overflow {r['overflow']}, skin {r['skin']}")
+        require(not r.get("graph_vs_eager"),
+                f"{label} rank {r['rank']}: the graph run is not the eager run")
+    print(f"{label}: {moved} tags changed rank"
+          + ("" if one_card is None else
+             f"; beside it one card's shard axis: graph {one_card['graph_ms']:.4f} ms a step, "
+             f"eager {one_card['eager_ms']:.4f}, device {one_card['device_ms']:.4f}, busy "
+             f"{one_card['busy']:.1%}"))
+
+
+def rank_vs(label, per_rank, key, ref, what):
+    """Per tag x, v and thermo of the ranks' ``key`` against a one-process
+    run's (state, thermo) ``ref`` (``what`` names it): printed, with
+    whether every row is bit for bit the same. Returns (dx, dv, the
+    largest relative thermo gap)."""
+    from torch_port_util import by_tag
+
+    st, th = rank_state(per_rank, key), rank_thermo(per_rank, f"{key}_th")
+    dx, dv = by_tag_gap(st, ref[0], (True,) * 3)
+    rel = max(abs(float(th[k]) - float(ref[1][k])) / max(abs(float(ref[1][k])), 1e-30)
+              for k in ("ke", "etot", "pe_pair"))
+    same = all(np.array_equal(by_tag(st, f), by_tag(ref[0], f)) for f in ("x", "v"))
+    print(f"{label} vs {what}: max|dx|={dx:.3g} max|dv|={dv:.3g} thermo rel {rel:.2e}; "
+          f"{'bit-equal x and v' if same else 'not bit-equal'}")
+    return dx, dv, rel
+
+
+def rank_phase(dev, smi, tri, tri_st0, single_end):
+    """The default run's ranks: one ``spawn_ranks`` call of RANKS gloo
+    processes on this one card (eager: gloo stages CUDA tensors through
+    host memory, which no CUDA graph holds), each running
+    ``dryrun_sharded(RANKS)`` and ``dryrun_brick(RANK_BRICK)`` (thermo
+    within 2e-3 of the one-process card run's, the same overflow), the
+    sheared cell at n = SHARD_TRI_SMALL on RANKS rank slabs for 40 steps
+    (its skin trigger) against the one-process RANKS-slab card run (per
+    tag within 1e-3, thermo within 2e-3; bit-equality printed) and the
+    n = N_TRI sheared cell on RANKS rank slabs for TRI_STEPS steps, a
+    rebuild every SHARD_TRI_EVERY, against the single card run with the
+    reference's sharded bounds (``sharded_vs_single``). Fatal if a rank
+    fails or K2 did not launch in every rank."""
+    import torch
+
+    from torch_port_util import triaxial_state
+
+    from spherharm_tpu_torch.models import scenarios
+    from spherharm_tpu_torch.parallel import ranks
+    from spherharm_tpu_torch.parallel.dryrun import dryrun_brick, dryrun_sharded
+
+    t0 = time.perf_counter()
+    small, small_st0, _ = scenarios.triaxial_cell(n=SHARD_TRI_SMALL, shear_rate=TRI_SHEAR,
+                                                  deform_min=TRI_DEFORM_MIN, device=dev)
+    small_start = triaxial_state(small_st0, dev)[0]
+    del small
+    sim = scenarios.triaxial_cell(n=SHARD_TRI_SMALL, shear_rate=TRI_SHEAR,
+                                  deform_min=TRI_DEFORM_MIN, sharded=True, n_shards=RANKS,
+                                  device=dev)[0]
+    st, ng, gh = sim.run(*sim.init(small_start), 40)
+    small_end = (st, sim.thermo(st, ng, gh))
+    dry = [dryrun_sharded(RANKS, device=dev), dryrun_brick(RANK_BRICK, device=dev)]
+    start = triaxial_state(tri_st0, dev)[0]
+    jobs = [("dryrun", dict(shape=(RANKS,), cuda_graphs=False)),
+            ("dryrun", dict(shape=RANK_BRICK, cuda_graphs=False)),
+            ("path", dict(label="small sheared cell", block=40, n_blocks=1, graphs=False,
+                          spec={"state": ranks.ship(small_start)},
+                          cell_n=SHARD_TRI_SMALL, must_rebuild=False)),
+            ("path", dict(label="triaxial ranks", block=SHARD_TRI_EVERY,
+                          n_blocks=TRI_STEPS // SHARD_TRI_EVERY, graphs=False,
+                          spec={"state": ranks.ship(start)}, cell_n=N_TRI,
+                          every=SHARD_TRI_EVERY))]
+    del sim, st, ng, gh, start
+    torch.cuda.empty_cache()
+    t1 = time.perf_counter()
+    per_rank = ranks.spawn_ranks(rank_jobs, RANKS, "gloo", [str(dev)] * RANKS, jobs,
+                                 timeout=RANK_TIMEOUT)
+    print(f"rank phase: {RANKS} gloo ranks on {torch.cuda.get_device_name(dev)}, "
+          f"spawned and run in {time.perf_counter() - t1:.1f}s")
+    for j, (label, ref) in enumerate(zip((f"dryrun_sharded({RANKS})",
+                                          f"dryrun_brick({RANK_BRICK})"), dry)):
+        ths = [r[j] for r in per_rank]
+        rel = max(abs(float(t[k]) - float(ref[k])) / max(abs(float(ref[k])), 1e-30)
+                  for t in ths for k in ("ke", "erot", "pe_pair", "etot"))
+        ovf = {int(t["neigh_overflow"]) for t in ths}
+        print(f"{label} on {RANKS} gloo ranks vs one process, card: n={int(ths[0]['n'])} "
+              f"etot={float(ths[0]['etot']):.7g} (rel {rel:.2e}, tol 2e-3) overflow "
+              f"{ovf} / {int(ref['neigh_overflow'])}")
+        require(rel <= 2e-3 and ovf == {int(ref["neigh_overflow"])},
+                f"{label} on ranks disagrees with the one-process run")
+    small_r = [r[2] for r in per_rank]
+    rank_rows(f"small sheared cell n={SHARD_TRI_SMALL} on {RANKS} gloo ranks", small_r,
+              SHARD_TRI_SMALL, smi)
+    dx, _, rel = rank_vs(f"small sheared cell on {RANKS} gloo ranks", small_r, "end",
+                         small_end, f"the one-process {RANKS}-slab card run")
+    require(dx <= 1e-3 and rel <= 2e-3, "small sheared cell: ranks and one process disagree")
+    big = [r[3] for r in per_rank]
+    rank_rows(f"triaxial n={N_TRI} on {RANKS} gloo ranks", big, N_TRI, smi)
+    require(all(r["launches"]["pair_contact_geometric"] > 0 for r in big),
+            "triaxial ranks: K2 did not launch in every rank")
+    rank_vs(f"triaxial n={N_TRI} on {RANKS} gloo ranks", big, "end", single_end,
+            "the single card run")
+    sharded_vs_single(f"triaxial n={N_TRI} on {RANKS} gloo ranks",
+                      (rank_state(big, "end"), rank_thermo(big, "end_th")), single_end,
+                      (True,) * 3)
+    print(f"rank phase: {time.perf_counter() - t0:.1f}s")
+    return {"ranks": [r["launches"] for r in big]}
 
 
 def path_case(cases, path):
@@ -2698,6 +3059,128 @@ def ranking(kern, counted):
     return out
 
 
+def rank_references(dev, smi, n_ranks, kern):
+    """On card ``dev``, in this process: the n = N_TRI sheared cell's single
+    card run (TRI_STEPS steps), its one-card shard-axis runs on RANKS slabs
+    and on a RANK_BRICK brick (``sharded_triaxial_phase``), the drift gas to
+    step GAS_WARM + GAS_STEPS, its single card run of SHARD_GAS_STEPS
+    steps and its one-card RANKS-slab run (``sharded_gas_phase``). Returns
+    [(label, particles, one-card GRAPH_ROWS label, single (state, thermo),
+    one-card (state, thermo), the kernels of the path, the rank job)]: the
+    cell on ``n_ranks`` rank slabs (``triaxial_cell(sharded=True,
+    axis=...)``) and on the RANK_BRICK brick (when ``n_ranks`` fills it),
+    TRI_STEPS steps a rebuild every SHARD_TRI_EVERY, and the gas on
+    ``n_ranks`` rank slabs on its trigger in runs of SHARD_GAS_BLOCK until
+    one rebuilt."""
+    import torch
+
+    from torch_port_util import triaxial_state
+
+    from spherharm_tpu_torch.models import drift, scenarios
+    from spherharm_tpu_torch.parallel import ranks
+
+    tri, tri_st0, _ = scenarios.triaxial_cell(n=N_TRI, shear_rate=TRI_SHEAR,
+                                              deform_min=TRI_DEFORM_MIN, device=dev)
+    start = triaxial_state(tri_st0, dev)[0]
+    s1, n1 = tri.run(*tri.init_neighbors(start), TRI_STEPS)
+    single_end = (s1, tri.thermo(s1, n1))
+    _, slabs_end = sharded_triaxial_phase(tri, tri_st0, single_end, dev, smi, kern)
+    torch.cuda.empty_cache()
+    out = [(f"triaxial n={N_TRI} on {n_ranks} ranks", N_TRI, f"triaxial S={N_SHARDS}",
+            single_end, slabs_end, ("pair_contact_geometric",),
+            ("path", dict(label="triaxial", block=SHARD_TRI_EVERY,
+                          n_blocks=TRI_STEPS // SHARD_TRI_EVERY,
+                          spec={"state": ranks.ship(start)}, cell_n=N_TRI,
+                          every=SHARD_TRI_EVERY)))]
+    if n_ranks == int(np.prod(RANK_BRICK)):
+        _, brick_end = sharded_triaxial_phase(tri, tri_st0, single_end, dev, smi, kern,
+                                              brick=True, mesh=RANK_BRICK)
+        torch.cuda.empty_cache()
+        brick = brick_triaxial_sim(tri, float(tri_st0.box_hi[0]), N_TRI, dev, RANK_BRICK)
+        brick.rebuild_every = SHARD_TRI_EVERY
+        mesh = "x".join(map(str, RANK_BRICK))
+        out.append((f"triaxial n={N_TRI} on a {mesh} brick of ranks", N_TRI,
+                    f"triaxial brick {mesh}", single_end, brick_end,
+                    ("pair_contact_geometric",),
+                    ("path", dict(label="triaxial brick", block=SHARD_TRI_EVERY,
+                                  n_blocks=TRI_STEPS // SHARD_TRI_EVERY,
+                                  spec=ranks.spec_of(brick, start)))))
+    gas, gas_st0 = drift.build_gas(N_GAS, device=dev)
+    gst, gng = gas.run(*gas.init_neighbors(gas_st0), GAS_WARM + GAS_STEPS)
+    _, gas_held = sharded_gas_phase(gas, gst, gng, smi, kern)
+    s1, n1 = gas.run(gst, gng, SHARD_GAS_STEPS)
+    out.append((f"drift gas n={N_GAS} on {n_ranks} ranks", N_GAS, f"drift gas S={N_SHARDS}",
+                (s1, gas.thermo(s1, n1)), gas_held,
+                ("pair_contact_conservative", "stage1_depth"),
+                ("path", dict(label="drift gas", block=SHARD_GAS_BLOCK,
+                              n_blocks=SHARD_GAS_STEPS // SHARD_GAS_BLOCK,
+                              max_blocks=SHARD_GAS_BLOCKS,
+                              spec=ranks.spec_of(gas_shard_sim(gas, gst, n_ranks), gst),
+                              held_at=SHARD_GAS_STEPS))))
+    return out
+
+
+def rank_results(refs, per_rank, smi):
+    """Each rank path of ``refs`` (``rank_references``) from the ranks'
+    results: ``rank_rows`` beside its one-card row, its kernels launched
+    in every rank, its state (the gas's after SHARD_GAS_STEPS steps) held
+    to the single card run and to the one-card shard-axis run with the
+    reference's sharded bounds (``sharded_vs_single``)."""
+    for j, (label, n, one, single, held, kernels, _) in enumerate(refs):
+        rows = [r[j] for r in per_rank]
+        rank_rows(label, rows, n, smi, GRAPH_ROWS[one])
+        require(all(r["launches"][k] > 0 for r in rows for k in kernels),
+                f"{label}: a kernel of the path did not launch in every rank")
+        key = "held" if "held" in rows[0] else "end"
+        got = (rank_state(rows, key), rank_thermo(rows, f"{key}_th"))
+        label = f"{label}, {'held' if key == 'held' else 'end'}"
+        sharded_vs_single(label, got, single, (True,) * 3)
+        rank_vs(label, rows, key, held, "the one-card shard-axis run")
+        sharded_vs_single(label, got, held, (True,) * 3, "the one-card shard-axis run")
+
+
+def ranks_main(n_ranks, smi):
+    """``--ranks RANKS``: the sharded paths one shard a card over NCCL
+    (``spawn_ranks``, one process a card, CUDA graphs with the NCCL p2p
+    and collectives captured in the units): ``rank_references`` on card 0
+    in this process, then the rank jobs, each rank's graph run bit-equal
+    to its eager run, checked by ``rank_results``. Returns the exit code;
+    fewer than RANKS cards is a failure."""
+    import torch
+
+    from spherharm_tpu_torch.ops import cuda_build
+    from spherharm_tpu_torch.parallel import ranks
+
+    cards = torch.cuda.device_count()
+    if n_ranks != RANKS or cards < n_ranks:
+        print(f"chip_smoke: --ranks {n_ranks} needs {RANKS} ranks on {RANKS} cards "
+              f"(found {cards} cards)", file=sys.stderr)
+        return 2
+    t_start = time.perf_counter()
+    print(smi)
+    t0 = time.perf_counter()
+    cuda_build.build()
+    cuda_build.library()
+    print(f"kernel build: {time.perf_counter() - t0:.1f}s")
+    refs = rank_references(torch.device("cuda", 0), smi, n_ranks, {})
+    torch.cuda.empty_cache()
+    t1 = time.perf_counter()
+    per_rank = ranks.spawn_ranks(rank_jobs, n_ranks, "nccl",
+                                 [f"cuda:{r}" for r in range(n_ranks)],
+                                 [ref[-1] for ref in refs], timeout=RANK_TIMEOUT)
+    print(f"{n_ranks} NCCL ranks, one a card: spawned and run in "
+          f"{time.perf_counter() - t1:.1f}s")
+    rank_results(refs, per_rank, smi)
+    print(f"total wall time: {time.perf_counter() - t_start:.1f}s")
+    smi_all = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True).stdout.strip().splitlines()
+    print("; ".join(smi_all[:n_ranks]))
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0), "count": n_ranks}}))
+    return 0
+
+
 def main(argv):
     import torch
 
@@ -2717,6 +3200,8 @@ def main(argv):
     if BF16_CHILD in argv:
         bf16_child(smi)
         return 0
+    if "--ranks" in argv:
+        return ranks_main(int(argv[argv.index("--ranks") + 1]), smi)
     require(not ck.STAGE2_BF16, "run without SPHERHARM_STAGE2_BF16: the bf16 "
             "phase sets it in a child process")
 
@@ -2841,9 +3326,12 @@ def main(argv):
     stage2_list_phase("triaxial", tri, tst, tng, kern, bf16s=(False,),
                       case_tag="triaxial pair list")
     single_end = (tst, tri.thermo(tst, tng))
-    l_tri_s = sharded_triaxial_phase(tri, tri_st0, single_end, dev, smi, kern)
+    l_tri_s = sharded_triaxial_phase(tri, tri_st0, single_end, dev, smi, kern)[0]
     torch.cuda.empty_cache()
-    l_tri_b = sharded_triaxial_phase(tri, tri_st0, single_end, dev, smi, kern, brick=True)
+    l_tri_b = sharded_triaxial_phase(tri, tri_st0, single_end, dev, smi, kern,
+                                     brick=True)[0]
+    torch.cuda.empty_cache()
+    l_ranks = rank_phase(dev, smi, tri, tri_st0, single_end)
     del tri, tri_st0, tst, tng, single_end
     torch.cuda.empty_cache()
 
@@ -2865,9 +3353,9 @@ def main(argv):
         ("pair_contact_conservative", "stage1_depth"), smi)
     stage2_list_phase("drift gas", gas, gst, gng, kern)
     l_k5 = stage1_l1_phase(gas, gst, gng, kern)
-    l_gas_s = sharded_gas_phase(gas, gst, gng, smi, kern)
+    l_gas_s = sharded_gas_phase(gas, gst, gng, smi, kern)[0]
     torch.cuda.empty_cache()
-    l_gas_b = sharded_gas_phase(gas, gst, gng, smi, kern, brick=True)
+    l_gas_b = sharded_gas_phase(gas, gst, gng, smi, kern, brick=True)[0]
     del gas, gst, gng
     torch.cuda.empty_cache()
     t0 = time.perf_counter()
@@ -2903,6 +3391,8 @@ def main(argv):
                "triaxial": l_tri, "drift gas": l_gas, "deck drum full": l_deck_drum,
                f"triaxial S={N_SHARDS}": l_tri_s, f"drift gas S={N_SHARDS}": l_gas_s,
                BRICK_TRI: l_tri_b, BRICK_GAS: l_gas_b,
+               f"triaxial {RANKS} gloo ranks": {
+                   k: sum(d[k] for d in l_ranks["ranks"]) for k in l_ranks["ranks"][0]},
                **{f"deck {label}": n for label, n in l_decks.items()}}
     counted = {k: [(p, n[k]) for p, n in by_path.items() if n[k]] for k in src}
     counted.update({k: [(p, child[c][k]) for p, c in (("drift gas", "gas"),

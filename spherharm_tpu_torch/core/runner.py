@@ -19,6 +19,10 @@ of the step once each as a CUDA graph and replays them:
   graph to pinned host memory; ``read_flag`` waits on an event after the
   replay and reads it: the one host read of a skin-triggered step;
 * every graph of a runner shares one memory pool;
+* a runner captures in the stream-capture mode it is given: "global"
+  (the default), or "thread_local" where another thread of the process
+  keeps working on the card during a capture (NCCL's watchdog queries
+  its events; ``parallel/halo.RankAxis``);
 * each unit runs once eagerly on a side stream before its capture
   (the kernels' build and load, cuBLAS's handle, each kernel's first
   attribute call, the cached constant tensors of ``ops/neighbor.py``);
@@ -54,6 +58,14 @@ def kernel_counters():
 
     return (ck.pair_contact.launches, ck.stage1_depth.launches,
             wk.wall_contact_kernel.launches)
+
+
+def launch_counts() -> dict:
+    """Every kernel wrapper's launches, flat: ``pair_contact_<law>``, the
+    stage-1 variants, ``wall_<kind>``."""
+    pair, stage1, wall = kernel_counters()
+    return {**{f"pair_contact_{k}": n for k, n in pair.items()}, **stage1,
+            **{f"wall_{k}": n for k, n in wall.items()}}
 
 
 def _tensors(value):
@@ -93,8 +105,9 @@ class GraphRunner:
     docstring). ``buffers``: name -> container or tensor, cloned into the
     runner's own buffers."""
 
-    def __init__(self, buffers: dict):
+    def __init__(self, buffers: dict, capture_error_mode: str = "global"):
         self.buffers = {k: _map(torch.clone, v) for k, v in buffers.items()}
+        self.capture_error_mode = capture_error_mode
         self.counters = kernel_counters()
         self.pool = torch.cuda.graph_pool_handle()
         self.graphs = {}      # unit name -> (CUDAGraph, launch deltas)
@@ -156,7 +169,8 @@ class GraphRunner:
         torch.cuda.current_stream().wait_stream(side)
         warm = _snapshot(self.counters)
         graph = torch.cuda.CUDAGraph()
-        with torch.cuda.graph(graph, pool=self.pool):
+        with torch.cuda.graph(graph, pool=self.pool,
+                              capture_error_mode=self.capture_error_mode):
             self._store(unit(self.buffers))
         delta = [{k: c[k] - w[k] for k in c} for c, w in
                  zip(self.counters, warm)]
@@ -217,10 +231,12 @@ def params_view(sim, buffers: dict):
 
 
 def cached_runner(sim, buffers: dict, names: tuple,
-                  scratch: dict | None = None) -> GraphRunner:
+                  scratch: dict | None = None,
+                  capture_error_mode: str = "global") -> GraphRunner:
     """The GraphRunner of ``sim`` for the signature of ``buffers`` (name ->
     container or tensor, ``params`` among them), loaded with them, with
-    the units ``names`` of ``sim._units()`` captured. ``scratch``: buffers
+    the units ``names`` of ``sim._units()`` captured (in
+    ``capture_error_mode``). ``scratch``: buffers
     a new runner adds that no caller loads. Runners are cached in
     ``sim._graphs`` (its shallow copies share the cache); the cache is
     dropped when an attribute the graphs hold fixed changed (walls, group
@@ -232,7 +248,8 @@ def cached_runner(sim, buffers: dict, names: tuple,
     key = tuple(signature(v) for v in buffers.values())
     runner = sim._graphs.get(key)
     if runner is None:
-        runner = GraphRunner({**buffers, **(scratch or {})})
+        runner = GraphRunner({**buffers, **(scratch or {})},
+                             capture_error_mode)
         runner.config = config
     runner.load(**buffers)
     units = sim._units()

@@ -286,11 +286,13 @@ def triaxial_cell(
     deform_min: float = 0.6,
     dtype=torch.float32,
     sharded: bool = False,
-    n_shards: int = 4,
+    n_shards: int | None = None,
     cap_local: int = 0,
     halo_cap: int = 0,
     conservative: bool = False,
     device="cuda",
+    axis=None,
+    cuda_graphs: bool = True,
 ):
     """Config 5: triaxial shear cell, periodic on every axis, with
     stress-tensor output. The diagonal strain rate compresses the cell
@@ -302,10 +304,12 @@ def triaxial_cell(
 
     ``sharded=True`` builds the slab-decomposed variant instead
     (``parallel/halo.ShardedSimulation``, ``n_shards`` slabs along x on
-    the leading axis; no servo, as in the reference) with the reference's
-    capacities: cap_local 4n/S, halo_cap 2n/S (each at least 64, or as
-    given), pair cap 12n/S, cell_cap 12 and a tilt pad of 0.12 box when
-    sheared. Returns (sim, state, neigh, ghosts) then."""
+    the leading axis, default 4; no servo, as in the reference) with the
+    reference's capacities: cap_local 4n/S, halo_cap 2n/S (each at least
+    64, or as given), pair cap 12n/S, cell_cap 12 and a tilt pad of 0.12
+    box when sheared; ``axis`` a rank's ``parallel/halo.RankAxis`` runs
+    one slab a process (S its ranks unless given). Returns (sim, state,
+    neigh, ghosts) then. ``cuda_graphs`` as ``Simulation``'s."""
     rng = np.random.default_rng(seed)
     coeffs = np.stack([
         shapes_library.blob_coeffs(lmax, seed=seed + 100 + t,
@@ -343,6 +347,8 @@ def triaxial_cell(
     periodic = (True, True, True)
     triclinic = any(abs(r) > 0 for r in shear_rate)
     if sharded:
+        if n_shards is None:
+            n_shards = 4 if axis is None else axis.n_shards
         sim = ShardedSimulation(
             shapes, params, n_shards=n_shards, box_lo=(0, 0, 0),
             box_hi=(box, box, box),
@@ -353,7 +359,8 @@ def triaxial_cell(
             deform_min=deform_min, triclinic=triclinic,
             conservative=conservative,
             # covers |xy| up to 12% of the box
-            tilt_pad=0.12 * box if triclinic else 0.0, device=device)
+            tilt_pad=0.12 * box if triclinic else 0.0, device=device,
+            axis=axis, cuda_graphs=cuda_graphs)
         return (sim,) + sim.init(state)
     grid = CellGrid([0, 0, 0], [box * deform_min] * 3,
                     2.4 * rmax * (1.4 if triclinic else 1.0), periodic)
@@ -361,6 +368,6 @@ def triaxial_cell(
         shapes, params, periodic=periodic, neighbor_mode="cell", grid=grid,
         k_max=k_max, cell_cap=16, pair_capacity=max(12 * n, 512),
         press_control=press_tau > 0, triclinic=triclinic,
-        conservative=conservative, device=device)
+        conservative=conservative, device=device, cuda_graphs=cuda_graphs)
     state, neigh = sim.init_neighbors(state)
     return sim, state, neigh

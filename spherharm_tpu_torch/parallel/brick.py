@@ -40,6 +40,7 @@ import torch
 from spherharm_tpu_torch.core.state import take, to_numpy
 from spherharm_tpu_torch.parallel.halo import (
     GhostPack,
+    RankAxis,
     ShardAxis,
     ShardedSimulation,
     _select_fill,
@@ -58,18 +59,24 @@ class BrickAxes(ShardAxis):
     over all S, as the slabs' do."""
 
     def __init__(self, mesh_shape):
+        self._set_mesh(mesh_shape)
+        ShardAxis.__init__(self, int(np.prod(self.shape)))
+
+    def _set_mesh(self, mesh_shape):
         self.shape = tuple(int(s) for s in mesh_shape)
         self.names = AXES[:len(self.shape)]
-        super().__init__(int(np.prod(self.shape)))
 
     def size(self, axis: str) -> int:
         return self.shape[self.names.index(axis)]
 
+    def _stride(self, axis: str) -> int:
+        return int(np.prod(self.shape[self.names.index(axis) + 1:]))
+
     def index(self, device, axis: str):
-        """Each brick's coordinate on mesh axis ``axis``, [S]."""
-        k = self.names.index(axis)
-        flat = torch.arange(self.n_shards, device=device)
-        return flat // int(np.prod(self.shape[k + 1:])) % self.shape[k]
+        """The coordinate on mesh axis ``axis`` of each brick held here,
+        [n_local]."""
+        flat = super().index(device)
+        return flat // self._stride(axis) % self.size(axis)
 
     def ring_shift(self, val, direction: str, axis: str):
         """One hop round the ring of mesh axis ``axis``: "left" sends to
@@ -82,12 +89,41 @@ class BrickAxes(ShardAxis):
                           dims=self.names.index(axis)).reshape(val.shape)
 
 
+class RankBrickAxes(BrickAxes, RankAxis):
+    """The bricks' transport of one brick a process (``RankAxis``): ranks
+    numbered flat and row-major over ``mesh_shape``, x slowest, as the
+    bricks of ``BrickAxes``. ``ring_shift(val, direction, axis)`` swaps
+    with the ranks whose coordinate along ``axis`` is one less and one
+    more (mod its size; the identity on an axis of size 1); ``psum``,
+    ``pmax`` and ``gather`` run over every rank."""
+
+    def __init__(self, mesh_shape, group=None, device=None):
+        self._set_mesh(mesh_shape)
+        RankAxis.__init__(self, group, device)
+        if int(np.prod(self.shape)) != self.n_shards:
+            raise ValueError(
+                f"a {self.shape} brick needs {int(np.prod(self.shape))} "
+                f"ranks, the group has {self.n_shards}")
+
+    def ring_shift(self, val, direction: str, axis: str):
+        if direction not in ("left", "right"):
+            raise ValueError(f"unknown ring direction {direction!r}")
+        n, stride = self.size(axis), self._stride(axis)
+        if n == 1:
+            return val
+        c = self.rank // stride % n
+        step = 1 if direction == "left" else -1
+        peer = lambda k: self.rank + ((c + k) % n - c) * stride
+        return self._exchange(val, peer(-step), peer(step))
+
+
 class BrickSimulation(ShardedSimulation):
     """DEM over a 2D (x, y) or 3D (x, y, z) brick of S = prod(``mesh_shape``)
     shards on a leading shard axis of one device's tensors (``BrickAxes``).
 
     ``mesh_shape`` = (Sx, Sy) or (Sx, Sy, Sz) stands where the reference's
-    mesh stood. ``bounds_frac``: {axis: [n_axis + 1] box fractions}
+    mesh stood; ``axis=RankBrickAxes(mesh_shape)`` runs one brick a
+    process. ``bounds_frac``: {axis: [n_axis + 1] box fractions}
     (uniform where not given; ``halo.balance_fracs(..., axis=d)`` per axis
     for weighted bounds). ``tilt_pad``: a scalar (the x and y reaches) or
     {"x": .., "y": ..}; the x halo must reach max |xy| + |xz|, the y halo
@@ -125,6 +161,7 @@ class BrickSimulation(ShardedSimulation):
         tilt_pad=0.0,
         device="cuda",
         cuda_graphs: bool = True,
+        axis: BrickAxes | None = None,
     ):
         mesh_shape = tuple(mesh_shape)
         if len(mesh_shape) not in (2, 3) or any(
@@ -134,7 +171,10 @@ class BrickSimulation(ShardedSimulation):
                 f"(Sx, Sy, Sz) of positive integers, got {mesh_shape!r}")
         self.shapes = shapes
         self.params = params
-        self.axis = BrickAxes(mesh_shape)
+        self.axis = BrickAxes(mesh_shape) if axis is None else axis
+        if self.axis.shape != tuple(int(s) for s in mesh_shape):
+            raise ValueError(f"the transport's mesh is {self.axis.shape}, "
+                             f"not mesh_shape={mesh_shape}")
         self.n_shards = self.axis.n_shards
         self.cap_local = int(cap_local)
         self.halo_cap = int(halo_cap)
@@ -152,6 +192,7 @@ class BrickSimulation(ShardedSimulation):
         self.device = torch.device(device)
         self.cuda_graphs = bool(cuda_graphs)
         self._graphs = {}
+        self._check_graphs(self.device)
         # Triclinic bricks own and bin in raw coordinates with per-axis
         # halo inflation: a y/z-crossing image shifts x by the tilt, so
         # the x halo must reach |xy| + |xz| further, the y halo |yz|; z
@@ -272,7 +313,7 @@ class BrickSimulation(ShardedSimulation):
         axis' bounds as a tensor (rebalance() swaps its values)."""
         return tuple(
             empty_ghosts(self.halo_cap, dtype, device=self.device,
-                         n_shards=self.n_shards,
+                         n_shards=self.n_local,
                          fracs=torch.as_tensor(self.bounds_frac[ax],
                                                dtype=dtype,
                                                device=self.device))
@@ -281,7 +322,7 @@ class BrickSimulation(ShardedSimulation):
     # -- per-axis building blocks (all bricks at once) ---------------------
 
     def _edges(self, state, axis: str, fracs):
-        """(lo, hi) [S] of each brick's window along ``axis`` under the
+        """(lo, hi) [n_local] of each brick's window along ``axis`` under the
         bounds ``fracs`` (fractions of the current box)."""
         d = AXES.index(axis)
         idx = self.axis.index(state.x.device, axis)
@@ -385,7 +426,7 @@ class BrickSimulation(ShardedSimulation):
         """One migration phase a mesh axis, x then y then z, so a diagonal
         migrant crosses in one rebuild. ``fracs``: the bounds of each mesh
         axis, in axis order. Returns (state, neigh, overflow [S])."""
-        ovf = torch.zeros(self.n_shards, dtype=torch.long,
+        ovf = torch.zeros(self.n_local, dtype=torch.long,
                           device=state.x.device)
         for ax, fr in zip(self.axis.names, fracs):
             state, neigh, o = self._migrate_axis(state, neigh, ax, fr)
@@ -397,7 +438,7 @@ class BrickSimulation(ShardedSimulation):
     def _extend(self, state, ghosts):
         """Owned + every axis' ghost slots as one extended State [S,
         cap_ext]."""
-        z3 = torch.zeros((self.n_shards, self.cap_ext - self.cap_local, 3),
+        z3 = torch.zeros((self.n_local, self.cap_ext - self.cap_local, 3),
                          dtype=state.x.dtype, device=state.x.device)
         cat = lambda f: torch.cat(
             [getattr(state, f)] + [getattr(g, f) for g in ghosts], dim=1)
@@ -420,7 +461,7 @@ class BrickSimulation(ShardedSimulation):
         H = self.halo_cap
         shift = self.axis.ring_shift
         packs = []
-        ovf = torch.zeros(self.n_shards, dtype=torch.long,
+        ovf = torch.zeros(self.n_local, dtype=torch.long,
                           device=state.x.device)
         for g, ax in zip(ghosts, self.axis.names):
             s_idx, s_mask, o = self._membership(
@@ -453,8 +494,8 @@ class BrickSimulation(ShardedSimulation):
                 lo3.append(lo - self.halo_depth_ax[ax])
                 hi3.append(hi + self.halo_depth_ax[ax])
             else:
-                lo3.append(state.box_lo[d].expand(self.n_shards))
-                hi3.append(state.box_hi[d].expand(self.n_shards))
+                lo3.append(state.box_lo[d].expand(self.n_local))
+                hi3.append(state.box_hi[d].expand(self.n_local))
         return torch.stack(lo3, dim=-1), torch.stack(hi3, dim=-1)
 
     def _forward_comm(self, state, ghosts):
@@ -483,8 +524,8 @@ class BrickSimulation(ShardedSimulation):
         swapped into each pack's ``fracs``; then one forced rebuild and a
         force refresh, eagerly. Nothing is captured. Returns (state,
         neigh, ghosts)."""
-        xs = to_numpy(state.x)
-        act = to_numpy(state.active)
+        xs = to_numpy(self.axis.gather(state.x))
+        act = to_numpy(self.axis.gather(state.active))
         lo_all, hi_all = to_numpy(state.box_lo), to_numpy(state.box_hi)
         cutoff_total = float(self.params.cutoff + self.params.skin)
         packs = []

@@ -34,10 +34,12 @@ neighbour's left edge; across the periodic seam the sender shifts x by
 
 from __future__ import annotations
 
+import os
 from dataclasses import dataclass
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from spherharm_tpu_torch.core import runner as runner_mod
 from spherharm_tpu_torch.core.state import (
@@ -158,14 +160,27 @@ def _select_fill(mask, cap: int):
 class ShardAxis:
     """The transport of the slabs: S slabs on the leading axis of one
     device's tensors. Every collective of ``ShardedSimulation`` goes
-    through ``ring_shift``, ``psum`` and ``pmax``."""
+    through ``ring_shift``, ``psum``, ``pmax`` and ``gather``.
+
+    ``n_shards`` is the ring's size; ``local`` the ring indices of the
+    shards this process holds, one a row of the leading axis (here all S;
+    ``n_local`` of them)."""
+
+    # The stream-capture mode of the step's graphs (core/runner.py).
+    capture_error_mode = "global"
 
     def __init__(self, n_shards: int):
         self.n_shards = int(n_shards)
+        self.local = tuple(range(self.n_shards))
+
+    @property
+    def n_local(self) -> int:
+        return len(self.local)
 
     def index(self, device):
-        """Each slab's index on the ring, [S]."""
-        return torch.arange(self.n_shards, device=device)
+        """The ring index of each shard held here, [n_local]."""
+        lo = self.local[0]
+        return torch.arange(lo, lo + self.n_local, device=device)
 
     def ring_shift(self, val, direction: str):
         """One hop round the ring: "left" sends to slab idx - 1, so slab i
@@ -185,16 +200,129 @@ class ShardAxis:
         """The maximum over the slabs."""
         return val.amax(0)
 
+    def gather(self, val):
+        """Every shard's block of ``val`` [n_local, ...], [S, ...] in ring
+        order (host-side helpers: restarts, dumps, rebalance)."""
+        return val
+
+    def stages_through_host(self, device) -> bool:
+        """Whether a collective on ``device`` tensors syncs with the host
+        (then no CUDA graph can hold it)."""
+        return False
+
+
+class RankAxis(ShardAxis):
+    """The transport of one shard a process: ``torch.distributed`` ranks,
+    the shard's tensors [1, ...] on the rank's device, ring index = rank.
+
+    ``ring_shift`` is one matched send/recv pair with the ranks one hop
+    away (``batch_isend_irecv``, one batch a direction: NCCL's p2p has no
+    tags, and on a 2-wide ring both hops go to the same peer); ``psum``
+    gathers every rank's value and adds them in rank order (never NCCL's
+    ``all_reduce(SUM)``, whose order NCCL picks), so it rounds as
+    ``ShardAxis.psum``; ``pmax`` is ``all_reduce(MAX)``; ``gather`` is
+    ``all_gather``. Bool tensors travel as uint8. On gloo, CUDA tensors
+    are staged through pinned host buffers: a host sync, so a simulation
+    refuses CUDA graphs on that combination.
+
+    ``group``: the process group (default the world); ``device``: the
+    rank's device (default ``cuda:<LOCAL_RANK>``, the CPU only by name).
+    ``sent_bytes`` counts the bytes ``ring_shift`` sent (a Python count:
+    a captured graph adds none on replay)."""
+
+    capture_error_mode = "thread_local"
+
+    def __init__(self, group=None, device=None):
+        self.group = group
+        self.rank = dist.get_rank(group)
+        self.n_shards = dist.get_world_size(group)
+        self.local = (self.rank,)
+        self.backend = dist.get_backend(group)
+        if device is None:
+            device = torch.device("cuda", int(os.environ.get("LOCAL_RANK",
+                                                             self.rank)))
+        self.device = torch.device(device)
+        self.sent_bytes = 0
+
+    def stages_through_host(self, device) -> bool:
+        return self.backend == "gloo" and torch.device(device).type == "cuda"
+
+    def _wire(self, val):
+        """``val`` as the backend takes it: contiguous, bool as uint8, on
+        the host for gloo."""
+        t = val.contiguous()
+        if t.dtype == torch.bool:
+            t = t.view(torch.uint8)
+        if self.stages_through_host(t.device):
+            host = torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
+            t = host.copy_(t)
+        return t
+
+    def _unwire(self, t, like):
+        """A received buffer back on ``like``'s device and dtype."""
+        if t.device != like.device:
+            t = t.to(like.device)
+        return t.view(torch.bool) if like.dtype == torch.bool else t
+
+    def _exchange(self, val, dst: int, src: int):
+        """Send ``val`` to rank ``dst`` and receive the same shape from
+        rank ``src``, as one batch."""
+        send = self._wire(val)
+        recv = torch.empty_like(send)
+        ops = [dist.P2POp(dist.isend, send, group=self.group, group_peer=dst),
+               dist.P2POp(dist.irecv, recv, group=self.group, group_peer=src)]
+        for req in dist.batch_isend_irecv(ops):
+            req.wait()
+        self.sent_bytes += send.numel() * send.element_size()
+        return self._unwire(recv, val)
+
+    def ring_shift(self, val, direction: str):
+        if direction not in ("left", "right"):
+            raise ValueError(f"unknown ring direction {direction!r}")
+        S, r = self.n_shards, self.rank
+        if S == 1:
+            return val
+        step = 1 if direction == "left" else -1
+        return self._exchange(val, (r - step) % S, (r + step) % S)
+
+    def _all_gather(self, val):
+        """[every rank's ``val``] in rank order."""
+        t = self._wire(val)
+        parts = [torch.empty_like(t) for _ in range(self.n_shards)]
+        dist.all_gather(parts, t, group=self.group)
+        return [self._unwire(p, val) for p in parts]
+
+    def psum(self, val):
+        parts = self._all_gather(val[0])
+        out = parts[0]
+        for p in parts[1:]:
+            out = out + p
+        return out
+
+    def pmax(self, val):
+        t = self._wire(val.amax(0))
+        dist.all_reduce(t, op=dist.ReduceOp.MAX, group=self.group)
+        return self._unwire(t, val)
+
+    def gather(self, val):
+        return torch.stack(self._all_gather(val[0]))
+
 
 class ShardedSimulation:
     """Slab-decomposed DEM (config 5): S slabs along x, stacked on a
-    leading shard axis of one device's tensors (``ShardAxis``).
+    leading shard axis of one device's tensors (``ShardAxis``), or one
+    slab a process (``axis=RankAxis(...)``: the shard's tensors [1, ...],
+    the collectives over ``torch.distributed``).
 
     Static configuration mirrors ``Simulation``. ``n_shards`` stands where
-    the reference's ``mesh`` stood. The pair list is the prefiltered
+    the reference's ``mesh`` stood; a given ``axis`` must have that ring
+    size. The pair list is the prefiltered
     stage-2 list when ``stage2_capacity > 0``. On CUDA tensors ``run``
     replays CUDA graphs of the step's units (``cuda_graphs=False`` asks
     for eager steps); ``init``, ``rebalance`` and ``thermo`` run eagerly.
+    On ranks every rank is given the same global State and keeps its own
+    slab; ``gather_global``, ``gather_restart``, ``rebalance`` and
+    ``thermo`` return the same global values on every rank.
     """
 
     shard_name = "slab"
@@ -225,11 +353,16 @@ class ShardedSimulation:
         conservative: bool = True,
         device="cuda",
         cuda_graphs: bool = True,
+        axis: ShardAxis | None = None,
     ):
         self.shapes = shapes
         self.params = params
         self.n_shards = int(n_shards)
-        self.axis = ShardAxis(self.n_shards)
+        self.axis = ShardAxis(self.n_shards) if axis is None else axis
+        if self.axis.n_shards != self.n_shards:
+            raise ValueError(
+                f"the transport's ring has {self.axis.n_shards} shards, "
+                f"not n_shards={self.n_shards}")
         self.cap_local = int(cap_local)
         self.halo_cap = int(halo_cap)
         self.migrate_cap = int(migrate_cap) or max(halo_cap // 2, 16)
@@ -256,6 +389,7 @@ class ShardedSimulation:
         self.device = torch.device(device)
         self.cuda_graphs = bool(cuda_graphs)
         self._graphs = {}
+        self._check_graphs(self.device)
 
         self.box_lo_np = np.asarray(box_lo, np.float64)
         self.box_hi_np = np.asarray(box_hi, np.float64)
@@ -307,6 +441,22 @@ class ShardedSimulation:
         return self.cap_local + 2 * self.halo_cap
 
     @property
+    def n_local(self) -> int:
+        """The shards this process holds: the leading dim of its tensors."""
+        return self.axis.n_local
+
+    def _check_graphs(self, device):
+        """Refuse CUDA graphs over a transport that syncs with the host
+        (gloo's staging of CUDA tensors): never a silent eager run."""
+        device = torch.device(device)
+        if (self.cuda_graphs and device.type == "cuda"
+                and self.axis.stages_through_host(device)):
+            raise ValueError(
+                "this transport stages CUDA tensors through host memory "
+                "(gloo), which no CUDA graph can capture: pass "
+                "cuda_graphs=False, or use NCCL")
+
+    @property
     def pair_list_cap(self) -> int:
         """Persistent per-slab pair-list capacity (the stage-2 cap when
         the prefilter is on)."""
@@ -333,16 +483,18 @@ class ShardedSimulation:
         [n, W, HW]. It seeds the neighbour state's durable (rebuild-time)
         layout so the first rebuild's remap recovers every spring.
         """
-        S, cl, dev = self.n_shards, self.cap_local, self.device
+        S, cl, dev = self.n_local, self.cap_local, self.device
         active = to_numpy(state_global.active)
         owner = self._owner_np(to_numpy(state_global.x))
+        # Every process checks every shard's count, so all of them raise.
+        counts = np.bincount(owner[active], minlength=self.n_shards)
+        if np.any(counts > cl):
+            p = int(np.argmax(counts > cl))
+            raise ValueError(
+                f"{self.shard_name} {p} holds {counts[p]} > cap_local={cl}")
         locals_, sels = [], []
-        for p in range(S):
+        for p in self.axis.local:
             sel = np.flatnonzero(active & (owner == p))
-            if sel.size > cl:
-                raise ValueError(
-                    f"{self.shard_name} {p} holds {sel.size} > "
-                    f"cap_local={cl}")
             sels.append(sel)
             pad = cl - sel.size
             rows = {}
@@ -419,7 +571,7 @@ class ShardedSimulation:
         tensor: rebalance() swaps its values and the step graphs stay
         valid."""
         return empty_ghosts(
-            self.halo_cap, dtype, device=self.device, n_shards=self.n_shards,
+            self.halo_cap, dtype, device=self.device, n_shards=self.n_local,
             fracs=torch.as_tensor(self.bounds_frac, dtype=dtype,
                                   device=self.device))
 
@@ -439,12 +591,13 @@ class ShardedSimulation:
         return left_send, right_send
 
     def _slab_edges(self, state, fracs):
-        """(slab_lo, slab_hi) [S] of each slab under the bounds ``fracs``
-        (fractions of the current box length)."""
+        """(slab_lo, slab_hi) [n_local] of each slab held here under the
+        bounds ``fracs`` (fractions of the current box length)."""
+        idx = self._index(state)
         fr = fracs.to(state.x.dtype)
         Lx = state.box_hi[0] - state.box_lo[0]
-        return (state.box_lo[0] + fr[:-1] * Lx,
-                state.box_lo[0] + fr[1:] * Lx)
+        return (state.box_lo[0] + fr[idx] * Lx,
+                state.box_lo[0] + fr[idx + 1] * Lx)
 
     def _slab_of(self, state, x0, fracs):
         """Owner slab of x-coordinates ``x0`` (weighted searchsorted)."""
@@ -468,7 +621,7 @@ class ShardedSimulation:
         """Gather + ship the forward-comm fields; returns ghost field dict."""
         ax = self.axis
         sl, sr = self._seam_shifts(state)
-        S, H = self.n_shards, self.halo_cap
+        S, H = self.n_local, self.halo_cap
         out = {}
         for f in ("x", "v", "q", "angmom"):
             vals = take(getattr(state, f), send_idx, True)
@@ -525,7 +678,7 @@ class ShardedSimulation:
         whether it has a lower / upper neighbour ``has_lo`` / ``has_hi``
         [S], and the ring's ``shift(val, direction)``. Returns (state,
         neigh, migration overflow [S])."""
-        S, M, cl = self.n_shards, self.migrate_cap, self.cap_local
+        S, M, cl = self.n_local, self.migrate_cap, self.cap_local
         idx = idx[:, None]
         moving = state.active & (tgt != idx)
         go_left = moving & (tgt == (idx - 1) % n) & has_lo[:, None]
@@ -590,7 +743,7 @@ class ShardedSimulation:
 
     def _extend(self, state: State, ghosts: GhostPack):
         """Owned + ghost slots as one extended State [S, cap_ext]."""
-        z3 = torch.zeros((self.n_shards, 2 * self.halo_cap, 3),
+        z3 = torch.zeros((self.n_local, 2 * self.halo_cap, 3),
                          dtype=state.x.dtype, device=state.x.device)
         cat = lambda a, b: torch.cat([a, b], dim=1)
         return state.replace(
@@ -648,9 +801,9 @@ class ShardedSimulation:
         return state, neigh, ghosts, mig_ovf, halo_ovf
 
     def _bin_window(self, state, ghosts):
-        """Each shard's binning window (bin_lo, bin_hi) [S, 3]: its slab
-        and the halo depth each side along x, the box along y and z."""
-        S = self.n_shards
+        """Each shard's binning window (bin_lo, bin_hi) [n_local, 3]: its
+        slab and the halo depth each side along x, the box along y and z."""
+        S = self.n_local
         slab_lo, slab_hi = self._slab_edges(state, ghosts.fracs)
         lo, hi = state.box_lo, state.box_hi
         bin_lo = torch.stack([slab_lo - self.halo_depth, lo[1].expand(S),
@@ -667,7 +820,7 @@ class ShardedSimulation:
         already authoritative (zeros on a fresh start, seeded springs on
         a restart) and the pair list is empty, so folding would wipe it.
         """
-        ax, S = self.axis, self.n_shards
+        ax, S = self.axis, self.n_local
         tilt = self._tilt(state)
         x, image = neighbor.wrap_positions(
             state.x, state.image, state.box_lo, state.box_hi, self.periodic,
@@ -865,6 +1018,7 @@ class ShardedSimulation:
                      for k in range(length)]
         else:
             kinds = ["check"] * n_steps
+        self._check_graphs(state.x.device)
         if not (self.cuda_graphs and state.x.is_cuda and n_steps > 0):
             for kind in kinds:
                 state, neigh, ghosts, _ = self._local_step(
@@ -895,10 +1049,12 @@ class ShardedSimulation:
         the one-hop migration routes in the forced rebuild), and each slab
         stays halo-legal and wide enough for the static bin grid's cells
         to stay >= cutoff. Call between run() blocks at the balance
-        cadence. Returns (state, neigh, ghosts).
+        cadence. On ranks the quantiles read every slab's particles
+        (gathered), so every rank takes the same bounds. Returns (state,
+        neigh, ghosts).
         """
-        xs = to_numpy(state.x)
-        act = to_numpy(state.active)
+        xs = to_numpy(self.axis.gather(state.x))
+        act = to_numpy(self.axis.gather(state.active))
         lo = float(to_numpy(state.box_lo)[0])
         hi = float(to_numpy(state.box_hi)[0])
         Lx = hi - lo
@@ -952,6 +1108,12 @@ class ShardedSimulation:
         pair springs folded in) as numpy arrays aligned row for row with
         it; round-trips through io.restart's extra fields."""
         neigh = neigh.replace(hist=contact.pair_hist_to_dense(neigh))
+        g = self.axis.gather
+        state = state.replace(**{f: g(getattr(state, f)) for f in
+                                 ("x", "v", "q", "angmom", "scale", "shtype",
+                                  "tag", "active", "image")})
+        neigh = neigh.replace(neigh_tag=g(neigh.neigh_tag), hist=g(neigh.hist),
+                              wall_hist=g(neigh.wall_hist))
         S, cl, ce = self.n_shards, self.cap_local, self.cap_ext
         act = to_numpy(state.active).reshape(-1)
         sel = np.flatnonzero(act)                 # into [S * cap_local]
@@ -980,7 +1142,7 @@ class ShardedSimulation:
     def gather_global(self, state) -> State:
         """The slabs' state as one host-side State of S * cap_local slots
         (slab-major; inactive slots kept), for dumps and restarts."""
-        flat = lambda t: t.reshape((-1,) + t.shape[2:])
+        flat = lambda t: self.axis.gather(t).reshape((-1,) + t.shape[2:])
         per = {f: flat(getattr(state, f)) for f in
                ("x", "v", "q", "angmom", "f", "tau", "scale", "shtype",
                 "tag", "active", "image")}
@@ -1033,7 +1195,8 @@ class ShardedSimulation:
         (``runner.cached_runner``)."""
         return runner_mod.cached_runner(
             self, dict(state=state, neigh=neigh, ghosts=ghosts,
-                       params=self.params), names)
+                       params=self.params), names,
+            capture_error_mode=self.axis.capture_error_mode)
 
     def graph_stats(self) -> dict:
         """The cached runners' totals (``runner.graph_stats``)."""

@@ -1007,3 +1007,83 @@ def test_brick_on_card_matches_cpu(cuda_device):
     np.testing.assert_allclose(xg, xc, rtol=0, atol=1e-3)
     for k in tc:
         assert tg[k] == pytest.approx(tc[k], rel=2e-3), k
+
+
+def _rank_systems(device, graphs):
+    """The 4-shard systems the rank tests run: 4 slabs on the cadence
+    (``_slab_sim``) and a (2, 2) brick on the skin trigger
+    (``_brick_sim``), each with its global start (``gather_global`` of its
+    ``init``), ``ranks.spec_of`` 25 steps, a snapshot and thermo, and the
+    same run on the shard axis of this process."""
+    from spherharm_tpu_torch.parallel import ranks
+
+    acts = [("run", "", 25), ("snap", "end"), ("thermo", "th")]
+    specs, ones = [], []
+    for sim, st, _, _ in (_slab_sim(device, 4, False, 10),
+                          _brick_sim(device, (2, 2), False, 0)):
+        start = sim.gather_global(st)
+        spec = ranks.spec_of(sim, start, acts)
+        spec["sim"]["cuda_graphs"] = graphs
+        specs.append(spec)
+        sim.cuda_graphs = graphs
+        ones.append(ranks._to_host(ranks.drive(sim, start, acts)))
+    return specs, ones
+
+
+def _hold_ranks_to_one_process(per_rank, ones, L=16.0):
+    """The ranks' stacked owned rows and global thermo against the
+    one-process run: tags and active exact, x within 1e-5 L, v within
+    1e-4 of its scale, thermo within rel 1e-5 (the card's reductions
+    over [1, n] and [S, n] may take other orders); the pair kernel
+    launched in every rank."""
+    for j, one in enumerate(ones):
+        ranks_j = [r[j] for r in per_rank]
+        end = {f: np.concatenate([r["end"][0][f] for r in ranks_j])
+               for f in ("x", "v", "tag", "active")}
+        ref = one["end"][0]
+        np.testing.assert_array_equal(end["tag"], ref["tag"])
+        np.testing.assert_array_equal(end["active"], ref["active"])
+        np.testing.assert_allclose(end["x"], ref["x"], rtol=0, atol=1e-5 * L)
+        np.testing.assert_allclose(end["v"], ref["v"], rtol=0,
+                                   atol=1e-4 * np.abs(ref["v"]).max())
+        for r in ranks_j:
+            for k in ("ke", "pe_pair", "etot"):
+                assert float(r["th"][k]) == pytest.approx(
+                    float(one["th"][k]), rel=1e-5), k
+            assert r["launches"]["pair_contact_geometric"] > 0
+
+
+def test_ranks_gloo_on_one_card_match_one_process(cuda_device):
+    """4 gloo ranks on the one card (eager by name: gloo stages CUDA
+    tensors through host memory) run the 4 slabs and the (2, 2) brick as
+    the one-process card run does."""
+    from spherharm_tpu_torch.parallel import ranks
+
+    specs, ones = _rank_systems(cuda_device, graphs=False)
+    per_rank = ranks.spawn_ranks(ranks.run_specs, 4, "gloo", ["cuda"] * 4,
+                                 specs, timeout=600)
+    _hold_ranks_to_one_process(per_rank, ones)
+
+
+def test_ranks_nccl_graphs_on_four_cards(cuda_device):
+    """4 NCCL ranks, one a card, with CUDA graphs (the p2p and the
+    collectives captured in the units): each rank's graph run is its
+    eager run bit for bit, and both match the one-process card run.
+    Skipped, and the skip printed, with fewer than 4 cards."""
+    from spherharm_tpu_torch.parallel import ranks
+    from spherharm_tpu_torch.utils import validate
+
+    cards = torch.cuda.device_count()
+    if cards < 4:
+        print(f"test_ranks_nccl_graphs_on_four_cards: skipped, {cards} card(s)")
+        pytest.skip(f"4 NCCL ranks need 4 cards, found {cards}")
+    specs, ones = _rank_systems(cuda_device, graphs=True)
+    eager = [dict(s, sim=dict(s["sim"], cuda_graphs=False)) for s in specs]
+    per_rank = ranks.spawn_ranks(ranks.run_specs, 4, "nccl",
+                                 [f"cuda:{r}" for r in range(4)],
+                                 specs + eager, timeout=600)
+    for r in per_rank:
+        for j in range(len(specs)):
+            assert validate.bitwise_differences(
+                r[j]["end"], r[len(specs) + j]["end"]) == {}
+    _hold_ranks_to_one_process(per_rank, ones)
