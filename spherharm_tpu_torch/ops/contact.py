@@ -126,8 +126,8 @@ def orthobasis(e):
     """Orthobasis (t1, t2) around unit e [..., 3], as the kernels build it:
     h = x-axis unless |e_x| >= 0.9, t1 = (e x h)/|e x h|, t2 = e x t1."""
     use_x = e[..., 0:1].abs() < 0.9
-    h = torch.where(use_x, e.new_tensor([1.0, 0.0, 0.0]),
-                    e.new_tensor([0.0, 1.0, 0.0]))
+    # Built on the device from the mask: no host copy (CUDA graph capture).
+    h = torch.cat([use_x, ~use_x, torch.zeros_like(use_x)], dim=-1).to(e.dtype)
     t1 = _cross(e, h)
     t1 = t1 * torch.rsqrt(torch.clamp((t1 * t1).sum(-1, keepdim=True),
                                       min=1e-24))
@@ -279,13 +279,21 @@ def _pair_elastic_pe(d, q_i, q_j, geo, mask, kn, r_eff, cap, lmax: int,
     )
 
 
+def quat_torque(q, gq):
+    """World-frame torque [P, 3] from the cotangent gq = dU/dq [P, 4] of
+    unit quaternions q [P, 4]: for a rotation q' = dq (x) q with
+    dq = (1, dtheta/2), tau_k = -0.5 <dU/dq, e_k (x) q>."""
+    e = torch.eye(4, dtype=q.dtype, device=q.device)[1:]  # [3, 4]
+    eq = rotation.quat_multiply(e[None, :, :], q[:, None, :])
+    return -0.5 * (gq[:, None, :] * eq).sum(-1)
+
+
 def pair_elastic_grad(d, q_i, q_j, geo, mask, kn, r_eff, cap, lmax: int,
                       bf16: bool = False):
     """Exact-gradient elastic force/torques: F_i = dU/dd (U depends on x
     only through d = x_j - x_i), tau = -dU/dtheta.
 
-    Torque from the quaternion cotangent: for a world-frame rotation
-    q' = dq (x) q with dq = (1, dtheta/2), tau_k = -0.5 <dU/dq, e_k (x) q>.
+    Torque from the quaternion cotangent (``quat_torque``).
     Out-of-contact pairs can produce NaN cotangents through dead-branch
     guards; the true force there is zero, so non-finite rows are masked.
     ``bf16``: K3's surfaces, differentiated as ``_RadiusBf16`` says.
@@ -299,14 +307,9 @@ def pair_elastic_grad(d, q_i, q_j, geo, mask, kn, r_eff, cap, lmax: int,
         gd, gqi, gqj = torch.autograd.grad(pe.sum(), (d_, qi_, qj_),
                                            allow_unused=True)
 
-    def tau_of(q, gq):
-        e = torch.eye(4, dtype=q.dtype, device=q.device)[1:]  # [3, 4]
-        eq = rotation.quat_multiply(e[None, :, :], q[:, None, :])
-        return -0.5 * (gq[:, None, :] * eq).sum(-1)
-
     f_el = gd
-    tau_i = tau_of(q_i, gqi)
-    tau_j = tau_of(q_j, gqj)
+    tau_i = quat_torque(q_i, gqi)
+    tau_j = quat_torque(q_j, gqj)
     ok = (torch.isfinite(f_el).all(-1) & torch.isfinite(tau_i).all(-1)
           & torch.isfinite(tau_j).all(-1))[:, None]
     z = torch.zeros_like(f_el)

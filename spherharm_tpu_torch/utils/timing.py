@@ -26,7 +26,7 @@ from spherharm_tpu_torch.ops import integrate
 TRACE_DIR = Path(__file__).resolve().parents[2] / "build" / "spherharm_trace"
 
 
-def _timeit(fn, device, repeats=3):
+def timeit(fn, device, repeats=3):
     """Seconds per call of fn(), after one warm-up call."""
     fn()
     if device.type == "cuda":
@@ -57,14 +57,14 @@ def breakdown(sim, state, neigh, repeats: int = 3) -> dict:
     """
     dev = state.x.device
     return {
-        "Pair": _timeit(lambda: sim.compute_forces(state, neigh), dev,
+        "Pair": timeit(lambda: sim.compute_forces(state, neigh), dev,
                         repeats),
-        "Neigh": _timeit(lambda: sim._rebuild(state, neigh), dev, repeats),
+        "Neigh": timeit(lambda: sim._rebuild(state, neigh), dev, repeats),
         "Comm": 0.0,
-        "Modify": _timeit(lambda: integrate.final_integrate(
+        "Modify": timeit(lambda: integrate.final_integrate(
             integrate.initial_integrate(state, sim.shapes, sim.params),
             sim.shapes, sim.params), dev, repeats),
-        "Output": _timeit(lambda: sim.thermo(state, neigh)["etot"], dev,
+        "Output": timeit(lambda: sim.thermo(state, neigh)["etot"], dev,
                           repeats),
     }
 

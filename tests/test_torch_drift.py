@@ -12,7 +12,6 @@ card, by ``chip_smoke.py``. Tolerances as tests/test_torch_scenarios.py:
 energies rtol 2e-3, positions 1e-3 absolute.
 """
 
-import importlib.util
 from pathlib import Path
 
 import jax
@@ -26,18 +25,14 @@ from spherharm_tpu_torch.core.simulation import Simulation
 from spherharm_tpu_torch.models import drift, scenarios
 from spherharm_tpu_torch.ops.neighbor import CellGrid
 
-from torch_port_util import np32
+from torch_port_util import load_script, np32
 
 N = 64
 
 
 @pytest.fixture(scope="module")
 def ref_build():
-    path = Path(__file__).resolve().parents[1] / "scripts" / "drift_scale.py"
-    spec = importlib.util.spec_from_file_location("drift_scale_ref", path)
-    mod = importlib.util.module_from_spec(spec)
-    spec.loader.exec_module(mod)
-    return mod.build
+    return load_script("drift_scale").build
 
 
 def test_build_gas_matches_reference(ref_build):

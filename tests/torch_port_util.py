@@ -22,6 +22,18 @@ if os.environ.get("PYTEST_XDIST_WORKER"):
     torch.set_num_threads(1)
 
 
+def load_script(name: str):
+    """The reference's ``scripts/<name>.py`` loaded by path as a module (the
+    port keeps its own copy of each harness and imports none of them)."""
+    import importlib.util
+
+    path = Path(__file__).resolve().parents[1] / "scripts" / f"{name}.py"
+    spec = importlib.util.spec_from_file_location(f"{name}_ref", path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
 def to_torch(cls, jax_obj, device="cpu"):
     """Convert a reference (flax) container to the port's ``cls``."""
     return cls.from_numpy(
