@@ -319,13 +319,15 @@ PROFILE_STEPS = 20
 PROFILE_TABLES = False
 ENS_CASE_R, ENS_CHECK_R = 4, 3
 # The reference's validation harnesses (spherharm_tpu_torch/validation/) at
-# cut lengths: the four blobs under each law and the collider, etot read
-# every *_BLOCK steps (shorter than a collision: about 540 steps for the
-# blobs, 117 for the spheres, so every collision shows as a mid-contact
-# sample); the restitution sweep at the script's R and length; the settling
-# box's first blocks; the probe's bounce at the script's length; the drum's
-# cadences (CADENCES, 0 the skin trigger), one block each.
+# cut lengths: the four blobs under each law (the geometric law at each of
+# FOUR_BLOB_SEEDS) and the collider, etot read every *_BLOCK steps (shorter
+# than a collision: about 540 steps for the blobs, 117 for the spheres, so
+# every collision shows as a mid-contact sample); the restitution sweep at
+# the script's R and length; the settling box's first blocks; the probe's
+# bounce at the script's length; the drum's cadences (CADENCES, 0 the skin
+# trigger), one block each.
 FOUR_BLOB_STEPS, FOUR_BLOB_BLOCK = 12_000, 250
+FOUR_BLOB_SEEDS = (0, 1, 2, 3)
 COLLIDER_STEPS, COLLIDER_BLOCK = 6_000, 100
 REST_R, REST_STEPS = 8, 3000
 PACK_BLOCKS, PACK_BLOCK = 2, 1000
@@ -3161,11 +3163,18 @@ def restitution_cpu_child():
     return proc
 
 
+def four_blob_label(law, seed):
+    """The four blobs' path name: the law, and the seed under the
+    geometric law."""
+    return f"four-blob {law}" + (f" seed {seed}" if law == "geometric" else "")
+
+
 def validation_phase(dev, smi, cpu_sweep):
     """The reference's validation harnesses (``spherharm_tpu_torch/validation``)
     on the card at cut lengths, each through its module's own functions,
     counters set to 0 just before each and read just after: the four blobs
-    under both laws and the collider (``free_flight_phase``); the
+    under the geometric law at each of FOUR_BLOB_SEEDS and under the
+    conservative law at seed 0, and the collider (``free_flight_phase``); the
     restitution sweep (R = REST_R, REST_STEPS steps, the script's asserts,
     its table held within 1e-3 to the same sweep through the plain twins on
     the CPU, ``cpu_sweep`` from ``restitution_cpu_child``);
@@ -3179,13 +3188,15 @@ def validation_phase(dev, smi, cpu_sweep):
 
     t_phase = time.perf_counter()
     counted = {}
-    for law in ("geometric", "conservative"):
+    for law, seed in ([("geometric", s) for s in FOUR_BLOB_SEEDS]
+                      + [("conservative", 0)]):
+        label = four_blob_label(law, seed)
         t0 = time.perf_counter()
-        counted[f"four-blob {law}"] = free_flight_phase(
-            f"four-blob {law}", drift_lmax8.build(
-                conservative=law == "conservative", device=dev),
+        counted[label] = free_flight_phase(
+            label, drift_lmax8.build(seed=seed, conservative=law == "conservative",
+                                     device=dev),
             FOUR_BLOB_STEPS, FOUR_BLOB_BLOCK, f"pair_contact_{law}", smi)
-        print(f"four-blob {law}: {time.perf_counter() - t0:.1f}s")
+        print(f"{label}: {time.perf_counter() - t0:.1f}s")
     t0 = time.perf_counter()
     counted["collider"] = free_flight_phase(
         "collider", drift.build(device=dev), COLLIDER_STEPS, COLLIDER_BLOCK,

@@ -1,6 +1,7 @@
 """Diagnostic computes of the torch port (``core/computes.py``) vs the JAX
-reference, mirroring tests/test_computes.py (its deck and dump cases wait
-for the deck slice).
+reference, mirroring tests/test_computes.py (its deck and dump cases,
+``test_deck_compute_command`` and ``test_dump_peratom_compute_column``, are
+mirrored in tests/test_torch_deck.py).
 
 The state comes from the reference: a dense periodic gas run 40 steps by
 the JAX ``Simulation`` (geometric law, ``exact_eval=True``), handed to the

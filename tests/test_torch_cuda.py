@@ -1087,3 +1087,111 @@ def test_ranks_nccl_graphs_on_four_cards(cuda_device):
             assert validate.bitwise_differences(
                 r[j]["end"], r[len(specs) + j]["end"]) == {}
     _hold_ranks_to_one_process(per_rank, ones)
+
+
+def _need_cards(name, n=4):
+    """Skip ``name`` (and print the skip) with fewer than ``n`` cards."""
+    cards = torch.cuda.device_count()
+    if cards < n:
+        print(f"{name}: skipped, {cards} card(s)")
+        pytest.skip(f"{n} NCCL ranks need {n} cards, found {cards}")
+
+
+def test_ranks_nccl_rebalance_on_four_cards(cuda_device):
+    """``rebalance`` on 4 NCCL ranks, one a card, with CUDA graphs, held
+    to the same run on 4 gloo ranks on one card (eager): the same new
+    bounds (moved off the even split), and the same global state after
+    the rebalance and 10 more steps (tags exact, x 1e-5 L, v 1e-4 of its
+    scale, as ``_hold_ranks_to_one_process``). The bounds are quantiles of
+    the gathered x, which moves each by no more than the largest change
+    of an x: so they are held to 1e-5 (in units of L) as x is."""
+    from spherharm_tpu_torch.parallel import ranks
+
+    _need_cards("test_ranks_nccl_rebalance_on_four_cards")
+    sim, st, _, _ = _slab_sim(cuda_device, 4, False, 10)
+    acts = [("run", "", 30), ("rebalance", "fracs"), ("run", "", 10),
+            ("global", "global")]
+    spec = ranks.spec_of(sim, sim.gather_global(st), acts)
+    nccl = ranks.spawn_ranks(ranks.run_specs, 4, "nccl",
+                             [f"cuda:{r}" for r in range(4)],
+                             [dict(spec, sim=dict(spec["sim"], cuda_graphs=True))],
+                             timeout=600)
+    gloo = ranks.spawn_ranks(ranks.run_specs, 4, "gloo", ["cuda"] * 4,
+                             [dict(spec, sim=dict(spec["sim"], cuda_graphs=False))],
+                             timeout=600)
+    ref = gloo[0][0]
+    assert not np.allclose(ref["fracs"][0], np.linspace(0.0, 1.0, 5))
+    glob = ref["global"]
+    live = glob["active"].astype(bool)
+    L = 16.0
+    for r in nccl + gloo:
+        out = r[0]
+        np.testing.assert_allclose(out["fracs"][0], ref["fracs"][0],
+                                   rtol=0, atol=1e-5)
+        np.testing.assert_array_equal(out["global"]["tag"], glob["tag"])
+        np.testing.assert_array_equal(out["global"]["active"], glob["active"])
+        np.testing.assert_allclose(out["global"]["x"][live], glob["x"][live],
+                                   rtol=0, atol=1e-5 * L)
+        np.testing.assert_allclose(out["global"]["v"][live], glob["v"][live],
+                                   rtol=0,
+                                   atol=1e-4 * np.abs(glob["v"][live]).max())
+        assert out["launches"]["pair_contact_geometric"] > 0
+
+
+def test_ranks_nccl_restart_4_to_2(cuda_device, tmp_path):
+    """tests/test_torch_ranks.py's 4-to-2 restart on NCCL ranks with CUDA
+    graphs: ``gather_restart`` on 4 ranks (one a card) -> write_restart ->
+    read onto the card -> 2 ranks resume; per tag the uninterrupted
+    4-rank run (x 2e-3, v 5e-3, as tests/test_sharded.py:301), every
+    rank's payload the same, overflow 0."""
+    from spherharm_tpu_torch.core.state import State
+    from spherharm_tpu_torch.io import restart as rio
+    from spherharm_tpu_torch.parallel import ranks
+
+    from torch_port_util import floor_layers
+
+    _need_cards("test_ranks_nccl_restart_4_to_2")
+    ck_steps, resume_steps = 250, 200
+    sim, st0, resume = floor_layers(cuda_device)
+    spec = ranks.spec_of(sim, st0, [("run", "", ck_steps), ("restart", "ck"),
+                                    ("run", "", resume_steps), ("snap", "end")])
+    per_rank = [r[0] for r in ranks.spawn_ranks(
+        ranks.run_specs, 4, "nccl", [f"cuda:{r}" for r in range(4)], [spec],
+        timeout=600)]
+    gst, payload = per_rank[0]["ck"]
+    for r in per_rank[1:]:
+        for k, v in gst.items():
+            np.testing.assert_array_equal(r["ck"][0][k], v)
+        for k, v in payload.items():
+            np.testing.assert_array_equal(r["ck"][1][k], v)
+    assert np.abs(payload["wall_hist"]).max() > 0
+    assert np.abs(payload["hist"]).max() > 0
+    p = tmp_path / "ranks.npz"
+    rio.write_restart(p, State(**{k: torch.as_tensor(v) for k, v in gst.items()}),
+                      None, sim.params, extra=payload)
+    gstate2, _, params2, extra = rio.read_restart(p, device=cuda_device)
+    resume.params = params2
+    spec2 = ranks.spec_of(resume, gstate2,
+                          [("run", "", resume_steps), ("snap", "end")],
+                          restart={k: np.asarray(v) for k, v in extra.items()})
+    out = [r[0] for r in ranks.spawn_ranks(
+        ranks.run_specs, 2, "nccl", ["cuda:0", "cuda:1"], [spec2], timeout=600)]
+
+    def by_tag(per, f):
+        rows = {}
+        for r in per:
+            st = r["end"][0]
+            for t, a, row in zip(st["tag"].reshape(-1), st["active"].reshape(-1),
+                                 st[f].reshape((-1,) + st[f].shape[2:])):
+                if a:
+                    rows[int(t)] = row
+        return rows
+
+    xa, xb = by_tag(per_rank, "x"), by_tag(out, "x")
+    va, vb = by_tag(per_rank, "v"), by_tag(out, "v")
+    assert set(xa) == set(xb) and len(xa) == 48
+    for t in xa:
+        np.testing.assert_allclose(xb[t], xa[t], rtol=0, atol=2e-3)
+        np.testing.assert_allclose(vb[t], va[t], rtol=0, atol=5e-3)
+    assert all(int(r["end"][1]["overflow"].max()) == 0 for r in out)
+    assert all(r["launches"]["wall_plane"] > 0 for r in per_rank + out)

@@ -632,7 +632,79 @@ run 5
     assert r.dump_formatters in (["native"] * 2, ["python"] * 2)
 
 
-@pytest.mark.parametrize("name,dims", [("triaxial.in", (2, 2, 2)),
+def test_deck_compute_command_matches_reference(jax_exact):
+    """tests/test_computes.py's ``test_deck_compute_command`` in both
+    runners: a scalar compute (``temp``) in the thermo rows and a per-atom
+    one (``stress/atom``) through ``DeckRunner.compute``, 125 spheres over
+    50 steps; the port's thermo column and stress rows held to the
+    reference's (rtol 2e-3, the deck parity tolerance above; the stress
+    at 2e-3 of its largest entry)."""
+    text = """
+units           lj
+boundary        p p p
+atom_style      spherharm
+region          box block 0 6 0 6 0 6
+create_box      1 box
+shape           1 sphere 0.45
+lattice         sc 1.2
+create_atoms    1 region box seed 9
+velocity        all create 0.3 4
+pair_style      spherharm 1e4 1e4 5 5 0.3
+pair_coeff      * *
+compute         mytemp all temp
+compute         sa all stress/atom
+timestep        1e-3
+thermo          25
+run             50
+"""
+    j = jdeck.DeckRunner().run_text(text)
+    t = DeckRunner().run_text(text)
+    want = [row["c_mytemp"] for row in j.thermo_log.rows]
+    got = [row["c_mytemp"] for row in t.thermo_log.rows]
+    assert len(got) == len(want) == 3 and got[-1] > 0
+    np.testing.assert_allclose(got, want, rtol=2e-3)
+    n = int(t.state.n_active)
+    assert n == int(j.state.n_active) == 125
+    jsa, tsa = np.asarray(j.compute("sa"))[:n], np32(t.compute("sa"))[:n]
+    assert tsa.shape == jsa.shape and tsa.shape[0] >= n
+    np.testing.assert_allclose(tsa, jsa, rtol=0,
+                               atol=2e-3 * np.abs(jsa).max())
+
+
+def test_dump_peratom_compute_column_matches_reference(jax_exact, tmp_path):
+    """tests/test_computes.py's ``test_dump_peratom_compute_column`` in both
+    runners: ``coord/atom`` as the dump column ``c_1`` of two touching
+    spheres reads [1, 1] in the port's file, as in the reference's, frame
+    for frame."""
+    frames = {}
+    for sub, make in (("jax", jdeck.DeckRunner), ("port", DeckRunner)):
+        out = tmp_path / sub / "c.dump"
+        out.parent.mkdir()
+        make().run_text(f"""
+units lj
+boundary f f f
+region box block -2 2 -2 2 -2 2
+create_box 1 box
+shape 1 sphere 0.5
+pair_style spherharm 100000 28571 0 0 0
+timestep 2e-4
+create_atoms 1 single -0.45 0 0
+create_atoms 1 single 0.45 0 0
+compute 1 all coord/atom
+fix 1 all nve/sh
+dump 1 all custom 10 {out} id x c_1
+run 10
+""")
+        frames[sub] = read_dump(out)
+    assert len(frames["port"]) == len(frames["jax"]) >= 1
+    for tf, jf in zip(frames["port"], frames["jax"]):
+        assert "c_1" in tf["columns"]
+        assert list(np.asarray(tf["data"]["c_1"])) == [1.0, 1.0]
+        np.testing.assert_array_equal(tf["data"]["c_1"], jf["data"]["c_1"])
+        np.testing.assert_array_equal(tf["data"]["id"], jf["data"]["id"])
+
+
+@pytest.mark.parametrize("name,dims",[("triaxial.in", (2, 2, 2)),
                                        ("two_materials.in", (3, 3, 3))])
 def test_example_overflows_as_reference(name, dims, tmp_path):
     """Two example decks overflow in the reference's runner and the port's

@@ -35,10 +35,8 @@ import pytest
 import torch
 import torch.distributed as dist
 
-from spherharm_tpu_torch.core.state import SimParams, State
+from spherharm_tpu_torch.core.state import State
 from spherharm_tpu_torch.io import restart as rio
-from spherharm_tpu_torch.models import scenarios, shapes_library
-from spherharm_tpu_torch.ops.walls import PlaneWall
 from spherharm_tpu_torch.parallel import dryrun as dryrun_mod
 from spherharm_tpu_torch.parallel import ranks
 from spherharm_tpu_torch.parallel.brick import BrickSimulation, RankBrickAxes
@@ -46,6 +44,7 @@ from spherharm_tpu_torch.parallel.halo import RankAxis, ShardedSimulation
 
 from test_torch_brick import _build as brick_build
 from test_torch_halo import STEPS, _build as slab_build
+from torch_port_util import floor_layers as _floor_layers
 
 TIMEOUT = 300.0
 TRIGGER_STEPS = 120
@@ -53,34 +52,6 @@ CK_STEPS, RESUME_STEPS = 250, 200
 FIELDS = ("x", "v", "q", "angmom", "f", "tau", "tag", "active", "image")
 NEIGH = ("overflow", "skin_violations", "budget", "pair_valid", "pair_i",
          "pair_j", "hist", "neigh_tag")
-
-
-def _floor_layers():
-    """tests/test_torch_halo_runs.py's restart system: two layers of
-    Lmax-2 ellipsoids on a plane floor under gravity, 4 slabs."""
-    rng = np.random.default_rng(6)
-    shapes = shapes_library.build_shapes(
-        [shapes_library.ellipsoid_coeffs(0.55, 0.45, 0.4, 2)], 2,
-        contact_quad=(6, 12), device="cpu")
-    box = 8.0
-    pts = [[(i % 6) * 1.3 + 0.7 + 0.08 * layer, (i // 6) * 1.3 + 0.7, z]
-           for layer, z in enumerate((0.46, 1.32)) for i in range(24)]
-    x = np.asarray(pts) + rng.uniform(-0.03, 0.03, (48, 3))
-    v = rng.normal(size=(48, 3)) * 0.1
-    params = SimParams.create(dt=1e-3, kn=1e4, gamma_n=30.0, mu=1.0,
-                              gravity=(0.0, 0.0, -5.0), cutoff=1.2, skin=0.3,
-                              device="cpu")
-    state = scenarios.make_state(x, [0, 0, 0], [box, box, 4.0], v=v,
-                                 device="cpu")
-    kw = dict(box_lo=(0, 0, 0), box_hi=(box, box, 4.0), migrate_cap=16,
-              periodic=(True, True, False), k_max=16, cell_cap=12,
-              pair_capacity=512, conservative=False, device="cpu",
-              walls=(PlaneWall.create((0, 0, 0), (0, 0, 1), device="cpu"),))
-    sim = ShardedSimulation(shapes, params, n_shards=4, cap_local=48,
-                            halo_cap=32, **kw)
-    resume = ShardedSimulation(shapes, params, n_shards=2, cap_local=64,
-                               halo_cap=48, **kw)
-    return sim, state, resume
 
 
 def _systems():

@@ -18,7 +18,9 @@
   ``make_force_fns``: the geometric law (K2's twin) and the autograd
   gradient of its PE, each within 1e-5 |F, tau|max, tighter than the
   reference's own bound for the geometric law, 2e-3 (tests/test_pallas.py):
-  both agree to ~1e-6 at this pose (Lmax 4 and 8).
+  both agree to ~1e-6 at this pose (Lmax 4 and 8). With the shape tables
+  and every input in float64, both laws agree to 1e-9 at Lmax 8 at three
+  poses down to the bounce's least gap: one law in both packages.
 * Each ``main`` with ``--device cpu`` at a tiny size, and the two timing
   tools' smoke runs (n = 128 drum, one cadence, the stage names printed).
 """
@@ -46,7 +48,7 @@ from spherharm_tpu_torch.validation import (
     restitution_curve,
 )
 
-from torch_port_util import load_script, np32
+from torch_port_util import jax_f64, load_script, np32, on_cpu
 
 STEPS = 20
 
@@ -215,6 +217,123 @@ def test_probe_forces_match_reference(probe_ref):
     # The conservative law (K1's twin) pushes the pair apart as well.
     f, _ = forces["cons"](ts)
     assert float(f[0, 0]) < 0 < float(f[1, 0])
+
+
+def test_probe_laws_match_reference_in_float64(probe_ref, monkeypatch):
+    """The probe's laws are one law in both packages: with the shape tables
+    built in float64 and every input in float64, the geometric forces and
+    torques and the autograd gradient of its PE agree with the script's to
+    1e-9 |F, tau|max at Lmax 8 (the card's size), at centres 0.9 (deep),
+    0.94 and 0.97 apart (the bounce's least gap: 0.969). In float32 the two
+    sit up to ~1e-4 |F|max apart along the bounce: one law rounded two ways
+    (the reference's recurrence from the SH coefficients, the port's
+    float32 power-basis table)."""
+    from spherharm_tpu_torch.models import shapes_library as tshapes_lib
+
+    build_j, build_t = (probe_ref.shapes_library.build_shapes,
+                        tshapes_lib.build_shapes)
+    monkeypatch.setattr(probe_ref.shapes_library, "build_shapes",
+                        lambda *a, **k: build_j(*a, dtype=jnp.float64, **k))
+    monkeypatch.setattr(tshapes_lib, "build_shapes",
+                        lambda *a, **k: build_t(*a, dtype=torch.float64, **k))
+    jshapes, jparams, js0 = (jax_f64(o) for o in probe_ref.build(1e-4))
+    forces_auto, forces_geom, _, meta_row = probe_ref.make_force_fns(
+        jshapes, jparams)
+    forces_geom = jax.jit(forces_geom)
+    tshapes, tparams, ts0 = (on_cpu(o, torch.float64) for o in
+                             conservative_probe.build(1e-4, device="cpu"))
+    forces, pe_of = conservative_probe.make_force_fns(tshapes, tparams)
+    for sep in (0.9, 0.94, 0.97):
+        x = np.array(js0.x, np.float64)
+        x[:, 0] = [-sep / 2, sep / 2]
+        js = js0.replace(x=jnp.asarray(x))
+        ts = ts0.replace(x=torch.tensor(x))
+        assert float(pe_of(ts, False)) > 0, sep
+        want = {"auto": forces_auto(js, meta_row(js, 0), meta_row(js, 1)),
+                "geom": forces_geom(js)}
+        for mode, (jf, jtau) in want.items():
+            f, tau = forces[mode](ts)
+            assert f.dtype == torch.float64, mode
+            ref = np.concatenate([np.asarray(jf), np.asarray(jtau)], axis=1)
+            got = np.concatenate([np32(f), np32(tau)], axis=1)
+            scale = np.abs(ref).max()
+            assert scale > 1.0
+            np.testing.assert_allclose(got, ref, rtol=0, atol=1e-9 * scale,
+                                       err_msg=f"{mode} at {sep}")
+
+
+
+# The reference's own float32 bounce (scripts/conservative_probe.py, auto
+# row, dt 2.5e-5), its poses (x, q) at steps 20,950 (the first in contact
+# of those sampled every 50 steps, where the two packages' float32 forces
+# part the most) and 21,000, each with the bound held below.
+BOUNCE_POSES = {
+    20950: ([[-0.48779875, 0.02, -0.03], [0.48779875, 2.794421e-09, 2.8548484e-09]],
+            [[0.074495256, -0.20598553, -0.16276489, -0.9620437], [0.7852519, 0.49922472, -0.14198914, 0.3376288]],
+            2e-4),
+    21000: ([[-0.48718026, 0.019999992, -0.03000003], [0.48718026, 2.4833817e-08, 4.0964494e-08]],
+            [[0.07449443, -0.20598318, -0.16276503, -0.96204424], [0.7852522, 0.49922457, -0.14198832, 0.33762863]],
+            5e-5),
+}
+
+
+def test_probe_float32_forces_at_the_bounce(probe_ref, monkeypatch):
+    """At the poses above, the two packages' float32 forces and torques
+    part by more than test_probe_forces_match_reference's 1e-5 |F, tau|max
+    (auto 3.7e-4 and 9.2e-5, geom 2.2e-5 and 5.1e-5): each rounds the one
+    law its own way. Held to that law in float64 (the port's with
+    shape tables built in float64, the reference's to 1e-9, as the test
+    above), the port's float32 is within the pose's bound (measured: 1.2e-4
+    and 3.5e-5 at most) and no farther than the reference's float32 (2.5e-4
+    and 1.2e-4 at most), for both laws."""
+    from spherharm_tpu_torch.models import shapes_library as tshapes_lib
+
+    dt = 2.5e-5
+    with jax.enable_x64(False):  # as the script runs (conftest turns it on)
+        jshapes, jparams, js0 = probe_ref.build(dt)
+        forces_auto, forces_geom, _, meta_row = probe_ref.make_force_fns(
+            jshapes, jparams)
+        forces_geom = jax.jit(forces_geom)
+
+        def ref_forces(x, q):
+            js = js0.replace(x=js0.x.at[:2].set(jnp.asarray(x)),
+                             q=js0.q.at[:2].set(jnp.asarray(q)))
+            out = {"auto": forces_auto(js, meta_row(js, 0), meta_row(js, 1)),
+                   "geom": forces_geom(js)}
+            return {m: np.concatenate([np.asarray(f[:2]), np.asarray(t[:2])], 1)
+                    for m, (f, t) in out.items()}
+
+        ref32 = {k: ref_forces(x, q) for k, (x, q, _) in BOUNCE_POSES.items()}
+
+    def port_forces(dtype):
+        tshapes, tparams, ts0 = (on_cpu(o, dtype) for o in
+                                 conservative_probe.build(dt, device="cpu"))
+        forces, pe_of = conservative_probe.make_force_fns(tshapes, tparams)
+        out = {}
+        for k, (x, q, _) in BOUNCE_POSES.items():
+            ts = ts0.replace(x=torch.tensor(x, dtype=torch.float32).to(dtype),
+                             q=torch.tensor(q, dtype=torch.float32).to(dtype))
+            assert float(pe_of(ts, False)) > 0, k
+            out[k] = {m: np.concatenate([np32(a).astype(np.float64)
+                                         for a in forces[m](ts)], 1)
+                      for m in ("auto", "geom")}
+        return out
+
+    port32 = port_forces(torch.float32)
+    build_t = tshapes_lib.build_shapes
+    monkeypatch.setattr(tshapes_lib, "build_shapes",
+                        lambda *a, **k: build_t(*a, dtype=torch.float64, **k))
+    law = port_forces(torch.float64)
+    for k, (_, _, bound) in BOUNCE_POSES.items():
+        for mode in ("auto", "geom"):
+            scale = np.abs(law[k][mode]).max()
+            assert scale > 1.0
+            rel = lambda a, b: np.abs(a - b).max() / scale
+            err_port = rel(port32[k][mode], law[k][mode])
+            err_ref = rel(ref32[k][mode], law[k][mode])
+            assert rel(port32[k][mode], ref32[k][mode]) > 1e-5, (k, mode)
+            assert err_port <= bound, (k, mode, err_port)
+            assert err_port <= err_ref, (k, mode, err_port, err_ref)
 
 
 def test_packing_build_matches_reference(monkeypatch):

@@ -163,6 +163,17 @@ def on_cpu(container, dtype):
     return container.replace(**kw)
 
 
+def jax_f64(container):
+    """A copy of a reference (flax) container with every floating-point
+    array in float64 (``jax_enable_x64`` on); ``on_cpu`` is the port's."""
+    kw = {}
+    for f in dataclasses.fields(container):
+        v = getattr(container, f.name)
+        if np.issubdtype(getattr(v, "dtype", np.int8), np.floating):
+            kw[f.name] = v.astype(np.float64)
+    return container.replace(**kw)
+
+
 def slab_drift_system(S, wall=False):
     """A slab system whose first rebuilds migrate particles: the tiny
     system of ``__graft_entry__.dryrun_multichip`` (16 S particles in a
@@ -344,3 +355,38 @@ def brick_drift_system(mesh_shape, wall=False, bounds=None, box_z=6.0):
             place((0, 1), (bx, by), 2.5)
             v[taken[-1], 2] = 0.0
     return x, v, box, periodic
+
+
+def floor_layers(device="cpu"):
+    """tests/test_torch_halo_runs.py's restart system on ``device``: two
+    layers of Lmax-2 ellipsoids on a plane floor under gravity. Returns
+    (the 4-slab sim, the global start, the 2-slab sim a restart resumes
+    on)."""
+    from spherharm_tpu_torch.core.state import SimParams
+    from spherharm_tpu_torch.models import scenarios, shapes_library
+    from spherharm_tpu_torch.ops.walls import PlaneWall
+    from spherharm_tpu_torch.parallel.halo import ShardedSimulation
+
+    rng = np.random.default_rng(6)
+    shapes = shapes_library.build_shapes(
+        [shapes_library.ellipsoid_coeffs(0.55, 0.45, 0.4, 2)], 2,
+        contact_quad=(6, 12), device=device)
+    box = 8.0
+    pts = [[(i % 6) * 1.3 + 0.7 + 0.08 * layer, (i // 6) * 1.3 + 0.7, z]
+           for layer, z in enumerate((0.46, 1.32)) for i in range(24)]
+    x = np.asarray(pts) + rng.uniform(-0.03, 0.03, (48, 3))
+    v = rng.normal(size=(48, 3)) * 0.1
+    params = SimParams.create(dt=1e-3, kn=1e4, gamma_n=30.0, mu=1.0,
+                              gravity=(0.0, 0.0, -5.0), cutoff=1.2, skin=0.3,
+                              device=device)
+    state = scenarios.make_state(x, [0, 0, 0], [box, box, 4.0], v=v,
+                                 device=device)
+    kw = dict(box_lo=(0, 0, 0), box_hi=(box, box, 4.0), migrate_cap=16,
+              periodic=(True, True, False), k_max=16, cell_cap=12,
+              pair_capacity=512, conservative=False, device=device,
+              walls=(PlaneWall.create((0, 0, 0), (0, 0, 1), device=device),))
+    sim = ShardedSimulation(shapes, params, n_shards=4, cap_local=48,
+                            halo_cap=32, **kw)
+    resume = ShardedSimulation(shapes, params, n_shards=2, cap_local=64,
+                               halo_cap=48, **kw)
+    return sim, state, resume
