@@ -211,7 +211,7 @@ Phases, each fatal on failure (exit code != 0, no result line):
    on the warm drum, the cadence sweep (``cadence_phase``: the rebuild
    step, the plain step and a block of 20 as graph replays between CUDA
    events; one row per cadence of CADENCES, one block each) and the
-   per-stage profile table; after the drift gas (``validation_phase``)
+   span profile (``profile_step``'s table of the step's spans); after the drift gas (``validation_phase``)
    the four blobs under the geometric law (K2) and the conservative law
    (K1) and the Lmax-0 collider (K1), each until a collision and a
    free-flight sample after it (drift and rate printed), the restitution
@@ -3075,15 +3075,18 @@ def quiet(_line):
 
 
 def cadence_phase(sim, state, neigh, smi):
-    """The cadence sweep and the per-stage profile
+    """The cadence sweep and the span profile
     (``validation/cadence_sweep.py``, ``validation/profile_step.py``) on the
     main-path drum warmed up by its own run: the rebuild step, the plain
     step and a block of R_EVERY (graph replays between CUDA events), one
     row per cadence of ``CADENCES`` (one block each: 3R steps, 60 for the
     trigger; a row with skin violations or overflow void, as in the
-    reference), then the stage table. Returns {path: launches}."""
+    reference), then the span profile of 3 R_EVERY steps (every span of
+    ``utils/spans`` opened, 98 % of the device time in some span). Returns
+    {path: launches}."""
     import torch
 
+    from spherharm_tpu_torch.utils import spans, timing
     from spherharm_tpu_torch.validation import cadence_sweep, profile_step
 
     t0 = time.perf_counter()
@@ -3105,11 +3108,15 @@ def cadence_phase(sim, state, neigh, smi):
                 f"cadence sweep R={r}: a kernel never launched: "
                 f"{counted[f'cadence sweep R={r}']}")
     reset_counts()
-    stages = profile_step.stage_times(sim, state, neigh, reps=3,
-                                      out=lambda line: print(f"profile: {line}"))
+    steps = 3 * R_EVERY
+    _, summary = timing.span_profile(lambda: sim.run(state, neigh, steps))
     counted["profile"] = launch_counts()
-    require(all(k in stages for k in profile_step.STAGES),
-            f"profile: a stage is missing: {sorted(stages)}")
+    profile_step.print_profile(summary, steps,
+                               out=lambda line: print(f"profile: {line}"))
+    missing = [k for k in spans.SPANS if not summary["spans_n"].get(k)]
+    require(not missing, f"profile: spans never opened on the card: {missing}")
+    require(summary["coverage"] >= 0.98,
+            f"profile: the spans cover {summary['coverage']} of the device time")
     print(f"cadence sweep and profile phase: {time.perf_counter() - t0:.1f}s [{smi}]")
     return counted
 

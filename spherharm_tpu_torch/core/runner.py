@@ -28,7 +28,16 @@ of the step once each as a CUDA graph and replays them:
   attribute call, the cached constant tensors of ``ops/neighbor.py``);
 * the kernel wrappers count launches in Python, so a capture counts
   each launch once: the runner records each graph's counts at capture,
-  takes them (and the warm-up's) back out, and adds them on every replay.
+  takes them (and the warm-up's) back out, and adds them on every replay;
+  the host counters of ``utils/spans`` ride the same way, and what the
+  warm-up added to its device counters is taken back out;
+* with spans on (``utils/spans``) a runner's graphs hold the step's span
+  marks and its copies are spans (``runner.store``, ``runner.load``,
+  ``runner.result``); replays and captures are host ranges
+  (``spherharm.replay.<unit>``, ``spherharm.capture.<unit>``).
+  ``cached_runner`` keys runners by the spans state too, so a spans-off
+  run never replays a marked graph and switching spans on leaves the
+  spans-off runners as they were.
 
 Nothing here falls back: a capture or a replay that fails raises. The
 units do not know they are captured, so a step written in them (a
@@ -48,6 +57,8 @@ import dataclasses
 import time
 
 import torch
+
+from spherharm_tpu_torch.utils import spans
 
 
 def kernel_counters():
@@ -108,7 +119,8 @@ class GraphRunner:
     def __init__(self, buffers: dict, capture_error_mode: str = "global"):
         self.buffers = {k: _map(torch.clone, v) for k, v in buffers.items()}
         self.capture_error_mode = capture_error_mode
-        self.counters = kernel_counters()
+        self.counters = kernel_counters() + (spans.host_counters(),)
+        self.device = _tensors(next(iter(self.buffers.values())))[0].device
         self.pool = torch.cuda.graph_pool_handle()
         self.graphs = {}      # unit name -> (CUDAGraph, launch deltas)
         self.replays = collections.Counter()
@@ -121,14 +133,16 @@ class GraphRunner:
 
     def load(self, **values):
         """Copy the caller's values into the buffers of those names."""
-        for name, value in values.items():
-            for dst, src in zip(_tensors(self.buffers[name]),
-                                _tensors(value)):
-                dst.copy_(src)
+        with spans.span("runner.load", self.device):
+            for name, value in values.items():
+                for dst, src in zip(_tensors(self.buffers[name]),
+                                    _tensors(value)):
+                    dst.copy_(src)
 
     def result(self, *names):
         """Clones of the named buffers."""
-        return tuple(_map(torch.clone, self.buffers[n]) for n in names)
+        with spans.span("runner.result", self.device):
+            return tuple(_map(torch.clone, self.buffers[n]) for n in names)
 
     def _store(self, out: dict):
         """Copy a unit's outputs into the buffers (and its flag into the
@@ -150,41 +164,47 @@ class GraphRunner:
                         f"for a buffer of {name} of {tuple(dst.shape)} "
                         f"{dst.dtype}")
                 pairs.append((dst, src))
-        pairs = [(d, s.clone() if s.untyped_storage().data_ptr()
-                  in self._buffer_storage else s) for d, s in pairs]
-        for dst, src in pairs:
-            dst.copy_(src, non_blocking=dst is self._flag)
+        with spans.span("runner.store", self.device):
+            pairs = [(d, s.clone() if s.untyped_storage().data_ptr()
+                      in self._buffer_storage else s) for d, s in pairs]
+            for dst, src in pairs:
+                dst.copy_(src, non_blocking=dst is self._flag)
 
     def capture(self, name: str, unit):
         """Capture ``unit(buffers) -> {buffer name: new value[, "flag":
         0-d bool]}`` as the graph ``name``, after one eager run of it on a
         side stream whose outputs are dropped. Launch counters are left as
-        they were before the warm-up."""
+        they were before the warm-up, and so are the spans' counters."""
         t0 = time.perf_counter()
-        before = _snapshot(self.counters)
-        side = torch.cuda.Stream()
-        side.wait_stream(torch.cuda.current_stream())
-        with torch.cuda.stream(side):
-            unit(self.buffers)
-        torch.cuda.current_stream().wait_stream(side)
-        warm = _snapshot(self.counters)
-        graph = torch.cuda.CUDAGraph()
-        with torch.cuda.graph(graph, pool=self.pool,
-                              capture_error_mode=self.capture_error_mode):
-            self._store(unit(self.buffers))
-        delta = [{k: c[k] - w[k] for k in c} for c, w in
-                 zip(self.counters, warm)]
-        for c, b in zip(self.counters, before):
-            c.update(b)
+        with spans.host("spherharm.capture", name):
+            before = _snapshot(self.counters)
+            before_dev = spans.device_snapshot()
+            side = torch.cuda.Stream()
+            side.wait_stream(torch.cuda.current_stream())
+            with torch.cuda.stream(side):
+                unit(self.buffers)
+            torch.cuda.current_stream().wait_stream(side)
+            spans.restore_device(before_dev)
+            warm = _snapshot(self.counters)
+            graph = torch.cuda.CUDAGraph()
+            with torch.cuda.graph(graph, pool=self.pool,
+                                  capture_error_mode=self.capture_error_mode):
+                self._store(unit(self.buffers))
+            delta = [{k: c[k] - w.get(k, 0) for k in c} for c, w in
+                     zip(self.counters, warm)]
+            for c, b in zip(self.counters, before):
+                c.clear()
+                c.update(b)
         self.graphs[name] = (graph, delta)
         self.capture_s += time.perf_counter() - t0
 
     def replay(self, name: str):
         graph, delta = self.graphs[name]
-        graph.replay()
+        with spans.host("spherharm.replay", name):
+            graph.replay()
         for c, d in zip(self.counters, delta):
             for k, n in d.items():
-                c[k] += n
+                c[k] = c.get(k, 0) + n
         self.replays[name] += 1
 
     def read_flag(self) -> bool:
@@ -231,24 +251,25 @@ def params_view(sim, buffers: dict):
 
 
 def cached_runner(sim, buffers: dict, names: tuple,
-                  scratch: dict | None = None,
+                  scratch=None,
                   capture_error_mode: str = "global") -> GraphRunner:
     """The GraphRunner of ``sim`` for the signature of ``buffers`` (name ->
     container or tensor, ``params`` among them), loaded with them, with
     the units ``names`` of ``sim._units()`` captured (in
-    ``capture_error_mode``). ``scratch``: buffers
-    a new runner adds that no caller loads. Runners are cached in
+    ``capture_error_mode``). ``scratch()``: the buffers a new runner adds
+    that no caller loads (made only for a new runner). Runners are cached in
     ``sim._graphs`` (its shallow copies share the cache); the cache is
     dropped when an attribute the graphs hold fixed changed (walls, group
     fixes, shapes, ...): params are data, so a new params object of the
-    same shapes reuses the graphs."""
+    same shapes reuses the graphs. The key holds the spans state
+    (``spans.is_on()``): spans on and off keep runners of their own."""
     config = config_of(sim)
     if any(not same_config(r.config, config) for r in sim._graphs.values()):
         sim._graphs.clear()
-    key = tuple(signature(v) for v in buffers.values())
+    key = (spans.is_on(),) + tuple(signature(v) for v in buffers.values())
     runner = sim._graphs.get(key)
     if runner is None:
-        runner = GraphRunner({**buffers, **(scratch or {})},
+        runner = GraphRunner({**buffers, **(scratch() if scratch else {})},
                              capture_error_mode)
         runner.config = config
     runner.load(**buffers)

@@ -28,6 +28,13 @@ every shape is static across steps.
 Kernels run where the tensors live: CUDA tensors launch the hand-written
 kernels, CPU tensors their plain twins.
 
+With spans on (``utils/spans``) the units mark their layers: ``step.pre``,
+``step.trigger`` (the skin trigger or motion budget), ``rebuild`` and its
+stages, ``pair`` (``ops/contact.py``: ``pair.pack``, ``pair.law``,
+``pair.reduce``), ``walls``, ``step.post``; ``run`` and ``run_inline``
+are the host range ``spherharm.run``, and a check-mode step's wait on its
+flag and launch of its second unit ``spherharm.trigger``.
+
 The step also takes replicas stacked along a leading axis, with
 ``params`` stacked alike (``parallel/ensemble.py``, which drives it):
 every op runs once over all replicas, and in check mode each replica
@@ -51,6 +58,7 @@ from spherharm_tpu_torch.core.state import (
 )
 from spherharm_tpu_torch.ops import contact, integrate, neighbor
 from spherharm_tpu_torch.ops import walls as walls_mod
+from spherharm_tpu_torch.utils import spans
 
 
 class Simulation:
@@ -203,44 +211,56 @@ class Simulation:
             torch.where(cell_ovf > self.cell_cap, cell_ovf, zero))
 
     def _rebuild(self, state: State, neigh: NeighborState):
+        with spans.span("rebuild", state.x.device):
+            return self._rebuild_spanned(state, neigh)
+
+    def _rebuild_spanned(self, state: State, neigh: NeighborState):
+        dev = state.x.device
         x, image = neighbor.wrap_positions(
             state.x, state.image, state.box_lo, state.box_hi, self.periodic,
             self._tilt(state))
         state = state.replace(x=x, image=image)
-        if self.pair_capacity > 0:
-            # Live springs ride in pair space between rebuilds; fold them
-            # back into the tag-keyed [N, K] layout before remapping.
-            neigh = neigh.replace(hist=contact.pair_hist_to_dense(neigh))
-        idx, mask, overflow = self._build_list(state)
-        neigh_tag = torch.where(mask, take(state.tag, idx, state.replicas), 0)
-        row_ok = neigh.row_tag == state.tag  # single device: slots stable
-        hist = neighbor.remap_history(
-            neigh_tag, mask, neigh.neigh_tag, neigh.mask, neigh.hist, row_ok)
+        with spans.span("rebuild.cell_list", dev):
+            idx, mask, overflow = self._build_list(state)
+        with spans.span("rebuild.remap", dev):
+            if self.pair_capacity > 0:
+                # Live springs ride in pair space between rebuilds; fold
+                # them back into the tag-keyed [N, K] layout to remap.
+                neigh = neigh.replace(hist=contact.pair_hist_to_dense(neigh))
+            neigh_tag = torch.where(mask, take(state.tag, idx, state.replicas),
+                                    0)
+            row_ok = neigh.row_tag == state.tag  # single device: slots stable
+            hist = neighbor.remap_history(
+                neigh_tag, mask, neigh.neigh_tag, neigh.mask, neigh.hist,
+                row_ok)
         neigh = neigh.replace(
             idx=idx, mask=mask, hist=hist, neigh_tag=neigh_tag,
             row_tag=state.tag, x_build=state.x, q_build=state.q,
             overflow=torch.maximum(neigh.overflow, overflow))
         if self.pair_capacity <= 0:
             return state, neigh
-        pair_fields, n_pairs = contact.build_pair_list(
-            state, self.shapes, self.params, idx, mask, hist, state.active,
-            self.pair_capacity, self.periodic, tilt=self._tilt(state))
-        zero = torch.zeros_like(n_pairs)
-        overflow = torch.maximum(
-            neigh.overflow,
-            torch.where(n_pairs > self.pair_capacity, n_pairs, zero))
-        if self.prefilter:
-            pair_fields, n_surv, budget = contact.prefilter_pair_list(
-                state, self.shapes, self.params, pair_fields,
-                self.stage2_capacity, self.k_max,
-                # Motion-budget horizon: the cadence, or an estimate when
-                # the skin trigger decides.
-                window_steps=self.rebuild_every or 16,
-                periodic=self.periodic, tilt=self._tilt(state),
-                probe_chunk=self.rebuild_chunk)
+        with spans.span("rebuild.pair_build", dev):
+            pair_fields, n_pairs = contact.build_pair_list(
+                state, self.shapes, self.params, idx, mask, hist,
+                state.active, self.pair_capacity, self.periodic,
+                tilt=self._tilt(state))
+            zero = torch.zeros_like(n_pairs)
             overflow = torch.maximum(
-                overflow,
-                torch.where(n_surv > self.stage2_capacity, n_surv, zero))
+                neigh.overflow,
+                torch.where(n_pairs > self.pair_capacity, n_pairs, zero))
+        if self.prefilter:
+            with spans.span("rebuild.prefilter", dev):
+                pair_fields, n_surv, budget = contact.prefilter_pair_list(
+                    state, self.shapes, self.params, pair_fields,
+                    self.stage2_capacity, self.k_max,
+                    # Motion-budget horizon: the cadence, or an estimate
+                    # when the skin trigger decides.
+                    window_steps=self.rebuild_every or 16,
+                    periodic=self.periodic, tilt=self._tilt(state),
+                    probe_chunk=self.rebuild_chunk)
+                overflow = torch.maximum(
+                    overflow,
+                    torch.where(n_surv > self.stage2_capacity, n_surv, zero))
             neigh = neigh.replace(budget=budget)
         return state, neigh.replace(overflow=overflow, **pair_fields)
 
@@ -264,19 +284,32 @@ class Simulation:
 
     def compute_forces(self, state: State, neigh: NeighborState):
         """Fill f/tau; returns (state, neigh with updated springs, aux)."""
-        if self.pair_capacity > 0:
-            f, tau, pair_hist, pe_pair, virial = contact.contact_force_pairs(
-                state, self.shapes, self.params, neigh,
-                periodic=self.periodic, tilt=self._tilt(state),
-                conservative=self.conservative)
-            neigh = neigh.replace(pair_hist=pair_hist)
-        else:
-            f, tau, hist, pe_pair, virial = contact.contact_force_dense(
-                state, self.shapes, self.params, neigh,
-                periodic=self.periodic, tilt=self._tilt(state),
-                conservative=self.conservative)
-            neigh = neigh.replace(hist=hist)
+        dev = state.x.device
+        with spans.span("pair", dev):
+            if self.pair_capacity > 0:
+                f, tau, pair_hist, pe_pair, virial = (
+                    contact.contact_force_pairs(
+                        state, self.shapes, self.params, neigh,
+                        periodic=self.periodic, tilt=self._tilt(state),
+                        conservative=self.conservative))
+                neigh = neigh.replace(pair_hist=pair_hist)
+            else:
+                f, tau, hist, pe_pair, virial = contact.contact_force_dense(
+                    state, self.shapes, self.params, neigh,
+                    periodic=self.periodic, tilt=self._tilt(state),
+                    conservative=self.conservative)
+                neigh = neigh.replace(hist=hist)
 
+        with spans.span("walls", dev):
+            f, tau, neigh, pe_wall = self._wall_forces(state, neigh, f, tau)
+        with spans.span("step.post", dev):
+            state = self._body_forces(state, f, tau)
+        return state, neigh, {"pe_pair": pe_pair, "pe_wall": pe_wall,
+                              "virial": virial}
+
+    def _wall_forces(self, state: State, neigh: NeighborState, f, tau):
+        """Every wall's forces and torques added to (f, tau); returns (f,
+        tau, neigh with the wall springs and overflow, pe_wall)."""
         pe_wall = torch.zeros((), dtype=f.dtype, device=f.device)
         wall_hists = []
         overflow = neigh.overflow
@@ -294,8 +327,11 @@ class Simulation:
                     torch.zeros_like(n_near)))
         if wall_hists:
             neigh = neigh.replace(wall_hist=torch.stack(wall_hists, dim=-2))
-        neigh = neigh.replace(overflow=overflow)
+        return f, tau, neigh.replace(overflow=overflow), pe_wall
 
+    def _body_forces(self, state: State, f, tau) -> State:
+        """Gravity, then the group fixes, on (f, tau): the state with
+        them."""
         m = self.shapes.mass_of(state.shtype, state.scale)
         g = per_replica(self.params.gravity, 1, f.dim())
         f = f + torch.where(state.active[..., None], m[..., None] * g, 0.0)
@@ -312,9 +348,7 @@ class Simulation:
                 else:  # setforce
                     v, kp = self._setforce[i]
                     f = torch.where(mem3 & ~kp, v, f)
-        state = state.replace(f=f, tau=tau)
-        return state, neigh, {"pe_pair": pe_pair, "pe_wall": pe_wall,
-                              "virial": virial}
+        return state.replace(f=f, tau=tau)
 
     # -- stepping ---------------------------------------------------------
 
@@ -322,6 +356,14 @@ class Simulation:
         """The step's first unit: initial integrate, deformation and the
         tilt sentinel. Returns (state, neigh, stale): with ``check`` the
         skin trigger (``_stale``: 0-d, or [R] with replicas), else None."""
+        with spans.span("step.pre", state.x.device):
+            state, neigh = self._pre_spanned(state, neigh)
+        if not check:
+            return state, neigh, None
+        with spans.span("step.trigger", state.x.device):
+            return state, neigh, self._stale(state, neigh)
+
+    def _pre_spanned(self, state: State, neigh: NeighborState):
         state = integrate.initial_integrate(state, self.shapes, self.params)
         state, x_build, _ = integrate.apply_deformation(
             state, neigh.x_build, self.params, self.periodic)
@@ -337,15 +379,18 @@ class Simulation:
             neigh = neigh.replace(overflow=torch.maximum(
                 neigh.overflow, torch.where(
                     bad, 1 << 21, torch.zeros_like(neigh.overflow))))
-        return state, neigh, self._stale(state, neigh) if check else None
+        return state, neigh
 
     def _rebuild_always(self, state: State, neigh: NeighborState):
         """A scheduled rebuild, recording (not branching on) a stale list
         in ``skin_violations``."""
-        viol = self._stale(state, neigh).long()
+        dev = state.x.device
+        with spans.span("step.trigger", dev):
+            viol = self._stale(state, neigh).long()
         state, neigh = self._rebuild(state, neigh)
-        return state, neigh.replace(
-            skin_violations=neigh.skin_violations + viol)
+        with spans.span("step.trigger", dev):
+            return state, neigh.replace(
+                skin_violations=neigh.skin_violations + viol)
 
     def _rebuild_stale(self, state: State, neigh: NeighborState, stale):
         """The skin trigger's rebuild, run when ``stale`` is set somewhere.
@@ -356,17 +401,20 @@ class Simulation:
         new_state, new_neigh = self._rebuild(state, neigh)
         if not stale.dim():
             return new_state, new_neigh
-        return _keep(stale, new_state, state), _keep(stale, new_neigh, neigh)
+        with spans.span("step.trigger", state.x.device):
+            return (_keep(stale, new_state, state),
+                    _keep(stale, new_neigh, neigh))
 
     def _post(self, state: State, neigh: NeighborState):
         """The step's last unit: forces, final integrate, the servo."""
         state, neigh, aux = self.compute_forces(state, neigh)
-        state = integrate.final_integrate(state, self.shapes, self.params)
-        if self.press_control:
-            state, x_build = integrate.berendsen_box_control(
-                state, neigh.x_build, self.params, aux["virial"],
-                self.shapes)
-            neigh = neigh.replace(x_build=x_build)
+        with spans.span("step.post", state.x.device):
+            state = integrate.final_integrate(state, self.shapes, self.params)
+            if self.press_control:
+                state, x_build = integrate.berendsen_box_control(
+                    state, neigh.x_build, self.params, aux["virial"],
+                    self.shapes)
+                neigh = neigh.replace(x_build=x_build)
         return state, neigh
 
     def _step_core(self, state: State, neigh: NeighborState, rebuild: str):
@@ -406,13 +454,40 @@ class Simulation:
         kinds = [("always" if k == 0 else "never")
                  for length in [R] * n_blocks + ([rem] if rem else [])
                  for k in range(length)]
-        if not self._graphed(state, n_steps):
+        with spans.host("spherharm.run"):
+            return self._run_kinds(state, neigh, kinds)
+
+    def run_units(self, state: State, neigh: NeighborState, kinds,
+                  events=None):
+        """The units ``kinds`` (names of ``_units()``: "always", "never",
+        "pre", "post", "rebuild_post") run in order from (state, neigh),
+        each on the buffers the one before left: on CUDA tensors (unless
+        ``cuda_graphs`` is off) replays of their graphs, captured at the
+        first call; else eagerly. ``events``, a pair of CUDA events, is
+        recorded around the replays alone (after the load of (state,
+        neigh), before the copy of the result). Returns new (state,
+        neigh)."""
+        with spans.host("spherharm.run"):
+            return self._run_kinds(state, neigh, list(kinds), events)
+
+    def _run_kinds(self, state, neigh, kinds, events=None):
+        if not self._graphed(state, len(kinds)):
+            b = dict(state=state, neigh=neigh, params=self.params,
+                     stale=torch.zeros(state.x.shape[:-2], dtype=torch.bool,
+                                       device=state.x.device))
+            units = self._units()
             for kind in kinds:
-                state, neigh = self._step_core(state, neigh, kind)
-            return state, neigh
-        runner = self._runner(state, neigh, ("always", "never"))
+                out = units[kind](b)
+                out.pop("flag", None)
+                b.update(out)
+            return b["state"], b["neigh"]
+        runner = self._runner(state, neigh, tuple(dict.fromkeys(kinds)))
+        if events:
+            events[0].record()
         for kind in kinds:
             runner.replay(kind)
+        if events:
+            events[1].record()
         return runner.result("state", "neigh")
 
     def run_inline(self, state: State, neigh: NeighborState, n_steps: int):
@@ -425,6 +500,10 @@ class Simulation:
         synchronisation and the read; then ``_post``, or ``_rebuild_stale``
         and ``_post`` as one graph when the flag is set. Static mode
         replays the plain step."""
+        with spans.host("spherharm.run"):
+            return self._run_inline(state, neigh, n_steps)
+
+    def _run_inline(self, state: State, neigh: NeighborState, n_steps: int):
         if not self._graphed(state, n_steps):
             for _ in range(n_steps):
                 state, neigh = self.step(state, neigh)
@@ -438,8 +517,9 @@ class Simulation:
                                   ("pre", "post", "rebuild_post"))
             for _ in range(n_steps):
                 runner.replay("pre")
-                runner.replay("rebuild_post" if runner.read_flag()
-                              else "post")
+                with spans.host("spherharm.trigger"):
+                    runner.replay("rebuild_post" if runner.read_flag()
+                                  else "post")
         return runner.result("state", "neigh")
 
     # -- CUDA graphs --------------------------------------------------------
@@ -462,8 +542,9 @@ class Simulation:
         def pre(b):
             s, n, stale = view(self, b)._pre(b["state"], b["neigh"],
                                              check=True)
-            return {"state": s, "neigh": n, "stale": stale,
-                    "flag": stale.any()}
+            with spans.span("step.trigger", s.x.device):
+                return {"state": s, "neigh": n, "stale": stale,
+                        "flag": stale.any()}
 
         def post(b):
             s, n = view(self, b)._post(b["state"], b["neigh"])
@@ -482,11 +563,11 @@ class Simulation:
         """The GraphRunner for this state's signature with the units
         ``names`` captured, loaded with (state, neigh, params)
         (``runner.cached_runner``; the stale flags a scratch buffer)."""
-        stale = torch.zeros(state.x.shape[:-2], dtype=torch.bool,
-                            device=state.x.device)
         return runner_mod.cached_runner(
             self, dict(state=state, neigh=neigh, params=self.params), names,
-            scratch=dict(stale=stale))
+            scratch=lambda: dict(stale=torch.zeros(
+                state.x.shape[:-2], dtype=torch.bool,
+                device=state.x.device)))
 
     def graph_stats(self) -> dict:
         """The cached runners' totals (``runner.graph_stats``)."""

@@ -37,6 +37,7 @@ from spherharm_tpu_torch.core import state as state_mod
 from spherharm_tpu_torch.core.state import per_replica, take
 from spherharm_tpu_torch.ops import rotation, sh_power
 from spherharm_tpu_torch.ops.rotation import quat_rotate, quat_rotate_inv
+from spherharm_tpu_torch.utils import spans
 
 
 def periodic_mask(t, periodic):
@@ -615,23 +616,33 @@ def contact_force_pairs(state, shapes, params, neigh,
     Returns (f [N,3], tau [N,3], pair_hist [Pc,HW], pe_total, virial);
     with a replica axis each gains a leading [R] (pe_total [R], virial
     [R, 3, 3]) and the kernel runs once over all R lists.
+
+    Spans (``utils/spans``): ``pair.pack`` (rows, gathers, minimum image,
+    ``pack_pairs``; counts ``pair.slots``, the slots packed, and
+    ``pair.live``, the rows the law runs for), ``pair.law``, ``pair.reduce``.
     """
     from spherharm_tpu_torch.ops import contact_kernels as ck
 
     N = state.cap
+    dev = state.x.device
     pi, pj = neigh.pair_i, neigh.pair_j
     rep = pi.dim() == 2
     at = lambda t, i: take(t, i, rep)
-    rows = particle_rows(state, shapes)
-    rows_i, rows_j = at(rows, pi), at(rows, pj)
-    msk = (neigh.pair_valid & (rows_i[..., _RACT] > 0.5)
-           & (rows_j[..., _RACT] > 0.5))
-    dp = minimum_image(rows_j[..., _RX] - rows_i[..., _RX],
-                       state.box_lo, state.box_hi, periodic, tilt)
-    packed, tbl, cap, par = ck.pack_pairs(
-        state, shapes, params, pi, pj, msk, neigh.pair_hist, dp, rows=rows)
-    out = ck.pair_contact(packed, tbl, cap, par, lmax=shapes.lmax,
-                          conservative=conservative)
+    with spans.span("pair.pack", dev):
+        rows = particle_rows(state, shapes)
+        rows_i, rows_j = at(rows, pi), at(rows, pj)
+        msk = (neigh.pair_valid & (rows_i[..., _RACT] > 0.5)
+               & (rows_j[..., _RACT] > 0.5))
+        spans.count("pair.slots", msk.numel())
+        spans.count("pair.live", msk)
+        dp = minimum_image(rows_j[..., _RX] - rows_i[..., _RX],
+                           state.box_lo, state.box_hi, periodic, tilt)
+        packed, tbl, cap, par = ck.pack_pairs(
+            state, shapes, params, pi, pj, msk, neigh.pair_hist, dp,
+            rows=rows)
+    with spans.span("pair.law", dev):
+        out = ck.pair_contact(packed, tbl, cap, par, lmax=shapes.lmax,
+                              conservative=conservative)
     out = out.reshape(pi.shape + (ck.N_OUT,))
     force = out[..., 0:3]
     torque = out[..., 3:6]
@@ -639,20 +650,22 @@ def contact_force_pairs(state, shapes, params, neigh,
     hist_new = out[..., 9:15]
     pe = out[..., 15]
 
-    # i side: pair_i is sorted by construction. j side (reaction, half-list
-    # pairs only): permuted into pair_j order, so also a sorted sum.
-    acc_i = sorted_segment_sum(torch.cat([force, torque], dim=-1), pi, N)
-    w_j = (msk & neigh.pair_both).to(force.dtype)[..., None]
-    perm = neigh.pair_jsort
-    acc_j = sorted_segment_sum(
-        at(torch.cat([-force * w_j, torque_j * w_j], dim=-1), perm),
-        at(pj, perm), N)
-    f = acc_i[..., 0:3] + acc_j[..., 0:3]
-    tau = acc_i[..., 3:6] + acc_j[..., 3:6]
-    w_pe = torch.where(msk & neigh.pair_both, 1.0, 0.5).to(pe.dtype)
-    pe_total = (pe * w_pe).sum(-1)
-    virial = -torch.einsum("rp,rpa,rpb->rab" if rep else "p,pa,pb->ab",
-                           w_pe, dp, force)
+    with spans.span("pair.reduce", dev):
+        # i side: pair_i is sorted by construction. j side (reaction,
+        # half-list pairs only): permuted into pair_j order, so also a
+        # sorted sum.
+        acc_i = sorted_segment_sum(torch.cat([force, torque], dim=-1), pi, N)
+        w_j = (msk & neigh.pair_both).to(force.dtype)[..., None]
+        perm = neigh.pair_jsort
+        acc_j = sorted_segment_sum(
+            at(torch.cat([-force * w_j, torque_j * w_j], dim=-1), perm),
+            at(pj, perm), N)
+        f = acc_i[..., 0:3] + acc_j[..., 0:3]
+        tau = acc_i[..., 3:6] + acc_j[..., 3:6]
+        w_pe = torch.where(msk & neigh.pair_both, 1.0, 0.5).to(pe.dtype)
+        pe_total = (pe * w_pe).sum(-1)
+        virial = -torch.einsum("rp,rpa,rpb->rab" if rep else "p,pa,pb->ab",
+                               w_pe, dp, force)
     return f, tau, hist_new, pe_total, virial
 
 
@@ -673,25 +686,32 @@ def contact_force_dense(state, shapes, params, neigh,
     N, K = neigh.idx.shape[-2:]
     lead = neigh.idx.shape[:-2]
     rep = bool(lead)
+    dev = neigh.idx.device
     at = lambda t, i: take(t, i, rep)
-    pi = torch.arange(N, device=neigh.idx.device).repeat_interleave(K)
-    pi = pi.expand(lead + (N * K,))
-    pj = neigh.idx.reshape(lead + (N * K,))
-    rows = particle_rows(state, shapes)
-    msk = (neigh.mask.reshape(lead + (N * K,)) & (at(rows, pi)[..., _RACT] > 0.5)
-           & (at(rows, pj)[..., _RACT] > 0.5))
-    dp = minimum_image(at(rows, pj)[..., _RX] - at(rows, pi)[..., _RX],
-                       state.box_lo, state.box_hi, periodic, tilt)
-    packed, tbl, cap, par = ck.pack_pairs(
-        state, shapes, params, pi, pj, msk,
-        neigh.hist.reshape(lead + (N * K, -1)), dp, rows=rows)
-    out = ck.pair_contact(packed, tbl, cap, par, lmax=shapes.lmax,
-                          conservative=conservative)
+    with spans.span("pair.pack", dev):
+        pi = torch.arange(N, device=dev).repeat_interleave(K)
+        pi = pi.expand(lead + (N * K,))
+        pj = neigh.idx.reshape(lead + (N * K,))
+        rows = particle_rows(state, shapes)
+        msk = (neigh.mask.reshape(lead + (N * K,))
+               & (at(rows, pi)[..., _RACT] > 0.5)
+               & (at(rows, pj)[..., _RACT] > 0.5))
+        spans.count("pair.slots", msk.numel())
+        spans.count("pair.live", msk)
+        dp = minimum_image(at(rows, pj)[..., _RX] - at(rows, pi)[..., _RX],
+                           state.box_lo, state.box_hi, periodic, tilt)
+        packed, tbl, cap, par = ck.pack_pairs(
+            state, shapes, params, pi, pj, msk,
+            neigh.hist.reshape(lead + (N * K, -1)), dp, rows=rows)
+    with spans.span("pair.law", dev):
+        out = ck.pair_contact(packed, tbl, cap, par, lmax=shapes.lmax,
+                              conservative=conservative)
     out = out.reshape(lead + (N * K, ck.N_OUT))
     force = out[..., 0:3]
-    f = force.reshape(lead + (N, K, 3)).sum(-2)
-    tau = out[..., 3:6].reshape(lead + (N, K, 3)).sum(-2)
-    pe_total = 0.5 * out[..., 15].sum(-1)
-    virial = -0.5 * torch.einsum("rpa,rpb->rab" if rep else "pa,pb->ab",
-                                 dp, force)
+    with spans.span("pair.reduce", dev):
+        f = force.reshape(lead + (N, K, 3)).sum(-2)
+        tau = out[..., 3:6].reshape(lead + (N, K, 3)).sum(-2)
+        pe_total = 0.5 * out[..., 15].sum(-1)
+        virial = -0.5 * torch.einsum("rpa,rpb->rab" if rep else "pa,pb->ab",
+                                     dp, force)
     return f, tau, out[..., 9:15].reshape(lead + (N, K, -1)), pe_total, virial

@@ -6,7 +6,7 @@ stage-2 cap 3n, cadence R = 20), warms it up for 60 steps, then measures,
 sharing shapes, params, grid and walls across Simulation configurations:
 
 1. the rebuild step against the plain step: one replay each of the graph
-   runner's ``always`` and ``never`` units (``core/runner.py``) from the
+   units ``always`` and ``never`` (``Simulation.run_units``) from the
    warm state, timed between CUDA events, and a block of R replays (one
    rebuild, R - 1 plain) the same way: the reference's
    ``_run_cadence_jit(r=1)`` against ``r=20``;
@@ -64,27 +64,22 @@ def _sync(device):
 
 
 def unit_ms(sim, state, neigh, kinds, reps=3):
-    """Mean ms of replaying the graph units ``kinds`` in order, each
-    repetition from (state, neigh) reloaded first, timed between CUDA
-    events around the replays only. On the CPU (no graphs) the same steps
-    run eagerly, timed by the host clock."""
+    """Mean ms of ``sim.run_units(state, neigh, kinds)`` (the graph units
+    ``kinds`` replayed in order from (state, neigh)), after one call that
+    captures them: timed between CUDA events around the replays alone.
+    On the CPU (no graphs) the same units run eagerly, timed by the host
+    clock."""
     dev = state.x.device
+    sim.run_units(state, neigh, kinds)
     if dev.type != "cuda":
         t0 = time.perf_counter()
         for _ in range(reps):
-            st, ng = state, neigh
-            for kind in kinds:
-                st, ng = sim._step_core(st, ng, kind)
+            sim.run_units(state, neigh, kinds)
         return 1e3 * (time.perf_counter() - t0) / reps
-    runner = sim._runner(state, neigh, tuple(dict.fromkeys(kinds)))
     total = 0.0
     for _ in range(reps):
-        runner.load(state=state, neigh=neigh)
         start, stop = (torch.cuda.Event(enable_timing=True) for _ in range(2))
-        start.record()
-        for kind in kinds:
-            runner.replay(kind)
-        stop.record()
+        sim.run_units(state, neigh, kinds, events=(start, stop))
         stop.synchronize()
         total += start.elapsed_time(stop)
     return total / reps

@@ -1,30 +1,30 @@
-"""Per-stage timing of the drum step (the port's copy of the reference
-harness ``scripts/profile_step.py``).
+"""Per-span time of the drum's step (the port's copy of the reference
+harness ``scripts/profile_step.py``), read from the step's own spans.
 
-After ``--settle`` steps of ``Simulation.run``, times on the live state,
-each stage between CUDA events around ``--reps`` calls after a warm-up
-call (``utils/timing.timeit``; never in a profiler window, which loses and
-gains kernel records):
+After ``--settle`` steps of ``Simulation.run``, runs ``--reps`` cadence
+blocks (``rebuild_every`` steps each) of ``Simulation.run`` with spans on
+under ``torch.profiler`` (``utils/timing.span_profile``: one unprofiled
+run first captures the spans-on graphs) and prints:
 
-  step     - one plain step (a replay of the captured ``never`` unit)
-  rows     - ``particle_rows`` pack
-  forces   - ``contact_force_pairs`` as the step runs it
-  pack     - the per-pair kernel input: row gathers, minimum image,
-             ``pack_pairs``
-  kernel   - the pair kernel over the (prefiltered) list
-  rebuild  - the whole rebuild with the prefilter (every rebuild_every
-             steps), then its pieces: cell_list, remap, pair_build,
-             prefilter
-  walls    - every wall's contact stage
-  integ    - initial + final integrate
+* each span of ``utils/spans.SPANS`` (the stages of ``rebuild`` and
+  ``pair`` indented under them) in ms a step: its device time, and its
+  self time (in no span inside it);
+* the rebuild and its stages in ms a rebuild;
+* the device time in no span, the marks' time, each span's largest
+  operation, and the idle time by what the device waited for: the
+  innermost ``spherharm.*`` host range over the launch of the operation
+  after the gap (``spherharm.replay.<unit>``: a graph launch), or a gap
+  inside one launch (``timing.reduce_spans``);
+* the counters and ``timing.span_metrics`` (the live share of the pair
+  list, ``pack_ms_per_step``, ``rebuild_ms``, ``trigger_idle_ms_per_step``).
 
-Every stage but ``step`` runs its ops eagerly, so a stage shorter than its
-host issue time reads the issue time. The reference's ``step`` timed
-``sim.run(state, neigh, 1)``, a rebuild step at cadence 20; here the
-rebuild step's share is ``rebuild / rebuild_every`` in the budget line.
+The replays are the step as the benchmark runs it, so no time here is
+the host's launch time. On the CPU the spans are host ranges and the times
+are the host's.
 
     python -m spherharm_tpu_torch.validation.profile_step [n] [lmax] \\
-        [--stage2 3n] [--pair-cap 5n] [--cons 1] [--device cuda]
+        [--stage2 3n] [--pair-cap 5n] [--cons 1] [--settle 100] [--reps 5] \\
+        [--device cuda]
 
 ``--stage2``, ``--pair-cap`` and ``--cons`` are the reference's PROF_STAGE2,
 PROF_PAIR_CAP and PROF_CONS, with its defaults.
@@ -35,18 +35,11 @@ from __future__ import annotations
 import argparse
 import sys
 
-import torch
-
 from spherharm_tpu_torch.models import scenarios
-from spherharm_tpu_torch.ops import contact, integrate, neighbor
-from spherharm_tpu_torch.ops import contact_kernels as ck
-from spherharm_tpu_torch.ops import walls as walls_mod
-from spherharm_tpu_torch.utils.timing import timeit
-from spherharm_tpu_torch.validation.cadence_sweep import unit_ms
+from spherharm_tpu_torch.utils import spans, timing
 from spherharm_tpu_torch.validation.drift import device_name
 
-STAGES = ("step", "rows", "forces", "pack", "kernel", "rebuild", "walls",
-          "integ")
+STAGES = spans.SPANS
 
 
 def build(n=100_000, lmax=8, stage2=None, pair_cap=None, cons=True,
@@ -61,81 +54,45 @@ def build(n=100_000, lmax=8, stage2=None, pair_cap=None, cons=True,
         device=device)
 
 
-def stage_times(sim, state, neigh, reps=5, out=print):
-    """Each stage's ms a call on (state, neigh), printed as it is timed.
-    Returns {stage: ms}, the rebuild's pieces included."""
-    shapes, params = sim.shapes, sim.params
-    dev = state.x.device
-    cons = sim.conservative
-    t = {}
+def label(name: str) -> str:
+    """A span's name, indented under its parent span."""
+    parent = name.rsplit(".", 1)[0]
+    return f"  {name}" if parent != name and parent in STAGES else name
 
-    def put(name, ms, note=""):
-        t[name] = ms
-        out(f"{name:<12}{ms:8.3f} ms{note}")
 
-    def ms(fn, r=reps):
-        return 1e3 * timeit(fn, dev, r)
-
-    put("step", unit_ms(sim, state, neigh, ("never",), reps))
-    put("rows", ms(lambda: contact.particle_rows(state, shapes)))
-    put("forces", ms(lambda: contact.contact_force_pairs(
-        state, shapes, params, neigh, periodic=sim.periodic,
-        conservative=cons)))
-
-    pi, pj = neigh.pair_i, neigh.pair_j
-
-    def pack():
-        rws = contact.particle_rows(state, shapes)
-        ri, rj = rws[pi], rws[pj]
-        msk = (neigh.pair_valid & (ri[:, contact._RACT] > 0.5)
-               & (rj[:, contact._RACT] > 0.5))
-        dp = contact.minimum_image(rj[:, contact._RX] - ri[:, contact._RX],
-                                   state.box_lo, state.box_hi, sim.periodic)
-        return ck.pack_pairs(state, shapes, params, pi, pj, msk,
-                             neigh.pair_hist, dp, rows=rws)
-
-    put("pack", ms(pack))
-    packed, tbl, cap, par = pack()
-    put("kernel", ms(lambda: ck.pair_contact(
-        packed, tbl, cap, par, lmax=shapes.lmax, conservative=cons)),
-        f"  ({sim.pair_list_cap} pairs)")
-    put("rebuild", ms(lambda: sim._rebuild(state, neigh), min(reps, 3)),
-        f"  (every {sim.rebuild_every})")
-
-    cutoff = params.cutoff + params.skin
-    cell = lambda: neighbor.cell_list_neighbors(
-        state.x, state.active, state.box_lo, state.box_hi, cutoff,
-        sim.grid.dims, sim.cell_cap, sim.k_max, sim.periodic,
-        row_chunk=sim.rebuild_chunk)
-    put("  cell_list", ms(cell, min(reps, 3)))
-    idx, mask, _, _ = cell()
-    neigh_tag = torch.where(mask, state.tag[idx], 0)
-    put("  remap", ms(lambda: neighbor.remap_history(
-        neigh_tag, mask, neigh.neigh_tag, neigh.mask, neigh.hist,
-        torch.ones_like(state.active)), min(reps, 3)))
-    build_list = lambda: contact.build_pair_list(
-        state, shapes, params, idx, mask, neigh.hist, state.active,
-        sim.pair_capacity, sim.periodic)
-    put("  pair_build", ms(build_list, min(reps, 3)))
-    if sim.prefilter:
-        fields, _ = build_list()
-        put("  prefilter", ms(lambda: contact.prefilter_pair_list(
-            state, shapes, params, fields, sim.stage2_capacity, sim.k_max,
-            window_steps=sim.rebuild_every or 16, periodic=sim.periodic,
-            probe_chunk=sim.rebuild_chunk), min(reps, 3)),
-            f"  (probe+compact over {sim.pair_capacity} cand)")
-
-    def walls():
-        for w_i, wall in enumerate(sim.walls):
-            walls_mod.wall_contact(state, shapes, params, wall,
-                                   neigh.wall_hist[:, w_i],
-                                   wall_cap=sim.wall_capacity)
-
-    if sim.walls:
-        put("walls", ms(walls), f"  ({len(sim.walls)} walls)")
-    put("integ", ms(lambda: integrate.final_integrate(
-        integrate.initial_integrate(state, shapes, params), shapes, params)))
-    return t
+def print_profile(summary, steps: int, out=print) -> dict:
+    """Prints a ``span_profile`` of ``steps`` steps (see the module
+    docstring). Returns {span: ms a step}."""
+    t, self_t, n, clock = timing.span_times(summary)
+    out(f"# {clock} ms a step over {steps} steps (self: in no span inside)")
+    ms = {name: 1e3 * t.get(name, 0.0) / steps for name in STAGES}
+    for name in STAGES:
+        own = ("" if self_t is None
+               else f"   self {1e3 * self_t.get(name, 0.0) / steps:8.3f}")
+        out(f"{label(name):<22}{ms[name]:8.3f} ms{own}   x{n.get(name, 0)}")
+    if n.get("rebuild"):
+        out(f"# a rebuild ({n['rebuild']} in the profile): " + ", ".join(
+            f"{name} {1e3 * t.get(name, 0.0) / n['rebuild']:.3f} ms"
+            for name in STAGES if name.startswith("rebuild")))
+    if summary["ops_s"] > 0:
+        out(f"# in no span {1e3 * summary['outside_s'] / steps:.4f} ms a "
+            f"step (coverage {100 * summary['coverage']:.2f} %); marks "
+            f"{summary['marks']} ({1e3 * summary['marks_s'] / steps:.4f} ms "
+            f"a step), unmatched {summary['unmatched']}, outside the window "
+            f"{summary['clipped']}")
+        out("# largest operation a span (ms a step): " + ", ".join(
+            f"{name or 'none'}: {op[:40]} {1e3 * sec / steps:.3f}"
+            for name, ops in summary["self_ops"].items()
+            for op, sec in [max(ops.items(), key=lambda p: p[1])]))
+        out(f"# busy {summary['busy_s']:.4f} s of {summary['window_s']:.4f}"
+            " s; idle by what the device waited for (ms a step): " + ", ".join(
+                f"{k or 'none'} {1e3 * v / steps:.4f}" for k, v in sorted(
+                    summary["idle_inner_s"].items(), key=lambda p: -p[1])))
+    out(f"# counters: {summary['counters']}")
+    out("# " + ", ".join(
+        f"{k} {'-' if v is None else f'{v:.4f}'}"
+        for k, v in timing.span_metrics(summary, steps).items()))
+    return ms
 
 
 def main(argv=None):
@@ -148,8 +105,9 @@ def main(argv=None):
                     help="candidate capacity, default 5n")
     ap.add_argument("--cons", type=int, choices=(0, 1), default=1)
     ap.add_argument("--settle", type=int, default=100,
-                    help="steps run before the timings")
-    ap.add_argument("--reps", type=int, default=5)
+                    help="steps run before the profile")
+    ap.add_argument("--reps", type=int, default=5,
+                    help="cadence blocks profiled")
     ap.add_argument("--device", default="cuda")
     args = ap.parse_args(argv)
     pr = lambda s: print(s, flush=True)
@@ -160,13 +118,11 @@ def main(argv=None):
     state, neigh = sim.run(state, neigh, args.settle)
     pr(f"# overflow={int(neigh.overflow)} "
        f"live_pairs={int(neigh.pair_valid.sum())}/{sim.pair_list_cap}")
-    t = stage_times(sim, state, neigh, args.reps, out=pr)
-    step = t["step"] + t["rebuild"] / max(sim.rebuild_every, 1)
-    pr(f"# step budget: plain step {t['step']:.3f} + rebuild/R "
-       f"{t['rebuild'] / max(sim.rebuild_every, 1):.3f} -> {step:.3f} ms "
-       f"-> {args.n / step * 1e3:,.0f} particle-steps/s")
+    steps = args.reps * max(sim.rebuild_every, 1)
+    _, summary = timing.span_profile(lambda: sim.run(state, neigh, steps))
+    ms = print_profile(summary, steps, out=pr)
     pr(f"# RESULT ({device_name(sim.device)}): " + ", ".join(
-        f"{k} {t[k]:.3f} ms" for k in STAGES if k in t))
+        f"{k} {ms[k]:.3f} ms" for k in STAGES))
     return 0
 
 

@@ -1,7 +1,6 @@
-"""Sanitizers and the timing breakdown of the torch port
-(``utils/validate.py``, ``utils/timing.py``)."""
+"""Sanitizers and the Chrome-trace exporter of the torch port
+(``utils/validate.py``, ``utils/timing.trace``)."""
 
-import numpy as np
 import pytest
 import torch
 
@@ -52,18 +51,6 @@ def test_determinism_check_small_drum():
                                       lambda: (st, ng))
     assert not validate.determinism_check(
         lambda s, n: s.x + torch.rand_like(s.x), lambda: (st, ng))
-
-
-def test_breakdown_returns_the_buckets(capsys):
-    sim, st, ng = _drum()
-    out = timing.breakdown(sim, st, ng, repeats=1)
-    assert list(out) == ["Pair", "Neigh", "Comm", "Modify", "Output"]
-    assert out["Comm"] == 0.0
-    assert all(np.isfinite(v) and v > 0 for k, v in out.items()
-               if k != "Comm")
-    timing.print_breakdown(out, total_step_s=0.01)
-    table = capsys.readouterr().out
-    assert "Pair" in table and "Step" in table
 
 
 def test_trace_writes_a_chrome_trace(tmp_path):

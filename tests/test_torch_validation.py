@@ -419,7 +419,11 @@ def test_profile_step_main_cpu(capsys):
     assert profile_step.main(["128", "2", "--settle", "2", "--reps", "1",
                               "--device", "cpu"]) == 0
     out = capsys.readouterr().out
-    for name in profile_step.STAGES + ("  cell_list", "  remap",
-                                       "  pair_build", "  prefilter"):
-        assert f"\n{name} " in out or out.startswith(f"{name} "), name
-    assert "# RESULT (cpu): step " in out
+    for name in profile_step.STAGES:
+        assert f"\n{profile_step.label(name)} " in out, name
+    for name in ("  rebuild.cell_list", "  rebuild.remap",
+                 "  rebuild.pair_build", "  rebuild.prefilter", "  pair.pack",
+                 "  pair.law", "  pair.reduce"):
+        assert f"\n{name} " in out, name
+    assert "# a rebuild (1 in the profile): rebuild " in out
+    assert "# RESULT (cpu): step.pre " in out
