@@ -174,8 +174,11 @@ Phases, each fatal on failure (exit code != 0, no result line):
    its wall batches (8 x wall_capacity rows), K2 on the triaxial cell's
    (1,200,000 slots),
    K1 and K3 conservative on the drift gas's (30,000 slots); each list
-   timed whole, up to 16,384 live rows held to
-   the twin and every masked row to zero;
+   packed and timed whole, up to 16,384 live rows held to
+   the twin and every masked row to zero; on the triaxial cell's list and
+   on the full-size drum deck's (step 8) the kernel also read by index
+   (``pair_contact_indexed``, as the step runs it), held to the packed
+   call, its device ms printed beside the packed entry's;
    K4 on the candidate list a rebuild builds after the path's run, on the
    drum's (all 500,000 slots, pair cap 5n) and the drift gas's (60,000):
    the row classes printed, each list timed whole, up to 16,384 probed
@@ -829,10 +832,12 @@ def kernel_phase(sim, dep, box, gas, tri, blobs, collider, dev):
 
 
 def stage2_list_phase(tag, path, state, neigh, results, bf16s=(False, True),
-                      case_tag=None, min_live=1000, need_contact=True, params=None):
+                      case_tag=None, min_live=1000, need_contact=True, params=None,
+                      indexed=False):
     """The stage-2 kernels of ``path``'s law, in f32 and in bf16 (``bf16s``),
     on the path's own stage-2 list, packed from ``state`` after its run as
-    ``contact.contact_force_pairs`` packs it, every slot: each kernel
+    ``contact.contact_force_pairs`` packed it before the step read the
+    list by index, every slot: each kernel
     timed on the whole list as the case ``case_tag`` (default "{tag}
     stage-2 list"; its bound from the list's live rows);
     the rows of that same call held to the twin on up to N_PAIRS of the
@@ -843,7 +848,14 @@ def stage2_list_phase(tag, path, state, neigh, results, bf16s=(False, True),
     ``need_contact``. A replica ensemble's lists (``state`` and ``neigh``
     stacked, ``params`` its stacked params) run as the one launch its
     step makes, [R * Pc] rows with a par row a replica; the twin's rows
-    take their replica's par row."""
+    take their replica's par row. With ``indexed``, each kernel also runs
+    through ``pair_contact_indexed`` on the same list, as the step runs
+    it: its columns 0-16 held to the packed call's within 1e-6 of each
+    group's scale, d (columns 17-19) to ``minimum_image``'s within 1 f32
+    ulp, the mask (column 20) to the live rows; its device time
+    (``device_ms`` of ``sh_pair_contact_indexed``) and wrapper call printed
+    beside the packed entry's and kept in the case as ``indexed_device_ms``
+    and ``indexed_ms``."""
     import torch
 
     from spherharm_tpu_torch.core.state import take
@@ -894,6 +906,53 @@ def stage2_list_phase(tag, path, state, neigh, results, bf16s=(False, True),
              lambda: ck.pair_contact_plain(sub, tbl, cap, sub_par, lmax, cons, bf16),
              n_live, nbytes(packed, tbl, cap, par, full), live_rows=n_live,
              plain_rows=n_sub)
+        if indexed:
+            indexed_list_case(results[name][-1], label, path, state, neigh, full, dp,
+                              live, tbl, cap, par, params, bf16)
+
+
+def indexed_list_case(c, label, path, state, neigh, full, dp, live, tbl, cap, par,
+                      params, bf16):
+    """``pair_contact_indexed`` on the list that ``stage2_list_phase``
+    packed (``full``: the packed entry's rows, ``dp`` its d, ``live`` its
+    mask): rows, d and mask held as that function says, its times added to
+    the packed entry's case ``c``."""
+    import torch
+
+    from spherharm_tpu_torch.ops import contact
+    from spherharm_tpu_torch.ops import contact_kernels as ck
+
+    lists = neigh.pair_i.shape[0] if neigh.pair_i.dim() == 2 else 1
+    rows = contact.particle_rows(state, path.shapes)
+    box = ck.box_rows(state.box_lo, state.box_hi, path._tilt(state), lists)
+    pair_tab = (params or path.params).pair_tab
+
+    def call():
+        return ck.pair_contact_indexed(
+            rows, state.shtype, neigh.pair_i, neigh.pair_j, neigh.pair_valid,
+            neigh.pair_hist, pair_tab, tbl, cap, par, box, path.periodic,
+            path.shapes.lmax, path.conservative, bf16)
+
+    out = call()
+    torch.cuda.synchronize()
+    errs = []
+    for lo, hi in ((0, 3), (3, 9), (9, 15), (15, 17)):
+        scale = max(float(full[:, lo:hi].abs().max()), 1e-30)
+        errs.append(float((out[:, lo:hi] - full[:, lo:hi]).abs().max()) / scale)
+    d = dp.reshape(-1, 3)[live]
+    ulp = (torch.nextafter(d.abs(), torch.full_like(d, float("inf"))) - d.abs())
+    d_ok = bool(((out[live, 17:20] - d).abs() <= ulp).all())
+    mask_ok = torch.equal(out[:, 20] > 0.5, live)
+    c["indexed_ms"] = cuda_ms(call, 20)
+    c["indexed_device_ms"] = device_ms(call, "sh_pair_contact_indexed")
+    print(f"  {label} by index: device {c['indexed_device_ms']:.4f} ms (packed "
+          f"{c['device_ms']:.4f} ms), wrapper call {c['indexed_ms']:.4f} ms (packed "
+          f"{c['ms']:.4f} ms); rows 0-16 against the packed entry's, largest gap "
+          f"over each group's scale {max(errs):.3g}; d within 1 ulp {d_ok}; mask "
+          f"{mask_ok}")
+    require(max(errs) <= 1e-6, f"{label} by index: rows disagree with the packed entry's")
+    require(d_ok, f"{label} by index: d is not minimum_image's")
+    require(mask_ok, f"{label} by index: the mask column is not the live rows")
 
 
 def wall_list_phase(tag, path, state, neigh, results, params=None):
@@ -957,7 +1016,8 @@ def deck_kernel_cases(tag, runner, results, dev, rng, example=True):
     own pair list ("{tag} pair list"); each wall kind on synthetic
     particles touching its first wall of the kind (``wall_batch``: as many
     as the deck has, at most N_PAIRS) and on its own wall batches
-    (``wall_list_phase``). An ``example`` deck's list may hold no live row
+    (``wall_list_phase``); a full-size deck's list also read by index
+    (``stage2_list_phase``'s ``indexed``). An ``example`` deck's list may hold no live row
     or contact: settling.in and shear_cell.in touch nowhere in their cut,
     so the synthetic batches carry their check."""
     from spherharm_tpu_torch.ops.walls import PlaneWall
@@ -966,7 +1026,7 @@ def deck_kernel_cases(tag, runner, results, dev, rng, example=True):
     pair_batch(results, sim.conservative, tag, sim, dev, rng)
     stage2_list_phase(tag, sim, state, neigh, results, bf16s=(False,),
                       case_tag=f"{tag} pair list", min_live=0 if example else 1000,
-                      need_contact=not example)
+                      need_contact=not example, indexed=not example)
     B = min(int(state.n_active), N_PAIRS)
     for kind in ("cylinder", "plane"):
         wall = next((w for w in sim.walls
@@ -3578,7 +3638,7 @@ def main(argv):
 
     tst, tng, l_tri, step_s = triaxial_path(tri, tri_st0, dev, smi)
     stage2_list_phase("triaxial", tri, tst, tng, kern, bf16s=(False,),
-                      case_tag="triaxial pair list")
+                      case_tag="triaxial pair list", indexed=True)
     single_end = (tst, tri.thermo(tst, tng))
     l_tri_s = sharded_triaxial_phase(tri, tri_st0, single_end, dev, smi, kern)[0]
     torch.cuda.empty_cache()

@@ -316,7 +316,11 @@ def pair_material(params: SimParams, t_i, t_j):
     clamp to the table size, so the [1, 1, 8] default serves any T. A
     replica-stacked table [R, T, T, 8] (``ensemble.with_param_sweep``)
     gives each replica's pairs t_i, t_j [R, ...] its own row."""
-    tab = params.pair_tab
+    return table_material(params.pair_tab, t_i, t_j)
+
+
+def table_material(tab, t_i, t_j):
+    """``pair_material`` of the table ``tab`` itself."""
     tp = tab.shape[-2]
     ti = torch.clamp(t_i, max=tp - 1)
     tj = torch.clamp(t_j, max=tp - 1)

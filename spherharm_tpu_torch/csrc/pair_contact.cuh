@@ -1,11 +1,14 @@
 // Shared by the stage-2 pair kernels of both laws (pair_contact.cu: the
 // geometric law; pair_contact_cons.cu: the conservative law): the packed
-// row layout, the bf16 kernels' pre-scaled rows, the per-side sums, the
-// pair-level epilogue (contact geometry from both sides, Hertz + damping
-// + friction + rolling, the 24-float output row) and the launch. The
-// node-blocked surface evaluation and the compiled degrees are
-// sh_nodes.cuh's, shared with the wall kernel.
+// row layout, the two ways a kernel gets its rows (PackedRows, IndexedRows),
+// the bf16 kernels' pre-scaled rows, the per-side sums, the pair-level
+// epilogue (contact geometry from both sides, Hertz + damping + friction +
+// rolling, the 24-float output row) and the launch. The node-blocked
+// surface evaluation and the compiled degrees are sh_nodes.cuh's, shared
+// with the wall kernel.
 #pragma once
+
+#include <cuda_pipeline.h>
 
 #include "sh_nodes.cuh"
 
@@ -22,6 +25,148 @@ enum Slot {
   XJ = 17, VJ = 20, QJ = 23, OMJ = 27, MJ = 30, RBJ = 31, RMJ = 32, RCJ = 33,
   HIST = 34, MASK = 40, DV = 41, TAIL = 44, MAT = 45, TYP = 53, SCL = 55
 };
+
+// contact.particle_rows: x, v, q, omega, m, rmax s, rmin s, rchar s (a
+// side's 17 slots, XI..RCI), then the scale s, active, one free column.
+constexpr int ROW_W = 20;
+constexpr int ROW_S = 17, ROW_ACT = 18;
+constexpr int HW = 6;      // spring columns (HIST)
+
+// The rows of sh_pair_contact: the packed [P, F] rows (pack_pairs). A
+// row source gives each slot's Slot (read before the block's first
+// barrier: whether the slot may be live), the row's address, and gathers
+// the row where it has to (returning whether the slot is live).
+struct PackedRows {
+  static constexpr bool kIndexed = false;
+  struct Slot {
+    bool valid;
+  };
+  const float* packed;
+
+  __device__ __forceinline__ Slot slot(int p) const {
+    return {packed[(size_t)p * F + MASK] > 0.5f};
+  }
+  __device__ __forceinline__ const float* row_at(int p, float*) const {
+    return packed + (size_t)p * F;
+  }
+  __device__ __forceinline__ bool gather(int, const Slot&, float*, int) const { return true; }
+};
+
+// Copy n floats to shared memory without waiting for them (cp.async); the
+// caller commits the batch and waits for it before its barrier.
+__device__ __forceinline__ void stage_async(float* dst, const float* src, int n) {
+  for (int i = threadIdx.x; i < n; i += blockDim.x)
+    __pipeline_memcpy_async(dst + i, src + i, sizeof(float));
+}
+
+// The minimum image of d = x_j - x_i, step for step as
+// contact.minimum_image forms it in f32 (images removed in the order c,
+// b, a; rounding half to even; every product and difference rounded on
+// its own, never fused). box: the list's edge lengths, then with tilted
+// its tilt (xy, xz, yz).
+__device__ __forceinline__ V3 minimum_image(V3 d, const float* box, bool tilted, int px,
+                                            int py, int pz) {
+  float dx = d.x, dy = d.y, dz = d.z;
+  if (tilted) {
+    if (pz) {
+      const float n3 = rintf(__fdiv_rn(dz, box[2]));
+      dx = __fsub_rn(dx, __fmul_rn(n3, box[4]));
+      dy = __fsub_rn(dy, __fmul_rn(n3, box[5]));
+      dz = __fsub_rn(dz, __fmul_rn(n3, box[2]));
+    }
+    if (py) {
+      const float n2 = rintf(__fdiv_rn(dy, box[1]));
+      dx = __fsub_rn(dx, __fmul_rn(n2, box[3]));
+      dy = __fsub_rn(dy, __fmul_rn(n2, box[1]));
+    }
+    if (px) dx = __fsub_rn(dx, __fmul_rn(rintf(__fdiv_rn(dx, box[0])), box[0]));
+    return v3(dx, dy, dz);
+  }
+  if (px) dx = __fsub_rn(dx, __fmul_rn(rintf(__fdiv_rn(dx, box[0])), box[0]));
+  if (py) dy = __fsub_rn(dy, __fmul_rn(rintf(__fdiv_rn(dy, box[1])), box[1]));
+  if (pz) dz = __fsub_rn(dz, __fmul_rn(rintf(__fdiv_rn(dz, box[2])), box[2]));
+  return v3(dx, dy, dz);
+}
+
+// The rows of sh_pair_contact_indexed: each warp gathers its pair's
+// packed row into shared memory from the pair list (pi, pj, valid, the
+// springs), the particle rows, the shape types, the material table and
+// the box. The lists of RL replicas or shards come list-major, ppl slots
+// each, and slot p of list r reads particles r N + pi[p], r N + pj[p].
+struct IndexedRows {
+  static constexpr bool kIndexed = true;
+  const float* rows;           // [RL N, ROW_W] contact.particle_rows
+  const long long* typ;        // [RL N] shape-type ids
+  const long long* pi;         // [RL ppl]
+  const long long* pj;         // [RL ppl]
+  const unsigned char* valid;  // [RL ppl] pair_valid
+  const float* hist;           // [RL ppl] rows of HW springs, hist_stride apart
+  const float* tab;            // pair_tab [TR, tp, tp, 8], TR = RL (tab_rep) or 1
+  const float* box;            // [RL, box_w]: lengths, then the tilt if box_w = 6
+  int N, ppl, hist_stride, tp, tab_rep, box_w, px, py, pz;
+
+  struct Slot {
+    bool valid;
+    size_t i, j;  // the two particles' rows
+  };
+
+  __device__ __forceinline__ Slot slot(int p) const {
+    const size_t base = (size_t)(p / ppl) * N;
+    return {valid[p] != 0, base + (size_t)pi[p], base + (size_t)pj[p]};
+  }
+  __device__ __forceinline__ const float* row_at(int, float* s) const { return s; }
+  // Slot p's packed row (PackedRows' layout) into s[0:F], for a valid
+  // slot: the lanes load the two sides' slots, the springs, the material
+  // row (clamped as state.pair_material clamps), the type ids and scales;
+  // lane 0 then sets the mask and the minimum-image d. TAIL and the
+  // columns past SCL stay zero (the law reads neither). Returns whether
+  // the slot is live: both ends active, the mask contact_force_pairs
+  // forms with valid.
+  __device__ __forceinline__ bool gather(int p, const Slot& sl, float* s, int lane) const {
+    const int r = p / ppl;
+    const float* ri = rows + sl.i * ROW_W;
+    const float* rj = rows + sl.j * ROW_W;
+    const bool live = ri[ROW_ACT] > 0.5f && rj[ROW_ACT] > 0.5f;
+    for (int c = lane; c < F; c += 32) {
+      float v = 0.0f;
+      if (c < XJ) {
+        v = ri[c];
+      } else if (c < HIST) {
+        v = rj[c - XJ];
+      } else if (c < MASK) {
+        v = hist[(size_t)p * hist_stride + (c - HIST)];
+      } else if (c >= MAT && c < TYP) {
+        const long long ti = typ[sl.i] < tp - 1 ? typ[sl.i] : tp - 1;
+        const long long tj = typ[sl.j] < tp - 1 ? typ[sl.j] : tp - 1;
+        const size_t m = ((size_t)(tab_rep ? r : 0) * tp + ti) * tp + tj;
+        v = tab[m * 8 + (c - MAT)];
+      } else if (c == TYP || c == TYP + 1) {
+        v = (float)typ[c == TYP ? sl.i : sl.j];
+      } else if (c == SCL || c == SCL + 1) {
+        v = (c == SCL ? ri : rj)[ROW_S];
+      }
+      s[c] = v;
+    }
+    __syncwarp();
+    if (lane == 0) {
+      const V3 dr = {__fsub_rn(s[XJ], s[XI]), __fsub_rn(s[XJ + 1], s[XI + 1]),
+                     __fsub_rn(s[XJ + 2], s[XI + 2])};
+      const V3 d = minimum_image(dr, box + (size_t)r * box_w, box_w == 6, px, py, pz);
+      s[MASK] = 1.0f;
+      s[DV] = d.x;
+      s[DV + 1] = d.y;
+      s[DV + 2] = d.z;
+    }
+    __syncwarp();
+    return live;
+  }
+};
+
+// Shared floats a block needs for its warps' rows.
+template <class In>
+__host__ __device__ constexpr int row_smem() {
+  return In::kIndexed ? WARPS * F : 0;
+}
 
 // A bf16 kernel's pre-scaled rows: this warp's two rows bf(t[k] s), each
 // value in both halves of a pair (one row a side of the pair), written to
@@ -53,7 +198,9 @@ struct Side : Moments {
 // moments; with kCons, a/b carry their gradients (the exact-gradient
 // elastic force), else the geometric law's force along the integral
 // normal at the centroid. par: this pair's replica's row (replica_par).
-template <bool kCons>
+// kIndexed (sh_pair_contact_indexed) also writes the row's d to columns
+// 17-19 and its mask (1) to column 20, for the reduction after the law.
+template <bool kCons, bool kIndexed>
 __device__ __forceinline__ void pair_epilogue(const float* row, const Moments& ma,
                                               const Moments& mb, const Side& a, const Side& b,
                                               V3 d, float dist, float inv_dist, float rbi,
@@ -133,8 +280,12 @@ __device__ __forceinline__ void pair_epilogue(const float* row, const Moments& m
                            xi_r.x,     xi_r.y,     xi_r.z,     pe,       in_contact ? 1.0f : 0.0f};
 #pragma unroll
     for (int c = 0; c < 17; ++c) o[c] = res[c];
+    o[17] = kIndexed ? d.x : 0.0f;
+    o[18] = kIndexed ? d.y : 0.0f;
+    o[19] = kIndexed ? d.z : 0.0f;
+    o[20] = kIndexed ? 1.0f : 0.0f;
 #pragma unroll
-    for (int c = 17; c < NOUT; ++c) o[c] = 0.0f;
+    for (int c = 21; c < NOUT; ++c) o[c] = 0.0f;
   }
 }
 
@@ -147,29 +298,31 @@ __device__ __forceinline__ const float* replica_par(const float* par, int rpr) {
   return par + (size_t)(p / rpr) * NPAR;
 }
 
-using PairKernel = void (*)(const float*, const float*, int, int, const float*, int,
-                            const float*, int, int, int, float*);
+template <class In>
+using PairKernel = void (*)(In, const float*, int, int, const float*, int, const float*, int,
+                            int, int, float*);
 
 // Launch a stage-2 kernel, a warp a pair and WARPS pairs a block, with
 // smem bytes of dynamic shared memory; returns cudaGetLastError().
-inline int launch_pairs(PairKernel kernel, size_t smem, const float* packed, const float* tbl,
-                        int T, int W, const float* cap, int G, const float* par, int lmax,
-                        int P, int rpr, float* out, cudaStream_t stream) {
+template <class In>
+int launch_pairs(PairKernel<In> kernel, size_t smem, const In& in, const float* tbl, int T,
+                 int W, const float* cap, int G, const float* par, int lmax, int P, int rpr,
+                 float* out, cudaStream_t stream) {
   if (smem > 48 * 1024) {
     const cudaError_t e =
         cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (e != cudaSuccess) return (int)e;
   }
   const int blocks = (P + WARPS - 1) / WARPS;
-  kernel<<<blocks, WARPS * 32, smem, stream>>>(packed, tbl, T, W, cap, G, par, lmax, P, rpr,
-                                                out);
+  kernel<<<blocks, WARPS * 32, smem, stream>>>(in, tbl, T, W, cap, G, par, lmax, P, rpr, out);
   return (int)cudaGetLastError();
 }
 
-// The conservative law's launch (pair_contact_cons.cu), for the C entry
-// in pair_contact.cu.
-int launch_pair_conservative(const float* packed, const float* tbl, int T, int W,
-                             const float* cap, int G, const float* par, int lmax, int P,
-                             int rpr, bool bf16, float* out, cudaStream_t stream);
+// The conservative law's launch (pair_contact_cons.cu), for the C entries
+// in pair_contact.cu; instantiated for both row sources.
+template <class In>
+int launch_pair_conservative(const In& in, const float* tbl, int T, int W, const float* cap,
+                             int G, const float* par, int lmax, int P, int rpr, bool bf16,
+                             float* out, cudaStream_t stream);
 
 }  // namespace shk

@@ -48,7 +48,9 @@
 //   * the 46 per-side sums reduce with a reduce-scatter butterfly (48
 //     shuffles where 46 xor-tree sums took 230), through 48 floats of
 //     shared memory per side and warp; the pair-level epilogue
-//     (pair_contact.cuh) runs redundantly on all lanes, lane 0 writes.
+//     (pair_contact.cuh) runs redundantly on all lanes, lane 0 writes;
+//   * rows packed (PackedRows) or gathered by index into shared memory
+//     (IndexedRows), as pair_contact.cu's kernel takes them.
 // Built without fast math: approximate division would loosen parity.
 
 #include "pair_contact.cuh"
@@ -288,27 +290,40 @@ __device__ __forceinline__ Side probe_side(const Coef<kBf16>* tbl_a, float s_a,
   return out;
 }
 
-template <int L, bool kBf16>
+template <int L, bool kBf16, class In>
 __global__ void __launch_bounds__(WARPS * 32, MIN_BLOCKS)
-    pair_conservative_kernel(const float* __restrict__ packed, const float* __restrict__ tbl,
-                             int T, int W, const float* __restrict__ cap, int G,
+    pair_conservative_kernel(const In in, const float* __restrict__ tbl, int T, int W,
+                             const float* __restrict__ cap, int G,
                              const float* __restrict__ par, int lmax, int P, int rpr,
                              float* __restrict__ out) {
   extern __shared__ float smem[];
-  float* s_tbl = smem;               // [T, W] power table
-  float* s_cap = s_tbl + T * W;      // [4, G] cap grid
-  float* s_red = s_cap + 4 * G;      // [WARPS, 2, NRED] side totals
-  for (int i = threadIdx.x; i < T * W; i += blockDim.x) s_tbl[i] = tbl[i];
-  for (int i = threadIdx.x; i < 4 * G; i += blockDim.x) s_cap[i] = cap[i];
-  __syncthreads();
-
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   const int p = blockIdx.x * WARPS + warp;
-  if (p >= P) return;
-  const float* row = packed + (size_t)p * F;
+  typename In::Slot slot{};
+  if (p < P) slot = in.slot(p);
   float* o = out + (size_t)p * NOUT;
-  if (!(row[MASK] > 0.5f)) {
-    if (lane < NOUT) o[lane] = 0.0f;
+  // A dead slot writes zeros; a block of dead slots (a list's dead tail)
+  // stages nothing.
+  if (!__syncthreads_or(slot.valid)) {
+    if (p < P && lane < NOUT) o[lane] = 0.0f;
+    return;
+  }
+  float* s_tbl = smem;                    // [T, W] power table
+  float* s_cap = s_tbl + T * W;           // [4, G] cap grid
+  float* s_red = s_cap + 4 * G;           // [WARPS, 2, NRED] side totals
+  float* s_row = s_red + WARPS * 2 * NRED;  // [WARPS, F] rows (IndexedRows)
+  float* s_bf = s_row + row_smem<In>();   // [WARPS, 2, W] bf16 rows (kBf16)
+  // The table and the cap grid arrive while the warps gather their rows.
+  stage_async(s_tbl, tbl, T * W);
+  stage_async(s_cap, cap, 4 * G);
+  __pipeline_commit();
+  const float* row = in.row_at(p, s_row + warp * F);
+  const bool live = slot.valid && in.gather(p, slot, s_row + warp * F, lane);
+  __pipeline_wait_prior(0);
+  __syncthreads();
+
+  if (!live) {
+    if (p < P && lane < NOUT) o[lane] = 0.0f;
     return;
   }
 
@@ -324,10 +339,8 @@ __global__ void __launch_bounds__(WARPS * 32, MIN_BLOCKS)
 
   Side a, b;
   if constexpr (kBf16) {
-    // This warp's two rows bf(t[k] s), each in both halves of a pair
-    // ([WARPS, 2, W] after the side totals).
-    __nv_bfloat162* tb =
-        reinterpret_cast<__nv_bfloat162*>(s_red + WARPS * 2 * NRED) + warp * 2 * W;
+    // This warp's two rows bf(t[k] s), each in both halves of a pair.
+    __nv_bfloat162* tb = reinterpret_cast<__nv_bfloat162*>(s_bf) + warp * 2 * W;
     bf16_rows(s_tbl + ti * W, si, s_tbl + tj * W, sj, W, lane, tb);
     a = probe_side<L, true>(tb, si, tb + W, sj, qi, qj, d, dist, inv_dist, rbj, row[RMI], rbi,
                             s_cap, G, lmax, lane, red);
@@ -339,22 +352,31 @@ __global__ void __launch_bounds__(WARPS * 32, MIN_BLOCKS)
     b = probe_side<L, false>(s_tbl + tj * W, sj, s_tbl + ti * W, si, qj, qi, -d, dist,
                              inv_dist, rbi, row[RMJ], rbj, s_cap, G, lmax, lane, red + NRED);
   }
-  pair_epilogue<true>(row, a, b, a, b, d, dist, inv_dist, rbi, rbj, replica_par(par, rpr), lane,
-                      o);
+  pair_epilogue<true, In::kIndexed>(row, a, b, a, b, d, dist, inv_dist, rbi, rbj,
+                                    replica_par(par, rpr), lane, o);
 }
 
 }  // namespace
 
-int shk::launch_pair_conservative(const float* packed, const float* tbl, int T, int W,
+template <class In>
+int shk::launch_pair_conservative(const In& in, const float* tbl, int T, int W,
                                   const float* cap, int G, const float* par, int lmax, int P,
                                   int rpr, bool bf16, float* out, cudaStream_t stream) {
-  size_t smem = sizeof(float) * (size_t)(T * W + 4 * G + WARPS * 2 * NRED);
+  size_t smem = sizeof(float) * (size_t)(T * W + 4 * G + WARPS * 2 * NRED + row_smem<In>());
   if (bf16) smem += sizeof(__nv_bfloat162) * (size_t)(WARPS * 2 * W);
   return with_degree(lmax, [&](auto degree) {
     constexpr int L = decltype(degree)::value;
-    const PairKernel kernel =
-        bf16 ? pair_conservative_kernel<L, true> : pair_conservative_kernel<L, false>;
-    return launch_pairs(kernel, smem, packed, tbl, T, W, cap, G, par, lmax, P, rpr, out,
-                        stream);
+    const PairKernel<In> kernel =
+        bf16 ? pair_conservative_kernel<L, true, In> : pair_conservative_kernel<L, false, In>;
+    return launch_pairs(kernel, smem, in, tbl, T, W, cap, G, par, lmax, P, rpr, out, stream);
   });
 }
+
+template int shk::launch_pair_conservative<PackedRows>(const PackedRows&, const float*, int,
+                                                       int, const float*, int, const float*,
+                                                       int, int, int, bool, float*,
+                                                       cudaStream_t);
+template int shk::launch_pair_conservative<IndexedRows>(const IndexedRows&, const float*, int,
+                                                        int, const float*, int, const float*,
+                                                        int, int, int, bool, float*,
+                                                        cudaStream_t);

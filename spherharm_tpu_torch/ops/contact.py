@@ -61,7 +61,15 @@ def minimum_image(d, box_lo, box_hi, periodic, tilt=None):
     leading axis [R, 3] against d [R, ..., 3] (one box a replica)."""
     if not any(periodic):
         return d
-    L = per_replica(box_hi - box_lo, 1, d.dim())
+    return minimum_image_of(d, box_hi - box_lo, periodic, tilt)
+
+
+def minimum_image_of(d, lengths, periodic, tilt=None):
+    """``minimum_image`` for a box of edge lengths ``lengths`` (box_hi -
+    box_lo) [3] or [R, 3]."""
+    if not any(periodic):
+        return d
+    L = per_replica(lengths, 1, d.dim())
     if tilt is None:
         return d - periodic_mask(torch.round(d / L) * L, periodic)
     pm = [float(p) for p in periodic]
@@ -609,17 +617,20 @@ def sorted_segment_sum(data, seg_ids, num_segments: int):
 def contact_force_pairs(state, shapes, params, neigh,
                         periodic=(False, False, False), tilt=None,
                         conservative: bool = True):
-    """Per-step force/torque over the stable pair list (the hot path):
-    two row-gathers, the pair kernel (``contact_kernels.pair_contact``,
-    in the law ``conservative`` picks), two sorted segment-sums.
+    """Per-step force/torque over the stable pair list (the hot path): the
+    pair kernel over the list by index
+    (``contact_kernels.pair_contact_indexed``, in the law ``conservative``
+    picks), two sorted segment-sums.
 
     Returns (f [N,3], tau [N,3], pair_hist [Pc,HW], pe_total, virial);
     with a replica axis each gains a leading [R] (pe_total [R], virial
     [R, 3, 3]) and the kernel runs once over all R lists.
 
-    Spans (``utils/spans``): ``pair.pack`` (rows, gathers, minimum image,
-    ``pack_pairs``; counts ``pair.slots``, the slots packed, and
-    ``pair.live``, the rows the law runs for), ``pair.law``, ``pair.reduce``.
+    Spans (``utils/spans``): ``pair.pack`` (the particle rows, the law's
+    tables and the boxes; counts ``pair.slots``, the slots of the list),
+    ``pair.law`` (the kernel gathers each slot's row itself), ``pair.reduce``
+    (counts ``pair.live``, the rows the law ran for, from the kernel's mask
+    column).
     """
     from spherharm_tpu_torch.ops import contact_kernels as ck
 
@@ -630,27 +641,26 @@ def contact_force_pairs(state, shapes, params, neigh,
     at = lambda t, i: take(t, i, rep)
     with spans.span("pair.pack", dev):
         rows = particle_rows(state, shapes)
-        rows_i, rows_j = at(rows, pi), at(rows, pj)
-        msk = (neigh.pair_valid & (rows_i[..., _RACT] > 0.5)
-               & (rows_j[..., _RACT] > 0.5))
-        spans.count("pair.slots", msk.numel())
-        spans.count("pair.live", msk)
-        dp = minimum_image(rows_j[..., _RX] - rows_i[..., _RX],
-                           state.box_lo, state.box_hi, periodic, tilt)
-        packed, tbl, cap, par = ck.pack_pairs(
-            state, shapes, params, pi, pj, msk, neigh.pair_hist, dp,
-            rows=rows)
+        tbl, cap, par = ck.pair_tables(shapes, params, rows.dtype)
+        box = ck.box_rows(state.box_lo, state.box_hi, tilt,
+                          pi.shape[0] if rep else 1)
+        spans.count("pair.slots", pi.numel())
     with spans.span("pair.law", dev):
-        out = ck.pair_contact(packed, tbl, cap, par, lmax=shapes.lmax,
-                              conservative=conservative)
+        out = ck.pair_contact_indexed(
+            rows, state.shtype, pi, pj, neigh.pair_valid, neigh.pair_hist,
+            params.pair_tab, tbl, cap, par, box, periodic, lmax=shapes.lmax,
+            conservative=conservative)
     out = out.reshape(pi.shape + (ck.N_OUT,))
     force = out[..., 0:3]
     torque = out[..., 3:6]
     torque_j = out[..., 6:9]
     hist_new = out[..., 9:15]
     pe = out[..., 15]
+    dp = out[..., 17:20]
 
     with spans.span("pair.reduce", dev):
+        msk = out[..., 20] > 0.5
+        spans.count("pair.live", msk)
         # i side: pair_i is sorted by construction. j side (reaction,
         # half-list pairs only): permuted into pair_j order, so also a
         # sorted sum.
@@ -673,8 +683,8 @@ def contact_force_dense(state, shapes, params, neigh,
                         periodic=(False, False, False), tilt=None,
                         conservative: bool = True):
     """Force/torque over the dense [N, K] neighbour tensor (the path for
-    ``pair_capacity == 0``): the N*K rows are packed as the pair list is
-    and run through the same pair kernel.
+    ``pair_capacity == 0``): the N*K rows, pair (i, idx[i, k]) in row
+    i * K + k, run through the pair kernel by index as the pair list is.
 
     Full-list semantics: each contact adds to its own row only (a fixed-
     order sum over K); pe and virial are halved to undo the double count.
@@ -687,31 +697,27 @@ def contact_force_dense(state, shapes, params, neigh,
     lead = neigh.idx.shape[:-2]
     rep = bool(lead)
     dev = neigh.idx.device
-    at = lambda t, i: take(t, i, rep)
     with spans.span("pair.pack", dev):
         pi = torch.arange(N, device=dev).repeat_interleave(K)
         pi = pi.expand(lead + (N * K,))
         pj = neigh.idx.reshape(lead + (N * K,))
         rows = particle_rows(state, shapes)
-        msk = (neigh.mask.reshape(lead + (N * K,))
-               & (at(rows, pi)[..., _RACT] > 0.5)
-               & (at(rows, pj)[..., _RACT] > 0.5))
-        spans.count("pair.slots", msk.numel())
-        spans.count("pair.live", msk)
-        dp = minimum_image(at(rows, pj)[..., _RX] - at(rows, pi)[..., _RX],
-                           state.box_lo, state.box_hi, periodic, tilt)
-        packed, tbl, cap, par = ck.pack_pairs(
-            state, shapes, params, pi, pj, msk,
-            neigh.hist.reshape(lead + (N * K, -1)), dp, rows=rows)
+        tbl, cap, par = ck.pair_tables(shapes, params, rows.dtype)
+        box = ck.box_rows(state.box_lo, state.box_hi, tilt,
+                          lead[0] if rep else 1)
+        spans.count("pair.slots", pj.numel())
     with spans.span("pair.law", dev):
-        out = ck.pair_contact(packed, tbl, cap, par, lmax=shapes.lmax,
-                              conservative=conservative)
+        out = ck.pair_contact_indexed(
+            rows, state.shtype, pi, pj, neigh.mask.reshape(lead + (N * K,)),
+            neigh.hist.reshape(lead + (N * K, -1)), params.pair_tab, tbl, cap,
+            par, box, periodic, lmax=shapes.lmax, conservative=conservative)
     out = out.reshape(lead + (N * K, ck.N_OUT))
     force = out[..., 0:3]
     with spans.span("pair.reduce", dev):
+        spans.count("pair.live", out[..., 20] > 0.5)
         f = force.reshape(lead + (N, K, 3)).sum(-2)
         tau = out[..., 3:6].reshape(lead + (N, K, 3)).sum(-2)
         pe_total = 0.5 * out[..., 15].sum(-1)
         virial = -0.5 * torch.einsum("rpa,rpb->rab" if rep else "pa,pb->ab",
-                                     dp, force)
+                                     out[..., 17:20], force)
     return f, tau, out[..., 9:15].reshape(lead + (N, K, -1)), pe_total, virial

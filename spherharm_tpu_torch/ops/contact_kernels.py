@@ -18,6 +18,22 @@ its plain PyTorch twin on a CPU tensor; nothing else picks the route. A
 wrapper counts its kernel launches in ``<wrapper>.launches``, a dict
 keyed by variant.
 
+The pair law has two entries. ``pair_contact`` reads packed rows
+(``pack_pairs``): the probes of ``core/computes.py`` and
+``validation/conservative_probe.py`` call it. ``pair_contact_indexed``,
+the step's (``contact.contact_force_pairs`` and ``contact_force_dense``),
+reads the pair list by index: each warp of the kernel gathers its pair's
+packed row into shared memory from the particle rows, the pair indices,
+the springs, the material table and the box, and forms the mask and the
+minimum image itself, so no [P, 64] tensor is built; its output row also
+carries d and the mask. Its CPU twin packs and runs ``pair_contact``.
+Both count their launches in ``pair_contact.launches``, under the same
+variant names, and launch the same kernels. The benchmark keys on both:
+its configurations' ``kernels`` guard reads the launch counters by
+variant (``pair_contact_geometric``, ``pair_contact_conservative``), and
+its roofline readers find the law's device time by the kernel names
+``pair_geometric_kernel`` and ``pair_conservative_kernel``.
+
 Replicas (``parallel/ensemble.py``): the rows of R replicas come
 replica-major, [R * P, 64], with ``par`` [R, 16], one row a replica; a
 row's parameters are ``par[row // P]``. One launch serves all R. The
@@ -38,6 +54,7 @@ import torch
 from spherharm_tpu_torch.core import state as state_mod
 from spherharm_tpu_torch.ops import contact, cuda_build, sh_power
 from spherharm_tpu_torch.ops.rotation import quat_rotate, quat_rotate_inv
+from spherharm_tpu_torch.utils import spans
 
 # Packed per-pair input layout [P, F].
 F_PACK = 64
@@ -54,7 +71,9 @@ SLOTS = {
     "typ": (53, 55), "scl": (55, 57),  # shape-type ids (float), scales
 }
 # Output row: force 0:3, tau_i 3:6, tau_j 6:9, springs 9:15, pe 15,
-# contact 16, zero padding to 24.
+# contact 16, zero padding to 24; ``pair_contact_indexed`` also writes
+# the minimum-image d to 17:20 and the mask to 20 (a dead slot's row
+# stays zero).
 N_OUT = 24
 N_PAR = 16
 
@@ -65,6 +84,45 @@ def pad_type_table(tbl):
     T = tbl.shape[0]
     T8 = -(-T // 8) * 8
     return torch.nn.functional.pad(tbl, (0, 0, 0, T8 - T))
+
+
+def pair_tables(shapes, params, dtype):
+    """The law's inputs beside its rows: (tbl [T8, W] per-type power
+    table, cap [4, G] contact cap grid, par [R, 16] with each replica's dt
+    and materials, dt first), par in ``dtype``."""
+    tbl = pad_type_table(shapes.power_tbl).contiguous()
+    cap = torch.stack([shapes.cap_x, shapes.cap_glw, shapes.cap_cpsi,
+                       shapes.cap_spsi])
+    z = torch.zeros_like(params.dt)
+    par = torch.stack([
+        params.dt, params.kn, params.kt, params.gamma_n, params.gamma_t,
+        params.mu, params.k_roll, params.gamma_roll, params.mu_roll,
+        z, z, z, z, z, z, z,
+    ], dim=-1).reshape(-1, N_PAR).to(dtype)
+    return tbl, cap, par
+
+
+def box_rows(box_lo, box_hi, tilt, lists: int):
+    """The boxes ``pair_contact_indexed`` images by, one row a list
+    (replica or shard): the edge lengths box_hi - box_lo [lists, 3], and
+    for a triclinic box the tilt (xy, xz, yz) after them [lists, 6].
+    Boxes and tilts [3] or [lists, 3]."""
+    cols = [box_hi - box_lo] + ([] if tilt is None else [tilt])
+    return torch.cat([c.reshape(-1, 3).expand(lists, 3) for c in cols],
+                     dim=-1).contiguous()
+
+
+def _pack(ri, rj, hist, mask, d, tail, mat, typ, scl):
+    """Packed rows [P, 64] (``SLOTS``) from each slot's columns: the two
+    particle rows (their first 17 columns), springs, mask, d, tail,
+    material row, type ids and scales, in the particle rows' dtype."""
+    f32 = ri.dtype
+    packed = torch.cat(
+        [ri[..., :17], rj[..., :17], hist.to(f32), mask.to(f32)[..., None],
+         d.to(f32), tail.to(f32)[..., None], mat.to(f32), typ.to(f32),
+         scl.to(f32)], dim=-1)
+    return torch.nn.functional.pad(
+        packed, (0, F_PACK - packed.shape[-1])).reshape(-1, F_PACK)
 
 
 def pack_pairs(state, shapes, params, pi, pj, mask, hist, d, rows=None,
@@ -85,32 +143,40 @@ def pack_pairs(state, shapes, params, pi, pj, mask, hist, d, rows=None,
     si, sj = at(state.scale, pi), at(state.scale, pj)
     # float32, as the kernels read it; a float64 state packs in float64
     # for the CPU twins (a CUDA wrapper refuses it).
-    f32 = rows.dtype
-    ri = at(rows, pi)[..., :17].to(f32)
-    rj = at(rows, pj)[..., :17].to(f32)
+    ri, rj = at(rows, pi), at(rows, pj)
     tail = shapes.tail1[ti_t] * si + shapes.tail1[tj_t] * sj
     if probe_only:
         # The r-only probe reads neither materials nor springs.
         mat = ri.new_zeros(pi.shape + (8,))
     else:
         mat = state_mod.pair_material(params, ti_t, tj_t)
-    typ = torch.stack([ti_t, tj_t], dim=-1).to(f32)
-    scl = torch.stack([si, sj], dim=-1).to(f32)
-    packed = torch.cat(
-        [ri, rj, hist.to(f32), mask.to(f32)[..., None], d.to(f32),
-         tail.to(f32)[..., None], mat.to(f32), typ, scl], dim=-1)
-    packed = torch.nn.functional.pad(
-        packed, (0, F_PACK - packed.shape[-1])).reshape(-1, F_PACK)
-    tbl = pad_type_table(shapes.power_tbl).contiguous()
-    cap = torch.stack([shapes.cap_x, shapes.cap_glw, shapes.cap_cpsi,
-                       shapes.cap_spsi])
-    z = torch.zeros_like(params.dt)
-    par = torch.stack([
-        params.dt, params.kn, params.kt, params.gamma_n, params.gamma_t,
-        params.mu, params.k_roll, params.gamma_roll, params.mu_roll,
-        z, z, z, z, z, z, z,
-    ], dim=-1).reshape(-1, N_PAR).to(f32)
-    return packed, tbl, cap, par
+    packed = _pack(ri, rj, hist, mask, d, tail, mat,
+                   torch.stack([ti_t, tj_t], dim=-1),
+                   torch.stack([si, sj], dim=-1))
+    return (packed, *pair_tables(shapes, params, rows.dtype))
+
+
+def pack_indexed(rows, typ, pi, pj, valid, hist, pair_tab, box, periodic):
+    """What ``pair_contact_indexed``'s kernel gathers, as packed rows:
+    (packed [P, 64], mask, d), mask and d shaped as pi. The mask is
+    ``valid`` with both ends active, d the minimum image of x_j - x_i in
+    ``box`` (``box_rows``); the tail column stays zero (the law does not
+    read it)."""
+    rep = pi.dim() == 2
+    at = lambda t, i: state_mod.take(t, i, rep)
+    ri, rj = at(rows, pi), at(rows, pj)
+    mask = (valid & (ri[..., contact._RACT] > 0.5)
+            & (rj[..., contact._RACT] > 0.5))
+    d = contact.minimum_image_of(
+        rj[..., contact._RX] - ri[..., contact._RX], box[..., :3], periodic,
+        box[..., 3:] if box.shape[-1] == 6 else None)
+    ti, tj = at(typ, pi), at(typ, pj)
+    packed = _pack(ri, rj, hist, mask, d, torch.zeros_like(d[..., 0]),
+                   state_mod.table_material(pair_tab, ti, tj),
+                   torch.stack([ti, tj], dim=-1),
+                   torch.stack([ri[..., contact._RS], rj[..., contact._RS]],
+                               dim=-1))
+    return packed, mask, d
 
 
 def _col(packed, name):
@@ -208,8 +274,7 @@ def pair_contact(packed, tbl, cap, par, lmax: int, conservative: bool = True,
                          f"{tuple(cap.shape)} {tuple(par.shape)}")
     out = torch.empty((P, N_OUT), dtype=torch.float32, device=packed.device)
     if P:
-        variant = (LAWS[0] if conservative else LAWS[1]) + (
-            "_bf16" if bf16 else "")
+        variant = _variant(conservative, bf16)
         err = cuda_build.library().sh_pair_contact(
             _ptr(packed), _ptr(tbl), T, W, _ptr(cap), G, _ptr(par), lmax,
             P, rpr, int(conservative), int(bf16), _ptr(out),
@@ -220,6 +285,87 @@ def pair_contact(packed, tbl, cap, par, lmax: int, conservative: bool = True,
 
 
 pair_contact.launches = {v: 0 for v in VARIANTS}
+
+
+def _variant(conservative: bool, bf16: bool) -> str:
+    return (LAWS[0] if conservative else LAWS[1]) + ("_bf16" if bf16 else "")
+
+
+def pair_contact_indexed(rows, typ, pi, pj, valid, hist, pair_tab, tbl, cap,
+                         par, box, periodic, lmax: int,
+                         conservative: bool = True, bf16: bool | None = None):
+    """``pair_contact`` over a pair list read by index, with no packed
+    rows. rows [..., N, 20] (``contact.particle_rows``), typ [..., N]
+    shape-type ids; pi, pj, valid [P] or, for R lists (replicas or
+    shards), [R, P] with rows [R, N, 20]; hist [..., P, 6] springs (any
+    row stride); pair_tab [T, T, 8], [1, 1, 8] or [R, T, T, 8]; tbl, cap,
+    par as ``pair_tables`` gives them (par [1, 16] or one row a replica);
+    box [R or 1, 3 | 6] (``box_rows``); periodic the three flags. A slot
+    is live where ``valid`` holds and both ends are active.
+
+    Returns [R * P, 24]: ``pair_contact``'s row of each slot (zeros where
+    dead), with d in columns 17-19 and the mask in column 20. CUDA
+    tensors launch ``sh_pair_contact_indexed`` (``csrc/pair_contact.cu``):
+    the kernel gathers each live slot's row; launches counted in
+    ``pair_contact.launches`` by variant, and ``pair.indexed`` (the slots
+    gathered in the kernel) counted while spans are on. CPU tensors pack
+    the rows (``pack_indexed``) and run ``pair_contact``."""
+    if bf16 is None:
+        bf16 = STAGE2_BF16
+    par = par.reshape(-1, N_PAR)
+    if rows.device.type == "cpu":
+        packed, mask, d = pack_indexed(rows, typ, pi, pj, valid, hist,
+                                       pair_tab, box, periodic)
+        out = pair_contact(packed, tbl, cap, par, lmax, conservative, bf16)
+        mask, d = mask.reshape(-1), d.reshape(-1, 3)
+        out[:, 17:20] = torch.where(mask[:, None], d.to(out.dtype), 0.0)
+        out[:, 20] = mask.to(out.dtype)
+        return out
+    h = hist.reshape(-1, hist.shape[-1])
+    if h.stride(-1) != 1:
+        h = h.contiguous()
+    tab = pair_tab
+    _check_cuda("pair_contact_indexed", rows=rows, tab=tab, tbl=tbl, cap=cap,
+                par=par, box=box)
+    if h.device.type != "cuda" or h.dtype != torch.float32:
+        raise TypeError("pair_contact_indexed: hist must be float32 on "
+                        f"cuda, not {h.dtype} on {h.device}")
+    lists = pi.shape[0] if pi.dim() == 2 else 1
+    ppl, P, N = pi.shape[-1], pi.numel(), rows.shape[-2]
+    T, W, G = tbl.shape[0], tbl.shape[1], cap.shape[1]
+    if (rows.shape[-1] != contact.ROW_W or typ.shape != rows.shape[:-1]
+            or rows.numel() != lists * N * contact.ROW_W
+            or pj.shape != pi.shape or valid.shape != pi.shape
+            or valid.dtype != torch.bool or h.shape != (P, 6)
+            or tab.shape[-1] != 8 or tab.shape[-2] != tab.shape[-3]
+            or tab.dim() not in (3, 4)
+            or (tab.dim() == 4 and tab.shape[0] != lists)
+            or box.shape not in ((lists, 3), (lists, 6)) or cap.shape[0] != 4
+            or W != sh_power.power_layout(lmax)["W"]):
+        raise ValueError("pair_contact_indexed: bad input shapes "
+                         f"rows {tuple(rows.shape)} typ {tuple(typ.shape)} "
+                         f"pi {tuple(pi.shape)} pj {tuple(pj.shape)} "
+                         f"valid {tuple(valid.shape)} {valid.dtype} "
+                         f"hist {tuple(hist.shape)} tab {tuple(tab.shape)} "
+                         f"box {tuple(box.shape)} tbl {tuple(tbl.shape)} "
+                         f"cap {tuple(cap.shape)}")
+    rpr = rows_per_replica(P, par, "pair_contact_indexed")
+    idx = lambda t: t.reshape(-1).long().contiguous()
+    typ, pi, pj = idx(typ), idx(pi), idx(pj)
+    valid = valid.reshape(-1).contiguous()
+    out = torch.empty((P, N_OUT), dtype=torch.float32, device=rows.device)
+    if P:
+        variant = _variant(conservative, bf16)
+        err = cuda_build.library().sh_pair_contact_indexed(
+            _ptr(rows), _ptr(typ), N, _ptr(pi), _ptr(pj), _ptr(valid), _ptr(h),
+            h.stride(0), _ptr(tab), tab.shape[-2], int(tab.dim() == 4),
+            _ptr(box), box.shape[-1], *(int(bool(p)) for p in periodic), ppl,
+            _ptr(tbl), T, W, _ptr(cap), G, _ptr(par), lmax, P, rpr,
+            int(conservative), int(bf16), _ptr(out), _stream(rows.device))
+        cuda_build.check(err, f"pair_contact_indexed[{variant}]")
+        pair_contact.launches[variant] += 1
+        spans.count("pair.indexed", P)
+    return out
 
 
 def pair_contact_plain(packed, tbl, cap, par, lmax: int,

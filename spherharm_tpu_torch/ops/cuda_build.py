@@ -40,6 +40,12 @@ _SIGNATURES = {
     # packed, tbl, T, W, cap, G, par, lmax, P, rows_per_replica,
     # conservative, bf16, out, stream
     "sh_pair_contact": (_P, _P, _I, _I, _P, _I, _P, _I, _I, _I, _I, _I, _P, _P),
+    # rows, typ, N, pi, pj, valid, hist, hist_stride, pair_tab, tp,
+    # tab_rep, box, box_w, px, py, pz, ppl, tbl, T, W, cap, G, par, lmax,
+    # P, rows_per_replica, conservative, bf16, out, stream
+    "sh_pair_contact_indexed": (_P, _P, _I, _P, _P, _P, _P, _I, _P, _I, _I,
+                                _P, _I, _I, _I, _I, _I, _P, _I, _I, _P, _I,
+                                _P, _I, _I, _I, _I, _I, _P, _P),
     # packed, tbl1, T, W, cap1, G, l1, bf16, P, out, stream
     "sh_stage1_depth": (_P, _P, _I, _I, _P, _I, _I, _I, _I, _P, _P),
     # packed, tbl, T, W, cap, G, par, lmax, B, rows_per_replica, kind,

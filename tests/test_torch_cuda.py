@@ -571,6 +571,115 @@ def test_pair_contact_kernel_replicas(conservative, bf16, cuda_device):
     assert not np.array_equal(out[:P, 9:12], out[P:2 * P, 9:12])  # dt differs
 
 
+def _indexed_lists(shape, device, R=2, n=40, seed=8):
+    """R = 2 replicas' pair lists, replica-major, each replica its own
+    positions, dt and kn (pair_tab [R, T, T, 8]): every ordered pair of n
+    particles a slot, a few slots not valid, particle 3 inactive, then a
+    dead tail of 64 slots; springs mid-contact, read through a strided
+    view (as a step hands the last output's columns 9:15 on). ``shape``:
+    the drum's (Lmax 8, 4 types, 128 nodes, a closed box) or the sheared
+    cell's (Lmax 4, 2 types, 72 nodes, a periodic triclinic box, the
+    particles scattered about its corner and wrapped into it, so that
+    many pairs meet through an image). Returns (state, shapes, params,
+    pi, pj, valid, hist, periodic, tilt)."""
+    from spherharm_tpu_torch.parallel import ensemble as ens
+
+    rng = np.random.default_rng(seed)
+    tri = shape == "triaxial"
+    lmax, types, quad = (4, 2, (6, 12)) if tri else (8, 4, (8, 16))
+    shapes = shapes_library.build_shapes(blob_coeffs(lmax, types, seed), lmax,
+                                         contact_quad=quad, device=device)
+    assert shapes.cap_x.shape[0] == (72 if tri else 128)
+    periodic = (True, True, True) if tri else (False, False, False)
+    tilt = (0.7, -0.4, 0.5) if tri else None
+    L = 4.6 if tri else 4.0
+
+    def one():
+        x = (rng.uniform(-1.3, 1.3, (n, 3)) % L if tri
+             else rng.uniform(0.7, 2.9, (n, 3)))
+        q = rng.normal(size=(n, 4))
+        q /= np.linalg.norm(q, axis=1, keepdims=True)
+        st = scenarios.make_state(
+            x, [0, 0, 0], [L, L, L], q=q, v=rng.normal(size=(n, 3)) * 0.2,
+            angmom=rng.normal(size=(n, 3)) * 0.02,
+            scale=rng.uniform(0.85, 1.15, n), shtype=rng.integers(0, types, n),
+            tilt=tilt, device=device)
+        active = st.active.clone()
+        active[3] = False
+        return st.replace(active=active)
+
+    st = ens.stack_replicas([one() for _ in range(R)])
+    params = ens.with_param_sweep(_params(device), dt=[1e-4, 3e-4],
+                                  kn=[1e5, 3e5])
+    pi, pj = np.meshgrid(np.arange(n), np.arange(n), indexing="ij")
+    sel = pi.ravel() != pj.ravel()
+    pi = np.concatenate([pi.ravel()[sel], np.full(64, n - 1)])
+    pj = np.concatenate([pj.ravel()[sel], np.full(64, n - 1)])
+    P = pi.shape[0]
+    valid = rng.uniform(size=(R, P)) > 0.05
+    valid[:, -64:] = False
+    t = lambda a: torch.tensor(a, device=device)
+    hist = t(rng.normal(size=(R, P, ck.N_OUT)).astype(np.float32) * 1e-4)
+    return (st, shapes, params, t(pi).expand(R, P).contiguous(),
+            t(pj).expand(R, P).contiguous(), t(valid), hist[..., 9:15],
+            periodic, None if tilt is None else st.tilt)
+
+
+@pytest.mark.parametrize("shape", ["drum", "triaxial"])
+@pytest.mark.parametrize("conservative,bf16", [
+    (True, False), (False, False), (True, True), (False, True)],
+    ids=["K1", "K2", "K3-conservative", "K3-geometric"])
+def test_pair_contact_indexed_matches_packed_kernel(shape, conservative, bf16,
+                                                    cuda_device):
+    """``pair_contact_indexed`` (each warp gathers its row by index) against
+    ``pair_contact`` on the packed rows of the same lists, both launched on
+    the card, R = 2 replica-major lists: columns 0-16 within 1e-6 of each
+    group's scale, d within 1 f32 ulp of ``contact.minimum_image`` on the
+    card, the mask in column 20, dead slots (the tail's 64 included) zero
+    rows; one launch counted under the packed entry's variant key."""
+    from spherharm_tpu_torch.core.state import take
+    from spherharm_tpu_torch.ops import contact
+
+    st, shapes, params, pi, pj, valid, hist, periodic, tilt = _indexed_lists(
+        shape, cuda_device)
+    lmax = shapes.lmax
+    at = lambda t, i: take(t, i, True)
+    rows = contact.particle_rows(st, shapes)
+    ri, rj = at(rows, pi), at(rows, pj)
+    msk = valid & (ri[..., contact._RACT] > 0.5) & (rj[..., contact._RACT] > 0.5)
+    d = contact.minimum_image(rj[..., contact._RX] - ri[..., contact._RX],
+                              st.box_lo, st.box_hi, periodic, tilt)
+    packed, tbl, cap, par = ck.pack_pairs(st, shapes, params, pi, pj, msk,
+                                          hist, d, rows=rows)
+    assert par.shape[0] == 2 and params.pair_tab.dim() == 4
+    ref = ck.pair_contact(packed, tbl, cap, par, lmax, conservative, bf16)
+    variant = ("conservative" if conservative else "geometric") + (
+        "_bf16" if bf16 else "")
+    n0 = dict(ck.pair_contact.launches)
+    out = ck.pair_contact_indexed(
+        rows, st.shtype, pi, pj, valid, hist, params.pair_tab, tbl, cap, par,
+        ck.box_rows(st.box_lo, st.box_hi, tilt, 2), periodic, lmax,
+        conservative, bf16)
+    torch.cuda.synchronize()
+    assert ck.pair_contact.launches == dict(n0, **{variant: n0[variant] + 1})
+
+    m = np32(msk).reshape(-1)
+    out, ref, d = np32(out), np32(ref), np32(d).reshape(-1, 3)
+    assert 0 < m.sum() < m.size and (ref[:, 16] > 0.5).sum() > 8
+    for lo, hi in ((0, 3), (3, 9), (9, 15), (15, 17)):
+        np.testing.assert_allclose(out[:, lo:hi], ref[:, lo:hi], rtol=0,
+                                   atol=1e-6 * np.abs(ref[:, lo:hi]).max())
+    live = m.astype(bool)
+    assert (np.abs(out[live, 17:20] - d[live])
+            <= np.spacing(np.abs(d[live]))).all()
+    np.testing.assert_array_equal(out[:, 20], m)
+    np.testing.assert_array_equal(out[~live], 0.0)
+    np.testing.assert_array_equal(out[:, 21:], 0.0)
+    if tilt is not None:  # pairs met through an image
+        raw = np32(rj[..., contact._RX] - ri[..., contact._RX]).reshape(-1, 3)
+        assert (np.abs(raw - d).max(1)[live] > 1.0).sum() > 8
+
+
 @pytest.mark.parametrize("kind", ["plane", "cylinder"])
 def test_wall_kernel_replicas(kind, cuda_device):
     """R = 3 replicas' wall batches in one launch ([R * B, 32] rows, par

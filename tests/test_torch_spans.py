@@ -355,6 +355,7 @@ def test_span_cells_reads_a_cell_at_tiny_size(workload, overrides, traffic):
     assert r["counters"]["pair.live"] <= r["counters"]["pair.slots"]
     assert m["pair_live_pct"] == pytest.approx(r["evidence_live_pct"],
                                                abs=2.0)
+    assert r["indexed_pct"] == 0.0  # the CPU twin packs the rows
     assert not spans.is_on()
 
 
@@ -426,7 +427,8 @@ def test_run_units_events_time_the_replays_alone(cuda_device):
 def test_pair_live_on_the_card(cuda_device):
     """On the card ``pair.live`` (summed inside the graphs) equals the
     count of live rows over the steps, step by step from the run's own
-    lists (the skin trigger's, one step a run)."""
+    lists (the skin trigger's, one step a run), and the kernel gathers
+    every slot's row itself (``pair.indexed`` = ``pair.slots``)."""
     sim, st, ng = _drum(cuda_device, 0, n=128, lmax=4)
     steps = 8
     live, s, n = 0, st, ng
@@ -439,6 +441,7 @@ def test_pair_live_on_the_card(cuda_device):
         spans.reset()
         sim.run(st, ng, steps)
     assert spans.counters() == {"pair.slots": steps * sim.pair_list_cap,
+                                "pair.indexed": steps * sim.pair_list_cap,
                                 "pair.live": live}
 
 

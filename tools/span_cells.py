@@ -15,7 +15,9 @@ One JSON line a cell: ``plain_ms_per_step`` and ``span_ms_per_step`` (each
 slice's length over its steps) and ``spans_cost_pct`` (their medians'
 difference), ``metrics`` (``timing.span_metrics`` of each span slice),
 ``evidence_live_pct`` (live rows of the pair list over its slots at the
-slice's two ends, the mean of the two), ``coverage``, and from the last
+slice's two ends, the mean of the two), ``indexed_pct`` (the slots whose
+row the pair kernel gathered itself, ``pair.indexed``, over the slots,
+``pair.slots``, in %), ``coverage``, and from the last
 span slice, in ms a step: ``span_ms`` and ``self_ms`` by span,
 ``rebuild_stage_ms`` (ms a rebuild), ``top_ops_ms`` (each span's largest
 operations by self time), ``idle_ms`` and ``idle_inner_ms`` (idle time by
@@ -99,6 +101,9 @@ def cell_spans(workload, seed, seconds, reps, device, overrides=None,
         plain_busy_pct=100.0 * sl["busy_s"] / sl["window_s"],
         metrics=metrics,
         evidence_live_pct=0.5 * (live_pct(carry) + live_pct(end)),
+        indexed_pct=(100.0 * summary["counters"].get("pair.indexed", 0)
+                     / summary["counters"]["pair.slots"]
+                     if summary["counters"].get("pair.slots") else None),
         coverage=summary["coverage"], spans_n=n,
         marks=summary["marks"], unmatched=summary["unmatched"],
         clipped=summary["clipped"],
