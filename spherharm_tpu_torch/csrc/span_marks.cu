@@ -21,7 +21,9 @@
   X(rebuild_prefilter)                                                       \
   X(pair) X(pair_pack) X(pair_law) X(pair_reduce)                            \
   X(walls) X(step_post)                                                      \
-  X(runner_store) X(runner_load) X(runner_result)
+  X(runner_store) X(runner_load) X(runner_result)                            \
+  X(halo_migrate) X(halo_exchange) X(halo_forward)                           \
+  X(comm_p2p) X(comm_collective)
 
 #define SPAN_KERNELS(s)                                                      \
   extern "C" __global__ void spherharm_span__##s##__begin() {}               \

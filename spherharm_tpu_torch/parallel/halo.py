@@ -30,6 +30,20 @@ reference keeps them replicated. Mapping of the reference's comm surface
 Ghost slots: [:H] mirror the LEFT neighbour's right edge, [H:] the RIGHT
 neighbour's left edge; across the periodic seam the sender shifts x by
 +/- Lx, so nothing downstream images along x.
+
+With spans on (``utils/spans``) the units mark the layers
+``core/simulation.py`` marks (``step.pre``, ``step.trigger``, ``rebuild``
+and its stages, ``pair``, ``walls``, ``step.post``) and the halo's own:
+``halo.exchange`` (``_exchange``: migration, ghost selection and their
+shifts), inside it ``halo.migrate`` (``_migrate``), and ``halo.forward``
+(``_forward_comm``); ``RankAxis`` marks its transfers ``comm.p2p``
+(``ring_shift``) and ``comm.collective`` (``psum``, ``pmax``,
+``gather``). Device counters: ``halo.ghosts`` and ``halo.owned`` (live
+ghost and owned rows, a step), ``halo.migrated`` (rows that left their
+slab, a rebuild), ``halo.sent`` (rows the forward communication shipped,
+a step). ``run`` is the host range ``spherharm.run``, and a check-mode
+step's wait on its flag and launch of its second unit
+``spherharm.trigger``.
 """
 
 from __future__ import annotations
@@ -53,6 +67,7 @@ from spherharm_tpu_torch.core.state import (
 )
 from spherharm_tpu_torch.ops import contact, integrate, neighbor
 from spherharm_tpu_torch.ops import walls as walls_mod
+from spherharm_tpu_torch.utils import spans
 
 # Particle fields that travel in migration / halo buffers.
 COMM_FIELDS = ("x", "v", "q", "angmom", "scale", "shtype", "tag", "image")
@@ -223,7 +238,10 @@ class RankAxis(ShardAxis):
     ``ShardAxis.psum``; ``pmax`` is ``all_reduce(MAX)``; ``gather`` is
     ``all_gather``. Bool tensors travel as uint8. On gloo, CUDA tensors
     are staged through pinned host buffers: a host sync, so a simulation
-    refuses CUDA graphs on that combination.
+    refuses CUDA graphs on that combination. With spans on, ``ring_shift``
+    is the span ``comm.p2p`` and the others ``comm.collective``, marked
+    on the caller's stream (NCCL runs its kernels on a stream of its own,
+    which the caller's stream waits for).
 
     ``group``: the process group (default the world); ``device``: the
     rank's device (default ``cuda:<LOCAL_RANK>``, the CPU only by name).
@@ -283,7 +301,8 @@ class RankAxis(ShardAxis):
         if S == 1:
             return val
         step = 1 if direction == "left" else -1
-        return self._exchange(val, (r - step) % S, (r + step) % S)
+        with spans.span("comm.p2p", val.device):
+            return self._exchange(val, (r - step) % S, (r + step) % S)
 
     def _all_gather(self, val):
         """[every rank's ``val``] in rank order."""
@@ -293,19 +312,22 @@ class RankAxis(ShardAxis):
         return [self._unwire(p, val) for p in parts]
 
     def psum(self, val):
-        parts = self._all_gather(val[0])
-        out = parts[0]
-        for p in parts[1:]:
-            out = out + p
-        return out
+        with spans.span("comm.collective", val.device):
+            parts = self._all_gather(val[0])
+            out = parts[0]
+            for p in parts[1:]:
+                out = out + p
+            return out
 
     def pmax(self, val):
-        t = self._wire(val.amax(0))
-        dist.all_reduce(t, op=dist.ReduceOp.MAX, group=self.group)
-        return self._unwire(t, val)
+        with spans.span("comm.collective", val.device):
+            t = self._wire(val.amax(0))
+            dist.all_reduce(t, op=dist.ReduceOp.MAX, group=self.group)
+            return self._unwire(t, val)
 
     def gather(self, val):
-        return torch.stack(self._all_gather(val[0]))
+        with spans.span("comm.collective", val.device):
+            return torch.stack(self._all_gather(val[0]))
 
 
 class ShardedSimulation:
@@ -666,11 +688,12 @@ class ShardedSimulation:
         tag, so the next remap_history carries the springs into the new
         build (FixNeighHistory riding pack_exchange in LAMMPS).
         """
-        idx = self._index(state)
-        tgt = self._slab_of(state, state.x[..., 0], fracs)
-        return self._move(state, neigh, idx, self.n_shards, tgt,
-                          self._has_left(idx), self._has_right(idx),
-                          self.axis.ring_shift)
+        with spans.span("halo.migrate", state.x.device):
+            idx = self._index(state)
+            tgt = self._slab_of(state, state.x[..., 0], fracs)
+            return self._move(state, neigh, idx, self.n_shards, tgt,
+                              self._has_left(idx), self._has_right(idx),
+                              self.axis.ring_shift)
 
     def _move(self, state, neigh, idx, n, tgt, has_lo, has_hi, shift):
         """One migration phase round a ring of ``n`` shards: each shard's
@@ -712,7 +735,9 @@ class ShardedSimulation:
         # each prefix-valid, so pairing arrival i with free slot i would
         # starve the second half). An arrival past the free slots is a
         # cap_local overflow, flagged; its writes go to a pad row.
-        active = state.active & ~(go_left | go_right)
+        leaving = go_left | go_right
+        spans.count("halo.migrated", leaving)
+        active = state.active & ~leaving
         free_idx, free_ok = _select_fill(~active, 2 * M)
         rank = torch.where(recv_valid, torch.cumsum(recv_valid.long(), -1) - 1,
                            2 * M - 1)
@@ -784,21 +809,24 @@ class ShardedSimulation:
         """exchange() then borders(): migration under the bounds riding
         the ghosts, and new ghosts. Returns (state, neigh, ghosts,
         migration overflow [S], halo overflow [S])."""
-        ax, H = self.axis, self.halo_cap
-        fracs = ghosts.fracs
-        state, neigh, mig_ovf = self._migrate(state, neigh, fracs)
-        send_idx, send_mask, halo_ovf = self._halo_membership(state, fracs)
-        g = self._gather_send(state, send_idx, send_mask)
-        for f in ("scale", "shtype", "tag"):
-            vals = take(getattr(state, f), send_idx, True)
-            g[f] = torch.cat([ax.ring_shift(vals[:, H:], "right"),
-                              ax.ring_shift(vals[:, :H], "left")], dim=1)
-        # I receive: from LEFT neighbour's right-send, from RIGHT's left-send.
-        g_active = torch.cat([ax.ring_shift(send_mask[:, H:], "right"),
-                              ax.ring_shift(send_mask[:, :H], "left")], dim=1)
-        ghosts = GhostPack(active=g_active, send_idx=send_idx,
-                           send_mask=send_mask, fracs=fracs, **g)
-        return state, neigh, ghosts, mig_ovf, halo_ovf
+        with spans.span("halo.exchange", state.x.device):
+            ax, H = self.axis, self.halo_cap
+            fracs = ghosts.fracs
+            state, neigh, mig_ovf = self._migrate(state, neigh, fracs)
+            send_idx, send_mask, halo_ovf = self._halo_membership(state, fracs)
+            g = self._gather_send(state, send_idx, send_mask)
+            for f in ("scale", "shtype", "tag"):
+                vals = take(getattr(state, f), send_idx, True)
+                g[f] = torch.cat([ax.ring_shift(vals[:, H:], "right"),
+                                  ax.ring_shift(vals[:, :H], "left")], dim=1)
+            # I receive: from LEFT neighbour's right-send, from RIGHT's
+            # left-send.
+            g_active = torch.cat([ax.ring_shift(send_mask[:, H:], "right"),
+                                  ax.ring_shift(send_mask[:, :H], "left")],
+                                 dim=1)
+            ghosts = GhostPack(active=g_active, send_idx=send_idx,
+                               send_mask=send_mask, fracs=fracs, **g)
+            return state, neigh, ghosts, mig_ovf, halo_ovf
 
     def _bin_window(self, state, ghosts):
         """Each shard's binning window (bin_lo, bin_hi) [n_local, 3]: its
@@ -820,108 +848,123 @@ class ShardedSimulation:
         already authoritative (zeros on a fresh start, seeded springs on
         a restart) and the pair list is empty, so folding would wipe it.
         """
-        ax, S = self.axis, self.n_local
-        tilt = self._tilt(state)
-        x, image = neighbor.wrap_positions(
-            state.x, state.image, state.box_lo, state.box_hi, self.periodic,
-            tilt)
-        state = state.replace(x=x, image=image)
-        # Fold live pair-space springs back into the tag-keyed [N, K]
-        # layout FIRST: migration ships [N, K] rows, and remap reads them.
-        if fold:
-            neigh = neigh.replace(hist=contact.pair_hist_to_dense(neigh))
-        state, neigh, ghosts, mig_ovf, halo_ovf = self._exchange(
-            state, neigh, ghosts)
-        ext = self._extend(state, ghosts)
-        bin_lo, bin_hi = self._bin_window(state, ghosts)
-        lo, hi = state.box_lo, state.box_hi
-        cutoff = self.params.cutoff + self.params.skin
-        owned = self._owned_mask(x.device) & ext.active
-        nidx, nmask, count, cell_ovf = neighbor.cell_list_neighbors(
-            ext.x, ext.active, lo.expand(S, 3), hi.expand(S, 3),
-            cutoff.expand(S), self.grid_dims, self.cell_cap, self.k_max,
-            self.periodic_eff, None if tilt is None else tilt.expand(S, 3),
-            row_chunk=ROW_CHUNK, bin_lo=bin_lo, bin_hi=bin_hi,
-            owned=owned)
-        neigh_tag = torch.where(nmask, take(ext.tag, nidx, True), 0)
-        row_ok = neigh.row_tag == ext.tag
-        hist = neighbor.remap_history(
-            neigh_tag, nmask, neigh.neigh_tag, neigh.mask, neigh.hist, row_ok)
-        pair_fields, n_pairs = contact.build_pair_list(
-            ext, self.shapes, self.params, nidx, nmask, hist, owned,
-            self.pair_capacity, self.periodic_eff, tilt=tilt)
-        zero = torch.zeros_like(n_pairs)
-        n_surv = zero
-        if self.prefilter:
-            pair_fields, n_surv, budget = contact.prefilter_pair_list(
-                ext, self.shapes, self.params, pair_fields,
-                self.stage2_capacity, self.k_max,
-                window_steps=self._window_steps,
-                periodic=self.periodic_eff, tilt=tilt,
-                reduce_max=ax.pmax)
-            neigh = neigh.replace(budget=budget)
-        # Per-source gating: each count contributes only past its OWN
-        # capacity, so nonzero overflow always means truncated physics.
-        gate = lambda n, cap: torch.where(n > cap, n, zero)
-        mx = count.amax(-1)
-        overflow = torch.stack([
-            gate(mx, self.k_max), gate(cell_ovf, self.cell_cap),
-            gate(mig_ovf, self.migrate_cap), gate(halo_ovf, self.halo_cap),
-            gate(n_pairs, self.pair_capacity),
-            gate(n_surv, self.stage2_capacity)]).amax(0)
-        overflow = ax.pmax(overflow).expand(S)
-        neigh = neigh.replace(
-            idx=nidx, mask=nmask, hist=hist, neigh_tag=neigh_tag,
-            row_tag=ext.tag, x_build=ext.x, q_build=ext.q,
-            overflow=torch.maximum(neigh.overflow, overflow),
-            **pair_fields,
-        )
-        return state, neigh, ghosts
+        with spans.span("rebuild", state.x.device):
+            ax, S = self.axis, self.n_local
+            dev = state.x.device
+            tilt = self._tilt(state)
+            x, image = neighbor.wrap_positions(
+                state.x, state.image, state.box_lo, state.box_hi,
+                self.periodic, tilt)
+            state = state.replace(x=x, image=image)
+            # Fold live pair-space springs back into the tag-keyed [N, K]
+            # layout FIRST: migration ships [N, K] rows, and remap reads them.
+            if fold:
+                with spans.span("rebuild.remap", dev):
+                    neigh = neigh.replace(
+                        hist=contact.pair_hist_to_dense(neigh))
+            state, neigh, ghosts, mig_ovf, halo_ovf = self._exchange(
+                state, neigh, ghosts)
+            ext = self._extend(state, ghosts)
+            with spans.span("rebuild.cell_list", dev):
+                bin_lo, bin_hi = self._bin_window(state, ghosts)
+                lo, hi = state.box_lo, state.box_hi
+                cutoff = self.params.cutoff + self.params.skin
+                owned = self._owned_mask(x.device) & ext.active
+                nidx, nmask, count, cell_ovf = neighbor.cell_list_neighbors(
+                    ext.x, ext.active, lo.expand(S, 3), hi.expand(S, 3),
+                    cutoff.expand(S), self.grid_dims, self.cell_cap,
+                    self.k_max, self.periodic_eff,
+                    None if tilt is None else tilt.expand(S, 3),
+                    row_chunk=ROW_CHUNK, bin_lo=bin_lo, bin_hi=bin_hi,
+                    owned=owned)
+            with spans.span("rebuild.remap", dev):
+                neigh_tag = torch.where(nmask, take(ext.tag, nidx, True), 0)
+                row_ok = neigh.row_tag == ext.tag
+                hist = neighbor.remap_history(
+                    neigh_tag, nmask, neigh.neigh_tag, neigh.mask, neigh.hist,
+                    row_ok)
+            with spans.span("rebuild.pair_build", dev):
+                pair_fields, n_pairs = contact.build_pair_list(
+                    ext, self.shapes, self.params, nidx, nmask, hist, owned,
+                    self.pair_capacity, self.periodic_eff, tilt=tilt)
+            zero = torch.zeros_like(n_pairs)
+            n_surv = zero
+            if self.prefilter:
+                with spans.span("rebuild.prefilter", dev):
+                    pair_fields, n_surv, budget = contact.prefilter_pair_list(
+                        ext, self.shapes, self.params, pair_fields,
+                        self.stage2_capacity, self.k_max,
+                        window_steps=self._window_steps,
+                        periodic=self.periodic_eff, tilt=tilt,
+                        reduce_max=ax.pmax)
+                neigh = neigh.replace(budget=budget)
+            # Per-source gating: each count contributes only past its OWN
+            # capacity, so nonzero overflow always means truncated physics.
+            gate = lambda n, cap: torch.where(n > cap, n, zero)
+            mx = count.amax(-1)
+            overflow = torch.stack([
+                gate(mx, self.k_max), gate(cell_ovf, self.cell_cap),
+                gate(mig_ovf, self.migrate_cap), gate(halo_ovf, self.halo_cap),
+                gate(n_pairs, self.pair_capacity),
+                gate(n_surv, self.stage2_capacity)]).amax(0)
+            overflow = ax.pmax(overflow).expand(S)
+            neigh = neigh.replace(
+                idx=nidx, mask=nmask, hist=hist, neigh_tag=neigh_tag,
+                row_tag=ext.tag, x_build=ext.x, q_build=ext.q,
+                overflow=torch.maximum(neigh.overflow, overflow),
+                **pair_fields,
+            )
+            return state, neigh, ghosts
 
     def _forward_comm(self, state: State, ghosts: GhostPack):
         """Refresh the ghosts' x, v, q, angmom from their owners."""
-        g = self._gather_send(state, ghosts.send_idx, ghosts.send_mask)
-        return ghosts.replace(x=g["x"], v=g["v"], q=g["q"],
-                              angmom=g["angmom"])
+        with spans.span("halo.forward", state.x.device):
+            spans.count("halo.sent", ghosts.send_mask)
+            g = self._gather_send(state, ghosts.send_idx, ghosts.send_mask)
+            return ghosts.replace(x=g["x"], v=g["v"], q=g["q"],
+                                  angmom=g["angmom"])
 
     def _forces(self, state: State, neigh: NeighborState, ghosts: GhostPack):
         """Pair, wall and gravity forces on the owned rows."""
-        cl = self.cap_local
-        ext = self._extend(state, ghosts)
-        f, tau, pair_hist, pe_pair, virial = contact.contact_force_pairs(
-            ext, self.shapes, self.params, neigh,
-            periodic=self.periodic_eff, tilt=self._tilt(state),
-            conservative=self.conservative)
-        neigh = neigh.replace(pair_hist=pair_hist)
-        # Reactions onto ghost rows are dropped here: owned-ghost pairs
-        # are one-sided (pair_both False) and the ghost's owner evaluates
-        # its own copy (Newton off).
-        f, tau = f[:, :cl], tau[:, :cl]
+        cl, dev = self.cap_local, state.x.device
+        with spans.span("pair", dev):
+            ext = self._extend(state, ghosts)
+            f, tau, pair_hist, pe_pair, virial = contact.contact_force_pairs(
+                ext, self.shapes, self.params, neigh,
+                periodic=self.periodic_eff, tilt=self._tilt(state),
+                conservative=self.conservative)
+            neigh = neigh.replace(pair_hist=pair_hist)
+            # Reactions onto ghost rows are dropped here: owned-ghost pairs
+            # are one-sided (pair_both False) and the ghost's owner
+            # evaluates its own copy (Newton off).
+            f, tau = f[:, :cl], tau[:, :cl]
 
-        pe_wall = torch.zeros_like(pe_pair)
-        overflow = neigh.overflow
-        wall_hists = []
-        for w_i, wall in enumerate(self.walls):
-            wf, wt, whist, wpe, n_near = walls_mod.wall_contact(
-                state, self.shapes, self.params, wall,
-                neigh.wall_hist[:, :cl, w_i], wall_cap=self.wall_capacity)
-            f = f + wf
-            tau = tau + wt
-            pe_wall = pe_wall + wpe.sum(-1)
-            wall_hists.append(whist)
-            if self.wall_capacity:
-                overflow = torch.maximum(overflow, torch.where(
-                    n_near > self.wall_capacity, n_near,
-                    torch.zeros_like(n_near)))
-        if wall_hists:
-            neigh = neigh.replace(wall_hist=torch.cat(
-                [torch.stack(wall_hists, dim=-2), neigh.wall_hist[:, cl:]],
-                dim=1))
-        neigh = neigh.replace(overflow=overflow)
-        m = self.shapes.mass_of(state.shtype, state.scale)
-        f = f + torch.where(state.active[..., None],
-                            m[..., None] * self.params.gravity, 0.0)
-        state = state.replace(f=f, tau=tau)
+        with spans.span("walls", dev):
+            pe_wall = torch.zeros_like(pe_pair)
+            overflow = neigh.overflow
+            wall_hists = []
+            for w_i, wall in enumerate(self.walls):
+                wf, wt, whist, wpe, n_near = walls_mod.wall_contact(
+                    state, self.shapes, self.params, wall,
+                    neigh.wall_hist[:, :cl, w_i], wall_cap=self.wall_capacity)
+                f = f + wf
+                tau = tau + wt
+                pe_wall = pe_wall + wpe.sum(-1)
+                wall_hists.append(whist)
+                if self.wall_capacity:
+                    overflow = torch.maximum(overflow, torch.where(
+                        n_near > self.wall_capacity, n_near,
+                        torch.zeros_like(n_near)))
+            if wall_hists:
+                neigh = neigh.replace(wall_hist=torch.cat(
+                    [torch.stack(wall_hists, dim=-2), neigh.wall_hist[:, cl:]],
+                    dim=1))
+            neigh = neigh.replace(overflow=overflow)
+        with spans.span("step.post", dev):
+            m = self.shapes.mass_of(state.shtype, state.scale)
+            f = f + torch.where(state.active[..., None],
+                                m[..., None] * self.params.gravity, 0.0)
+            state = state.replace(f=f, tau=tau)
         return state, neigh, {"pe_pair": pe_pair, "pe_wall": pe_wall,
                               "virial": virial}
 
@@ -934,32 +977,45 @@ class ShardedSimulation:
     # the other steps, and ``_post`` (forces, final integrate).
 
     def _pre(self, state: State, neigh: NeighborState, check: bool):
-        state = integrate.initial_integrate(state, self.shapes, self.params)
-        state, x_build, _ = integrate.apply_deformation(
-            state, neigh.x_build, self.params, self.periodic)
-        neigh = neigh.replace(x_build=x_build)
-        if self.triclinic:
-            # A tilt past L/2 on an axis that cannot flip: fail loudly
-            # through the overflow channel (sentinel 1 << 21).
-            L = state.box_hi - state.box_lo
-            bound = 0.5 * torch.stack([L[0], L[0], L[1]])
-            bad = (state.tilt.abs() > bound * (1 + 1e-6)).any()
-            neigh = neigh.replace(overflow=torch.maximum(
-                neigh.overflow, torch.where(
-                    bad, 1 << 21, torch.zeros_like(neigh.overflow))))
-        return state, neigh, self._stale(state, neigh) if check else None
+        dev = state.x.device
+        with spans.span("step.pre", dev):
+            state = integrate.initial_integrate(state, self.shapes,
+                                                self.params)
+            state, x_build, _ = integrate.apply_deformation(
+                state, neigh.x_build, self.params, self.periodic)
+            neigh = neigh.replace(x_build=x_build)
+            if self.triclinic:
+                # A tilt past L/2 on an axis that cannot flip: fail loudly
+                # through the overflow channel (sentinel 1 << 21).
+                L = state.box_hi - state.box_lo
+                bound = 0.5 * torch.stack([L[0], L[0], L[1]])
+                bad = (state.tilt.abs() > bound * (1 + 1e-6)).any()
+                neigh = neigh.replace(overflow=torch.maximum(
+                    neigh.overflow, torch.where(
+                        bad, 1 << 21, torch.zeros_like(neigh.overflow))))
+        if not check:
+            return state, neigh, None
+        with spans.span("step.trigger", dev):
+            return state, neigh, self._stale(state, neigh)
 
     def _rebuild_always(self, state, neigh, ghosts):
         """A scheduled rebuild, recording (not branching on) a stale list
         in ``skin_violations``."""
-        viol = self._stale(state, neigh).long()
+        dev = state.x.device
+        with spans.span("step.trigger", dev):
+            viol = self._stale(state, neigh).long()
         state, neigh, ghosts = self._rebuild(state, neigh, ghosts)
-        return state, neigh.replace(
-            skin_violations=neigh.skin_violations + viol), ghosts
+        with spans.span("step.trigger", dev):
+            return state, neigh.replace(
+                skin_violations=neigh.skin_violations + viol), ghosts
 
     def _post(self, state, neigh, ghosts):
         state, neigh, aux = self._forces(state, neigh, ghosts)
-        state = integrate.final_integrate(state, self.shapes, self.params)
+        with spans.span("step.post", state.x.device):
+            spans.count("halo.owned", state.active)
+            for g in ghosts if isinstance(ghosts, tuple) else (ghosts,):
+                spans.count("halo.ghosts", g.active)
+            state = integrate.final_integrate(state, self.shapes, self.params)
         return state, neigh, aux
 
     def _local_step(self, state: State, neigh: NeighborState,
@@ -1019,23 +1075,27 @@ class ShardedSimulation:
         else:
             kinds = ["check"] * n_steps
         self._check_graphs(state.x.device)
-        if not (self.cuda_graphs and state.x.is_cuda and n_steps > 0):
+        with spans.host("spherharm.run"):
+            if not (self.cuda_graphs and state.x.is_cuda and kinds):
+                for kind in kinds:
+                    state, neigh, ghosts, _ = self._local_step(
+                        state, neigh, ghosts, kind)
+                return state, neigh, ghosts
+            runner = self._runner(
+                state, neigh, ghosts,
+                ("pre", "always", "comm", "post") if self.rebuild_every > 0
+                else ("pre_check", "rebuild", "comm", "post"))
             for kind in kinds:
-                state, neigh, ghosts, _ = self._local_step(
-                    state, neigh, ghosts, kind)
-            return state, neigh, ghosts
-        runner = self._runner(state, neigh, ghosts,
-                              ("pre", "always", "comm", "post") if R > 0
-                              else ("pre_check", "rebuild", "comm", "post"))
-        for kind in kinds:
-            if kind == "check":
-                runner.replay("pre_check")
-                runner.replay("rebuild" if runner.read_flag() else "comm")
-            else:
-                runner.replay("pre")
-                runner.replay(kind)
-            runner.replay("post")
-        return runner.result("state", "neigh", "ghosts")
+                if kind == "check":
+                    runner.replay("pre_check")
+                    with spans.host("spherharm.trigger"):
+                        runner.replay("rebuild" if runner.read_flag()
+                                      else "comm")
+                else:
+                    runner.replay("pre")
+                    runner.replay(kind)
+                runner.replay("post")
+            return runner.result("state", "neigh", "ghosts")
 
     def rebalance(self, state, neigh, ghosts):
         """In-run load rebalance (LAMMPS ``fix balance`` / ``balance x

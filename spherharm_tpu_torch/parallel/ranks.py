@@ -14,6 +14,7 @@ the CPU (or several ranks on one card, eagerly).
   among them) that meet through a ``FileStore`` in a fresh temporary
   directory (no TCP port to race for), calls ``fn(axis, *args)`` in each
   and returns each rank's result with its tensors as numpy arrays. A rank
+  on a card keeps its threads on CPUs of its own (``rank_cpus``). A rank
   that raises, dies or outlasts ``timeout`` fails the call, and every
   child is killed.
 * Workers (here, not in a test module, so that a spawned child imports
@@ -27,6 +28,7 @@ Containers and tensors cross the process boundary as numpy (``ship`` /
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import datetime
 import importlib
@@ -117,6 +119,27 @@ def land(shipped, device):
     return rest[0]
 
 
+def rank_cpus(rank: int, n: int, allowed) -> set | None:
+    """The CPUs rank ``rank`` of ``n`` on this host keeps: the ``rank``-th
+    of ``n`` equal contiguous runs of ``allowed`` (None where a run would
+    be empty)."""
+    cpus = sorted(allowed)
+    k = len(cpus) // n
+    return set(cpus[rank * k:(rank + 1) * k]) if k else None
+
+
+def _pin(rank: int, n: int):
+    """Keep this process's threads on CPUs of its own (``rank_cpus``).
+    Every step a rank's host reads the trigger's flag and launches the
+    next graph, and every rank waits for the slowest: a thread that
+    migrates, or shares a CPU with another rank's, slows them all."""
+    cpus = rank_cpus(rank, n, os.sched_getaffinity(0))
+    if cpus:
+        for tid in os.listdir("/proc/self/task"):
+            with contextlib.suppress(ProcessLookupError):  # ended since
+                os.sched_setaffinity(int(tid), cpus)
+
+
 def _child(fn, rank, n, backend, device, store_path, results, timeout, args):
     try:
         torch.set_num_threads(1)
@@ -124,6 +147,7 @@ def _child(fn, rank, n, backend, device, store_path, results, timeout, args):
         if device.type == "cuda":
             device = torch.device("cuda", device.index or 0)
             torch.cuda.set_device(device)
+            _pin(rank, n)
         dist.init_process_group(
             backend, store=dist.FileStore(store_path, n), rank=rank,
             world_size=n, timeout=datetime.timedelta(seconds=timeout),
@@ -141,12 +165,13 @@ def spawn_ranks(fn, n: int, backend: str, devices, *args,
                 timeout: float = 600.0):
     """Run ``fn(axis, *args)`` on ``n`` ranks, one ``spawn`` process each
     (``torch.set_num_threads(1)``; ``devices[r]`` the device of rank r,
-    "cuda" card 0),
-    over ``backend`` ("gloo" or "nccl"). ``fn`` must be importable by
-    name from a module that a child can import. Returns [each rank's
-    result, tensors as numpy]. Raises RuntimeError when a rank raises or
-    exits without a result, TimeoutError when the ranks have not all
-    returned within ``timeout`` seconds; every child is killed then."""
+    "cuda" card 0; a rank on a card keeps to CPUs of its own,
+    ``rank_cpus``), over ``backend`` ("gloo" or "nccl"). ``fn`` must be
+    importable by name from a module that a child can import. Returns
+    [each rank's result, tensors as numpy]. Raises RuntimeError when a
+    rank raises or exits without a result, TimeoutError when the ranks
+    have not all returned within ``timeout`` seconds; every child is
+    killed then."""
     import multiprocessing as mp
 
     if len(devices) != n:
@@ -276,8 +301,10 @@ def drive(sim, state, actions, restart=None) -> dict:
     state and neighbour state; ("thermo", name); ("rebalance", name) (the
     new bounds); ("restart", name) ``gather_restart``; ("global", name)
     ``gather_global``; ("trigger", name, n) n single steps, recording
-    those that rebuilt (eager steps only). The snapshot "init" is taken
-    after ``init``. Returns {name: result}."""
+    those that rebuilt (eager steps only); ("ghosts", name) the ghosts;
+    ("spans", name, n) n steps with spans on under the profiler from the
+    current state, which stays where it was (``spans_run``). The snapshot
+    "init" is taken after ``init``. Returns {name: result}."""
     st, ng, gh = sim.init(state, restart=restart)
     out = {"init": (st, ng)}
     for verb, name, *args in actions:
@@ -295,6 +322,10 @@ def drive(sim, state, actions, restart=None) -> dict:
             out[name] = sim.gather_restart(st, ng)
         elif verb == "global":
             out[name] = sim.gather_global(st)
+        elif verb == "ghosts":
+            out[name] = gh
+        elif verb == "spans":
+            out[name] = spans_run(sim, st, ng, gh, args[0])
         elif verb == "trigger":
             rebuild, fired = sim._rebuild, []
             sim._rebuild = lambda *a, **k: (fired.append(True),
@@ -312,6 +343,16 @@ def drive(sim, state, actions, restart=None) -> dict:
         else:
             raise ValueError(f"unknown action {verb!r}")
     return out
+
+
+def spans_run(sim, st, ng, gh, n: int) -> dict:
+    """``n`` steps of ``sim.run`` from (st, ng, gh) with spans on,
+    profiled (``utils/timing.span_profile``): {"end": (state, neigh)
+    after, "summary": the profile's summary}."""
+    from spherharm_tpu_torch.utils import timing
+
+    end, summary = timing.span_profile(lambda: sim.run(st, ng, gh, n))
+    return {"end": end[:2], "summary": summary}
 
 
 def run_specs(axis, specs) -> list:

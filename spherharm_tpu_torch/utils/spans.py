@@ -46,6 +46,8 @@ SPANS = (
     "pair", "pair.pack", "pair.law", "pair.reduce",
     "walls", "step.post",
     "runner.store", "runner.load", "runner.result",
+    "halo.migrate", "halo.exchange", "halo.forward",
+    "comm.p2p", "comm.collective",
 )
 MARK_PREFIX = "spherharm_span__"
 _INDEX = {name: i for i, name in enumerate(SPANS)}

@@ -12,7 +12,10 @@ that launched it (its correlation id).
 * Each device operation lies in the spans whose marker kernels
   (``spans.mark_symbol``) opened and have not closed on its stream: it
   adds to each of those spans' total and to the innermost one's self
-  time, or to ``outside_s`` where none is open;
+  time, or to ``outside_s`` where none is open. An operation on a stream
+  that carries no mark (NCCL's own stream, whose kernels a graph's p2p
+  transfers run on while the marked stream waits for them) lies in the
+  spans open on the marked streams when it starts;
 * each gap between device operations (the union of their intervals) is
   idle time, timed on the device's clock alone. It is put down to what
   the device waited for: the host call that launched the operation after
@@ -100,18 +103,29 @@ def kineto_events(prof) -> list:
     return out
 
 
+def group_of(name: str) -> str:
+    """A span's group: its name before the first dot (``halo.forward``:
+    ``halo``)."""
+    return name.split(".", 1)[0]
+
+
 def _device_spans(dev):
-    """Walks the device events in time order, each stream its own stack
-    of open spans. Returns (span_s, self_s, spans_n, self_ops, outside_s,
-    ops_s, marks_s, marks, unmatched); seconds."""
-    span_s, self_s, spans_n = (collections.Counter() for _ in range(3))
+    """Walks the device events in time order, each stream that carries
+    marks its own stack of open spans, a stream that carries none the
+    marked streams' stacks (see the module docstring). Returns (span_s,
+    self_s, spans_n, self_ops, outside_s, ops_s, marks_s, marks,
+    unmatched, group_s); seconds."""
+    span_s, self_s, spans_n, group_s = (collections.Counter()
+                                        for _ in range(4))
     self_ops = collections.defaultdict(collections.Counter)
     outside = ops = marks_ns = 0
     marks = unmatched = 0
     stacks = collections.defaultdict(list)
+    marked = sorted({ev.stream for ev in dev if ev.name in _MARKS})
     for ev in dev:
         dur = ev.end - ev.start
-        stack = stacks[ev.stream]
+        stack = (stacks[ev.stream] if ev.stream in marked or not marked
+                 else [n for s in marked for n in stacks[s]])
         mark = _MARKS.get(ev.name)
         if mark is not None:
             marks += 1
@@ -133,10 +147,33 @@ def _device_spans(dev):
             continue
         for name in set(stack):
             span_s[name] += dur * 1e-9
+        for group in {group_of(name) for name in stack}:
+            group_s[group] += dur * 1e-9
         self_s[inner] += dur * 1e-9
     return (dict(span_s), dict(self_s), dict(spans_n),
             {k: dict(v) for k, v in self_ops.items()}, outside * 1e-9,
-            ops * 1e-9, marks_ns * 1e-9, marks, unmatched)
+            ops * 1e-9, marks_ns * 1e-9, marks, unmatched, dict(group_s))
+
+
+def _host_groups(host) -> dict:
+    """Seconds of the union of each group's host ranges (``group_of`` the
+    device spans' names): nested ranges of a group count once."""
+    by = collections.defaultdict(list)
+    for h in host:
+        if h.name in _SPAN_NAMES:
+            by[group_of(h.name)].append((h.start, h.end))
+    out = {}
+    for group, ivs in by.items():
+        total, cur_s, cur_e = 0, None, None
+        for s, e in sorted(ivs):
+            if cur_s is None or s > cur_e:
+                if cur_s is not None:
+                    total += cur_e - cur_s
+                cur_s, cur_e = s, e
+            else:
+                cur_e = max(cur_e, e)
+        out[group] = (total + cur_e - cur_s) * 1e-9
+    return out
 
 
 def _gaps(dev):
@@ -211,7 +248,10 @@ def reduce_spans(events) -> dict:
     window),
     ``idle_s`` / ``idle_inner_s`` (gaps by what the device waited for,
     see the module docstring), ``host_s`` / ``host_n`` (host ranges of
-    the device spans' names: time and count)."""
+    the device spans' names: time and count), ``group_s`` /
+    ``host_group_s`` (device time in any span of a group, ``group_of``,
+    and the union of its host ranges: the halo's spans nest, and a comm
+    span lies inside a halo or a rebuild span)."""
     win = [e for e in events if not e.device and e.name == WINDOW]
     if win:
         w0, w1 = win[0].start, win[0].end
@@ -226,7 +266,7 @@ def reduce_spans(events) -> dict:
     clipped = sum(e.device for e in events) - len(dev)
     host = [e for e in events if not e.device and e.end > w0 and e.start < w1]
     (span_s, self_s, spans_n, self_ops, outside, ops, marks_s, marks,
-     unmatched) = _device_spans(dev)
+     unmatched, group_s) = _device_spans(dev)
     busy, gaps = _gaps(dev)
     idle, idle_inner = _idle(gaps, host) if dev else ({}, {})
     host_s, host_n = collections.Counter(), collections.Counter()
@@ -240,7 +280,8 @@ def reduce_spans(events) -> dict:
                 coverage=1.0 - outside / ops if ops > 0 else None,
                 unmatched=unmatched, clipped=clipped, idle_s=idle,
                 idle_inner_s=idle_inner,
-                host_s=dict(host_s), host_n=dict(host_n))
+                host_s=dict(host_s), host_n=dict(host_n), group_s=group_s,
+                host_group_s=_host_groups(host))
 
 
 def _settle(cuda: bool):
@@ -280,7 +321,8 @@ def span_profile(fn):
     the counters reset. ``fn`` should leave its inputs as
     they were (``Simulation.run`` does). Returns (the profiled call's
     result, ``reduce_spans`` of its profile with ``counters``:
-    ``spans.counters()`` after it)."""
+    ``spans.counters()`` after it, and ``ranges``: each host range of a
+    span or ``spherharm.*`` as (name, start ns, end ns))."""
     with spans.enabled(True):
         fn()
         if torch.cuda.is_available():
@@ -290,6 +332,9 @@ def span_profile(fn):
         counts = spans.counters()
     summary = reduce_spans(events)
     summary["counters"] = counts
+    summary["ranges"] = [
+        (e.name, e.start, e.end) for e in events if not e.device
+        and (e.name in _SPAN_NAMES or e.name.startswith(HOST_PREFIX))]
     return out, summary
 
 
@@ -311,10 +356,18 @@ def span_metrics(summary, steps: int) -> dict:
     ``trigger_idle_ms_per_step`` (idle time before operations launched
     under ``spherharm.trigger``, a step: the device's wait for the flag's
     read and the second unit's launch), ``pair_live_pct`` (``pair.live``
-    over ``pair.slots``, in %; None without slots counted)."""
-    t, _, n, _ = span_times(summary)
+    over ``pair.slots``, in %; None without slots counted); a shard's
+    (``parallel/halo.py``; None on one card): ``halo_ms_per_step`` and
+    ``comm_ms_per_step`` (time in any ``halo.*`` or ``comm.*`` span, a
+    step), ``ghost_pct`` (``halo.ghosts`` over ``halo.owned``, in %)."""
+    t, _, n, clock = span_times(summary)
+    groups = summary.get("group_s" if clock == "device" else "host_group_s",
+                         {})
     c = summary["counters"]
     slots = c.get("pair.slots", 0)
+    per_step = lambda g: (1e3 * groups.get(g, 0.0) / steps
+                          if any(group_of(k) == g and v for k, v in n.items())
+                          else None)
     return dict(
         pack_ms_per_step=(1e3 * t.get("pair.pack", 0.0) / n["pair.pack"]
                           if n.get("pair.pack") else None),
@@ -323,4 +376,7 @@ def span_metrics(summary, steps: int) -> dict:
         trigger_idle_ms_per_step=1e3 * summary["idle_s"].get(
             "spherharm.trigger", 0.0) / steps,
         pair_live_pct=(100.0 * c.get("pair.live", 0) / slots if slots
-                       else None))
+                       else None),
+        halo_ms_per_step=per_step("halo"), comm_ms_per_step=per_step("comm"),
+        ghost_pct=(100.0 * c.get("halo.ghosts", 0) / c["halo.owned"]
+                   if c.get("halo.owned") else None))

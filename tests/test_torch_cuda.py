@@ -1304,3 +1304,52 @@ def test_ranks_nccl_restart_4_to_2(cuda_device, tmp_path):
         np.testing.assert_allclose(vb[t], va[t], rtol=0, atol=5e-3)
     assert all(int(r["end"][1]["overflow"].max()) == 0 for r in out)
     assert all(r["launches"]["wall_plane"] > 0 for r in per_rank + out)
+
+
+def test_span_marks_replay_inside_nccl_rank_graphs(cuda_device):
+    """With spans on, 4 NCCL ranks, one a card, replay the span marks
+    inside their CUDA graphs (4 slabs on the cadence, 25 steps: 3 rebuild
+    steps, 22 forward steps): on every rank each step opens ``pair`` and
+    each forward step ``halo.forward``, each rebuild ``halo.exchange`` and
+    ``halo.migrate``, the transfers ``comm.p2p`` and ``comm.collective``;
+    every mark is matched, NCCL's kernels (the p2p's on NCCL's own
+    stream) lie in the comm spans and 99 % of the device time in some
+    span, the halo's counters count, and the run ends where the spans-off
+    run ends, bit for bit. Skipped, and the skip printed, with fewer than
+    4 cards."""
+    from spherharm_tpu_torch.parallel import ranks
+
+    _need_cards("test_span_marks_replay_inside_nccl_rank_graphs")
+    sim, st, _, _ = _slab_sim(cuda_device, 4, False, 10)
+    steps = 25
+    spec = ranks.spec_of(sim, sim.gather_global(st),
+                         [("spans", "on", steps), ("run", "", steps),
+                          ("snap", "end")])
+    spec["sim"]["cuda_graphs"] = True
+    per_rank = ranks.spawn_ranks(ranks.run_specs, 4, "nccl",
+                                 [f"cuda:{r}" for r in range(4)], [spec],
+                                 timeout=600)
+    for r in per_rank:
+        out = r[0]
+        summary = out["on"]["summary"]
+        n = summary["spans_n"]
+        assert summary["marks"] > 0 and summary["unmatched"] == 0
+        assert n["pair"] == steps and n["halo.forward"] == steps - 3
+        assert n["rebuild"] == n["halo.exchange"] == n["halo.migrate"] == 3
+        assert n["comm.p2p"] > 0 and n["comm.collective"] > 0
+        outside = summary["self_ops"].get("", {})
+        assert not [k for k in outside if "nccl" in k.lower()], outside
+        assert summary["coverage"] >= 0.99, outside
+        nccl = {k: v for name, ops in summary["self_ops"].items()
+                if name.startswith("comm.") for k, v in ops.items()
+                if "nccl" in k.lower()}
+        assert nccl and summary["span_s"]["comm.p2p"] > 0, summary["self_ops"]
+        assert summary["group_s"]["halo"] > 0
+        assert summary["group_s"]["comm"] > 0
+        c = summary["counters"]
+        assert c["halo.ghosts"] > 0 and c["halo.owned"] > 0
+        assert c["halo.sent"] > 0
+        for part_on, part_off in zip(out["on"]["end"], out["end"]):
+            for f, v in part_off.items():
+                if v is not None:
+                    assert np.array_equal(part_on[f], v), f

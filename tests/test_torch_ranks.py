@@ -342,3 +342,21 @@ def test_dryrun_on_cpu_ranks(capsys):
     th = dryrun_mod.dryrun_sharded(4, device="cpu")
     assert line.startswith("dryrun_sharded(4) on 4 gloo ranks on cpu: n=64")
     assert f"etot={float(th['etot']):.7g}" in line
+
+
+@pytest.mark.parametrize("allowed", [range(32), range(10),
+                                     range(0, 64, 2)])
+def test_rank_cpus_split_the_cpus_into_runs_of_their_own(allowed):
+    """Each of 4 ranks keeps an equal contiguous run of the CPUs, no CPU
+    to two ranks."""
+    got = [ranks.rank_cpus(r, 4, set(allowed)) for r in range(4)]
+    k = len(allowed) // 4
+    assert all(len(g) == k for g in got)
+    assert len(set().union(*got)) == 4 * k
+    assert all(max(got[r]) < min(got[r + 1]) for r in range(3))
+    assert got[0] == set(sorted(allowed)[:k])
+
+
+def test_rank_cpus_leave_a_rank_unpinned_with_fewer_cpus_than_ranks():
+    assert ranks.rank_cpus(0, 4, {0, 1, 2}) is None
+    assert ranks.rank_cpus(3, 4, set(range(4))) == {3}

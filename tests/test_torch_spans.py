@@ -6,7 +6,11 @@ CPU tests: spans off leave no trace; on, the host ranges nest as the
 layers do; ``pair.live`` and ``pair.slots`` against an independent count;
 the reducer on synthetic event lists; ``tools/span_cells.py`` on the
 benchmark's cells at a tiny size; the marker kernels' list against
-``spans.SPANS``. ``cuda``-marked tests (skipped without a card): the marks
+``spans.SPANS``; on 4 gloo ranks (``parallel/halo.py``'s slabs, the
+sheared cell of ``triaxial.shear.4rank`` at n = 1,000): the halo's and the
+transport's spans nest as the units, the halo's counters count the rows
+they name, and a spans-on run is the spans-off run bit for bit.
+``cuda``-marked tests (skipped without a card): the marks
 replay inside the graphs; ``run_units``' events time the replays alone;
 a spans-off runner launches, counts and holds
 what one captured before spans were ever on does; the marks' library is
@@ -15,22 +19,26 @@ not loaded until spans are on. This file imports no JAX:
     python -m pytest tests/test_torch_spans.py --noconftest -q
 """
 
+import collections
 import json
 import re
 import subprocess
 import sys
 from pathlib import Path
 
+import numpy as np
 import pytest
 import torch
 
 from spherharm_tpu_torch.models import scenarios
 from spherharm_tpu_torch.ops import cuda_build
+from spherharm_tpu_torch.parallel import ranks
 from spherharm_tpu_torch.utils import spans, timing
 from spherharm_tpu_torch.utils.timing import Event
 
 from torch_port_util import cuda_device, drum_state  # noqa: F401
 
+ROOT = Path(__file__).resolve().parents[1]
 LAYERS = ("step.pre", "step.trigger", "rebuild", "pair", "walls",
           "step.post")
 
@@ -244,16 +252,25 @@ def test_reduce_spans_takes_device_events_by_their_launch():
 
 
 def test_reduce_spans_streams_and_unmatched_ends():
-    """Streams keep their own stacks; an end with no open span is counted
+    """Streams that carry marks keep their own stacks; an operation on a
+    stream that carries none (NCCL's) lies in the spans open on the
+    marked streams when it starts; an end with no open span is counted
     and changes nothing; an end closes every span opened inside it."""
     ev = [_mark(0, "rebuild", False), _mark(2, "rebuild.remap", False),
+          _mark(3, "pair", False, stream=8),
           _op(5, 15, "on 7"), _op(6, 16, "on 9", stream=9),
+          _op(7, 9, "on 8", stream=8), _mark(10, "pair", True, stream=8),
           _mark(20, "walls", True), _mark(22, "rebuild", True),
-          _op(30, 40, "after")]
+          _op(30, 40, "after"), _op(41, 43, "on 9 after", stream=9)]
     r = timing.reduce_spans(ev)
-    assert r["span_s"] == pytest.approx({"rebuild": 10e-9,
-                                         "rebuild.remap": 10e-9})
-    assert r["outside_s"] == pytest.approx(20e-9)
+    assert r["span_s"] == pytest.approx({"rebuild": 20e-9,
+                                         "rebuild.remap": 20e-9,
+                                         "pair": 12e-9})
+    assert r["self_s"] == pytest.approx({"rebuild.remap": 10e-9,
+                                         "pair": 12e-9})
+    assert r["self_ops"]["pair"] == pytest.approx({"on 9": 10e-9,
+                                                   "on 8": 2e-9})
+    assert r["outside_s"] == pytest.approx(12e-9)
     assert r["unmatched"] == 1
 
 
@@ -294,24 +311,57 @@ def test_span_metrics_on_a_synthetic_profile(clock):
     """``span_metrics``: pack time a step, rebuild time a rebuild, idle
     under the trigger a step, live rows over slots; on the device's clock
     where the profile has device operations, else on the host's."""
-    times = {"pair.pack": 0.02, "rebuild": 0.015}
-    counts = {"rebuild": 5, "pair.pack": 10}
-    summary = dict(ops_s=1.0 if clock == "device" else 0.0,
-                   span_s=times if clock == "device" else {},
-                   self_s={}, spans_n=counts if clock == "device" else {},
-                   host_s=times if clock == "host" else {},
-                   host_n=counts if clock == "host" else {},
+    times = {"pair.pack": 0.02, "rebuild": 0.015, "halo.exchange": 0.004,
+             "halo.migrate": 0.001, "halo.forward": 0.003,
+             "comm.p2p": 0.005}
+    counts = {"rebuild": 5, "pair.pack": 10, "halo.exchange": 5,
+              "halo.migrate": 5, "halo.forward": 5, "comm.p2p": 80}
+    groups = {"halo": 0.007, "comm": 0.005}
+    device = clock == "device"
+    summary = dict(ops_s=1.0 if device else 0.0,
+                   span_s=times if device else {},
+                   self_s={}, spans_n=counts if device else {},
+                   host_s={} if device else times,
+                   host_n={} if device else counts,
+                   group_s=groups if device else {},
+                   host_group_s={} if device else groups,
                    idle_s={"spherharm.trigger": 0.004},
                    counters={"pair.slots": 1_200_000 * 10,
-                             "pair.live": 3_000_000})
+                             "pair.live": 3_000_000,
+                             "halo.owned": 250_000, "halo.ghosts": 275_000})
     m = timing.span_metrics(summary, steps=10)
     assert m == pytest.approx(dict(pack_ms_per_step=2.0, rebuild_ms=3.0,
                                    trigger_idle_ms_per_step=0.4,
-                                   pair_live_pct=25.0))
+                                   pair_live_pct=25.0, halo_ms_per_step=0.7,
+                                   comm_ms_per_step=0.5, ghost_pct=110.0))
     summary.update(counters={}, spans_n={}, host_n={})
     m = timing.span_metrics(summary, steps=10)
     assert m["rebuild_ms"] is None and m["pair_live_pct"] is None
     assert m["pack_ms_per_step"] is None
+    assert (m["halo_ms_per_step"], m["comm_ms_per_step"],
+            m["ghost_pct"]) == (None, None, None)
+
+
+def test_group_times_count_nested_spans_once():
+    """A group's time (``group_s``: device time in any span of the group;
+    ``host_group_s``: the union of its host ranges) counts an operation
+    under nested spans of one group once: a p2p inside the migration
+    inside the exchange."""
+    host = lambda t0, t1, name: Event(t0, t1, name, False, 0)
+    ev = [Event(0, 1000, timing.WINDOW, False, 0),
+          host(10, 200, "halo.exchange"), host(20, 80, "halo.migrate"),
+          host(30, 40, "comm.p2p"), host(100, 120, "comm.p2p"),
+          host(300, 320, "halo.forward"), host(305, 315, "comm.p2p"),
+          _mark(10, "halo.exchange", False), _mark(12, "halo.migrate", False),
+          _mark(14, "comm.p2p", False), _op(20, 50, "send"),
+          _mark(51, "comm.p2p", True), _op(55, 65, "scatter"),
+          _mark(66, "halo.migrate", True), _op(70, 90, "select"),
+          _mark(91, "halo.exchange", True), _op(95, 99, "after")]
+    r = timing.reduce_spans(ev)
+    ns = 1e-9
+    assert r["group_s"] == pytest.approx({"halo": 60 * ns, "comm": 30 * ns})
+    assert r["host_group_s"] == pytest.approx({"halo": 210 * ns,
+                                               "comm": 40 * ns})
 
 
 def test_span_profile_on_the_cpu():
@@ -328,34 +378,47 @@ def test_span_profile_on_the_cpu():
 @pytest.mark.parametrize("workload,overrides,traffic", [
     ("drum.bed", {"n": 300, "lmax": 2, "contact_quad": [4, 8]},
      {"warmup_steps": 10, "block_steps": 10, "trace_steps": 10}),
-    ("triaxial.shear", {"n": 512}, {"block_steps": 10, "trace_steps": 10})])
+    ("triaxial.shear", {"n": 512}, {"block_steps": 10, "trace_steps": 10}),
+    ("triaxial.shear.4rank", {"n": 1000},
+     {"block_steps": 10, "trace_steps": 10})])
 def test_span_cells_reads_a_cell_at_tiny_size(workload, overrides, traffic):
     """``tools/span_cells.py`` on a benchmark cell cut to a tiny size, on
     the CPU: each step opens the step's layers once, the drum's slice
     holds its rebuild, and the live share of the counters is the pair
-    list's at the slice's ends."""
-    root = Path(__file__).resolve().parents[1]
-    sys.path.insert(0, str(root))
-    import importlib.util
+    list's at the slice's ends; the sharded cell on 4 gloo ranks gives
+    each rank's slice, and the halo's numbers of the slowest."""
+    sys.path.insert(0, str(ROOT))
+    sys.path.insert(0, str(ROOT / "tools"))
+    import span_cells as tool  # importable by name: the ranks import it
 
-    spec = importlib.util.spec_from_file_location(
-        "span_cells", root / "tools" / "span_cells.py")
-    tool = importlib.util.module_from_spec(spec)
-    spec.loader.exec_module(tool)
-    r = tool.cell_spans(workload, 2 ** 33 + 7, 0.05, 1, "cpu", overrides,
-                        traffic)
-    steps = traffic["trace_steps"]
-    assert r["clock"] == "host" and r["steps"] == steps
-    for name in ("step.pre", "pair", "pair.pack", "walls"):
-        assert r["spans_n"][name] == steps, name
-    drum = workload == "drum.bed"
-    assert r["spans_n"]["step.trigger"] == (2 if drum else steps)
-    assert bool(r["rebuild_stage_ms"]) == drum
-    (m,) = r["metrics"]
-    assert r["counters"]["pair.live"] <= r["counters"]["pair.slots"]
-    assert m["pair_live_pct"] == pytest.approx(r["evidence_live_pct"],
-                                               abs=2.0)
-    assert r["indexed_pct"] == 0.0  # the CPU twin packs the rows
+    top = tool.cell_spans(workload, 2 ** 33 + 7, 0.05, 1, "cpu", overrides,
+                          traffic)
+    sharded = workload.endswith("4rank")
+    for r in top["ranks"] if sharded else [top]:
+        steps = traffic["trace_steps"]
+        assert r["clock"] == "host" and r["steps"] == steps
+        for name in ("step.pre", "pair", "pair.pack", "walls"):
+            assert r["spans_n"][name] == steps, name
+        drum = workload == "drum.bed"
+        assert r["spans_n"]["step.trigger"] == (2 if drum else steps)
+        assert bool(r["rebuild_stage_ms"]) == drum
+        (m,) = r["metrics"]
+        assert r["counters"]["pair.live"] <= r["counters"]["pair.slots"]
+        assert m["pair_live_pct"] == pytest.approx(r["evidence_live_pct"],
+                                                   abs=2.0)
+        assert r["indexed_pct"] == 0.0  # the CPU twin packs the rows
+        halo = ("halo_ms_per_step", "comm_ms_per_step", "ghost_pct")
+        if sharded:
+            # No rebuild in the slice: every step forwards the ghosts.
+            assert r["spans_n"]["halo.forward"] == steps
+            assert all(m[k] > 0 for k in halo), m
+            assert r["group_ms"]["comm"] > 0
+        else:
+            assert all(m[k] is None for k in halo), m
+    if sharded:
+        assert [x["rank"] for x in top["ranks"]] == [0, 1, 2, 3]
+        assert top["slowest"] in range(4)
+        assert top["ghost_pct"] == top["metrics"][-1]["ghost_pct"] > 0
     assert not spans.is_on()
 
 
@@ -371,6 +434,165 @@ def test_marks_source_lists_every_span():
         "spherharm_span__pair_pack__begin"
     assert cuda_build.SPAN_SOURCES == ("span_marks.cu",)
     assert "span_marks.cu" not in cuda_build.SOURCES
+
+
+# -- the slabs on 4 gloo ranks ----------------------------------------------
+
+SLAB_SEED = 2 ** 33 + 21
+SLAB_STEPS = 10
+HALF = SLAB_STEPS // 2
+
+
+def _slab_cell(rebuild_every):
+    """The sheared cell of ``triaxial.shear.4rank`` at n = 1,000 (the
+    benchmark's own configuration, start and builder) as a one-process
+    simulation, on the cadence ``rebuild_every`` (0: the cell's skin
+    trigger), and its global start."""
+    sys.path.insert(0, str(ROOT))
+    from benchmark.harness import cell, inputs, program
+    from benchmark.starts import make_start
+
+    spec = cell.spec_of("triaxial.shear.4rank", {"n": 1000})
+    cfg, traffic = spec["cfg"], spec["traffic"]
+    geo = inputs.deployment(cfg)
+    start = make_start(cfg, geo, traffic, SLAB_SEED, "cpu")
+    sim = program.build(cfg, geo, "cpu")
+    sim.rebuild_every = rebuild_every
+    return sim, program.start_state(start, "cpu")
+
+
+def _drift_slabs():
+    """``torch_port_util.slab_drift_system`` on 4 slabs at cadence 5: its
+    first rebuilds migrate particles."""
+    from spherharm_tpu_torch.core.state import SimParams
+    from spherharm_tpu_torch.models import shapes_library
+    from spherharm_tpu_torch.parallel.halo import ShardedSimulation
+
+    from torch_port_util import slab_drift_system
+
+    x, v, box, periodic = slab_drift_system(4)
+    shapes = shapes_library.build_shapes(
+        [shapes_library.ellipsoid_coeffs(0.55, 0.45, 0.4, 4)], 4,
+        contact_quad=(6, 12), device="cpu")
+    params = SimParams.create(dt=1e-3, kn=1e4, gamma_n=5.0, mu=0.3,
+                              cutoff=1.2, skin=0.3, device="cpu")
+    sim = ShardedSimulation(
+        shapes, params, n_shards=4, box_lo=(0, 0, 0), box_hi=tuple(box),
+        cap_local=64, halo_cap=32, migrate_cap=16, periodic=periodic,
+        k_max=16, cell_cap=8, pair_capacity=256, rebuild_every=HALF,
+        device="cpu")
+    return sim, scenarios.make_state(x, [0, 0, 0], box, v=v, device="cpu")
+
+
+@pytest.fixture(scope="module")
+def slab_ranks():
+    """{case: [each rank's ``ranks.drive`` result]} of one 4-rank gloo
+    spawn: SLAB_STEPS steps with spans on under the profiler
+    (``ranks.spans_run``, "on"), then the same steps with spans off from
+    the same start, with the ghosts and the state after each half:
+    "cadence" (the cell, a rebuild every HALF steps), "check" (the cell
+    on its skin trigger), "drift" (the drifting slabs, which migrate)."""
+    acts = [("spans", "on", SLAB_STEPS), ("run", "", HALF), ("ghosts", "g1"),
+            ("snap", "s1"), ("run", "", HALF), ("ghosts", "g2"),
+            ("snap", "s2")]
+    cases = {"cadence": _slab_cell(HALF), "check": _slab_cell(0),
+             "drift": _drift_slabs()}
+    specs = [ranks.spec_of(sim, st0, acts) for sim, st0 in cases.values()]
+    per_rank = ranks.spawn_ranks(ranks.run_specs, 4, "gloo", ["cpu"] * 4,
+                                 specs, timeout=300.0)
+    return {name: [r[i] for r in per_rank] for i, name in enumerate(cases)}
+
+
+def _within(iv, outers) -> bool:
+    return any(o[0] <= iv[0] and iv[1] <= o[1] for o in outers)
+
+
+@pytest.mark.parametrize("case", ["cadence", "check"])
+def test_slab_spans_nest_as_the_units(slab_ranks, case):
+    """On every rank the sharded step's host ranges nest as its units: the
+    step's layers and ``halo.forward`` (the ``comm`` unit) inside
+    ``spherharm.run`` and in no other of them; ``halo.exchange`` inside
+    ``rebuild`` and ``halo.migrate`` inside it, one each a rebuild;
+    ``comm.p2p`` inside a halo span, ``comm.collective`` inside the
+    trigger or a rebuild; the rebuild's and the pair forces' stages
+    inside theirs."""
+    for r in slab_ranks[case]:
+        got = collections.defaultdict(list)
+        for name, t0, t1 in r["on"]["summary"]["ranges"]:
+            got[name].append((t0, t1))
+        run = got["spherharm.run"]
+        rebuilds = len(got["rebuild"])
+        assert len(run) == 1
+        assert rebuilds == (2 if case == "cadence" else rebuilds)
+        assert len(got["pair"]) == len(got["step.pre"]) == SLAB_STEPS
+        assert len(got["step.trigger"]) == (2 * rebuilds if case == "cadence"
+                                            else SLAB_STEPS)
+        assert len(got["halo.forward"]) == SLAB_STEPS - rebuilds
+        assert len(got["halo.exchange"]) == len(got["halo.migrate"]) == rebuilds
+        units = [(name, iv) for name in LAYERS + ("halo.forward",)
+                 for iv in got[name]]
+        for name, iv in units:
+            assert _within(iv, run), name
+            assert not any(_within(iv, [o]) for other, o in units
+                           if (other, o) != (name, iv)), name
+        assert all(_within(iv, got["rebuild"]) for iv in got["halo.exchange"])
+        assert all(_within(iv, got["halo.exchange"])
+                   for iv in got["halo.migrate"])
+        assert got["comm.p2p"] and got["comm.collective"]
+        halo = got["halo.exchange"] + got["halo.forward"]
+        assert all(_within(iv, halo) for iv in got["comm.p2p"])
+        assert all(_within(iv, got["step.trigger"] + got["rebuild"])
+                   for iv in got["comm.collective"])
+        for parent, stages in (("rebuild", ("rebuild.cell_list",
+                                            "rebuild.remap",
+                                            "rebuild.pair_build")),
+                               ("pair", ("pair.pack", "pair.law",
+                                         "pair.reduce"))):
+            for stage in stages:
+                assert all(_within(iv, got[parent]) for iv in got[stage])
+                assert bool(got[stage]) == bool(got[parent]), stage
+
+
+def _tags(snap) -> set:
+    st = snap[0]
+    return set(st["tag"][st["active"]].tolist())
+
+
+@pytest.mark.parametrize("case", ["cadence", "drift"])
+def test_halo_counters_count_the_rows(slab_ranks, case):
+    """On every rank, over the steps of a spans-on run (a rebuild at the
+    first step of each half, so each half's ghosts are those after it):
+    ``halo.ghosts`` and ``halo.owned`` are the active ghost and owned
+    rows a step, ``halo.sent`` the rows the forward steps shipped, and
+    ``halo.migrated`` the owned rows each rebuild took away (the drifting
+    slabs migrate; the cell at n = 1,000 does not in 10 steps)."""
+    moved = 0
+    for r in slab_ranks[case]:
+        c = r["on"]["summary"]["counters"]
+        g1, g2, s1, s2 = r["g1"], r["g2"], r["s1"], r["s2"]
+        assert c["halo.ghosts"] == HALF * (g1["active"].sum()
+                                           + g2["active"].sum())
+        assert c["halo.owned"] == HALF * (s1[0]["active"].sum()
+                                          + s2[0]["active"].sum())
+        assert c["halo.sent"] == (HALF - 1) * (g1["send_mask"].sum()
+                                               + g2["send_mask"].sum())
+        left = (len(_tags(r["init"]) - _tags(s1))
+                + len(_tags(s1) - _tags(s2)))
+        assert c.get("halo.migrated", 0) == left
+        moved += left
+    assert (moved > 0) == (case == "drift")
+
+
+@pytest.mark.parametrize("case", ["cadence", "check", "drift"])
+def test_slab_spans_on_run_is_the_spans_off_run(slab_ranks, case):
+    """A spans-on run of the slabs on 4 gloo ranks ends where the spans-off
+    run from the same start ends, bit for bit, on every rank."""
+    for r in slab_ranks[case]:
+        on, off = r["on"]["end"], r["s2"]
+        for part_on, part_off in zip(on, off):
+            for f, v in part_off.items():
+                if v is not None:
+                    assert np.array_equal(part_on[f], v), f
 
 
 # -- on the card -------------------------------------------------------------
