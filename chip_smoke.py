@@ -909,6 +909,7 @@ def stage2_list_phase(tag, path, state, neigh, results, bf16s=(False, True),
         if indexed:
             indexed_list_case(results[name][-1], label, path, state, neigh, full, dp,
                               live, tbl, cap, par, params, bf16)
+    reduce_case(results, case_tag, path, state, neigh, params)
 
 
 def indexed_list_case(c, label, path, state, neigh, full, dp, live, tbl, cap, par,
@@ -953,6 +954,68 @@ def indexed_list_case(c, label, path, state, neigh, full, dp, live, tbl, cap, pa
     require(max(errs) <= 1e-6, f"{label} by index: rows disagree with the packed entry's")
     require(d_ok, f"{label} by index: d is not minimum_image's")
     require(mask_ok, f"{label} by index: the mask column is not the live rows")
+
+
+# Bytes a live slot of the pair reduction needs (each read once): the law
+# row's force, torque, torque_j, pe, d and mask (14 floats), pair_i,
+# pair_j and its pair_jsort entry (int64), pair_both; dead slots none.
+REDUCE_SLOT_BYTES = 4 * 14 + 3 * 8 + 1
+
+
+def reduce_case(results, case_tag, path, state, neigh, params=None):
+    """``pair_reduce`` on ``path``'s own list as the step runs it: the law's
+    rows by index (``pair_contact_indexed``), then the kernel against its
+    plain twin in float64: f and tau within 1e-6 of their largest
+    magnitude, pe_total of itself, the virial of its largest entry (per
+    list); ten calls the same bits; each list of a stack ([R or S, P])
+    its single call's bits. Its case: ``device_ms`` of ``sh_pair_reduce``
+    (both its launches), ``ms`` a wrapper call, ``plain_ms`` the twin in
+    float32 (the chain the step ran before the kernel), ``bound_ms`` the
+    bytes of the live slots (REDUCE_SLOT_BYTES each) and the outputs over
+    HBM_RATE."""
+    import torch
+
+    from spherharm_tpu_torch.ops import contact
+    from spherharm_tpu_torch.ops import contact_kernels as ck
+
+    pi, N = neigh.pair_i, state.cap
+    lists = pi.shape[0] if pi.dim() == 2 else 1
+    prm = params or path.params
+    rows = contact.particle_rows(state, path.shapes)
+    tbl, cap, par = ck.pair_tables(path.shapes, prm, rows.dtype)
+    box = ck.box_rows(state.box_lo, state.box_hi, path._tilt(state), lists)
+    out = ck.pair_contact_indexed(
+        rows, state.shtype, pi, neigh.pair_j, neigh.pair_valid, neigh.pair_hist,
+        prm.pair_tab, tbl, cap, par, box, path.periodic, path.shapes.lmax,
+        path.conservative).reshape(pi.shape + (ck.N_OUT,))
+    args = (out, pi, neigh.pair_j, neigh.pair_jsort, neigh.pair_both, neigh.pair_valid)
+    call = lambda: ck.pair_reduce(*args, N)
+    got = call()
+    ref = ck.pair_reduce_plain(out.double(), *args[1:5], N)
+    amax = lambda b: b.abs().amax((-2, -1), keepdim=True)
+    errs = [float(((a.double() - b).abs() / scale(b).clamp(min=1e-300)).max())
+            for a, b, scale in zip(got, ref, (amax, amax, torch.abs, amax))]
+    same = all(all(torch.equal(a, b) for a, b in zip(call(), got)) for _ in range(9))
+    if lists > 1:
+        same = same and all(
+            all(torch.equal(a[r], b) for a, b in zip(got, ck.pair_reduce(
+                *(t[r] for t in args), N))) for r in range(lists))
+    live = int(neigh.pair_valid.sum())
+    moved = live * REDUCE_SLOT_BYTES + nbytes(*got)
+    c = dict(path=case_tag, rows=pi.numel(), live_rows=live, lists=lists,
+             max_abs_err=max(errs), ms=cuda_ms(call, 20),
+             device_ms=device_ms(call, "sh_pair_reduce"),
+             plain_ms=cuda_ms(lambda: ck.pair_reduce_plain(*args[:5], N), 3),
+             bound_ms=1e3 * moved / HBM_RATE, bound_by="bytes")
+    print(f"pair_reduce on the {case_tag}: P={pi.numel()} lists={lists} live={live}; "
+          f"largest gap over scale f {errs[0]:.3g} tau {errs[1]:.3g} pe {errs[2]:.3g} "
+          f"virial {errs[3]:.3g} (tol 1e-6); repeat and per-list bits {same}; device "
+          f"{c['device_ms']:.4f} ms, wrapper call {c['ms']:.4f} ms (float32 chain "
+          f"{c['plain_ms']:.3f} ms, bound {c['bound_ms']:.4f} ms, bytes, share "
+          f"{100 * c['bound_ms'] / c['device_ms']:.1f} %)")
+    require(max(errs) <= 1e-6, f"pair_reduce on the {case_tag}: disagrees with its twin")
+    require(same, f"pair_reduce on the {case_tag}: bits differ between calls or lists")
+    results.setdefault("pair_reduce", []).append(c)
 
 
 def wall_list_phase(tag, path, state, neigh, results, params=None):
@@ -1747,7 +1810,7 @@ def reset_counts():
     from spherharm_tpu_torch.ops import walls_kernels as wk
 
     for c in (ck.pair_contact.launches, ck.stage1_depth.launches,
-              wk.wall_contact_kernel.launches):
+              wk.wall_contact_kernel.launches, ck.pair_reduce.launches):
         for k in c:
             c[k] = 0
 
@@ -3142,7 +3205,8 @@ def cadence_phase(sim, state, neigh, smi):
     row per cadence of ``CADENCES`` (one block each: 3R steps, 60 for the
     trigger; a row with skin violations or overflow void, as in the
     reference), then the span profile of 3 R_EVERY steps (every span of
-    ``utils/spans`` opened, 98 % of the device time in some span). Returns
+    ``utils/spans`` but the halo's and the ranks' opened, 98 % of the device
+    time in some span). Returns
     {path: launches}."""
     import torch
 
@@ -3173,7 +3237,9 @@ def cadence_phase(sim, state, neigh, smi):
     counted["profile"] = launch_counts()
     profile_step.print_profile(summary, steps,
                                out=lambda line: print(f"profile: {line}"))
-    missing = [k for k in spans.SPANS if not summary["spans_n"].get(k)]
+    # The halo's and the ranks' spans open only in a sharded step.
+    missing = [k for k in spans.SPANS if k.split(".")[0] not in ("halo", "comm")
+               and not summary["spans_n"].get(k)]
     require(not missing, f"profile: spans never opened on the card: {missing}")
     require(summary["coverage"] >= 0.98,
             f"profile: the spans cover {summary['coverage']} of the device time")
@@ -3702,7 +3768,10 @@ def main(argv):
            "wall_cylinder": ("spherharm_tpu_torch/csrc/wall_contact.cu",
                              "spherharm_tpu/ops/walls_pallas.py:50"),
            "wall_plane": ("spherharm_tpu_torch/csrc/wall_contact.cu",
-                          "spherharm_tpu/ops/walls_pallas.py:139")}
+                          "spherharm_tpu/ops/walls_pallas.py:139"),
+           "pair_reduce": ("spherharm_tpu_torch/csrc/pair_reduce.cu",
+                           "no TPU kernel: spherharm_tpu/ops/contact.py:1045-1064, "
+                           "jax.ops.segment_sum")}
     by_path = {"drum": l_drum, "deposition": l_dep, f"deposition R={N_ENS}": l_ens,
                "settling box": l_box,
                "triaxial": l_tri, "drift gas": l_gas, "deck drum full": l_deck_drum,

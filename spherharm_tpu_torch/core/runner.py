@@ -68,15 +68,15 @@ def kernel_counters():
     from spherharm_tpu_torch.ops import walls_kernels as wk
 
     return (ck.pair_contact.launches, ck.stage1_depth.launches,
-            wk.wall_contact_kernel.launches)
+            wk.wall_contact_kernel.launches, ck.pair_reduce.launches)
 
 
 def launch_counts() -> dict:
     """Every kernel wrapper's launches, flat: ``pair_contact_<law>``, the
-    stage-1 variants, ``wall_<kind>``."""
-    pair, stage1, wall = kernel_counters()
+    stage-1 variants, ``wall_<kind>``, ``pair_reduce``."""
+    pair, stage1, wall, reduce = kernel_counters()
     return {**{f"pair_contact_{k}": n for k, n in pair.items()}, **stage1,
-            **{f"wall_{k}": n for k, n in wall.items()}}
+            **{f"wall_{k}": n for k, n in wall.items()}, **reduce}
 
 
 def _tensors(value):

@@ -620,7 +620,7 @@ def contact_force_pairs(state, shapes, params, neigh,
     """Per-step force/torque over the stable pair list (the hot path): the
     pair kernel over the list by index
     (``contact_kernels.pair_contact_indexed``, in the law ``conservative``
-    picks), two sorted segment-sums.
+    picks), then the sums over its rows (``contact_kernels.pair_reduce``).
 
     Returns (f [N,3], tau [N,3], pair_hist [Pc,HW], pe_total, virial);
     with a replica axis each gains a leading [R] (pe_total [R], virial
@@ -629,16 +629,14 @@ def contact_force_pairs(state, shapes, params, neigh,
     Spans (``utils/spans``): ``pair.pack`` (the particle rows, the law's
     tables and the boxes; counts ``pair.slots``, the slots of the list),
     ``pair.law`` (the kernel gathers each slot's row itself), ``pair.reduce``
-    (counts ``pair.live``, the rows the law ran for, from the kernel's mask
-    column).
+    (counts ``pair.live``, the rows the law ran for, and on the card
+    ``pair.reduce_rows``, the slots the reduction read).
     """
     from spherharm_tpu_torch.ops import contact_kernels as ck
 
-    N = state.cap
     dev = state.x.device
     pi, pj = neigh.pair_i, neigh.pair_j
     rep = pi.dim() == 2
-    at = lambda t, i: take(t, i, rep)
     with spans.span("pair.pack", dev):
         rows = particle_rows(state, shapes)
         tbl, cap, par = ck.pair_tables(shapes, params, rows.dtype)
@@ -651,32 +649,11 @@ def contact_force_pairs(state, shapes, params, neigh,
             params.pair_tab, tbl, cap, par, box, periodic, lmax=shapes.lmax,
             conservative=conservative)
     out = out.reshape(pi.shape + (ck.N_OUT,))
-    force = out[..., 0:3]
-    torque = out[..., 3:6]
-    torque_j = out[..., 6:9]
-    hist_new = out[..., 9:15]
-    pe = out[..., 15]
-    dp = out[..., 17:20]
-
     with spans.span("pair.reduce", dev):
-        msk = out[..., 20] > 0.5
-        spans.count("pair.live", msk)
-        # i side: pair_i is sorted by construction. j side (reaction,
-        # half-list pairs only): permuted into pair_j order, so also a
-        # sorted sum.
-        acc_i = sorted_segment_sum(torch.cat([force, torque], dim=-1), pi, N)
-        w_j = (msk & neigh.pair_both).to(force.dtype)[..., None]
-        perm = neigh.pair_jsort
-        acc_j = sorted_segment_sum(
-            at(torch.cat([-force * w_j, torque_j * w_j], dim=-1), perm),
-            at(pj, perm), N)
-        f = acc_i[..., 0:3] + acc_j[..., 0:3]
-        tau = acc_i[..., 3:6] + acc_j[..., 3:6]
-        w_pe = torch.where(msk & neigh.pair_both, 1.0, 0.5).to(pe.dtype)
-        pe_total = (pe * w_pe).sum(-1)
-        virial = -torch.einsum("rp,rpa,rpb->rab" if rep else "p,pa,pb->ab",
-                               w_pe, dp, force)
-    return f, tau, hist_new, pe_total, virial
+        f, tau, pe_total, virial = ck.pair_reduce(
+            out, pi, pj, neigh.pair_jsort, neigh.pair_both, neigh.pair_valid,
+            state.cap)
+    return f, tau, out[..., 9:15], pe_total, virial
 
 
 def contact_force_dense(state, shapes, params, neigh,

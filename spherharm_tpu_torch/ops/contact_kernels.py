@@ -1,6 +1,6 @@
 """Pair-contact kernels: packing, CUDA wrappers and their plain twins.
 
-Two kernels, both hand-written CUDA C++ for sm_90a (``csrc/``):
+Three kernels, all hand-written CUDA C++ for sm_90a (``csrc/``):
 
 * ``pair_contact`` — the stage-2 pair law (``csrc/pair_contact.cu``):
   both-sided cap quadrature, Hertz + damping + friction + rolling, in
@@ -12,6 +12,10 @@ Two kernels, both hand-written CUDA C++ for sm_90a (``csrc/``):
   bound on each pair's max depth, at a truncation degree l1 and in f32
   or bfloat16 (K4 is l1 = lmax in f32, what the prefilter runs; K5 the
   rest, with the reference's defaults l1 = 4, bf16).
+* ``pair_reduce`` — the step's sums over the law's rows
+  (``csrc/pair_reduce.cu``): each particle's force and torque over its
+  rows of the pair list, the list's pe and virial, reading the list's
+  live prefix alone.
 
 Each wrapper launches its kernel on a CUDA tensor (or raises) and runs
 its plain PyTorch twin on a CPU tensor; nothing else picks the route. A
@@ -494,6 +498,102 @@ def friction_rolling(hist_t, hist_r, n_hat, vt, in_contact, poly, fn_mag,
     tau_roll = torch.where(col(in_contact), col(r_eff) * cross(n_hat, f_r),
                            0.0)
     return xi, f_t, xi_r, tau_roll
+
+
+# -- pair reduction --------------------------------------------------------
+
+def pair_reduce(out, pi, pj, perm, both, valid, N: int):
+    """The sums of ``contact.contact_force_pairs`` over the law's rows.
+    out [..., P, 24] or [R * P, 24]: ``pair_contact_indexed``'s rows of
+    the list pi, pj, valid, both [P] or, for R lists (replicas or shards),
+    [R, P]; perm (``pair_jsort``) sorts pj stably, per list; N particles
+    a list. pair_i is sorted, a list's live slots (``valid``) are a prefix
+    of it, and its dead slots have zero rows and pair_i = pair_j = N - 1,
+    as ``build_pair_list`` and ``prefilter_pair_list`` leave them.
+
+    Returns (f [..., N, 3], tau [..., N, 3], pe_total [...], virial
+    [..., 3, 3]): f and tau sum force and torque over a particle's pair_i
+    rows, and -force and torque_j over its pair_j rows where the mask
+    (column 20) and ``both`` hold; pe_total sums pe w and the virial is
+    -sum w d (x) force, w = 1 where the mask and ``both`` hold, else 0.5.
+    CUDA tensors launch ``sh_pair_reduce`` (``csrc/pair_reduce.cu``: the
+    sums over the live prefix, then the totals; launches counted in
+    ``pair_reduce.launches``); with spans on it counts ``pair.reduce_rows``
+    (the slots the kernel read) and ``pair.live`` (the masked rows) from
+    the kernel's stats row. CPU tensors run ``pair_reduce_plain`` (spans
+    on: ``pair.live`` from the mask column)."""
+    out = out.reshape(pi.shape + (N_OUT,))
+    if out.device.type == "cpu":
+        if spans.is_on():
+            spans.count("pair.live", out[..., 20] > 0.5)
+        return pair_reduce_plain(out, pi, pj, perm, both, N)
+    _check_cuda("pair_reduce", out=out)
+    lead, P = pi.shape[:-1], pi.shape[-1]
+    lists = pi.shape[0] if pi.dim() == 2 else 1
+    if (pi.dim() not in (1, 2) or N < 1 or P >= 2 ** 31
+            or any(t.shape != pi.shape for t in (pj, perm, both, valid))
+            or both.dtype != torch.bool or valid.dtype != torch.bool):
+        raise ValueError("pair_reduce: bad inputs "
+                         f"out {tuple(out.shape)} pi {tuple(pi.shape)} "
+                         f"pj {tuple(pj.shape)} perm {tuple(perm.shape)} "
+                         f"both {tuple(both.shape)} {both.dtype} "
+                         f"valid {tuple(valid.shape)} {valid.dtype} N {N}")
+    idx = lambda t: t.long().contiguous()
+    pi, pj, perm = idx(pi), idx(pj), idx(perm)
+    both, valid = both.contiguous(), valid.contiguous()
+    dev = out.device
+    lib = cuda_build.library()
+    blocks = lib.sh_pair_reduce_blocks(N)
+    f = torch.empty(lead + (N, 3), dtype=torch.float32, device=dev)
+    tau = torch.empty_like(f)
+    pe_total = torch.empty(lead, dtype=torch.float32, device=dev)
+    virial = torch.empty(lead + (3, 3), dtype=torch.float32, device=dev)
+    part = torch.empty((lists, blocks, 10), dtype=torch.float64, device=dev)
+    part_n = torch.empty((lists, blocks), dtype=torch.int32, device=dev)
+    stats = torch.empty((lists, 2), dtype=torch.int32, device=dev)
+    err = lib.sh_pair_reduce(
+        _ptr(out), _ptr(pi), _ptr(pj), _ptr(perm), _ptr(both), _ptr(valid), N,
+        P, lists, _ptr(f), _ptr(tau), _ptr(pe_total), _ptr(virial), _ptr(part),
+        _ptr(part_n), _ptr(stats), _stream(dev))
+    cuda_build.check(err, "pair_reduce")
+    pair_reduce.launches["pair_reduce"] += 1
+    if spans.is_on():
+        spans.count("pair.reduce_rows", stats[:, 0])
+        spans.count("pair.live", stats[:, 1])
+    return f, tau, pe_total, virial
+
+
+pair_reduce.launches = {"pair_reduce": 0}
+
+
+def pair_reduce_plain(out, pi, pj, perm, both, N: int):
+    """Plain twin of ``pair_reduce`` (out [..., P, 24]): float64 prefix
+    sums over every slot differenced at the segment bounds
+    (``contact.sorted_segment_sum``), the j side permuted into pair_j
+    order, pe and virial over every slot."""
+    rep = pi.dim() == 2
+    at = lambda t, i: state_mod.take(t, i, rep)
+    force = out[..., 0:3]
+    torque = out[..., 3:6]
+    torque_j = out[..., 6:9]
+    pe = out[..., 15]
+    dp = out[..., 17:20]
+    msk = out[..., 20] > 0.5
+    # i side: pair_i is sorted by construction. j side (reaction,
+    # half-list pairs only): permuted into pair_j order, so also a
+    # sorted sum.
+    acc_i = contact.sorted_segment_sum(torch.cat([force, torque], dim=-1), pi, N)
+    w_j = (msk & both).to(force.dtype)[..., None]
+    acc_j = contact.sorted_segment_sum(
+        at(torch.cat([-force * w_j, torque_j * w_j], dim=-1), perm),
+        at(pj, perm), N)
+    f = acc_i[..., 0:3] + acc_j[..., 0:3]
+    tau = acc_i[..., 3:6] + acc_j[..., 3:6]
+    w_pe = torch.where(msk & both, 1.0, 0.5).to(pe.dtype)
+    pe_total = (pe * w_pe).sum(-1)
+    virial = -torch.einsum("rp,rpa,rpb->rab" if rep else "p,pa,pb->ab",
+                           w_pe, dp, force)
+    return f, tau, pe_total, virial
 
 
 # -- stage-1 r-only probe ------------------------------------------------

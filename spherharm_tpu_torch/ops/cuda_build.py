@@ -28,8 +28,8 @@ from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "spherharm_tpu_torch"
-SOURCES = ("pair_contact.cu", "pair_contact_cons.cu", "stage1_probe.cu",
-           "wall_contact.cu")
+SOURCES = ("pair_contact.cu", "pair_contact_cons.cu", "pair_reduce.cu",
+           "stage1_probe.cu", "wall_contact.cu")
 HEADERS = ("sh_device.cuh", "sh_nodes.cuh", "pair_contact.cuh")
 SPAN_SOURCES = ("span_marks.cu",)
 ARCH = ("-gencode", "arch=compute_90a,code=sm_90a")
@@ -46,6 +46,12 @@ _SIGNATURES = {
     "sh_pair_contact_indexed": (_P, _P, _I, _P, _P, _P, _P, _I, _P, _I, _I,
                                 _P, _I, _I, _I, _I, _I, _P, _I, _I, _P, _I,
                                 _P, _I, _I, _I, _I, _I, _P, _P),
+    # out, pi, pj, perm, both, valid, N, P, lists, f, tau, pe, virial,
+    # part, part_n, stats, stream
+    "sh_pair_reduce": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _P, _P, _P, _P, _P,
+                       _P, _P, _P),
+    # N
+    "sh_pair_reduce_blocks": (_I,),
     # packed, tbl1, T, W, cap1, G, l1, bf16, P, out, stream
     "sh_stage1_depth": (_P, _P, _I, _I, _P, _I, _I, _I, _I, _P, _P),
     # packed, tbl, T, W, cap, G, par, lmax, B, rows_per_replica, kind,

@@ -439,3 +439,32 @@ def test_contact_forces_through_the_indexed_entry(case):
     assert float(want[2].abs().max()) > 0  # springs
     for name, a, b in zip(("f", "tau", "springs", "pe", "virial"), got, want):
         assert torch.equal(a, b), name
+
+
+@pytest.mark.parametrize("case", ["drum-build", "drum-prefilter",
+                                  "triclinic-build"])
+def test_pair_lists_keep_their_live_slots_as_a_prefix(case):
+    """``build_pair_list`` (the drum's half list, the sheared triclinic
+    cell's periodic one) and ``prefilter_pair_list`` (the drum's stage-2
+    list) leave each list's live slots as its prefix and its dead tail at
+    pair_i = pair_j = N - 1, last in ``pair_jsort``: what the card's
+    ``pair_reduce`` clips its reads at. The simulation's own list after
+    its run, and the lists built anew from its state, alike."""
+    from spherharm_tpu_torch.ops import contact
+
+    from torch_port_util import hold_live_prefix
+
+    sim, st, ng = _force_system("pairs-" + case.split("-")[0])
+    N, tilt = st.cap, sim._tilt(st)
+    fields, _ = contact.build_pair_list(
+        st, sim.shapes, sim.params, ng.idx, ng.mask, ng.hist, st.active,
+        sim.pair_capacity, sim.periodic, tilt=tilt)
+    if case.endswith("prefilter"):
+        assert sim.prefilter
+        fields = contact.prefilter_pair_list(
+            st, sim.shapes, sim.params, fields, sim.stage2_capacity, sim.k_max,
+            window_steps=sim.rebuild_every, periodic=sim.periodic,
+            tilt=tilt)[0]
+    for lists in (fields, vars(ng)):
+        (L,) = hold_live_prefix(lists, N)
+        assert 0 < L < lists["pair_i"].shape[-1]

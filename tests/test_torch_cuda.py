@@ -794,6 +794,96 @@ def test_segment_sum_is_repeatable_on_the_card(cuda_device):
     assert torch.equal(stacked[0], first)
 
 
+def _reduce_list(rng, N, P, live, device, last=False, both_p=0.5):
+    """A pair list as the law leaves it for ``pair_reduce``: ``live``
+    slots first (pair_i sorted, pair_j random, random rows whose masked
+    rows are zeros as the law writes them, pair_both with probability
+    ``both_p``), then the dead tail: zero rows, pair_i = pair_j = N - 1,
+    nothing valid. ``last``: particle N - 1 has live rows on both sides."""
+    pi = np.sort(rng.integers(0, N, live))
+    pj = rng.integers(0, N, live)
+    if last and live:
+        pi[-7:] = N - 1
+        pj[rng.choice(live, 7, replace=False)] = N - 1
+    mask = rng.uniform(size=live) > 0.1
+    rows = rng.normal(size=(live, ck.N_OUT)).astype(np.float32)
+    rows[:, 20] = mask
+    rows[~mask] = 0.0
+    rows[:, 21:] = 0.0
+    out = np.zeros((P, ck.N_OUT), np.float32)
+    out[:live] = rows
+    both = np.zeros(P, bool)
+    both[:live] = rng.uniform(size=live) < both_p
+    t = lambda a: torch.tensor(a, device=device)
+    tail = lambda a: t(np.concatenate([a, np.full(P - live, N - 1)]))
+    pj = tail(pj)
+    return dict(out=t(out), pi=tail(pi), pj=pj,
+                perm=torch.sort(pj, stable=True).indices, both=t(both),
+                valid=t(np.arange(P) < live))
+
+
+# The sheared cell's list size (N 100k, P 1.2M, ~25 % live): live counts
+# and options of each case; "replicas" stacks three lists of different
+# live lengths, one of them empty.
+REDUCE_CASES = {
+    "sheared": dict(lives=(300_000,)),
+    "last-particle": dict(lives=(300_000,), last=True),
+    "no-both": dict(lives=(300_000,), both_p=0.0),
+    "replicas": dict(lives=(300_000, 120_000, 0), last=True),
+}
+
+
+@pytest.mark.parametrize("case", list(REDUCE_CASES))
+def test_pair_reduce_kernel_matches_plain(case, cuda_device):
+    """``pair_reduce`` (``csrc/pair_reduce.cu``) against its plain twin in
+    float64 on lists of the sheared cell's size: f and tau within 1e-6 of
+    their rms, pe_total within 1e-6 of itself and the virial of its
+    largest entry (the kernel sums in float64 and rounds each result to
+    float32 once or, for f and tau, once a side, ~6e-8 of the value); ten
+    calls give the same bits; an [R, P] stack gives each replica its
+    single list's bits; with spans on, ``pair.reduce_rows`` counts the
+    live slots and ``pair.live`` the masked rows."""
+    from spherharm_tpu_torch.utils import spans
+
+    N, P = 100_000, 1_200_000
+    spec = dict(REDUCE_CASES[case])
+    rng = np.random.default_rng(21)
+    lists = [_reduce_list(rng, N, P, live, cuda_device, **spec)
+             for live in spec.pop("lives")]
+    keys = ("out", "pi", "pj", "perm", "both", "valid")
+    one = len(lists) == 1
+    stack = lists[0] if one else {k: torch.stack([l[k] for l in lists])
+                                  for k in keys}
+    n0 = ck.pair_reduce.launches["pair_reduce"]
+    got = ck.pair_reduce(*(stack[k] for k in keys), N)
+    assert ck.pair_reduce.launches["pair_reduce"] == n0 + 1
+    ref = ck.pair_reduce_plain(stack["out"].double(), stack["pi"], stack["pj"],
+                               stack["perm"], stack["both"], N)
+    f_rms = lambda b: b.pow(2).mean((-2, -1), keepdim=True).sqrt()
+    scales = (f_rms, f_rms, lambda b: b.abs(),
+              lambda b: b.abs().amax((-2, -1), keepdim=True))
+    for name, a, b, scale in zip(("f", "tau", "pe_total", "virial"), got, ref,
+                                 scales):
+        assert a.dtype == torch.float32 and a.shape == b.shape, name
+        err = (a.double() - b).abs()
+        assert bool((err <= 1e-6 * scale(b)).all()), (name, float(err.max()))
+    assert float(got[0].abs().max()) > 0
+    for _ in range(9):
+        again = ck.pair_reduce(*(stack[k] for k in keys), N)
+        assert all(torch.equal(a, b) for a, b in zip(again, got))
+    for r, lst in enumerate([] if one else lists):
+        single = ck.pair_reduce(*(lst[k] for k in keys), N)
+        assert all(torch.equal(a[r], b) for a, b in zip(got, single)), r
+    with spans.enabled(True):
+        spans.reset()
+        ck.pair_reduce(*(stack[k] for k in keys), N)
+        counted = spans.counters()
+        spans.reset()
+    masked = int((stack["out"][..., 20] > 0.5).sum())
+    assert counted == {"pair.reduce_rows": int(stack["valid"].sum()),
+                       "pair.live": masked}
+
+
 # -- CUDA graphs of the step (core/runner.py) ------------------------------
 
 def _graph_drum(device, rebuild_every=20, skin=None):

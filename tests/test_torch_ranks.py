@@ -45,6 +45,7 @@ from spherharm_tpu_torch.parallel.halo import RankAxis, ShardedSimulation
 from test_torch_brick import _build as brick_build
 from test_torch_halo import STEPS, _build as slab_build
 from torch_port_util import floor_layers as _floor_layers
+from torch_port_util import hold_live_prefix
 
 TIMEOUT = 300.0
 TRIGGER_STEPS = 120
@@ -217,6 +218,27 @@ def test_prefilter_budgets_global_on_ranks(rank_runs, shard_runs):
         np.testing.assert_array_equal(ng["budget"][:, :cl], ref)
         np.testing.assert_array_equal(ng["pair_valid"].sum(-1),
                                       one[key][1]["pair_valid"].sum(-1))
+
+
+def test_rank_lists_keep_their_live_slots_as_a_prefix(rank_runs):
+    """Every rank's pair list at every snapshot of every system (lists
+    built by ``ShardedSimulation._rebuild`` on gloo ranks, owned plus ghost
+    rows, prefiltered in ``pre4``): the live slots a prefix, the dead tail
+    at pair_i = pair_j = the rank's last extended row, last in
+    ``pair_jsort`` (``torch_port_util.hold_live_prefix``), what the card's
+    ``pair_reduce`` clips its reads at."""
+    n_lists = 0
+    for per_rank in rank_runs.values():
+        for r in per_rank:
+            for snap in r.values():
+                if not (isinstance(snap, tuple) and len(snap) == 2
+                        and "pair_valid" in snap[1]):
+                    continue
+                ng = snap[1]
+                lives = hold_live_prefix(ng, ng["idx"].shape[-2])
+                assert all(0 < L < ng["pair_i"].shape[-1] for L in lives)
+                n_lists += len(lives)
+    assert n_lists >= 4 * 10
 
 
 def test_trigger_fires_at_the_same_steps_on_every_rank(rank_runs,

@@ -407,6 +407,7 @@ def test_span_cells_reads_a_cell_at_tiny_size(workload, overrides, traffic):
         assert m["pair_live_pct"] == pytest.approx(r["evidence_live_pct"],
                                                    abs=2.0)
         assert r["indexed_pct"] == 0.0  # the CPU twin packs the rows
+        assert r["reduce_read_pct"] == 0.0  # the CPU twin sums every slot
         halo = ("halo_ms_per_step", "comm_ms_per_step", "ghost_pct")
         if sharded:
             # No rebuild in the slice: every step forwards the ghosts.
@@ -649,21 +650,25 @@ def test_run_units_events_time_the_replays_alone(cuda_device):
 def test_pair_live_on_the_card(cuda_device):
     """On the card ``pair.live`` (summed inside the graphs) equals the
     count of live rows over the steps, step by step from the run's own
-    lists (the skin trigger's, one step a run), and the kernel gathers
-    every slot's row itself (``pair.indexed`` = ``pair.slots``)."""
+    lists (the skin trigger's, one step a run), the kernel gathers
+    every slot's row itself (``pair.indexed`` = ``pair.slots``), and the
+    reduction reads the lists' live prefixes alone (``pair.reduce_rows``,
+    the valid slots)."""
     sim, st, ng = _drum(cuda_device, 0, n=128, lmax=4)
     steps = 8
-    live, s, n = 0, st, ng
+    live, valid, s, n = 0, 0, st, ng
     for _ in range(steps):
         s, n = sim.run(s, n, 1)
         live += int((n.pair_valid & s.active[n.pair_i]
                      & s.active[n.pair_j]).sum())
+        valid += int(n.pair_valid.sum())
     with spans.enabled(True):
         sim.run(st, ng, 1)  # captures the spans-on graphs
         spans.reset()
         sim.run(st, ng, steps)
     assert spans.counters() == {"pair.slots": steps * sim.pair_list_cap,
                                 "pair.indexed": steps * sim.pair_list_cap,
+                                "pair.reduce_rows": valid,
                                 "pair.live": live}
 
 

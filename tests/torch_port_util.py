@@ -287,6 +287,31 @@ def compare_deck_runs(ref, run, keys=("etot", "ke", "pe_pair")):
     return err
 
 
+def hold_live_prefix(fields, N):
+    """Hold a pair list (``pair_*`` fields, one list [P] or lists [S, P],
+    torch tensors or numpy arrays) to what ``contact_kernels.pair_reduce``
+    clips at: each list's live slots (``pair_valid``) a prefix of it,
+    pair_i sorted over them, the dead tail pair_i = pair_j = N - 1 with
+    pair_both off, and ``pair_jsort`` the stable sort of pair_j, so the
+    dead slots are its last entries. Returns each list's live length."""
+    t = {k: torch.as_tensor(np.asarray(fields[k]) if not torch.is_tensor(
+             fields[k]) else fields[k])
+         for k in ("pair_valid", "pair_i", "pair_j", "pair_both", "pair_jsort")}
+    P = t["pair_valid"].shape[-1]
+    lives = []
+    for r in range(t["pair_valid"].numel() // P):
+        v, pi, pj, both, perm = (x.reshape(-1, P)[r] for x in t.values())
+        L = int(v.sum())
+        assert v[:L].all() and not v[L:].any(), "live slots not a prefix"
+        assert bool((pi[1:L] >= pi[:L - 1]).all()), "pair_i not sorted"
+        assert bool((pi[L:] == N - 1).all() and (pj[L:] == N - 1).all())
+        assert not both[L:].any()
+        assert torch.equal(perm, torch.sort(pj, stable=True).indices)
+        assert bool((perm[L:] >= L).all())
+        lives.append(L)
+    return lives
+
+
 @pytest.fixture
 def cuda_device():
     """The card for a ``cuda``-marked test; skips where there is none."""

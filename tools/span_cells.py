@@ -17,7 +17,9 @@ difference), ``metrics`` (``timing.span_metrics`` of each span slice),
 ``evidence_live_pct`` (live rows of the pair list over its slots at the
 slice's two ends, the mean of the two), ``indexed_pct`` (the slots whose
 row the pair kernel gathered itself, ``pair.indexed``, over the slots,
-``pair.slots``, in %), ``coverage``, and from the last
+``pair.slots``, in %), ``reduce_read_pct`` (the slots the pair reduction
+read, ``pair.reduce_rows``: the lists' live prefixes, over ``pair.slots``,
+in %; 0 where the plain twin sums every slot), ``coverage``, and from the last
 span slice, in ms a step: ``span_ms`` and ``self_ms`` by span,
 ``group_ms`` (time in any span of a group: ``halo``, ``comm``, ...),
 ``rebuild_stage_ms`` (ms a rebuild), ``top_ops_ms`` (each span's largest
@@ -150,6 +152,9 @@ def _spans(spec, workload, seed, seconds, reps, device, axis=None,
         metrics.append(timing.span_metrics(summary, steps))
     t, self_t, n, clock = timing.span_times(summary)
     rebuilds = n.get("rebuild", 0)
+    share = lambda name: (100.0 * summary["counters"].get(name, 0)
+                          / summary["counters"]["pair.slots"]
+                          if summary["counters"].get("pair.slots") else None)
     return dict(
         workload=workload, seed=seed, clock=clock,
         card=torch.cuda.get_device_name(device) if cuda else "cpu",
@@ -161,9 +166,8 @@ def _spans(spec, workload, seed, seconds, reps, device, axis=None,
         plain_busy_pct=100.0 * sl["busy_s"] / sl["window_s"],
         metrics=metrics,
         evidence_live_pct=0.5 * (live_pct(carry) + live_pct(end)),
-        indexed_pct=(100.0 * summary["counters"].get("pair.indexed", 0)
-                     / summary["counters"]["pair.slots"]
-                     if summary["counters"].get("pair.slots") else None),
+        indexed_pct=share("pair.indexed"),
+        reduce_read_pct=share("pair.reduce_rows"),
         coverage=summary["coverage"], spans_n=n,
         marks=summary["marks"], unmatched=summary["unmatched"],
         clipped=summary["clipped"],
