@@ -174,11 +174,10 @@ Phases, each fatal on failure (exit code != 0, no result line):
    its wall batches (8 x wall_capacity rows), K2 on the triaxial cell's
    (1,200,000 slots),
    K1 and K3 conservative on the drift gas's (30,000 slots); each list
-   packed and timed whole, up to 16,384 live rows held to
-   the twin and every masked row to zero; on the triaxial cell's list and
-   on the full-size drum deck's (step 8) the kernel also read by index
-   (``pair_contact_indexed``, as the step runs it), held to the packed
-   call, its device ms printed beside the packed entry's;
+   read by index (``pair_contact_indexed``, as the step runs it) and
+   timed whole, up to 16,384 live rows held to the twin on their packed
+   rows, every masked row to zero, d to the minimum image and column 20
+   to the mask;
    K4 on the candidate list a rebuild builds after the path's run, on the
    drum's (all 500,000 slots, pair cap 5n) and the drift gas's (60,000):
    the row classes printed, each list timed whole, up to 16,384 probed
@@ -439,7 +438,7 @@ def cuda_ms(fn, reps):
 
 
 # Each kernel-line name's C entry in csrc/ (device_ms times its launches).
-ENTRIES = {"pair_contact": "sh_pair_contact", "stage1_depth": "sh_stage1_depth",
+ENTRIES = {"pair_contact": "sh_pair_contact_indexed", "stage1_depth": "sh_stage1_depth",
            "wall": "sh_wall_contact"}
 
 # Cycles the stream spins before the timed launches (about 5 ms at the
@@ -642,6 +641,35 @@ def compare(out, ref, nf, f_tol, loose_rows=0):
     return ok, f_err, flips, " ".join(text)
 
 
+def law_inputs(state, shapes, params, pi, pj, valid, hist, periodic, tilt):
+    """The stage-2 law's inputs for the lists pi, pj [P] or [R, P] of
+    ``state``: (args, packed, mask, d), ``args`` the arguments of
+    ``pair_contact_indexed`` but the degree and the law, by name;
+    ``packed`` the rows its kernel gathers (``pack_indexed``), the twin's
+    input; the mask and minimum-image d of each slot, flat."""
+    from spherharm_tpu_torch.ops import contact
+    from spherharm_tpu_torch.ops import contact_kernels as ck
+
+    rows = contact.particle_rows(state, shapes)
+    tbl, cap, par = ck.pair_tables(shapes, params, rows.dtype)
+    box = ck.box_rows(state.box_lo, state.box_hi, tilt,
+                      pi.shape[0] if pi.dim() == 2 else 1)
+    args = dict(rows=rows, typ=state.shtype, pi=pi, pj=pj, valid=valid, hist=hist,
+                pair_tab=params.pair_tab, tbl=tbl, cap=cap, par=par, box=box,
+                periodic=periodic)
+    packed, mask, d = ck.pack_indexed(rows, state.shtype, pi, pj, valid, hist,
+                                      params.pair_tab, box, periodic)
+    return args, packed, mask.reshape(-1), d.reshape(-1, 3)
+
+
+def law_bytes(args, out):
+    """The law's bytes: each input tensor read once, the output written
+    once."""
+    import torch
+
+    return nbytes(*(t for t in args.values() if torch.is_tensor(t)), out)
+
+
 def case(results, name, tag, lmax, G, rows, err, time_kernel, time_plain, work,
          moved, degree=None, **extra):
     """Time one kernel case: ``ms``, a wrapper call (CUDA events over 20
@@ -675,15 +703,18 @@ def pair_batch(results, conservative, tag, path, dev, rng, bf16=False, params=No
     name = f"pair_contact_{law}" + ("_bf16" if bf16 else "")
     label = f"K{3 if bf16 else 1 if conservative else 2} {name} on {tag}"
     lmax = path.shapes.lmax
-    st, pi, pj, mask, hist, d = contact_pairs(path, dev, rng)
-    packed, tbl, cap, par = ck.pack_pairs(st, path.shapes, params or path.params,
-                                          pi, pj, mask, hist, d)
+    st, pi, pj, mask, hist, _ = contact_pairs(path, dev, rng)
+    args, packed, _, _ = law_inputs(st, path.shapes, params or path.params, pi, pj,
+                                    mask, hist, (False, False, False), None)
+    tbl, cap, par = args["tbl"], args["cap"], args["par"]
+    call = lambda: ck.pair_contact_indexed(**args, lmax=lmax, conservative=conservative,
+                                           bf16=bf16)
     if params is not None:
         kn = packed[:, ck.SLOTS["mat"][0]].unique()
         print(f"{label}: pair_tab {tuple(params.pair_tab.shape)}, row kn values "
               f"{[float(k) for k in kn]}")
         require(kn.numel() > 1, f"{label}: every row has the same material")
-    out = ck.pair_contact(packed, tbl, cap, par, lmax, conservative, bf16)
+    out = call()
     ref = ck.pair_contact_plain(packed, tbl, cap, par, lmax, conservative, bf16)
     torch.cuda.synchronize()
     n_contact = int((ref[:, 16] > 0.5).sum())
@@ -710,12 +741,10 @@ def pair_batch(results, conservative, tag, path, dev, rng, bf16=False, params=No
     require(torch.isfinite(out).all(), f"{label}: output not finite")
     require(ok, f"{label}: disagrees with its plain twin")
     require(flips <= N_PAIRS // 1000, f"{label}: contact flags disagree")
-    case(results, name, tag, lmax, G, N_PAIRS, err,
-         lambda: ck.pair_contact(packed, tbl, cap, par, lmax, conservative, bf16),
+    case(results, name, tag, lmax, G, N_PAIRS, err, call,
          lambda: ck.pair_contact_plain(packed, tbl, cap, par, lmax, conservative,
                                        bf16),
-         int((packed[:, ck.SLOTS["mask"][0]] > 0.5).sum()),
-         nbytes(packed, tbl, cap, par, out))
+         int((packed[:, ck.SLOTS["mask"][0]] > 0.5).sum()), law_bytes(args, out))
 
 
 def wall_batch(results, kind, tag, path, wall, B, dev, rng):
@@ -832,54 +861,39 @@ def kernel_phase(sim, dep, box, gas, tri, blobs, collider, dev):
 
 
 def stage2_list_phase(tag, path, state, neigh, results, bf16s=(False, True),
-                      case_tag=None, min_live=1000, need_contact=True, params=None,
-                      indexed=False):
+                      case_tag=None, min_live=1000, need_contact=True, params=None):
     """The stage-2 kernels of ``path``'s law, in f32 and in bf16 (``bf16s``),
-    on the path's own stage-2 list, packed from ``state`` after its run as
-    ``contact.contact_force_pairs`` packed it before the step read the
-    list by index, every slot: each kernel
+    on the path's own stage-2 list after its run, read by index as the
+    step reads it (``pair_contact_indexed``), every slot: each kernel
     timed on the whole list as the case ``case_tag`` (default "{tag}
-    stage-2 list"; its bound from the list's live rows);
-    the rows of that same call held to the twin on up to N_PAIRS of the
-    live rows (the autograd twin's memory bound; the plain time is of
-    those rows; a list with no live row, its first row) at the synthetic
-    batches' tolerances, and its masked rows to zero. Fails where the
-    list has fewer than ``min_live`` live rows, or no contact with
-    ``need_contact``. A replica ensemble's lists (``state`` and ``neigh``
-    stacked, ``params`` its stacked params) run as the one launch its
-    step makes, [R * Pc] rows with a par row a replica; the twin's rows
-    take their replica's par row. With ``indexed``, each kernel also runs
-    through ``pair_contact_indexed`` on the same list, as the step runs
-    it: its columns 0-16 held to the packed call's within 1e-6 of each
-    group's scale, d (columns 17-19) to ``minimum_image``'s within 1 f32
-    ulp, the mask (column 20) to the live rows; its device time
-    (``device_ms`` of ``sh_pair_contact_indexed``) and wrapper call printed
-    beside the packed entry's and kept in the case as ``indexed_device_ms``
-    and ``indexed_ms``."""
+    stage-2 list"; its bound from the list's live rows); the rows of that
+    same call held to the twin on up to N_PAIRS of the live rows, packed
+    (``pack_indexed``; the autograd twin's memory bound; the plain time is
+    of those rows; a list with no live row, its first row) at the
+    synthetic batches' tolerances, its masked rows to zero, d (columns
+    17-19) to the minimum image within 1 f32 ulp and column 20 to the
+    mask. Fails where the list has fewer than ``min_live`` live rows, or
+    no contact with ``need_contact``. A replica ensemble's lists
+    (``state`` and ``neigh`` stacked, ``params`` its stacked params) run
+    as the one launch its step makes, [R * Pc] rows with a par row a
+    replica; the twin's rows take their replica's par row."""
     import torch
 
-    from spherharm_tpu_torch.core.state import take
-    from spherharm_tpu_torch.ops import contact
     from spherharm_tpu_torch.ops import contact_kernels as ck
 
     shapes, lmax, cons = path.shapes, path.shapes.lmax, path.conservative
-    pi, pj = neigh.pair_i, neigh.pair_j
-    at = lambda t, i: take(t, i, state.replicas)
-    rows = contact.particle_rows(state, shapes)
-    rows_i, rows_j = at(rows, pi), at(rows, pj)
-    live = (neigh.pair_valid & (rows_i[..., contact._RACT] > 0.5)
-            & (rows_j[..., contact._RACT] > 0.5))
-    dp = contact.minimum_image(rows_j[..., contact._RX] - rows_i[..., contact._RX],
-                               state.box_lo, state.box_hi, path.periodic,
-                               path._tilt(state))
-    packed, tbl, cap, par = ck.pack_pairs(state, shapes, params or path.params, pi, pj,
-                                          live, neigh.pair_hist, dp, rows=rows)
-    live = live.reshape(-1)
+    pi = neigh.pair_i
+    args, packed, live, dp = law_inputs(state, shapes, params or path.params, pi,
+                                        neigh.pair_j, neigh.pair_valid, neigh.pair_hist,
+                                        path.periodic, path._tilt(state))
+    tbl, cap, par = args["tbl"], args["cap"], args["par"]
     idx = torch.nonzero(live).flatten()[:N_PAIRS]
     if idx.numel() == 0:
         idx = torch.zeros(1, dtype=torch.long, device=live.device)
     sub = packed[idx].contiguous()
     sub_par = par if par.shape[0] == 1 else par[idx // pi.shape[-1]].contiguous()
+    d = dp[live]
+    ulp = torch.nextafter(d.abs(), torch.full_like(d, float("inf"))) - d.abs()
     P, n_live, n_sub, G = packed.shape[0], int(live.sum()), sub.shape[0], cap.shape[1]
     case_tag = case_tag or f"{tag} stage-2 list"
     require(n_live >= min_live, f"{case_tag}: only {n_live} live rows")
@@ -887,73 +901,31 @@ def stage2_list_phase(tag, path, state, neigh, results, bf16s=(False, True),
         name = f"pair_contact_{'conservative' if cons else 'geometric'}" + (
             "_bf16" if bf16 else "")
         label = f"K{3 if bf16 else 1 if cons else 2} {name} on the {case_tag}"
-        full = ck.pair_contact(packed, tbl, cap, par, lmax, cons, bf16)
+        call = lambda: ck.pair_contact_indexed(**args, lmax=lmax, conservative=cons,
+                                               bf16=bf16)
+        full = call()
         ref = ck.pair_contact_plain(sub, tbl, cap, sub_par, lmax, cons, bf16)
         torch.cuda.synchronize()
         n_contact = int((ref[:, 16] > 0.5).sum())
         loose = cons or bf16  # as in pair_batch
         ok, err, flips, text = compare(full[idx], ref, 9, 1e-4 if loose else 2e-3,
                                        n_sub // 1000 if loose else 0)
+        d_ok = bool(((full[live, 17:20] - d).abs() <= ulp).all())
+        mask_ok = torch.equal(full[:, 20] > 0.5, live)
         print(f"{label}: P={P} lmax={lmax} G={G} live={n_live} compared={n_sub} "
-              f"contacts={n_contact} |F|max={float(ref[:, 0:3].abs().max()):.4g} {text}")
+              f"contacts={n_contact} |F|max={float(ref[:, 0:3].abs().max()):.4g} {text}; "
+              f"d within 1 ulp {d_ok}; mask {mask_ok}")
         require(n_contact > 0 or not need_contact, f"{label}: no contact on the list")
         require(bool(torch.isfinite(full).all()), f"{label}: output not finite")
         require(bool((full[~live] == 0).all()), f"{label}: a masked row is not zero")
         require(ok, f"{label}: disagrees with its plain twin")
         require(flips <= n_sub // 1000, f"{label}: contact flags disagree")
-        case(results, name, case_tag, lmax, G, P, err,
-             lambda: ck.pair_contact(packed, tbl, cap, par, lmax, cons, bf16),
+        require(d_ok, f"{label}: d is not the minimum image")
+        require(mask_ok, f"{label}: the mask column is not the live rows")
+        case(results, name, case_tag, lmax, G, P, err, call,
              lambda: ck.pair_contact_plain(sub, tbl, cap, sub_par, lmax, cons, bf16),
-             n_live, nbytes(packed, tbl, cap, par, full), live_rows=n_live,
-             plain_rows=n_sub)
-        if indexed:
-            indexed_list_case(results[name][-1], label, path, state, neigh, full, dp,
-                              live, tbl, cap, par, params, bf16)
+             n_live, law_bytes(args, full), live_rows=n_live, plain_rows=n_sub)
     reduce_case(results, case_tag, path, state, neigh, params)
-
-
-def indexed_list_case(c, label, path, state, neigh, full, dp, live, tbl, cap, par,
-                      params, bf16):
-    """``pair_contact_indexed`` on the list that ``stage2_list_phase``
-    packed (``full``: the packed entry's rows, ``dp`` its d, ``live`` its
-    mask): rows, d and mask held as that function says, its times added to
-    the packed entry's case ``c``."""
-    import torch
-
-    from spherharm_tpu_torch.ops import contact
-    from spherharm_tpu_torch.ops import contact_kernels as ck
-
-    lists = neigh.pair_i.shape[0] if neigh.pair_i.dim() == 2 else 1
-    rows = contact.particle_rows(state, path.shapes)
-    box = ck.box_rows(state.box_lo, state.box_hi, path._tilt(state), lists)
-    pair_tab = (params or path.params).pair_tab
-
-    def call():
-        return ck.pair_contact_indexed(
-            rows, state.shtype, neigh.pair_i, neigh.pair_j, neigh.pair_valid,
-            neigh.pair_hist, pair_tab, tbl, cap, par, box, path.periodic,
-            path.shapes.lmax, path.conservative, bf16)
-
-    out = call()
-    torch.cuda.synchronize()
-    errs = []
-    for lo, hi in ((0, 3), (3, 9), (9, 15), (15, 17)):
-        scale = max(float(full[:, lo:hi].abs().max()), 1e-30)
-        errs.append(float((out[:, lo:hi] - full[:, lo:hi]).abs().max()) / scale)
-    d = dp.reshape(-1, 3)[live]
-    ulp = (torch.nextafter(d.abs(), torch.full_like(d, float("inf"))) - d.abs())
-    d_ok = bool(((out[live, 17:20] - d).abs() <= ulp).all())
-    mask_ok = torch.equal(out[:, 20] > 0.5, live)
-    c["indexed_ms"] = cuda_ms(call, 20)
-    c["indexed_device_ms"] = device_ms(call, "sh_pair_contact_indexed")
-    print(f"  {label} by index: device {c['indexed_device_ms']:.4f} ms (packed "
-          f"{c['device_ms']:.4f} ms), wrapper call {c['indexed_ms']:.4f} ms (packed "
-          f"{c['ms']:.4f} ms); rows 0-16 against the packed entry's, largest gap "
-          f"over each group's scale {max(errs):.3g}; d within 1 ulp {d_ok}; mask "
-          f"{mask_ok}")
-    require(max(errs) <= 1e-6, f"{label} by index: rows disagree with the packed entry's")
-    require(d_ok, f"{label} by index: d is not minimum_image's")
-    require(mask_ok, f"{label} by index: the mask column is not the live rows")
 
 
 # Bytes a live slot of the pair reduction needs (each read once): the law
@@ -1079,8 +1051,7 @@ def deck_kernel_cases(tag, runner, results, dev, rng, example=True):
     own pair list ("{tag} pair list"); each wall kind on synthetic
     particles touching its first wall of the kind (``wall_batch``: as many
     as the deck has, at most N_PAIRS) and on its own wall batches
-    (``wall_list_phase``); a full-size deck's list also read by index
-    (``stage2_list_phase``'s ``indexed``). An ``example`` deck's list may hold no live row
+    (``wall_list_phase``). An ``example`` deck's list may hold no live row
     or contact: settling.in and shear_cell.in touch nowhere in their cut,
     so the synthetic batches carry their check."""
     from spherharm_tpu_torch.ops.walls import PlaneWall
@@ -1089,7 +1060,7 @@ def deck_kernel_cases(tag, runner, results, dev, rng, example=True):
     pair_batch(results, sim.conservative, tag, sim, dev, rng)
     stage2_list_phase(tag, sim, state, neigh, results, bf16s=(False,),
                       case_tag=f"{tag} pair list", min_live=0 if example else 1000,
-                      need_contact=not example, indexed=not example)
+                      need_contact=not example)
     B = min(int(state.n_active), N_PAIRS)
     for kind in ("cylinder", "plane"):
         wall = next((w for w in sim.walls
@@ -1468,12 +1439,16 @@ def ensemble_kernel_cases(results, sim, dep, dev, rng):
             "_bf16" if bf16 else "")
         label = f"K{3 if bf16 else 1 if conservative else 2} {name} on {tag} R={R}"
         lmax = path.shapes.lmax
-        st, pi, pj, mask, hist, d = contact_pairs(path, dev, rng)
-        packed, tbl, cap, par = ck.pack_pairs(
+        st, pi, pj, mask, hist, _ = contact_pairs(path, dev, rng)
+        args, packed, _, _ = law_inputs(
             ens.replicate(st, R), path.shapes, ensemble_sweep(path.params, R),
-            blocks(pi), blocks(pj), blocks(mask), blocks(hist), blocks(d))
+            blocks(pi), blocks(pj), blocks(mask), blocks(hist), (False, False, False),
+            None)
+        tbl, cap, par = args["tbl"], args["cap"], args["par"]
         require(par.shape == (R, ck.N_PAR), f"{label}: par {tuple(par.shape)}")
-        out = ck.pair_contact(packed, tbl, cap, par, lmax, conservative, bf16)
+        call = lambda: ck.pair_contact_indexed(**args, lmax=lmax,
+                                               conservative=conservative, bf16=bf16)
+        out = call()
         ref = ck.pair_contact_plain(packed, tbl, cap, par, lmax, conservative, bf16)
         dev_rel, same = twin_per_replica(
             lambda pk, pr: ck.pair_contact_plain(pk, tbl, cap, pr, lmax, conservative,
@@ -1491,12 +1466,11 @@ def ensemble_kernel_cases(results, sim, dep, dev, rng):
         require(dev_rel <= 1e-6, f"{label}: batched twin differs from per-replica calls")
         require(ok, f"{label}: disagrees with its plain twin")
         require(flips <= N_PAIRS // 1000, f"{label}: contact flags disagree")
-        case(results, name, f"{tag} R={R}", lmax, cap.shape[1], N_PAIRS, err,
-             lambda: ck.pair_contact(packed, tbl, cap, par, lmax, conservative, bf16),
+        case(results, name, f"{tag} R={R}", lmax, cap.shape[1], N_PAIRS, err, call,
              lambda: ck.pair_contact_plain(packed, tbl, cap, par, lmax, conservative,
                                            bf16),
-             int((packed[:, ck.SLOTS["mask"][0]] > 0.5).sum()),
-             nbytes(packed, tbl, cap, par, out), replicas=R)
+             int((packed[:, ck.SLOTS["mask"][0]] > 0.5).sum()), law_bytes(args, out),
+             replicas=R)
 
     B, lmax = dep.wall_capacity, dep.shapes.lmax
     for kind, wall in (("cylinder", dep.walls[0]), ("plane", dep.walls[1])):
@@ -3704,7 +3678,7 @@ def main(argv):
 
     tst, tng, l_tri, step_s = triaxial_path(tri, tri_st0, dev, smi)
     stage2_list_phase("triaxial", tri, tst, tng, kern, bf16s=(False,),
-                      case_tag="triaxial pair list", indexed=True)
+                      case_tag="triaxial pair list")
     single_end = (tst, tri.thermo(tst, tng))
     l_tri_s = sharded_triaxial_phase(tri, tri_st0, single_end, dev, smi, kern)[0]
     torch.cuda.empty_cache()

@@ -6,8 +6,8 @@ stress, coordination and contact counts, looked up by name through
 ``compute``. The per-atom computes that need contact forces rerun the
 narrow phase over the stable pair list at diagnostic cadence, in the
 geometric law as the reference's diagnostic pass does, through
-``contact_kernels.pair_contact`` (so on the card they launch the pair
-kernel), and sum per atom with the sorted segment-sums, never atomics.
+``contact_kernels.pair_contact_indexed`` (so on the card they launch the
+pair kernel), and sum per atom with the sorted segment-sums, never atomics.
 """
 
 from __future__ import annotations
@@ -67,21 +67,16 @@ def _pair_pass(sim, state, neigh):
     """The narrow phase over the stable pair list, geometric law in f32
     whatever ``SPHERHARM_STAGE2_BF16`` says (the reference's computes run
     its f32 ``pair_contact_rows``), current springs: returns (kernel output
-    rows [P, 24], minimum-image d [P, 3], live-pair mask [P])."""
+    rows [P, 24], minimum-image d [P, 3], live-pair mask [P]), d and the
+    mask as the law's rows carry them (zero d where dead)."""
     rows = contact.particle_rows(state, sim.shapes)
-    pi, pj = neigh.pair_i, neigh.pair_j
-    msk = (neigh.pair_valid & (rows[pi, contact._RACT] > 0.5)
-           & (rows[pj, contact._RACT] > 0.5))
-    d = contact.minimum_image(rows[pj][:, contact._RX]
-                              - rows[pi][:, contact._RX],
-                              state.box_lo, state.box_hi, sim.periodic,
-                              sim._tilt(state))
-    packed, tbl, cap, par = ck.pack_pairs(state, sim.shapes, sim.params, pi,
-                                          pj, msk, neigh.pair_hist, d,
-                                          rows=rows)
-    out = ck.pair_contact(packed, tbl, cap, par, lmax=sim.shapes.lmax,
-                          conservative=False, bf16=False)
-    return out, d, msk
+    tbl, cap, par = ck.pair_tables(sim.shapes, sim.params, rows.dtype)
+    out = ck.pair_contact_indexed(
+        rows, state.shtype, neigh.pair_i, neigh.pair_j, neigh.pair_valid,
+        neigh.pair_hist, sim.params.pair_tab, tbl, cap, par,
+        ck.box_rows(state.box_lo, state.box_hi, sim._tilt(state), 1),
+        sim.periodic, lmax=sim.shapes.lmax, conservative=False, bf16=False)
+    return out, out[:, 17:20], out[:, 20] > 0.5
 
 
 def _per_atom_sum(neigh, val, w_j, n):

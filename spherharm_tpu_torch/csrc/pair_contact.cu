@@ -9,7 +9,7 @@
 //   evaluation in bfloat16 on the pre-scaled table rows, the assembly in
 //   f32 (the arithmetic of sh_device.cuh radius_grad_power<true>). The
 //   conservative law (K1, K3 conservative) is pair_contact_cons.cu;
-//   sh_pair_contact below picks the law.
+//   sh_pair_contact_indexed below picks the law.
 //
 // What bounds it on this card: arithmetic. Per pair it evaluates 2 sides
 // x G cap nodes x 2 power-basis surface evaluations (441 FLOP each at
@@ -47,13 +47,11 @@
 //     shuffles, so every lane ends with the totals; the pair-level
 //     epilogue (pair_contact.cuh) runs redundantly on all lanes and lane 0
 //     writes the 24-float row; a masked row (mask <= 0.5) writes zeros;
-//   * two row sources (pair_contact.cuh), one kernel template:
-//     sh_pair_contact reads packed [P, 64] rows (PackedRows);
-//     sh_pair_contact_indexed (IndexedRows), the step's entry, reads the
-//     pair list by index: each warp gathers its pair's row into shared
-//     memory from the [N, 20] particle rows, the pair indices, the
-//     springs, the material table and the box, and forms the mask and the
-//     triclinic minimum image itself, so no [P, 64] tensor is built. A
+//   * one entry, sh_pair_contact_indexed, reads the pair list by index
+//     (IndexedRows, pair_contact.cuh): each warp gathers its pair's row
+//     into shared memory from the [N, 20] particle rows, the pair indices,
+//     the springs, the material table and the box, and forms the mask and
+//     the triclinic minimum image itself, so no [P, 64] tensor is built. A
 //     block of four dead slots writes its zero rows and stages nothing:
 //     a list's live slots are a prefix of it, most of a sheared cell's
 //     1.2M-slot list is its dead tail.
@@ -166,15 +164,15 @@ __device__ __forceinline__ Moments probe_side_geo(const Coef<kBf16>* tbl_a, floa
   return {warp_sum(s1), warp_sum(s2), warp_sum3(cen), warp_sum3(nsum)};
 }
 
-template <int L, bool kBf16, int NB, class In>
+template <int L, bool kBf16, int NB>
 __global__ void __launch_bounds__(WARPS * 32, MIN_BLOCKS)
-    pair_geometric_kernel(const In in, const float* __restrict__ tbl, int T, int W,
+    pair_geometric_kernel(const IndexedRows in, const float* __restrict__ tbl, int T, int W,
                           const float* __restrict__ cap, int G, const float* __restrict__ par,
                           int lmax, int P, int rpr, float* __restrict__ out) {
   extern __shared__ float smem[];
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   const int p = blockIdx.x * WARPS + warp;
-  typename In::Slot slot{};
+  IndexedRows::Slot slot{};
   if (p < P) slot = in.slot(p);
   float* o = out + (size_t)p * NOUT;
   // A dead slot writes zeros; a block of dead slots (a list's dead tail)
@@ -185,13 +183,13 @@ __global__ void __launch_bounds__(WARPS * 32, MIN_BLOCKS)
   }
   float* s_tbl = smem;                    // [T, W] power table
   float* s_cap = s_tbl + T * W;           // [4, G] cap grid
-  float* s_row = s_cap + 4 * G;           // [WARPS, F] rows (IndexedRows)
-  float* s_bf = s_row + row_smem<In>();   // [WARPS, 2, W] bf16 rows (kBf16)
+  float* s_row = s_cap + 4 * G;           // [WARPS, F] gathered rows
+  float* s_bf = s_row + WARPS * F;        // [WARPS, 2, W] bf16 rows (kBf16)
   // The table and the cap grid arrive while the warps gather their rows.
   stage_async(s_tbl, tbl, T * W);
   stage_async(s_cap, cap, 4 * G);
   __pipeline_commit();
-  const float* row = in.row_at(p, s_row + warp * F);
+  const float* row = s_row + warp * F;
   const bool live = slot.valid && in.gather(p, slot, s_row + warp * F, lane);
   __pipeline_wait_prior(0);
   __syncthreads();
@@ -226,64 +224,46 @@ __global__ void __launch_bounds__(WARPS * 32, MIN_BLOCKS)
                                       dist, inv_dist, rbi, row[RMJ], rbj, s_cap, G, lmax, lane);
   }
   const Side none{};
-  pair_epilogue<false, In::kIndexed>(row, ma, mb, none, none, d, dist, inv_dist, rbi, rbj,
-                                     replica_par(par, rpr), lane, o);
+  pair_epilogue<false>(row, ma, mb, none, none, d, dist, inv_dist, rbi, rbj,
+                       replica_par(par, rpr), lane, o);
 }
 
-template <class In>
-int launch_geometric(const In& in, const float* tbl, int T, int W, const float* cap, int G,
-                     const float* par, int lmax, int P, int rpr, bool bf16, float* out,
-                     cudaStream_t stream) {
-  size_t smem = sizeof(float) * (size_t)(T * W + 4 * G + row_smem<In>());
+int launch_geometric(const IndexedRows& in, const float* tbl, int T, int W, const float* cap,
+                     int G, const float* par, int lmax, int P, int rpr, bool bf16,
+                     float* out, cudaStream_t stream) {
+  size_t smem = sizeof(float) * (size_t)(T * W + 4 * G + WARPS * F);
   if (bf16) smem += sizeof(__nv_bfloat162) * (size_t)(WARPS * 2 * W);
   // 3 nodes a block where that spans fewer slots than 2 (f32 only: the
   // bf16 chains run the nodes in pairs).
   const bool nb3 = !bf16 && node_slots(G, 3) < node_slots(G, 2);
   return with_degree(lmax, [&](auto degree) {
     constexpr int L = decltype(degree)::value;
-    const PairKernel<In> kernel = bf16  ? pair_geometric_kernel<L, true, 2, In>
-                                  : nb3 ? pair_geometric_kernel<L, false, 3, In>
-                                        : pair_geometric_kernel<L, false, 2, In>;
+    const PairKernel kernel = bf16  ? pair_geometric_kernel<L, true, 2>
+                              : nb3 ? pair_geometric_kernel<L, false, 3>
+                                    : pair_geometric_kernel<L, false, 2>;
     return launch_pairs(kernel, smem, in, tbl, T, W, cap, G, par, lmax, P, rpr, out, stream);
   });
 }
 
-template <class In>
-int launch_law(int conservative, const In& in, const float* tbl, int T, int W,
-               const float* cap, int G, const float* par, int lmax, int P, int rpr, int bf16,
-               float* out, cudaStream_t stream) {
-  if (rpr < 1) return (int)cudaErrorInvalidValue;
-  return (conservative ? launch_pair_conservative<In> : launch_geometric<In>)(
-      in, tbl, T, W, cap, G, par, lmax, P, rpr, bf16 != 0, out, stream);
-}
-
 }  // namespace
 
-// par [P / rpr, 16]: the rows of P / rpr replicas, rpr rows each,
-// replica-major; a row reads its replica's par row (rpr = P: one list).
-extern "C" int sh_pair_contact(const float* packed, const float* tbl, int T, int W,
-                               const float* cap, int G, const float* par, int lmax, int P,
-                               int rpr, int conservative, int bf16, float* out,
-                               cudaStream_t stream) {
-  return launch_law(conservative, PackedRows{packed}, tbl, T, W, cap, G, par, lmax, P, rpr,
-                    bf16, out, stream);
-}
-
-// The same law over the pair list by index (IndexedRows): P = RL ppl
-// slots of RL lists, each list's particles N rows of rows and typ; the
-// output row also carries d (columns 17-19) and the mask (column 20).
+// The law over the pair list by index (IndexedRows): P = RL ppl slots of
+// RL lists, each list's particles N rows of rows and typ; the output row
+// also carries d (columns 17-19) and the mask (column 20). par [P / rpr,
+// 16]: the rows of P / rpr replicas, rpr rows each, replica-major; a row
+// reads its replica's par row (rpr = P: one list).
 extern "C" int sh_pair_contact_indexed(
     const float* rows, const long long* typ, int N, const long long* pi, const long long* pj,
     const unsigned char* valid, const float* hist, int hist_stride, const float* tab, int tp,
     int tab_rep, const float* box, int box_w, int px, int py, int pz, int ppl,
     const float* tbl, int T, int W, const float* cap, int G, const float* par, int lmax, int P,
     int rpr, int conservative, int bf16, float* out, cudaStream_t stream) {
-  if (ppl < 1 || N < 1 || tp < 1 || (box_w != 3 && box_w != 6))
+  if (ppl < 1 || N < 1 || tp < 1 || (box_w != 3 && box_w != 6) || rpr < 1)
     return (int)cudaErrorInvalidValue;
   const IndexedRows in{rows, typ,         pi, pj,      valid, hist, tab, box, N,
                        ppl,  hist_stride, tp, tab_rep, box_w, px,   py,  pz};
-  return launch_law(conservative, in, tbl, T, W, cap, G, par, lmax, P, rpr, bf16, out,
-                    stream);
+  return (conservative ? launch_pair_conservative : launch_geometric)(
+      in, tbl, T, W, cap, G, par, lmax, P, rpr, bf16 != 0, out, stream);
 }
 
 extern "C" const char* sh_error_string(int err) {

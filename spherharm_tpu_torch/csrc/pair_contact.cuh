@@ -1,7 +1,7 @@
 // Shared by the stage-2 pair kernels of both laws (pair_contact.cu: the
 // geometric law; pair_contact_cons.cu: the conservative law): the packed
-// row layout, the two ways a kernel gets its rows (PackedRows, IndexedRows),
-// the bf16 kernels' pre-scaled rows, the per-side sums, the pair-level
+// row layout, the gather of each pair's row by index (IndexedRows), the
+// bf16 kernels' pre-scaled rows, the per-side sums, the pair-level
 // epilogue (contact geometry from both sides, Hertz + damping + friction +
 // rolling, the 24-float output row) and the launch. The node-blocked
 // surface evaluation and the compiled degrees are sh_nodes.cuh's, shared
@@ -31,26 +31,6 @@ enum Slot {
 constexpr int ROW_W = 20;
 constexpr int ROW_S = 17, ROW_ACT = 18;
 constexpr int HW = 6;      // spring columns (HIST)
-
-// The rows of sh_pair_contact: the packed [P, F] rows (pack_pairs). A
-// row source gives each slot's Slot (read before the block's first
-// barrier: whether the slot may be live), the row's address, and gathers
-// the row where it has to (returning whether the slot is live).
-struct PackedRows {
-  static constexpr bool kIndexed = false;
-  struct Slot {
-    bool valid;
-  };
-  const float* packed;
-
-  __device__ __forceinline__ Slot slot(int p) const {
-    return {packed[(size_t)p * F + MASK] > 0.5f};
-  }
-  __device__ __forceinline__ const float* row_at(int p, float*) const {
-    return packed + (size_t)p * F;
-  }
-  __device__ __forceinline__ bool gather(int, const Slot&, float*, int) const { return true; }
-};
 
 // Copy n floats to shared memory without waiting for them (cp.async); the
 // caller commits the batch and waits for it before its barrier.
@@ -93,8 +73,9 @@ __device__ __forceinline__ V3 minimum_image(V3 d, const float* box, bool tilted,
 // springs), the particle rows, the shape types, the material table and
 // the box. The lists of RL replicas or shards come list-major, ppl slots
 // each, and slot p of list r reads particles r N + pi[p], r N + pj[p].
+// slot(p) is read before the block's first barrier (whether the slot may
+// be live); gather() then fills the row.
 struct IndexedRows {
-  static constexpr bool kIndexed = true;
   const float* rows;           // [RL N, ROW_W] contact.particle_rows
   const long long* typ;        // [RL N] shape-type ids
   const long long* pi;         // [RL ppl]
@@ -114,8 +95,7 @@ struct IndexedRows {
     const size_t base = (size_t)(p / ppl) * N;
     return {valid[p] != 0, base + (size_t)pi[p], base + (size_t)pj[p]};
   }
-  __device__ __forceinline__ const float* row_at(int, float* s) const { return s; }
-  // Slot p's packed row (PackedRows' layout) into s[0:F], for a valid
+  // Slot p's packed row (the layout of enum Slot) into s[0:F], for a valid
   // slot: the lanes load the two sides' slots, the springs, the material
   // row (clamped as state.pair_material clamps), the type ids and scales;
   // lane 0 then sets the mask and the minimum-image d. TAIL and the
@@ -162,12 +142,6 @@ struct IndexedRows {
   }
 };
 
-// Shared floats a block needs for its warps' rows.
-template <class In>
-__host__ __device__ constexpr int row_smem() {
-  return In::kIndexed ? WARPS * F : 0;
-}
-
 // A bf16 kernel's pre-scaled rows: this warp's two rows bf(t[k] s), each
 // value in both halves of a pair (one row a side of the pair), written to
 // dst[0:2W] by the warp's lanes.
@@ -198,9 +172,9 @@ struct Side : Moments {
 // moments; with kCons, a/b carry their gradients (the exact-gradient
 // elastic force), else the geometric law's force along the integral
 // normal at the centroid. par: this pair's replica's row (replica_par).
-// kIndexed (sh_pair_contact_indexed) also writes the row's d to columns
-// 17-19 and its mask (1) to column 20, for the reduction after the law.
-template <bool kCons, bool kIndexed>
+// The row also carries d in columns 17-19 and the mask (1) in column 20,
+// for the reduction after the law.
+template <bool kCons>
 __device__ __forceinline__ void pair_epilogue(const float* row, const Moments& ma,
                                               const Moments& mb, const Side& a, const Side& b,
                                               V3 d, float dist, float inv_dist, float rbi,
@@ -280,10 +254,10 @@ __device__ __forceinline__ void pair_epilogue(const float* row, const Moments& m
                            xi_r.x,     xi_r.y,     xi_r.z,     pe,       in_contact ? 1.0f : 0.0f};
 #pragma unroll
     for (int c = 0; c < 17; ++c) o[c] = res[c];
-    o[17] = kIndexed ? d.x : 0.0f;
-    o[18] = kIndexed ? d.y : 0.0f;
-    o[19] = kIndexed ? d.z : 0.0f;
-    o[20] = kIndexed ? 1.0f : 0.0f;
+    o[17] = d.x;
+    o[18] = d.y;
+    o[19] = d.z;
+    o[20] = 1.0f;
 #pragma unroll
     for (int c = 21; c < NOUT; ++c) o[c] = 0.0f;
   }
@@ -298,16 +272,15 @@ __device__ __forceinline__ const float* replica_par(const float* par, int rpr) {
   return par + (size_t)(p / rpr) * NPAR;
 }
 
-template <class In>
-using PairKernel = void (*)(In, const float*, int, int, const float*, int, const float*, int,
-                            int, int, float*);
+using PairKernel = void (*)(IndexedRows, const float*, int, int, const float*, int,
+                            const float*, int, int, int, float*);
 
 // Launch a stage-2 kernel, a warp a pair and WARPS pairs a block, with
 // smem bytes of dynamic shared memory; returns cudaGetLastError().
-template <class In>
-int launch_pairs(PairKernel<In> kernel, size_t smem, const In& in, const float* tbl, int T,
-                 int W, const float* cap, int G, const float* par, int lmax, int P, int rpr,
-                 float* out, cudaStream_t stream) {
+inline int launch_pairs(PairKernel kernel, size_t smem, const IndexedRows& in,
+                        const float* tbl, int T, int W, const float* cap, int G,
+                        const float* par, int lmax, int P, int rpr, float* out,
+                        cudaStream_t stream) {
   if (smem > 48 * 1024) {
     const cudaError_t e =
         cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
@@ -318,11 +291,10 @@ int launch_pairs(PairKernel<In> kernel, size_t smem, const In& in, const float* 
   return (int)cudaGetLastError();
 }
 
-// The conservative law's launch (pair_contact_cons.cu), for the C entries
-// in pair_contact.cu; instantiated for both row sources.
-template <class In>
-int launch_pair_conservative(const In& in, const float* tbl, int T, int W, const float* cap,
-                             int G, const float* par, int lmax, int P, int rpr, bool bf16,
-                             float* out, cudaStream_t stream);
+// The conservative law's launch (pair_contact_cons.cu), for the C entry
+// in pair_contact.cu.
+int launch_pair_conservative(const IndexedRows& in, const float* tbl, int T, int W,
+                             const float* cap, int G, const float* par, int lmax, int P,
+                             int rpr, bool bf16, float* out, cudaStream_t stream);
 
 }  // namespace shk

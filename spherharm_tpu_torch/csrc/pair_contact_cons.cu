@@ -49,8 +49,8 @@
 //     shuffles where 46 xor-tree sums took 230), through 48 floats of
 //     shared memory per side and warp; the pair-level epilogue
 //     (pair_contact.cuh) runs redundantly on all lanes, lane 0 writes;
-//   * rows packed (PackedRows) or gathered by index into shared memory
-//     (IndexedRows), as pair_contact.cu's kernel takes them.
+//   * each warp gathers its pair's row by index into shared memory
+//     (IndexedRows), as pair_contact.cu's kernel does.
 // Built without fast math: approximate division would loosen parity.
 
 #include "pair_contact.cuh"
@@ -290,16 +290,16 @@ __device__ __forceinline__ Side probe_side(const Coef<kBf16>* tbl_a, float s_a,
   return out;
 }
 
-template <int L, bool kBf16, class In>
+template <int L, bool kBf16>
 __global__ void __launch_bounds__(WARPS * 32, MIN_BLOCKS)
-    pair_conservative_kernel(const In in, const float* __restrict__ tbl, int T, int W,
+    pair_conservative_kernel(const IndexedRows in, const float* __restrict__ tbl, int T, int W,
                              const float* __restrict__ cap, int G,
                              const float* __restrict__ par, int lmax, int P, int rpr,
                              float* __restrict__ out) {
   extern __shared__ float smem[];
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   const int p = blockIdx.x * WARPS + warp;
-  typename In::Slot slot{};
+  IndexedRows::Slot slot{};
   if (p < P) slot = in.slot(p);
   float* o = out + (size_t)p * NOUT;
   // A dead slot writes zeros; a block of dead slots (a list's dead tail)
@@ -311,13 +311,13 @@ __global__ void __launch_bounds__(WARPS * 32, MIN_BLOCKS)
   float* s_tbl = smem;                    // [T, W] power table
   float* s_cap = s_tbl + T * W;           // [4, G] cap grid
   float* s_red = s_cap + 4 * G;           // [WARPS, 2, NRED] side totals
-  float* s_row = s_red + WARPS * 2 * NRED;  // [WARPS, F] rows (IndexedRows)
-  float* s_bf = s_row + row_smem<In>();   // [WARPS, 2, W] bf16 rows (kBf16)
+  float* s_row = s_red + WARPS * 2 * NRED;  // [WARPS, F] gathered rows
+  float* s_bf = s_row + WARPS * F;        // [WARPS, 2, W] bf16 rows (kBf16)
   // The table and the cap grid arrive while the warps gather their rows.
   stage_async(s_tbl, tbl, T * W);
   stage_async(s_cap, cap, 4 * G);
   __pipeline_commit();
-  const float* row = in.row_at(p, s_row + warp * F);
+  const float* row = s_row + warp * F;
   const bool live = slot.valid && in.gather(p, slot, s_row + warp * F, lane);
   __pipeline_wait_prior(0);
   __syncthreads();
@@ -352,31 +352,21 @@ __global__ void __launch_bounds__(WARPS * 32, MIN_BLOCKS)
     b = probe_side<L, false>(s_tbl + tj * W, sj, s_tbl + ti * W, si, qj, qi, -d, dist,
                              inv_dist, rbi, row[RMJ], rbj, s_cap, G, lmax, lane, red + NRED);
   }
-  pair_epilogue<true, In::kIndexed>(row, a, b, a, b, d, dist, inv_dist, rbi, rbj,
-                                    replica_par(par, rpr), lane, o);
+  pair_epilogue<true>(row, a, b, a, b, d, dist, inv_dist, rbi, rbj, replica_par(par, rpr),
+                      lane, o);
 }
 
 }  // namespace
 
-template <class In>
-int shk::launch_pair_conservative(const In& in, const float* tbl, int T, int W,
+int shk::launch_pair_conservative(const IndexedRows& in, const float* tbl, int T, int W,
                                   const float* cap, int G, const float* par, int lmax, int P,
                                   int rpr, bool bf16, float* out, cudaStream_t stream) {
-  size_t smem = sizeof(float) * (size_t)(T * W + 4 * G + WARPS * 2 * NRED + row_smem<In>());
+  size_t smem = sizeof(float) * (size_t)(T * W + 4 * G + WARPS * 2 * NRED + WARPS * F);
   if (bf16) smem += sizeof(__nv_bfloat162) * (size_t)(WARPS * 2 * W);
   return with_degree(lmax, [&](auto degree) {
     constexpr int L = decltype(degree)::value;
-    const PairKernel<In> kernel =
-        bf16 ? pair_conservative_kernel<L, true, In> : pair_conservative_kernel<L, false, In>;
+    const PairKernel kernel =
+        bf16 ? pair_conservative_kernel<L, true> : pair_conservative_kernel<L, false>;
     return launch_pairs(kernel, smem, in, tbl, T, W, cap, G, par, lmax, P, rpr, out, stream);
   });
 }
-
-template int shk::launch_pair_conservative<PackedRows>(const PackedRows&, const float*, int,
-                                                       int, const float*, int, const float*,
-                                                       int, int, int, bool, float*,
-                                                       cudaStream_t);
-template int shk::launch_pair_conservative<IndexedRows>(const IndexedRows&, const float*, int,
-                                                        int, const float*, int, const float*,
-                                                        int, int, int, bool, float*,
-                                                        cudaStream_t);

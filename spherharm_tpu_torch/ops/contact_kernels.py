@@ -2,12 +2,13 @@
 
 Three kernels, all hand-written CUDA C++ for sm_90a (``csrc/``):
 
-* ``pair_contact`` — the stage-2 pair law (``csrc/pair_contact.cu``):
-  both-sided cap quadrature, Hertz + damping + friction + rolling, in
-  either elastic law: conservative (hand-derived gradient of the depth
-  moments) or geometric (inclination-weighted measure, force along the
-  integral normal); each with f32 or bfloat16 Horner chains (K3,
-  ``SPHERHARM_STAGE2_BF16=1`` for every call, as in the reference).
+* ``pair_contact_indexed`` — the stage-2 pair law
+  (``csrc/pair_contact.cu``): both-sided cap quadrature, Hertz + damping
+  + friction + rolling, in either elastic law: conservative (hand-derived
+  gradient of the depth moments) or geometric (inclination-weighted
+  measure, force along the integral normal); each with f32 or bfloat16
+  Horner chains (K3, ``SPHERHARM_STAGE2_BF16=1`` for every call, as in
+  the reference).
 * ``stage1_depth`` — the r-only probe (``csrc/stage1_probe.cu``): upper
   bound on each pair's max depth, at a truncation degree l1 and in f32
   or bfloat16 (K4 is l1 = lmax in f32, what the prefilter runs; K5 the
@@ -22,17 +23,17 @@ its plain PyTorch twin on a CPU tensor; nothing else picks the route. A
 wrapper counts its kernel launches in ``<wrapper>.launches``, a dict
 keyed by variant.
 
-The pair law has two entries. ``pair_contact`` reads packed rows
-(``pack_pairs``): the probes of ``core/computes.py`` and
-``validation/conservative_probe.py`` call it. ``pair_contact_indexed``,
-the step's (``contact.contact_force_pairs`` and ``contact_force_dense``),
-reads the pair list by index: each warp of the kernel gathers its pair's
+The pair law has one CUDA entry, ``pair_contact_indexed``: every caller
+(the step's ``contact.contact_force_pairs`` and ``contact_force_dense``,
+``core/computes.py``, ``validation/conservative_probe.py``) hands it
+the pair list by index. Each warp of the kernel gathers its pair's
 packed row into shared memory from the particle rows, the pair indices,
 the springs, the material table and the box, and forms the mask and the
 minimum image itself, so no [P, 64] tensor is built; its output row also
-carries d and the mask. Its CPU twin packs and runs ``pair_contact``.
-Both count their launches in ``pair_contact.launches``, under the same
-variant names, and launch the same kernels. The benchmark keys on both:
+carries d and the mask. On the CPU it packs the rows (``pack_indexed``)
+and runs ``pair_contact``, the plain twin's entry on the reference's
+packed layout, which takes CPU tensors only. Launches are counted in
+``pair_contact.launches`` by variant. The benchmark keys on both names:
 its configurations' ``kernels`` guard reads the launch counters by
 variant (``pair_contact_geometric``, ``pair_contact_conservative``), and
 its roofline readers find the law's device time by the kernel names
@@ -77,7 +78,7 @@ SLOTS = {
 # Output row: force 0:3, tau_i 3:6, tau_j 6:9, springs 9:15, pe 15,
 # contact 16, zero padding to 24; ``pair_contact_indexed`` also writes
 # the minimum-image d to 17:20 and the mask to 20 (a dead slot's row
-# stays zero).
+# stays zero), ``pair_contact`` zeros there.
 N_OUT = 24
 N_PAR = 16
 
@@ -209,8 +210,8 @@ def _stream(device):
 
 # -- stage-2 pair contact ------------------------------------------------
 
-# Stage-2 Horner chains in bfloat16 for every pair_contact call that does
-# not choose (bf16=None): SPHERHARM_STAGE2_BF16=1, read at import, as the
+# Stage-2 Horner chains in bfloat16 for every stage-2 call that does not
+# choose (bf16=None): SPHERHARM_STAGE2_BF16=1, read at import, as the
 # reference reads it (contact_pallas.py _STAGE2_BF16). In the conservative
 # law the force is then the exact gradient of a ~1e-3-perturbed potential.
 STAGE2_BF16 = os.environ.get("SPHERHARM_STAGE2_BF16", "0") == "1"
@@ -230,61 +231,45 @@ def rows_per_replica(P: int, par, name: str) -> int:
 
 def pair_contact(packed, tbl, cap, par, lmax: int, conservative: bool = True,
                  bf16: bool | None = None):
-    """Pair contact over packed rows in the conservative or the geometric
-    law. packed [P, 64], tbl [T, W] per-type power table, cap [4, G],
-    par [R, 16]: R replicas' lists, replica-major, P / R rows each (R = 1
-    a single list). Returns [P, 24]. ``bf16`` runs the Horner chains in
-    bfloat16 (K3); None takes ``STAGE2_BF16``. CUDA tensors launch
-    ``csrc/pair_contact.cu`` once for all R (launches counted per variant
-    in ``pair_contact.launches``: law, ``_bf16`` appended for K3); CPU
-    tensors run ``pair_contact_plain``."""
+    """The plain twin over packed rows, in the conservative or the
+    geometric law: packed [P, 64] (``pack_pairs``, ``pack_indexed``), tbl
+    [T, W] per-type power table, cap [4, G], par [R, 16]: R replicas'
+    lists, replica-major, P / R rows each (R = 1 a single list). Returns
+    [P, 24]. ``bf16`` runs the Horner chains in bfloat16 (K3's twin);
+    None takes ``STAGE2_BF16``. CPU tensors only: on the card the law
+    reads the pair list by index (``pair_contact_indexed``)."""
+    if packed.device.type != "cpu":
+        raise ValueError(f"pair_contact: packed rows on {packed.device}; the "
+                         "CUDA entry of the law is pair_contact_indexed")
     if bf16 is None:
         bf16 = STAGE2_BF16
     par = par.reshape(-1, N_PAR)
     rpr = rows_per_replica(packed.shape[0], par, "pair_contact")
-    if packed.device.type == "cpu":
-        # Rows are independent and masked rows are zeros: the twin runs on
-        # the live rows only (a fixed-capacity list is mostly dead slots).
-        # Replicas of the conservative law run a replica at a time, so
-        # that each replica's rows form the very tensor its own run forms:
-        # its ``** 2.5`` (torch's CPU pow) rounds apart in a vector loop's
-        # body and its tail. The geometric law takes every live row at
-        # once, each with its replica's par row.
-        blocks = ([(r, slice(r * rpr, (r + 1) * rpr))
-                   for r in range(par.shape[0])] if conservative
-                  else [(None, slice(None))])
-        out = packed.new_zeros((packed.shape[0], N_OUT))
-        for r, blk in blocks:
-            sub = packed[blk]
-            live = torch.nonzero(_col(sub, "mask") > 0.5).squeeze(1)
-            if not live.numel():
-                continue
-            par_r = par if r is None else par[r:r + 1]
-            if par_r.shape[0] > 1:
-                par_r = par_r[live // rpr]
-            if live.numel() == sub.shape[0]:
-                out[blk] = pair_contact_plain(sub, tbl, cap, par_r, lmax,
-                                              conservative, bf16)
-            else:
-                out[blk][live] = pair_contact_plain(
-                    sub[live], tbl, cap, par_r, lmax, conservative, bf16)
-        return out
-    _check_cuda("pair_contact", packed=packed, tbl=tbl, cap=cap, par=par)
-    P, T, W, G = packed.shape[0], tbl.shape[0], tbl.shape[1], cap.shape[1]
-    if (packed.shape[1] != F_PACK or cap.shape[0] != 4 or par.dim() != 2
-            or par.shape[1] != N_PAR or W != sh_power.power_layout(lmax)["W"]):
-        raise ValueError("pair_contact: bad input shapes "
-                         f"{tuple(packed.shape)} {tuple(tbl.shape)} "
-                         f"{tuple(cap.shape)} {tuple(par.shape)}")
-    out = torch.empty((P, N_OUT), dtype=torch.float32, device=packed.device)
-    if P:
-        variant = _variant(conservative, bf16)
-        err = cuda_build.library().sh_pair_contact(
-            _ptr(packed), _ptr(tbl), T, W, _ptr(cap), G, _ptr(par), lmax,
-            P, rpr, int(conservative), int(bf16), _ptr(out),
-            _stream(packed.device))
-        cuda_build.check(err, f"pair_contact[{variant}]")
-        pair_contact.launches[variant] += 1
+    # Rows are independent and masked rows are zeros: the twin runs on the
+    # live rows only (a fixed-capacity list is mostly dead slots). Replicas
+    # of the conservative law run a replica at a time, so that each
+    # replica's rows form the very tensor its own run forms: its ``** 2.5``
+    # (torch's CPU pow) rounds apart in a vector loop's body and its tail.
+    # The geometric law takes every live row at once, each with its
+    # replica's par row.
+    blocks = ([(r, slice(r * rpr, (r + 1) * rpr))
+               for r in range(par.shape[0])] if conservative
+              else [(None, slice(None))])
+    out = packed.new_zeros((packed.shape[0], N_OUT))
+    for r, blk in blocks:
+        sub = packed[blk]
+        live = torch.nonzero(_col(sub, "mask") > 0.5).squeeze(1)
+        if not live.numel():
+            continue
+        par_r = par if r is None else par[r:r + 1]
+        if par_r.shape[0] > 1:
+            par_r = par_r[live // rpr]
+        if live.numel() == sub.shape[0]:
+            out[blk] = pair_contact_plain(sub, tbl, cap, par_r, lmax,
+                                          conservative, bf16)
+        else:
+            out[blk][live] = pair_contact_plain(
+                sub[live], tbl, cap, par_r, lmax, conservative, bf16)
     return out
 
 
@@ -298,8 +283,8 @@ def _variant(conservative: bool, bf16: bool) -> str:
 def pair_contact_indexed(rows, typ, pi, pj, valid, hist, pair_tab, tbl, cap,
                          par, box, periodic, lmax: int,
                          conservative: bool = True, bf16: bool | None = None):
-    """``pair_contact`` over a pair list read by index, with no packed
-    rows. rows [..., N, 20] (``contact.particle_rows``), typ [..., N]
+    """The stage-2 pair law over a pair list read by index, in the
+    conservative or the geometric law. rows [..., N, 20] (``contact.particle_rows``), typ [..., N]
     shape-type ids; pi, pj, valid [P] or, for R lists (replicas or
     shards), [R, P] with rows [R, N, 20]; hist [..., P, 6] springs (any
     row stride); pair_tab [T, T, 8], [1, 1, 8] or [R, T, T, 8]; tbl, cap,
@@ -307,13 +292,15 @@ def pair_contact_indexed(rows, typ, pi, pj, valid, hist, pair_tab, tbl, cap,
     box [R or 1, 3 | 6] (``box_rows``); periodic the three flags. A slot
     is live where ``valid`` holds and both ends are active.
 
-    Returns [R * P, 24]: ``pair_contact``'s row of each slot (zeros where
-    dead), with d in columns 17-19 and the mask in column 20. CUDA
-    tensors launch ``sh_pair_contact_indexed`` (``csrc/pair_contact.cu``):
-    the kernel gathers each live slot's row; launches counted in
-    ``pair_contact.launches`` by variant, and ``pair.indexed`` (the slots
-    gathered in the kernel) counted while spans are on. CPU tensors pack
-    the rows (``pack_indexed``) and run ``pair_contact``."""
+    Returns [R * P, 24]: each slot's row (``N_OUT``; zeros where dead),
+    with d in columns 17-19 and the mask in column 20. ``bf16`` runs the
+    Horner chains in bfloat16 (K3); None takes ``STAGE2_BF16``. CUDA
+    tensors launch ``sh_pair_contact_indexed`` (``csrc/pair_contact.cu``)
+    once for all R: the kernel gathers each live slot's row; launches
+    counted in ``pair_contact.launches`` by variant (law, ``_bf16``
+    appended for K3), and ``pair.indexed`` (the slots gathered in the
+    kernel) counted while spans are on. CPU tensors pack the rows
+    (``pack_indexed``) and run the plain twin (``pair_contact``)."""
     if bf16 is None:
         bf16 = STAGE2_BF16
     par = par.reshape(-1, N_PAR)

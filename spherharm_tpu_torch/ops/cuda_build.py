@@ -37,9 +37,6 @@ NVCC_FLAGS = (*ARCH, "-std=c++17", "-O3", "-Xcompiler", "-fPIC")
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
 _SIGNATURES = {
-    # packed, tbl, T, W, cap, G, par, lmax, P, rows_per_replica,
-    # conservative, bf16, out, stream
-    "sh_pair_contact": (_P, _P, _I, _I, _P, _I, _P, _I, _I, _I, _I, _I, _P, _P),
     # rows, typ, N, pi, pj, valid, hist, hist_stride, pair_tab, tp,
     # tab_rep, box, box_w, px, py, pz, ppl, tbl, T, W, cap, G, par, lmax,
     # P, rows_per_replica, conservative, bf16, out, stream

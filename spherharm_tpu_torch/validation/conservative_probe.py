@@ -5,8 +5,9 @@ One deterministic head-on collision of two Lmax-8 blobs (undamped,
 frictionless) from free flight to free flight, integrated with the
 quaternion velocity-Verlet steps under three force laws:
 
-* ``geom`` — the production geometric law, ``contact_kernels.pair_contact``
-  (K2 on the card);
+* ``geom`` — the production geometric law,
+  ``contact_kernels.pair_contact_indexed`` on the one pair (K2 on the
+  card);
 * ``auto`` — F = -dU/dx, tau from dU/dq by ``torch.autograd`` of the SAME
   sampled PE, the pe output of the geometric law's plain twin
   (``pair_contact_plain``; a kernel has no gradient), as the reference
@@ -62,19 +63,27 @@ def build(dt, kn=1e5, lmax=8, v0=0.5, device="cuda"):
 def make_force_fns(shapes, params):
     """{mode: forces(state) -> (f [2, 3], tau [2, 3])} and
     pe_of(state, conservative) -> the sampled elastic PE of the pair
-    (0-d), each over the one packed row (0, 1) with zero springs. The box
-    is not periodic: d = x_1 - x_0."""
+    (0-d), each over the one slot (0, 1) with zero springs. The box is not
+    periodic: d = x_1 - x_0."""
+    periodic = (False, False, False)
 
-    def packed(state):
+    def slot(state):
         pi = torch.zeros(1, dtype=torch.long, device=state.x.device)
-        mask = torch.ones(1, dtype=torch.bool, device=state.x.device)
-        return ck.pack_pairs(state, shapes, params, pi, pi + 1, mask,
-                             state.x.new_zeros((1, 6)),
-                             state.x[1:2] - state.x[0:1])
+        return (pi, pi + 1, torch.ones(1, dtype=torch.bool, device=pi.device),
+                state.x.new_zeros((1, 6)))
 
     def kernel_row(state, conservative):
-        return ck.pair_contact(*packed(state), lmax=shapes.lmax,
-                               conservative=conservative, bf16=False)[0]
+        rows = contact.particle_rows(state, shapes)
+        return ck.pair_contact_indexed(
+            rows, state.shtype, *slot(state), params.pair_tab,
+            *ck.pair_tables(shapes, params, rows.dtype),
+            ck.box_rows(state.box_lo, state.box_hi, None, 1), periodic,
+            lmax=shapes.lmax, conservative=conservative, bf16=False)[0]
+
+    def packed(state):
+        pi, pj, mask, hist = slot(state)
+        return ck.pack_pairs(state, shapes, params, pi, pj, mask, hist,
+                             state.x[1:2] - state.x[0:1])
 
     def law(conservative):
         def forces(state):

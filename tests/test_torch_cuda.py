@@ -17,6 +17,7 @@ import torch
 
 from spherharm_tpu_torch.core.state import SimParams
 from spherharm_tpu_torch.models import scenarios, shapes_library
+from spherharm_tpu_torch.ops import contact
 from spherharm_tpu_torch.ops import contact_kernels as ck
 from spherharm_tpu_torch.ops import walls as walls_mod
 from spherharm_tpu_torch.ops import walls_kernels as wk
@@ -36,9 +37,12 @@ def _params(device):
 
 
 def _pairs(lmax, device, seed=11, n=14, contact_quad=(8, 16), params=None):
-    """All ordered pairs of n particles in a small box (deep, grazing and
-    separated pairs), mid-contact springs, a few masked rows; ``params``
-    (default ``_params``) gives the materials."""
+    """All ordered pairs of n particles in a small closed box (deep,
+    grazing and separated pairs), mid-contact springs, a few slots not
+    valid; ``params`` (default ``_params``) gives the materials. Returns
+    (args, packed, shapes): ``pair_contact_indexed``'s arguments but the
+    degree and the law, by name; the same slots packed (``pack_pairs``:
+    the stage-1 probe's rows, its tail column filled); the shapes."""
     rng = np.random.default_rng(seed)
     shapes = shapes_library.build_shapes(blob_coeffs(lmax, 3, seed), lmax,
                                          contact_quad=contact_quad,
@@ -57,9 +61,46 @@ def _pairs(lmax, device, seed=11, n=14, contact_quad=(8, 16), params=None):
     pi, pj = t(pi.ravel()[sel]), t(pj.ravel()[sel])
     mask = t(rng.uniform(size=pi.shape[0]) > 0.05)
     hist = t(rng.normal(size=(pi.shape[0], 6)).astype(np.float32) * 1e-4)
-    packed, tbl, cap, par = ck.pack_pairs(st, shapes, params or _params(device),
-                                          pi, pj, mask, hist, st.x[pj] - st.x[pi])
-    return packed, tbl, cap, par, shapes
+    params = params or _params(device)
+    packed, tbl, cap, par = ck.pack_pairs(st, shapes, params, pi, pj, mask,
+                                          hist, st.x[pj] - st.x[pi])
+    args = dict(rows=contact.particle_rows(st, shapes), typ=st.shtype, pi=pi,
+                pj=pj, valid=mask, hist=hist, pair_tab=params.pair_tab,
+                tbl=tbl, cap=cap, par=par,
+                box=ck.box_rows(st.box_lo, st.box_hi, None, 1),
+                periodic=(False, False, False))
+    return args, packed, shapes
+
+
+def _law(args, lmax, conservative, bf16=False):
+    """``pair_contact_indexed`` on the card over ``args`` (one launch,
+    counted under its variant) and its plain twin over the rows the
+    kernel gathers (``pack_indexed``): (out, ref, mask, d) as numpy."""
+    variant = ("conservative" if conservative else "geometric") + (
+        "_bf16" if bf16 else "")
+    n0 = dict(ck.pair_contact.launches)
+    out = ck.pair_contact_indexed(**args, lmax=lmax, conservative=conservative,
+                                  bf16=bf16)
+    torch.cuda.synchronize()
+    assert ck.pair_contact.launches == dict(n0, **{variant: n0[variant] + 1})
+    packed, mask, d = ck.pack_indexed(
+        args["rows"], args["typ"], args["pi"], args["pj"], args["valid"],
+        args["hist"], args["pair_tab"], args["box"], args["periodic"])
+    ref = ck.pair_contact_plain(packed, args["tbl"], args["cap"], args["par"],
+                                lmax, conservative, bf16)
+    return np32(out), np32(ref), np32(mask).reshape(-1), np32(d).reshape(-1, 3)
+
+
+def _assert_d_and_mask(out, mask, d):
+    """The indexed entry's extra columns: d (17-19) within 1 f32 ulp of
+    ``d`` and the mask (20) on live slots, zero rows on dead ones, zero
+    padding (21-23)."""
+    live = mask.astype(bool)
+    assert (np.abs(out[live, 17:20] - d[live])
+            <= np.spacing(np.abs(d[live]))).all()
+    np.testing.assert_array_equal(out[:, 20], mask)
+    np.testing.assert_array_equal(out[~live], 0.0)
+    np.testing.assert_array_equal(out[:, 21:], 0.0)
 
 
 # (lmax, law, cap grid): K1 at the reference's conservative bound 1e-4
@@ -91,14 +132,8 @@ LAW_CASES = [
 @pytest.mark.parametrize("lmax,conservative,quad", LAW_CASES)
 def test_pair_contact_kernel_matches_plain(lmax, conservative, quad,
                                            cuda_device):
-    packed, tbl, cap, par, _ = _pairs(lmax, cuda_device, contact_quad=quad)
-    law = "conservative" if conservative else "geometric"
-    n0 = dict(ck.pair_contact.launches)
-    out = ck.pair_contact(packed, tbl, cap, par, lmax, conservative)
-    torch.cuda.synchronize()
-    assert ck.pair_contact.launches[law] == n0[law] + 1
-    out, ref = np32(out), np32(ck.pair_contact_plain(packed, tbl, cap, par,
-                                                     lmax, conservative))
+    args, _, _ = _pairs(lmax, cuda_device, contact_quad=quad)
+    out, ref, mask, d = _law(args, lmax, conservative)
     inc = ref[:, 16] > 0.5
     assert inc.sum() > 3
     np.testing.assert_array_equal(out[:, 16] > 0.5, inc)
@@ -107,7 +142,7 @@ def test_pair_contact_kernel_matches_plain(lmax, conservative, quad,
                                atol=(1e-4 if conservative else 2e-3) * fmag)
     np.testing.assert_allclose(out[:, 9:16], ref[:, 9:16], rtol=0,
                                atol=1e-6 + 1e-4 * np.abs(ref[:, 9:16]).max())
-    np.testing.assert_array_equal(out[:, 17:], 0.0)
+    _assert_d_and_mask(out, mask, d)
 
 
 @pytest.mark.parametrize("conservative", [True, False],
@@ -120,10 +155,9 @@ def test_pair_contact_kernel_two_materials(conservative, cuda_device):
     params = _params(cuda_device).with_pair_coeffs(
         3, {(0, 1): (3e5, 1e5, 30.0, 10.0, 0.2, 1e4, 5.0, 0.1),
             (2, 2): (5e4, 2e4, 5.0, 2.0, 0.7, 0.0, 0.0, 0.0)})
-    packed, tbl, cap, par, _ = _pairs(lmax, cuda_device, params=params)
+    args, packed, _ = _pairs(lmax, cuda_device, params=params)
     assert packed[:, ck.SLOTS["mat"][0]].unique().numel() >= 3
-    out = np32(ck.pair_contact(packed, tbl, cap, par, lmax, conservative))
-    ref = np32(ck.pair_contact_plain(packed, tbl, cap, par, lmax, conservative))
+    out, ref, _, _ = _law(args, lmax, conservative)
     inc = ref[:, 16] > 0.5
     assert inc.sum() > 3
     np.testing.assert_array_equal(out[:, 16] > 0.5, inc)
@@ -141,8 +175,9 @@ def test_pair_contact_kernel_two_materials(conservative, cuda_device):
     pytest.param(6, id="6-run-time-degree"), pytest.param(8, id="8")])
 def test_stage1_kernel_matches_plain(lmax, cuda_device):
     """Tolerance 1e-5 absolute on depths of order 0.1-1."""
-    packed, tbl, _, _, shapes = _pairs(lmax, cuda_device)
+    args, packed, shapes = _pairs(lmax, cuda_device)
     packed[:, ck.SLOTS["tail"][0]] = 0.0
+    tbl = args["tbl"]
     cap1 = torch.stack([shapes.cap1_x, shapes.cap1_glw, shapes.cap1_cpsi,
                         shapes.cap1_spsi])
     tbl_ab = tbl[:, :(lmax + 1) ** 2].contiguous()
@@ -179,14 +214,8 @@ def test_pair_contact_bf16_kernel_matches_plain(lmax, conservative, quad,
     of a node crosses a bf16 rounding boundary), none beyond 2e-2; springs
     and pe within 1e-6 + 1e-4 of their scale. Geometric within the
     reference's geometric bound 2e-3 |F|max."""
-    packed, tbl, cap, par, _ = _pairs(lmax, cuda_device, contact_quad=quad)
-    variant = ("conservative" if conservative else "geometric") + "_bf16"
-    n0 = dict(ck.pair_contact.launches)
-    out = ck.pair_contact(packed, tbl, cap, par, lmax, conservative, bf16=True)
-    torch.cuda.synchronize()
-    assert ck.pair_contact.launches[variant] == n0[variant] + 1
-    out, ref = np32(out), np32(ck.pair_contact_plain(packed, tbl, cap, par,
-                                                     lmax, conservative, True))
+    args, _, _ = _pairs(lmax, cuda_device, contact_quad=quad)
+    out, ref, mask, d = _law(args, lmax, conservative, bf16=True)
     inc = ref[:, 16] > 0.5
     assert inc.sum() > 3
     np.testing.assert_array_equal(out[:, 16] > 0.5, inc)
@@ -198,7 +227,7 @@ def test_pair_contact_bf16_kernel_matches_plain(lmax, conservative, quad,
     assert err.max() <= 2e-2 * fmag
     np.testing.assert_allclose(out[:, 9:16], ref[:, 9:16], rtol=0,
                                atol=1e-6 + f_tol * np.abs(ref[:, 9:16]).max())
-    np.testing.assert_array_equal(out[:, 17:], 0.0)
+    _assert_d_and_mask(out, mask, d)
 
 
 @pytest.mark.parametrize("l1,bf16", [
@@ -211,7 +240,7 @@ def test_stage1_l1_kernel_matches_plain(l1, bf16, cuda_device):
     of bf16 rows exceed that by up to a bf16 ulp; this batch has fewer
     than 1000 rows.)"""
     lmax = 8
-    packed, _, _, _, shapes = _pairs(lmax, cuda_device)
+    _, packed, shapes = _pairs(lmax, cuda_device)
     cap1 = torch.stack([shapes.cap1_x, shapes.cap1_glw, shapes.cap1_cpsi,
                         shapes.cap1_spsi])
     tbl1 = ck.stage1_table(shapes, l1)
@@ -271,7 +300,8 @@ def test_stage1_kernel_sorts_rows_by_thread(P, l1, bf16, cuda_device):
     kernel's tolerance (K4 1e-5, K5 1e-5 rsum); the touching rows at or
     beyond rsum exactly rsum - dist, below it probed."""
     lmax = 8
-    packed, tbl, _, _, shapes = _pairs(lmax, cuda_device)
+    args, packed, shapes = _pairs(lmax, cuda_device)
+    tbl = args["tbl"]
     if l1 == lmax:
         packed[:, ck.SLOTS["tail"][0]] = 0.0
         tbl1 = tbl[:, :(lmax + 1) ** 2].contiguous()
@@ -361,13 +391,16 @@ def test_wall_kernel_matches_plain(kind, lmax, quad, cuda_device):
 
 
 def test_kernels_reject_bad_inputs(cuda_device):
-    packed, tbl, cap, par, _ = _pairs(4, cuda_device)
+    args, packed, _ = _pairs(4, cuda_device)
+    tbl, cap = args["tbl"], args["cap"]
     with pytest.raises(TypeError):
-        ck.pair_contact(packed.double(), tbl, cap, par, 4)
+        ck.pair_contact_indexed(**dict(args, rows=args["rows"].double()), lmax=4)
     with pytest.raises(ValueError):
-        ck.pair_contact(packed, tbl, cap, par, 8)  # table width of lmax 4
+        ck.pair_contact_indexed(**args, lmax=8)  # table width of lmax 4
     with pytest.raises(ValueError):
-        ck.pair_contact(packed, tbl.cpu(), cap, par, 4)
+        ck.pair_contact_indexed(**dict(args, tbl=tbl.cpu()), lmax=4)
+    with pytest.raises(ValueError, match="pair_contact_indexed"):
+        ck.pair_contact(packed, tbl, cap, args["par"], 4)  # the twin's, CPU only
     wpacked = torch.zeros((5, wk.F_WALL), device=cuda_device)
     wpar = torch.zeros((1, wk.N_PAR_WALL), device=cuda_device)
     with pytest.raises(ValueError):  # [T, W] with T not padded to 8
@@ -519,50 +552,50 @@ def test_deck_two_body_cli_on_card(cuda_device, tmp_path):
     assert last["vx"][1] == pytest.approx(1.0, abs=5e-3)
 
 
-def _replica_rows(packed, par, R, seed=2):
-    """R replicas of ``packed``'s rows, replica-major, each with its own
-    dt (par row r) and its own materials (kn, gamma_n, mu scaled in the
-    rows' mat slots)."""
+def _replica_args(args, R, seed=2):
+    """R replicas of ``args``' list, list-major, each with its own dt (par
+    row r) and its own materials (kn, gamma_n, mu scaled in its pair_tab
+    [R, T, T, 8])."""
     rng = np.random.default_rng(seed)
-    lo = ck.SLOTS["mat"][0]
-    blocks, pars = [], []
+    tabs, pars = [], []
     for r in range(R):
-        b = packed.clone()
+        tab = args["pair_tab"].clone()
         for k, s in ((0, 1.0 + r), (2, 0.5 + 0.5 * r), (4, 0.25 + 0.25 * r)):
-            b[:, lo + k] *= s
-        blocks.append(b)
-        p = par.clone()
+            tab[..., k] *= s
+        tabs.append(tab)
+        p = args["par"].clone()
         p[0, 0] *= rng.uniform(0.5, 3.0)
         pars.append(p)
-    return torch.cat(blocks).contiguous(), torch.cat(pars).contiguous()
+    stack = lambda t: torch.stack([t] * R).contiguous()
+    return dict(args, **{k: stack(args[k]) for k in
+                         ("rows", "typ", "pi", "pj", "valid", "hist")},
+                pair_tab=torch.stack(tabs), par=torch.cat(pars),
+                box=args["box"].expand(R, -1).contiguous())
 
 
 @pytest.mark.parametrize("conservative,bf16", [
     (True, False), (False, False), (True, True), (False, True)],
     ids=["K1", "K2", "K3-conservative", "K3-geometric"])
 def test_pair_contact_kernel_replicas(conservative, bf16, cuda_device):
-    """R = 4 replicas' rows in one launch, each reading its own par row
+    """R = 4 replicas' lists in one launch, each reading its own par row
     (dt) and materials: the kernel against the batched twin at the
     single-list tolerances, and the batched twin against one twin call a
     replica."""
     R = 4
-    packed, tbl, cap, par, _ = _pairs(4, cuda_device)
-    packed, par = _replica_rows(packed, par, R)
-    variant = ("conservative" if conservative else "geometric") + (
-        "_bf16" if bf16 else "")
-    n0 = ck.pair_contact.launches[variant]
-    out = ck.pair_contact(packed, tbl, cap, par, 4, conservative, bf16)
-    torch.cuda.synchronize()
-    assert ck.pair_contact.launches[variant] == n0 + 1
-    ref = ck.pair_contact_plain(packed, tbl, cap, par, 4, conservative, bf16)
+    args, _, _ = _pairs(4, cuda_device)
+    args = _replica_args(args, R)
+    out, ref, _, _ = _law(args, 4, conservative, bf16)
+    packed = ck.pack_indexed(
+        args["rows"], args["typ"], args["pi"], args["pj"], args["valid"],
+        args["hist"], args["pair_tab"], args["box"], args["periodic"])[0]
+    par = args["par"]
     P = packed.shape[0] // R
     for r in range(R):
         blk = slice(r * P, (r + 1) * P)
-        one = ck.pair_contact_plain(packed[blk], tbl, cap, par[r:r + 1], 4,
-                                    conservative, bf16)
-        np.testing.assert_allclose(np32(ref[blk]), np32(one), rtol=0,
-                                   atol=1e-6 * float(one.abs().max()))
-    out, ref = np32(out), np32(ref)
+        one = np32(ck.pair_contact_plain(packed[blk], args["tbl"], args["cap"],
+                                         par[r:r + 1], 4, conservative, bf16))
+        np.testing.assert_allclose(ref[blk], one, rtol=0,
+                                   atol=1e-6 * float(np.abs(one).max()))
     assert (ref[:, 16] > 0.5).sum() > 4 * R
     fmag = np.abs(ref[:, 0:9]).max()
     tol = 2e-3 if not (conservative or bf16) else 1e-4
@@ -629,16 +662,21 @@ def _indexed_lists(shape, device, R=2, n=40, seed=8):
 @pytest.mark.parametrize("conservative,bf16", [
     (True, False), (False, False), (True, True), (False, True)],
     ids=["K1", "K2", "K3-conservative", "K3-geometric"])
-def test_pair_contact_indexed_matches_packed_kernel(shape, conservative, bf16,
-                                                    cuda_device):
-    """``pair_contact_indexed`` (each warp gathers its row by index) against
-    ``pair_contact`` on the packed rows of the same lists, both launched on
-    the card, R = 2 replica-major lists: columns 0-16 within 1e-6 of each
-    group's scale, d within 1 f32 ulp of ``contact.minimum_image`` on the
-    card, the mask in column 20, dead slots (the tail's 64 included) zero
-    rows; one launch counted under the packed entry's variant key."""
+def test_pair_contact_indexed_matches_plain(shape, conservative, bf16,
+                                            cuda_device):
+    """``pair_contact_indexed`` (each warp gathers its row by index) on
+    R = 2 replica-major lists against the plain twin on those lists'
+    rows packed apart (``pack_pairs``, d from ``contact.minimum_image`` on
+    the card) at the law's tolerances for a list of thousands of rows:
+    forces and torques within 1e-4 |F|max (conservative) or 2e-3
+    (geometric), 0.1 % of rows beyond it in the conservative law (its
+    ulp-level jumps, as ``chip_smoke.compare`` allows), none beyond 2e-2;
+    contact flags flipped on at most 0.1 % of rows; springs and pe within
+    1e-6 + 1e-4 of their scale (K3 geometric 2e-3) where the flags agree.
+    d within 1 f32 ulp of ``contact.minimum_image``, the mask in column 20,
+    dead slots (the tail's 64 included) zero rows; one launch counted
+    under its variant key."""
     from spherharm_tpu_torch.core.state import take
-    from spherharm_tpu_torch.ops import contact
 
     st, shapes, params, pi, pj, valid, hist, periodic, tilt = _indexed_lists(
         shape, cuda_device)
@@ -652,7 +690,7 @@ def test_pair_contact_indexed_matches_packed_kernel(shape, conservative, bf16,
     packed, tbl, cap, par = ck.pack_pairs(st, shapes, params, pi, pj, msk,
                                           hist, d, rows=rows)
     assert par.shape[0] == 2 and params.pair_tab.dim() == 4
-    ref = ck.pair_contact(packed, tbl, cap, par, lmax, conservative, bf16)
+    ref = ck.pair_contact_plain(packed, tbl, cap, par, lmax, conservative, bf16)
     variant = ("conservative" if conservative else "geometric") + (
         "_bf16" if bf16 else "")
     n0 = dict(ck.pair_contact.launches)
@@ -665,19 +703,22 @@ def test_pair_contact_indexed_matches_packed_kernel(shape, conservative, bf16,
 
     m = np32(msk).reshape(-1)
     out, ref, d = np32(out), np32(ref), np32(d).reshape(-1, 3)
+    n = out.shape[0]
     assert 0 < m.sum() < m.size and (ref[:, 16] > 0.5).sum() > 8
-    for lo, hi in ((0, 3), (3, 9), (9, 15), (15, 17)):
-        np.testing.assert_allclose(out[:, lo:hi], ref[:, lo:hi], rtol=0,
-                                   atol=1e-6 * np.abs(ref[:, lo:hi]).max())
-    live = m.astype(bool)
-    assert (np.abs(out[live, 17:20] - d[live])
-            <= np.spacing(np.abs(d[live]))).all()
-    np.testing.assert_array_equal(out[:, 20], m)
-    np.testing.assert_array_equal(out[~live], 0.0)
-    np.testing.assert_array_equal(out[:, 21:], 0.0)
+    agree = (out[:, 16] > 0.5) == (ref[:, 16] > 0.5)
+    assert (~agree).sum() <= n // 1000
+    f_tol = 1e-4 if conservative else 2e-3
+    fmag = np.abs(ref[:, 0:3]).max()
+    err = np.abs(out[:, 0:9] - ref[:, 0:9]).max(1)
+    assert (err > f_tol * fmag).sum() <= (n // 1000 if conservative else 0)
+    assert err.max() <= 2e-2 * fmag
+    s_tol = 2e-3 if bf16 and not conservative else 1e-4
+    np.testing.assert_allclose(out[agree, 9:16], ref[agree, 9:16], rtol=0,
+                               atol=1e-6 + s_tol * np.abs(ref[:, 9:16]).max())
+    _assert_d_and_mask(out, m, d)
     if tilt is not None:  # pairs met through an image
         raw = np32(rj[..., contact._RX] - ri[..., contact._RX]).reshape(-1, 3)
-        assert (np.abs(raw - d).max(1)[live] > 1.0).sum() > 8
+        assert (np.abs(raw - d).max(1)[m.astype(bool)] > 1.0).sum() > 8
 
 
 @pytest.mark.parametrize("kind", ["plane", "cylinder"])
